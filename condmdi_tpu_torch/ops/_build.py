@@ -1,0 +1,96 @@
+"""Build and bind the CUDA kernels: nvcc into a shared library, loaded with ctypes.
+
+The library is compiled at first use, never at import, from the sources in
+csrc/ into `condmdi_tpu_torch/build/` (git-ignored), named by a hash of the
+source and flags so an edited source is rebuilt. It has a plain C interface:
+pointers and the stream are `void*`, and every entry point returns the
+launch's `cudaGetLastError()`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+PKG_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR / "build"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+
+_lock = threading.Lock()
+_libs: dict[str, ctypes.CDLL] = {}
+build_log: dict[str, str] = {}  # source name -> nvcc's output (register/smem report)
+build_seconds: dict[str, float] = {}
+
+
+def find_nvcc() -> str:
+    for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if cand and (Path(cand) / "bin" / "nvcc").is_file():
+            return str(Path(cand) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return found
+
+
+def build(source: str) -> Path:
+    """Compile csrc/<source> to a shared library (cached by content hash)."""
+    src = CSRC_DIR / source
+    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    out = BUILD_DIR / f"{src.stem}_{digest}.so"
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+        capture_output=True, text=True,
+    )
+    build_seconds[source] = time.perf_counter() - t0
+    build_log[source] = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {src}:\n{proc.stdout}{proc.stderr}")
+    os.replace(tmp, out)
+    return out
+
+
+def _load(source: str, bind) -> ctypes.CDLL:
+    with _lock:
+        if source not in _libs:
+            lib = ctypes.CDLL(str(build(source)))
+            bind(lib)
+            _libs[source] = lib
+        return _libs[source]
+
+
+def _bind_resblock(lib: ctypes.CDLL) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.condmdi_resblock_forward.argtypes = [
+        p, p, p, p, p,           # x, w, b, gamma, beta
+        p, p, ctypes.c_longlong,  # scale, shift, their row stride
+        p, p,                    # res, out
+        i, i, i, i, i, i,        # B, T, Cin, Cout, k, n_groups
+        ctypes.c_float, i, p,    # eps, dtype code, stream
+    ]
+    lib.condmdi_resblock_forward.restype = i
+    lib.condmdi_error_string.argtypes = [i]
+    lib.condmdi_error_string.restype = ctypes.c_char_p
+
+
+def load_resblock() -> ctypes.CDLL:
+    """The fused resblock kernel's library, built on first call."""
+    return _load("resblock.cu", _bind_resblock)
+
+
+def error_string(lib: ctypes.CDLL, err: int) -> str:
+    return f"{err} ({lib.condmdi_error_string(err).decode()})"
