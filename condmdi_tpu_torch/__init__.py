@@ -1,14 +1,17 @@
 """condmdi_tpu_torch — the PyTorch/CUDA port of condmdi_tpu for NVIDIA Hopper.
 
 Serves keyframe-conditioned motion in-betweening with the temporal UNet
-denoiser. Every resblock half of the UNet runs through one hand-written
-CUDA kernel for sm_90a (csrc/resblock.cu: conv1d → GroupNorm → AdaGN → Mish
-→ +residual); its plain PyTorch version serves CPU tensors only.
+denoiser, and text-to-motion with the MDM transformer and DiT denoisers. Two
+hand-written CUDA kernels for sm_90a carry them: every resblock half of the
+UNet runs through csrc/resblock.cu (conv1d → GroupNorm → AdaGN → Mish →
++residual), every MDM/DiT self-attention through csrc/attention.cu. Each
+kernel's plain PyTorch version serves CPU tensors only.
 
 Module names mirror the JAX package so each counterpart is easy to find:
   diffusion/  schedules + respacing, Gaussian diffusion math, DDPM/DDIM loops
-  models/     timestep embedding, temporal UNet (MDM_UNET), CFG wrapper
-  ops/        the fused resblock kernel's wrapper, its plain version, its build
+  models/     embeddings, temporal UNet (MDM_UNET), MDM transformer, DiT,
+              text encoders, CFG wrapper
+  ops/        the kernels' wrappers, their plain versions, their build
   csrc/       CUDA sources, compiled with nvcc at first use
   sampling/   SamplePipeline (model + schedule + guidance → motions)
   weights.py  Flax parameter tree → this package's state_dict

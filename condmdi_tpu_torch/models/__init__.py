@@ -1,2 +1,4 @@
 from condmdi_tpu_torch.models.unet import MDM_UNET, TemporalUnet
+from condmdi_tpu_torch.models.mdm import MDM
+from condmdi_tpu_torch.models.dit import MDM_DiT
 from condmdi_tpu_torch.models.cfg import make_cfg_denoiser, make_plain_denoiser

@@ -4,7 +4,8 @@ Counterpart of condmdi_tpu/models/cfg.py:
   out = out_uncond + text_scale * (out_cond − out_uncond)
 with the cond and uncond branches concatenated into one forward of twice
 the batch (`y["uncond"]` masks the text of the second half), and
-obs_x0/obs_mask passed through both.
+obs_x0/obs_mask passed through both. `mask_cond` is that masking, shared by
+the denoisers.
 """
 
 from __future__ import annotations
@@ -12,6 +13,13 @@ from __future__ import annotations
 from typing import Any, Callable, Optional
 
 import torch
+
+
+def mask_cond(cond: torch.Tensor, force_mask) -> torch.Tensor:
+    """Zero the condition: everywhere for `force_mask=True`, on the rows of a [B] bool mask."""
+    if isinstance(force_mask, bool):
+        return torch.zeros_like(cond) if force_mask else cond
+    return torch.where(force_mask[:, None], torch.zeros_like(cond), cond)
 
 
 def make_cfg_denoiser(

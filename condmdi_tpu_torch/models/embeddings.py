@@ -2,7 +2,10 @@
 
 Counterpart of condmdi_tpu/models/embeddings.py: the transformer sin/cos
 table (which doubles as the timestep-embedding input), the guided-diffusion
-timestep embedding, and TimestepEmbedder (pe[t] → Dense → SiLU → Dense).
+timestep embedding, TimestepEmbedder (pe[t] → Dense → SiLU → Dense),
+PositionalEncoding and EmbedAction. The port samples only, so
+PositionalEncoding has no dropout: Flax applies none with
+`deterministic=True`.
 """
 
 from __future__ import annotations
@@ -12,7 +15,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from condmdi_tpu_torch.models.layers import Dense
+from condmdi_tpu_torch.models.layers import Dense, ParamModule
 
 
 def sinusoidal_table(max_len: int, d_model: int, dtype=np.float32) -> np.ndarray:
@@ -55,3 +58,35 @@ class TimestepEmbedder(nn.Module):
     def forward(self, timesteps: torch.Tensor) -> torch.Tensor:
         h = self.pe[timesteps.long()].to(self.fc1.weight.dtype)
         return self.fc2(F.silu(self.fc1(h)))
+
+
+class PositionalEncoding(nn.Module):
+    """Adds the sinusoidal table over the time axis of [B, T, D] input."""
+
+    def __init__(self, d_model: int, max_len: int = 5000, *, device=None):
+        super().__init__()
+        self.register_buffer(
+            "pe", torch.as_tensor(sinusoidal_table(max_len, d_model), device=device),
+            persistent=False,
+        )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x + self.pe[: x.shape[1]].to(x.dtype)
+
+
+class EmbedAction(ParamModule):
+    """Action id → learned embedding row; the table is N(0, 1) at init."""
+
+    def __init__(self, num_actions: int, latent_dim: int, *, device=None, dtype=None):
+        super().__init__()
+        self.action_embedding = nn.Parameter(
+            torch.empty((num_actions, latent_dim), device=device, dtype=dtype)
+        )
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        table = self.action_embedding
+        table.copy_(torch.randn(table.shape, generator=generator, dtype=torch.float32))
+
+    def forward(self, action_ids: torch.Tensor) -> torch.Tensor:
+        return self.action_embedding[action_ids.reshape(-1).long()]

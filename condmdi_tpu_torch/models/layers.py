@@ -4,7 +4,7 @@ Parameters are allocated empty and filled by `init_params(model, seed)` from
 one explicit CPU `torch.Generator`, so construction never reads the global
 RNG and a seed gives the same weights on every device. Kernels use Flax's
 lecun-normal scale (std = 1/sqrt(fan_in)) or zeros; biases are zero; norm
-scales are one.
+scales are one. Every module that holds parameters is a `ParamModule`.
 """
 
 from __future__ import annotations
@@ -20,7 +20,14 @@ def _empty(shape, device, dtype) -> nn.Parameter:
     return nn.Parameter(torch.empty(shape, device=device, dtype=dtype))
 
 
-class Dense(nn.Module):
+class ParamModule(nn.Module):
+    """A module whose parameters `init_params` fills from its generator."""
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        raise NotImplementedError
+
+
+class Dense(ParamModule):
     """y = x @ weight.T + bias; weight [out, in] (Flax Dense kernel is [in, out])."""
 
     def __init__(self, in_features, out_features, *, zero_init=False, device=None, dtype=None):
@@ -37,7 +44,7 @@ class Dense(nn.Module):
         return F.linear(x, self.weight, self.bias)
 
 
-class ConvParams(nn.Module):
+class ConvParams(ParamModule):
     """Conv1d weight [Cout, Cin, k] and bias [Cout] (Flax kernel is [k, Cin, Cout])."""
 
     def __init__(self, in_channels, out_channels, kernel_size, *, zero_init=False,
@@ -53,7 +60,7 @@ class ConvParams(nn.Module):
         _const_(self.bias, 0.0)
 
 
-class ConvTransposeParams(nn.Module):
+class ConvTransposeParams(ParamModule):
     """ConvTranspose1d weight [Cin, Cout, k] and bias [Cout], torch layout."""
 
     def __init__(self, in_channels, out_channels, kernel_size, *, device=None, dtype=None):
@@ -67,8 +74,8 @@ class ConvTransposeParams(nn.Module):
         _const_(self.bias, 0.0)
 
 
-class GroupNormParams(nn.Module):
-    """GroupNorm affine weight/bias (Flax names them scale/bias)."""
+class GroupNormParams(ParamModule):
+    """Norm affine weight/bias (Flax names them scale/bias)."""
 
     def __init__(self, channels, *, device=None, dtype=None):
         super().__init__()
@@ -78,6 +85,17 @@ class GroupNormParams(nn.Module):
     def reset_parameters(self, generator: torch.Generator) -> None:
         _const_(self.weight, 1.0)
         _const_(self.bias, 0.0)
+
+
+class LayerNorm(GroupNormParams):
+    """LayerNorm over the last axis with the affine weight/bias."""
+
+    def __init__(self, features, eps=1e-5, *, device=None, dtype=None):
+        super().__init__(features, device=device, dtype=dtype)
+        self.eps = eps
+
+    def forward(self, x):
+        return F.layer_norm(x, self.weight.shape, self.weight, self.bias, self.eps)
 
 
 @torch.no_grad()
@@ -98,6 +116,6 @@ def init_params(model: nn.Module, seed: int) -> nn.Module:
     """Fill every parameter of `model` from one CPU generator seeded with `seed`."""
     generator = torch.Generator().manual_seed(seed)
     for module in model.modules():
-        if isinstance(module, (Dense, ConvParams, ConvTransposeParams, GroupNormParams)):
+        if isinstance(module, ParamModule):
             module.reset_parameters(generator)
     return model

@@ -23,6 +23,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from condmdi_tpu_torch.device import resolve_device
+from condmdi_tpu_torch.models.cfg import mask_cond
 from condmdi_tpu_torch.models.embeddings import TimestepEmbedder
 from condmdi_tpu_torch.models.layers import (
     ConvParams,
@@ -196,12 +197,6 @@ class MDM_UNET(nn.Module):
         if seed is not None:
             init_params(self, seed)
 
-    @staticmethod
-    def mask_cond(cond, force_mask):
-        if isinstance(force_mask, bool):
-            return torch.zeros_like(cond) if force_mask else cond
-        return torch.where(force_mask[:, None], torch.zeros_like(cond), cond)
-
     def forward(
         self,
         x: torch.Tensor,  # [B, T, F]
@@ -223,7 +218,7 @@ class MDM_UNET(nn.Module):
         emb = self.embed_timestep(timesteps)
         if "text_embed" in y:
             enc_text = y["text_embed"].to(emb.dtype)
-            emb = emb + self.embed_text(self.mask_cond(enc_text, y.get("uncond", False)))
+            emb = emb + self.embed_text(mask_cond(enc_text, y.get("uncond", False)))
 
         # static right-pad to the UNet length (multiple of 2^depth)
         if T > self.pad_frames_to:

@@ -16,6 +16,7 @@ import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 PKG_DIR = Path(__file__).resolve().parent.parent
@@ -64,6 +65,12 @@ def build(source: str) -> Path:
     return out
 
 
+def build_all(sources: list[str]) -> list[Path]:
+    """Compile several sources at once: one nvcc process each, all started together."""
+    with ThreadPoolExecutor(max_workers=len(sources)) as pool:
+        return list(pool.map(build, sources))
+
+
 def _load(source: str, bind) -> ctypes.CDLL:
     with _lock:
         if source not in _libs:
@@ -90,6 +97,24 @@ def _bind_resblock(lib: ctypes.CDLL) -> None:
 def load_resblock() -> ctypes.CDLL:
     """The fused resblock kernel's library, built on first call."""
     return _load("resblock.cu", _bind_resblock)
+
+
+def _bind_attention(lib: ctypes.CDLL) -> None:
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.condmdi_attention_forward.argtypes = [
+        p, p, p, p,   # q, k, v, out
+        i, i, i, i,   # B, T, heads, head_dim
+        ll, ll,       # batch and row strides of q/k/v, in elements
+        i, p,         # dtype code, stream
+    ]
+    lib.condmdi_attention_forward.restype = i
+    lib.condmdi_error_string.argtypes = [i]
+    lib.condmdi_error_string.restype = ctypes.c_char_p
+
+
+def load_attention() -> ctypes.CDLL:
+    """The fused self-attention kernel's library, built on first call."""
+    return _load("attention.cu", _bind_attention)
 
 
 def error_string(lib: ctypes.CDLL, err: int) -> str:

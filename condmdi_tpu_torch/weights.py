@@ -11,7 +11,10 @@ layout transforms:
                                            (Flax correlates, torch's
                                            ConvTranspose1d takes the conv's
                                            gradient)
-  GroupNorm scale/bias                   → weight/bias
+  GroupNorm / LayerNorm scale/bias       → weight/bias
+  EmbedAction action_embedding           → kept as it is ([num_actions, D])
+
+One function serves the UNet, MDM and DiT families.
 """
 
 from __future__ import annotations
@@ -51,15 +54,15 @@ def _convert(path: tuple[str, ...], arr: np.ndarray) -> tuple[str, np.ndarray]:
         if mods[-1].endswith("_upsample"):  # ConvTranspose
             return "weight", arr[::-1].transpose(1, 2, 0)
         return "weight", arr.transpose(2, 1, 0)  # Conv
-    if leaf == "scale":  # GroupNorm
+    if leaf == "scale":  # GroupNorm, LayerNorm
         return "weight", arr
-    if leaf == "bias":
-        return "bias", arr
+    if leaf in ("bias", "action_embedding"):
+        return leaf, arr
     raise KeyError(f"no port layout for Flax parameter {'/'.join(path)}")
 
 
 def load_flax_params(source) -> dict[str, torch.Tensor]:
-    """state_dict for the port's MDM_UNET from Flax params.
+    """state_dict for the port's MDM_UNET, MDM or MDM_DiT from Flax params.
 
     `source` is a nested Flax param dict of numpy arrays (with or without
     the top-level "params" key) or the path of a flat npz whose keys are

@@ -10,10 +10,10 @@ import numpy as np
 import pytest
 import torch
 
-from condmdi_tpu_torch.ops import resblock
+from condmdi_tpu_torch.ops import attention, resblock
 
 BF16_TOL = 2.0 ** -7  # |kernel - plain| <= tol * (1 + |plain|): ~2 bf16 ulps
-F32_TOL = 5e-4        # the kernel's hi+lo bf16 split keeps ~16 mantissa bits
+F32_TOL = 5e-4        # the kernels' hi+lo bf16 split keeps ~16 mantissa bits
 
 
 @pytest.fixture
@@ -75,3 +75,70 @@ def test_kernel_refuses_autograd(cuda_device):
     args[0].requires_grad_(True)
     with pytest.raises(NotImplementedError):
         resblock.fused_conv_gn_mish(*args)
+
+
+def qkv_views(B, T, D, dtype, device, seed=5):
+    """q, k, v as the three column views of one [B, T, 3D] projection, as on the path."""
+    rng = np.random.default_rng(seed)
+    qkv = torch.from_numpy(rng.standard_normal((B, T, 3 * D)).astype(np.float32))
+    return qkv.to(device, dtype).chunk(3, dim=-1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("case", [
+    # (B, T, D, H): the MDM served shape (T = 196 frames + the cond token),
+    # DiT / trans_dec (T = 196), a ragged one (hd 64, one key tile), T < 16,
+    # and an hd that is a multiple of 8 but not of 16
+    (8, 197, 512, 4),
+    (8, 196, 512, 4),
+    (3, 25, 128, 2),
+    (2, 7, 64, 2),
+    (2, 70, 96, 4),
+])
+def test_attention_kernel_matches_plain(cuda_device, dtype, case):
+    B, T, D, H = case
+    dt = getattr(torch, dtype)
+    q, k, v = qkv_views(B, T, D, dt, cuda_device)
+    before = attention.fused_self_attention.launches
+    with torch.no_grad():
+        got = attention.mha(q, k, v, H).float()
+        torch.cuda.synchronize()
+        want = attention._xla_attention(q, k, v, H).float()
+    assert attention.fused_self_attention.launches == before + 1
+    tol = BF16_TOL if dt == torch.bfloat16 else F32_TOL
+    assert got.shape == (B, T, D) and torch.isfinite(got).all()
+    assert torch.all((got - want).abs() <= tol * (1 + want.abs()))
+
+
+@pytest.mark.cuda
+def test_attention_backward_runs_through_the_kernel_forward(cuda_device):
+    """Autograd on the card: the kernel forward, the recompute backward."""
+    q, k, v = (t.detach().requires_grad_(True)
+               for t in qkv_views(2, 33, 64, torch.float32, cuda_device))
+    before = attention.fused_self_attention.launches
+    out = attention.mha(q, k, v, 2)
+    (out * out).sum().backward()
+    assert attention.fused_self_attention.launches == before + 1
+    refs = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    ref = attention._xla_attention(*refs, 2)
+    (ref * ref).sum().backward()
+    for got, want in zip((q, k, v), refs):
+        torch.testing.assert_close(got.grad, want.grad, atol=1e-3, rtol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad", ["head_dim", "dtype_mismatch", "unsupported_dtype"])
+def test_attention_wrapper_refuses_what_the_kernel_does_not_take(cuda_device, bad):
+    q, k, v = qkv_views(2, 16, 64, torch.bfloat16, cuda_device)
+    H = 2
+    if bad == "head_dim":
+        H = 16  # hd = 4
+    elif bad == "dtype_mismatch":
+        k = k.float()
+    else:
+        q, k, v = q.half(), k.half(), v.half()
+    before = attention.fused_self_attention.launches
+    with pytest.raises((NotImplementedError, TypeError)):
+        attention.fused_self_attention.apply(q, k, v, H)
+    assert attention.fused_self_attention.launches == before

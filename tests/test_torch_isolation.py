@@ -40,6 +40,8 @@ def test_import_loads_neither_jax_nor_the_jax_package():
         "import sys\n"
         "import condmdi_tpu_torch, condmdi_tpu_torch.serving, condmdi_tpu_torch.weights\n"
         "import condmdi_tpu_torch.sampling.pipeline, condmdi_tpu_torch.ops.resblock\n"
+        "import condmdi_tpu_torch.ops.attention, condmdi_tpu_torch.models.mdm\n"
+        "import condmdi_tpu_torch.models.dit, condmdi_tpu_torch.models.text\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'flax', 'condmdi_tpu')]\n"
         "assert not bad, bad\n"
@@ -62,6 +64,17 @@ def test_model_defaults_to_cuda_and_raises_without_it():
 
     with pytest.raises(RuntimeError, match="CUDA"):
         MDM_UNET(latent_dim=16, dim_mults=(1, 2), pad_frames_to=24)
+
+
+@pytest.mark.parametrize("model", ["MDM", "MDM_DiT"])
+def test_transformer_models_default_to_cuda_and_raise_without_it(model):
+    _needs_no_cuda()
+    from condmdi_tpu_torch.models.dit import MDM_DiT
+    from condmdi_tpu_torch.models.mdm import MDM
+
+    cls = {"MDM": MDM, "MDM_DiT": MDM_DiT}[model]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cls(latent_dim=16, ff_size=32, num_layers=1, num_heads=2)
 
 
 def test_pipeline_and_server_default_to_cuda_and_raise_without_it():

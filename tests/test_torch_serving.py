@@ -1,7 +1,8 @@
 """The port's MotionServer (condmdi_tpu_torch/serving.py) on the CPU at the tiny
 config of tests/test_serving.py: single requests, concurrent coalescing into
-power-of-two buckets, keyframe rows, and results equal to SamplePipeline.sample
-run directly with the same bucket, inputs and seed."""
+power-of-two buckets, keyframe rows, text-only requests to a small MDM, and
+results equal to SamplePipeline.sample run directly with the same bucket,
+inputs and seed."""
 
 import numpy as np
 import pytest
@@ -13,6 +14,8 @@ from condmdi_tpu_torch.diffusion import (
     SamplerConfig,
     get_named_beta_schedule,
 )
+from condmdi_tpu_torch.models.mdm import MDM
+from condmdi_tpu_torch.models.text import HashTextEncoder
 from condmdi_tpu_torch.models.unet import MDM_UNET
 from condmdi_tpu_torch.sampling.pipeline import SamplePipeline
 from condmdi_tpu_torch.serving import MotionRequest, MotionServer
@@ -102,6 +105,30 @@ def test_bucketing(server):
 def test_warmup_runs_one_forward_per_bucket(server):
     server.warmup(buckets=(1, 3, 8))
     assert server._warm == {1, 4}
+
+
+def test_mdm_serves_text_requests_like_direct_sampling():
+    """MDM takes no keyframes: the server's obs_x0/obs_mask rows are dropped by
+    the apply_fn, and text-only requests, with HashTextEncoder embeddings, equal
+    SamplePipeline.sample on the same bucket and seed."""
+    model = MDM(njoints=F, latent_dim=32, ff_size=64, num_layers=2, num_heads=4,
+                device="cpu", seed=0)
+    sched = DiffusionSchedule.create(get_named_beta_schedule("cosine", 4))
+    mdm_pipe = SamplePipeline(lambda x, t, y, **_: model(x, t, y), sched, DiffusionConfig(),
+                              SamplerConfig(), device="cpu")
+    texts = HashTextEncoder().encode(["a person walks", "a person waves", "someone sits"])
+    srv = MotionServer(mdm_pipe, T, F, max_batch=4, max_wait_ms=300, guidance_param=GUIDANCE)
+    try:
+        reqs = [srv.submit(MotionRequest(text_embed=tx, seed=3 + i)) for i, tx in enumerate(texts)]
+        outs = [r.result(timeout=120) for r in reqs]
+    finally:
+        srv.shutdown()
+    assert not srv._thread.is_alive()
+    assert srv.batches == [(3, 4)]
+    want = direct(mdm_pipe, 4, [(tx, None, None) for tx in texts], 3)
+    for got, w in zip(outs, want):
+        assert got.shape == (T, F) and np.isfinite(got).all()
+        np.testing.assert_array_equal(got, w)
 
 
 def test_failed_batch_raises_in_the_caller(pipe):
