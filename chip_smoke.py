@@ -6,15 +6,24 @@ Phases, in order; any failure exits non-zero:
   1. setup: card name and power limit, torch/CUDA versions, both kernels
      built at once (one nvcc each), their ptxas register/spill lines;
   2. the fused resblock kernel against its plain PyTorch version at every
-     distinct resblock shape of a UNet-XL forward (B=8, pad 200), in bf16 and
-     float32, with times (CUDA events, median of repeats, inputs rotated
-     through more than the 50 MB L2 so weights arrive cold, as in a forward);
+     distinct resblock shape of a UNet-XL forward (pad 200), as the forward
+     hands it over (the first block's x has 528 channels for a 526-channel
+     weight), in bf16 at B = 8, 1 and 3 and in float32 at B = 8; each AdaGN
+     shape again through a Conv1dAdaGNBlock
+     (its cached packed weight), before and after the weight changes in
+     place; then times at B=8 (CUDA events, median of repeats, inputs rotated
+     through more than the 50 MB L2 so weights arrive cold, as in a forward;
+     the kernel is called with a packed weight made beforehand, as the
+     modules call it) with the wrapper's host enqueue time, and two shapes
+     at B=64 for information;
   3. the UNet-XL path, kernel against plain: a 20-step DDIM (eta 0) in
      float32, B=2, run once through the kernel and once with the resblock
      halves swapped for the plain version;
   4. UNet-XL serving: MotionServer over SamplePipeline in bf16, the 1000-step
      cosine DDPM, CFG 2.5 and 4 concurrent keyframe requests; the resblock
-     kernel's launch count must equal 33 × steps × batches;
+     kernel's launch count must equal 33 x steps x batches; one bf16 forward
+     at B=8, kernel path against plain path; that forward on the host clock
+     against its device time, and its device time by kernel (torch.profiler);
   5. the fused self-attention kernel against its plain version in bf16 and
      float32 at the MDM served shape, the bench batch, DiT / trans_dec and a
      ragged shape, with times as in phase 2 (q, k, v are the column views of
@@ -25,8 +34,9 @@ Phases, in order; any failure exits non-zero:
      imputation + reconstruction guidance over a 50-step respaced DDPM, f32;
   8. MDM serving: MotionServer in bf16, 1000-step DDPM, CFG 2.5, 4 concurrent
      text requests (HashTextEncoder embeddings); attention launches must equal
-     8 × steps × batches; and one MDM forward at B=8 timed on the host clock
-     against its device time, which says whether a step is launch-bound;
+     8 x steps x batches; one bf16 forward at B=8, kernel path against plain
+     path; that forward on the host clock against its device time, which says
+     whether a step is launch-bound, and its device time by kernel;
   9. one full-width MDM_DiT (dit_prenorm) forward, kernel against plain, with
      its 8 launches;
  10. a {"kernels": [...]} line, the card line, and the final {"ok": true, ...}.
@@ -58,6 +68,22 @@ PEAK_BYTES = 3.35e12      # H100 SXM HBM3 rate
 BF16_TOL = 2.0 ** -7      # |kernel - plain| <= tol * (1 + |plain|): ~2 bf16 ulps
 F32_TOL = 5e-4            # hi+lo bf16 split keeps ~16 mantissa bits
 DDIM_TOL = 5e-3           # max |kernel path - plain path| over a whole f32 sampler run
+# One bf16 forward, kernel path against plain path. Each layer's output is
+# rounded to bf16 on both paths, an ulp (2^-8 relative) apart at most per layer,
+# and the differences add up like a random walk over the 33 resblock halves of
+# the UNet or the 8 transformer layers of MDM. The check holds the relative rms
+# of the difference, rms(kernel - plain) / rms(plain), to twice what these two
+# forwards gave on an NVIDIA H100 80GB HBM3 (1.0e-2 and 0.8e-2, PERF.md
+# section 6); a kernel a few times worse than that fails. No single element may
+# lie further out than BF16_FORWARD_OUTLIER * (1 + |plain|): that catches a
+# wrong tile, which an rms over the whole output would hide.
+BF16_FORWARD_REL_RMS = 2e-2
+BF16_FORWARD_OUTLIER = 2.0 ** -4
+# What the first versions of the two kernels took, for the "before" lines only
+# (PERF.md section 6, re-measured with this script's method; NVIDIA H100 80GB
+# HBM3, 700 W). Not measured by this run, so not part of the kernels line.
+PREV_RESBLOCK_MS = 17.34   # the 33 halves of one UNet-XL forward at B=8, bf16
+PREV_ATTENTION_MS = 0.368  # the 8 self-attentions of one MDM forward at B=8, bf16
 SERVE_REQUESTS, SERVE_STEPS, GUIDANCE = 4, 1000, 2.5
 MDM = dict(njoints=FEATS, latent_dim=512, ff_size=1024, num_layers=8, num_heads=4)  # bench.py mdm
 MDM_TOKENS = T_FRAMES + 1  # the frames and the conditioning token
@@ -110,7 +136,9 @@ def timed_ms(fn, inputs, reps=5, iters=10) -> tuple[float, float]:
 # phase 2: kernel against plain at every resblock shape of the main path
 # --------------------------------------------------------------------------- #
 def record_resblock_shapes(model, x, t, y, kw):
-    """(Cin, Cout, T, adagn, res) -> count, from one forward's resblock halves."""
+    """(Cin, Cout, T, adagn, res, x channels) -> count, from one forward's resblock
+    halves: the weight's Cin and the channel count of the x the wrapper was given
+    (the UNet pads its first block's 526 channels to 528)."""
     from condmdi_tpu_torch.models.unet import Conv1dAdaGNBlock, Conv1dBlock
 
     counts: dict[tuple, int] = {}
@@ -119,7 +147,8 @@ def record_resblock_shapes(model, x, t, y, kw):
         xin = args[0]
         ada = isinstance(mod, Conv1dAdaGNBlock)
         res = kwargs.get("res", args[1] if len(args) > 1 and not ada else None) is not None
-        key = (xin.shape[-1], mod.conv.weight.shape[0], xin.shape[1], ada, res)
+        key = (mod.conv.weight.shape[1], mod.conv.weight.shape[0], xin.shape[1], ada, res,
+               xin.shape[2])
         counts[key] = counts.get(key, 0) + 1
 
     handles = [m.register_forward_hook(hook, with_kwargs=True)
@@ -131,11 +160,14 @@ def record_resblock_shapes(model, x, t, y, kw):
     return counts
 
 
-def make_case(B, T, cin, cout, ada, res, dtype, gen, dev):
+def make_case(B, T, cin, cout, ada, res, dtype, gen, dev, xc=None):
+    """One call's tensors; x has `xc` >= cin channels, those past cin zero, as the
+    UNet's padded input has them."""
     def rnd(shape, s=1.0):
         return (torch.randn(shape, generator=gen) * s).to(dev, dtype)
 
-    args = [rnd((B, T, cin)), rnd((cout, cin, 5), (1.0 / (cin * 5)) ** 0.5),
+    args = [F.pad(rnd((B, T, cin)), (0, (xc or cin) - cin)),
+            rnd((cout, cin, 5), (1.0 / (cin * 5)) ** 0.5),
             rnd((cout,), 0.1), 1 + rnd((cout,), 0.1), rnd((cout,), 0.1)]
     kw = {}
     if ada:
@@ -147,6 +179,8 @@ def make_case(B, T, cin, cout, ada, res, dtype, gen, dev):
 
 
 def bound_ms(B, T, cin, cout, ada, res, k=5, itemsize=2) -> tuple[float, str]:
+    """The conv's operations and the function's bytes (alignment channels are
+    no part of the function and are not counted)."""
     flops = 2.0 * B * T * cin * cout * k
     elems = B * T * cin + k * cin * cout + 3 * cout + B * T * cout
     elems += (2 * B * cout if ada else 0) + (B * T * cout if res else 0)
@@ -163,48 +197,117 @@ def library_composite(x_bct, w, b, gamma, beta, scale=None, shift=None, res_bct=
     return h if res_bct is None else h + res_bct
 
 
-def check_kernel(shapes, dev, batch=8):
+def kernel_against_plain(B, T, cin, cout, ada, res, xc, dtype, tol, gen, dev):
+    """max |kernel - plain| of one call, or exit."""
     from condmdi_tpu_torch.ops.resblock import fused_conv_gn_mish, reference_conv_gn_mish
 
-    gen = torch.Generator().manual_seed(1)
-    rows = []
-    for (cin, cout, T, ada, res), count in sorted(shapes.items()):
-        row = dict(cin=cin, cout=cout, T=T, B=batch, adagn=ada, res=res, per_forward=count)
-        for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, F32_TOL)):
-            args, kw = make_case(batch, T, cin, cout, ada, res, dtype, gen, dev)
-            with torch.no_grad():
-                got = fused_conv_gn_mish(*args, **kw, n_groups=8)
-                torch.cuda.synchronize()
-                want = reference_conv_gn_mish(*args, **kw, n_groups=8)
-            err = (got.float() - want.float()).abs()
-            bad = (err > tol * (1 + want.float().abs())).sum().item()
-            name = "bf16" if dtype == torch.bfloat16 else "f32"
-            row[f"max_abs_err_{name}"] = err.max().item()
-            print(f"[kernel] {name} Cin={cin} Cout={cout} T={T} B={batch} adagn={ada} res={res}: "
-                  f"max_abs_err={err.max().item():.3e} (tol {tol:.1e}*(1+|plain|)), "
-                  f"{bad} outside", flush=True)
-            if bad or not torch.isfinite(got).all():
-                raise SystemExit(f"kernel disagrees with its plain version at {row}")
-        # times in bf16, the serving type; enough input sets to exceed L2
-        one = 2 * (batch * T * cin + cout * cin * 5)  # bytes of x and w in bf16
-        n_sets = max(2, -(-64 * 2**20 // one))
-        cases = [make_case(batch, T, cin, cout, ada, res, torch.bfloat16, gen, dev)
-                 for _ in range(n_sets)]
+    args, kw = make_case(B, T, cin, cout, ada, res, dtype, gen, dev, xc)
+    with torch.no_grad():
+        got = fused_conv_gn_mish(*args, **kw, n_groups=8)
+        torch.cuda.synchronize()
+        want = reference_conv_gn_mish(*args, **kw, n_groups=8)
+    err = (got.float() - want.float()).abs()
+    bad = (err > tol * (1 + want.float().abs())).sum().item()
+    name = "bf16" if dtype == torch.bfloat16 else "f32"
+    print(f"[kernel] {name} x[{B},{T},{xc}] Cin={cin} Cout={cout} adagn={ada} res={res}: "
+          f"max_abs_err={err.max().item():.3e} (tol {tol:.1e}*(1+|plain|)), "
+          f"{bad} outside", flush=True)
+    if bad or not torch.isfinite(got).all():
+        raise SystemExit(f"kernel disagrees with its plain version at B={B} T={T} Cin={cin} "
+                         f"adagn={ada} res={res} {name}")
+    return err.max().item()
+
+
+def module_follows_its_weight(T, cin, cout, xc, gen, dev, batch=8):
+    """A Conv1dAdaGNBlock (cached packed weight) against plain, before and after
+    its weight changes in place: the stale-cache check."""
+    from condmdi_tpu_torch.models.unet import Conv1dAdaGNBlock
+    from condmdi_tpu_torch.ops.resblock import reference_conv_gn_mish
+
+    args, kw = make_case(batch, T, cin, cout, True, False, torch.bfloat16, gen, dev, xc)
+    block = Conv1dAdaGNBlock(cin, cout, device=dev, dtype=torch.bfloat16).requires_grad_(False)
+    for p, v in zip((block.conv.weight, block.conv.bias, block.norm.weight, block.norm.bias),
+                    args[1:]):
+        p.copy_(v)
+    outs = []
+    for step in ("first", "after an in-place weight change"):
         with torch.no_grad():
-            kin = [(*a, kw.get("scale"), kw.get("shift"), kw.get("res")) for a, kw in cases]
-            row["ms"], _ = timed_ms(lambda *z: fused_conv_gn_mish(*z), kin)
-            row["plain_ms"], _ = timed_ms(lambda *z: reference_conv_gn_mish(*z), kin)
-            lib_in = [(a[0].transpose(1, 2).contiguous(), *a[1:], kw.get("scale"),
+            got = block(args[0], kw["scale"], kw["shift"]).float()
+            want = reference_conv_gn_mish(args[0], block.conv.weight, block.conv.bias,
+                                          block.norm.weight, block.norm.bias, **kw).float()
+        bad = ((got - want).abs() > BF16_TOL * (1 + want.abs())).sum().item()
+        if bad:
+            raise SystemExit(f"module path Cin={cin} T={T}, {step}: {bad} outside the tolerance")
+        outs.append(got)
+        block.conv.weight.mul_(-1.25)
+    moved = (outs[0] - outs[1]).abs().max().item()
+    print(f"[kernel] module path Cin={cin} Cout={cout} T={T}: within tolerance before and after "
+          f"the weight changed in place; the output moved by {moved:.3f}", flush=True)
+    if moved < 0.1:
+        raise SystemExit("the module's output did not follow its weight (stale packed copy)")
+
+
+def time_kernel(B, T, cin, cout, ada, res, xc, gen, dev, library=True):
+    """bf16 times of one shape: the kernel through a cached packed weight (as
+    the modules call it), its host enqueue, the plain version and the library
+    composite; enough input sets to exceed L2."""
+    from condmdi_tpu_torch.ops.resblock import (PackedConvWeight, fused_conv_gn_mish,
+                                                reference_conv_gn_mish)
+
+    one = 2 * (B * T * cin + cout * cin * 5)  # bytes of x and w in bf16
+    n_sets = max(2, -(-64 * 2**20 // one))
+    cases = [make_case(B, T, cin, cout, ada, res, torch.bfloat16, gen, dev, xc)
+             for _ in range(n_sets)]
+    out = {}
+    with torch.no_grad():
+        kin = [(*a, kw.get("scale"), kw.get("shift"), kw.get("res")) for a, kw in cases]
+        caches = {a[1].data_ptr(): PackedConvWeight() for a, _ in cases}
+        for a, _ in cases:
+            caches[a[1].data_ptr()].get(a[1])
+        out["ms"], out["host_ms"] = timed_ms(
+            lambda *z: fused_conv_gn_mish(*z, packed=caches[z[1].data_ptr()]), kin)
+        if library:
+            out["plain_ms"], _ = timed_ms(lambda *z: reference_conv_gn_mish(*z), kin)
+            lib_in = [(a[0][..., :cin].transpose(1, 2).contiguous(), *a[1:], kw.get("scale"),
                        kw.get("shift"),
                        kw["res"].transpose(1, 2).contiguous() if "res" in kw else None)
                       for a, kw in cases]
-            row["library_ms"], _ = timed_ms(library_composite, lib_in)
+            out["library_ms"], out["library_host_ms"] = timed_ms(library_composite, lib_in)
+    return out
+
+
+def check_kernel(shapes, dev, batch=8):
+    gen = torch.Generator().manual_seed(1)
+    rows = []
+    for (cin, cout, T, ada, res, xc), count in sorted(shapes.items()):
+        row = dict(cin=cin, cout=cout, T=T, B=batch, adagn=ada, res=res, x_channels=xc,
+                   per_forward=count)
+        # bf16, the served type: the grid must not depend on B=8; float32 at B=8
+        row["max_abs_err_bf16"] = max(
+            kernel_against_plain(B, T, cin, cout, ada, res, xc, torch.bfloat16, BF16_TOL, gen, dev)
+            for B in (batch, 1, 3))
+        row["max_abs_err_f32"] = kernel_against_plain(
+            batch, T, cin, cout, ada, res, xc, torch.float32, F32_TOL, gen, dev)
+        if ada:
+            module_follows_its_weight(T, cin, cout, xc, gen, dev)
+        row.update(time_kernel(batch, T, cin, cout, ada, res, xc, gen, dev))
         row["bound_ms"], row["bound_by"] = bound_ms(batch, T, cin, cout, ada, res)
         print(f"[kernel] times bf16: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
               f"library {row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
-              f"({row['bound_by']}), {count} per forward", flush=True)
+              f"({row['bound_by']}), {count} per forward; host enqueue per call: kernel wrapper "
+              f"{row['host_ms']:.4f} ms, library composite {row['library_host_ms']:.4f} ms",
+              flush=True)
         rows.append(row)
-    return rows
+    # for information: the evaluation protocol samples at large batch
+    big = []
+    for T in (200, 25):
+        t = time_kernel(64, T, 1024, 1024, True, False, 1024, gen, dev, library=False)
+        b, _ = bound_ms(64, T, 1024, 1024, True, False)
+        big.append(dict(cin=1024, cout=1024, T=T, B=64, adagn=True, res=False, ms=t["ms"],
+                        bound_ms=b))
+        print(f"[kernel] for information, B=64 1024->1024 T={T} adagn: kernel {t['ms']:.4f} ms, "
+              f"bound {b:.4f} ms", flush=True)
+    return rows, big
 
 
 # --------------------------------------------------------------------------- #
@@ -281,13 +384,86 @@ def kernel_vs_plain(tag, label, run, swap):
     return err
 
 
+def bf16_forward_kernel_vs_plain(label, call, swap):
+    """One bf16 forward through the kernel and one with `swap` in place, held to
+    BF16_FORWARD_REL_RMS and BF16_FORWARD_OUTLIER (above); the largest
+    difference is printed for information. Returns (max |diff|, relative rms)."""
+    with torch.no_grad():
+        got = call().float()
+        torch.cuda.synchronize()
+        with swap():
+            want = call().float()
+    err = (got - want).abs()
+    bad = (err > BF16_FORWARD_OUTLIER * (1 + want.abs())).sum().item()
+    rel_rms = (err.pow(2).mean().sqrt() / want.pow(2).mean().sqrt()).item()
+    print(f"[bf16 forward] {label}: relative rms of kernel - plain = {rel_rms:.3e} (limit "
+          f"{BF16_FORWARD_REL_RMS:.0e}), {bad} elements beyond {BF16_FORWARD_OUTLIER:.3g}*(1+|plain|); "
+          f"for information max|kernel - plain| = {err.max().item():.3e}, max|plain| = "
+          f"{want.abs().max().item():.3f}", flush=True)
+    if not (rel_rms <= BF16_FORWARD_REL_RMS) or bad or not torch.isfinite(got).all() \
+            or want.abs().max() == 0:
+        raise SystemExit(f"{label}: the bf16 kernel path disagrees with the plain path")
+    return err.max().item(), rel_rms
+
+
+def forward_host_vs_device(label, call, step_wall_ms):
+    """Is a step launch-bound? One forward on the host clock against its device
+    time (its launches queued behind a spin kernel; one forward per repeat, so
+    that the queued launches stay below the launch queue's depth
+    and the host never waits inside the timed window)."""
+    with torch.no_grad():
+        device_ms, _ = timed_ms(call, [()], reps=7, iters=1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(50):
+            call()
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / 50
+    print(f"[serve] {label}: {wall_ms:.4f} ms on the host clock, {device_ms:.4f} ms of device "
+          f"time (idle {1 - device_ms / wall_ms:.1%}); served step {step_wall_ms:.4f} ms",
+          flush=True)
+    return dict(forward_wall_ms=wall_ms, forward_device_ms=device_ms, step_wall_ms=step_wall_ms)
+
+
+def profile_forward(label, call, top=8, iters=3):
+    """Device time of one forward by kernel name (torch.profiler over `iters`
+    forwards): which launches the step's device time is made of."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.no_grad():
+        call()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                call()
+            torch.cuda.synchronize()
+    from torch.autograd import DeviceType
+
+    rows = [(e.key, getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0)),
+             e.count) for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    rows = sorted((r for r in rows if r[1] > 0), key=lambda r: -r[1])
+    total = sum(r[1] for r in rows)
+    if total == 0:
+        print(f"[profile] {label}: the profiler saw no device time; not measured", flush=True)
+        return []
+    print(f"[profile] {label}: {total / iters / 1e3:.4f} ms of device time per forward in "
+          f"{sum(r[2] for r in rows) // iters} launches; the largest:", flush=True)
+    out = []
+    for name, us, count in rows[:top]:
+        out.append(dict(name=name[:100], ms_per_forward=us / iters / 1e3, launches=count // iters))
+        print(f"[profile]   {us / iters / 1e3:8.4f} ms  {count // iters:4d} x  {name[:100]}",
+              flush=True)
+    return out
+
+
 @contextlib.contextmanager
 def resblock_swapped_for_plain():
     import condmdi_tpu_torch.models.unet as unet_mod
     from condmdi_tpu_torch.ops.resblock import reference_conv_gn_mish
 
     kernel_fn = unet_mod.fused_conv_gn_mish
-    unet_mod.fused_conv_gn_mish = reference_conv_gn_mish  # the plain path, this run only
+    # the plain path, this run only; the plain version has no packed weight to take
+    unet_mod.fused_conv_gn_mish = lambda *a, packed=None, **kw: reference_conv_gn_mish(*a, **kw)
     try:
         yield
     finally:
@@ -390,6 +566,22 @@ def serve(dev, card):
         MotionRequest(text_embed=text[i].numpy(), obs_x0=obs[i].numpy(),
                       obs_mask=mask[i].numpy(), seed=i) for i in range(SERVE_REQUESTS)])
     check_launches(served, "fused_conv_gn_mish", 33, card, "UNet-XL bf16 keyframe")
+
+    # one CFG-doubled forward: kernel path against plain path in bf16, then host vs device time
+    B = 2 * SERVE_REQUESTS
+    text, obs, mask = (a.to(dev) for a in keyframe_inputs(B, 2))
+    x = seeded_noise((B, T_FRAMES, FEATS), dev, seed=12).to(torch.bfloat16)
+    t = torch.full((B,), 500, device=dev)
+    y = {"text_embed": text, "uncond": torch.arange(B, device=dev) >= SERVE_REQUESTS}
+
+    def call():
+        return model(x, t, y, obs_x0=obs, obs_mask=mask)
+
+    served["bf16_forward_max_abs_err"], served["bf16_forward_rel_rms"] = \
+        bf16_forward_kernel_vs_plain(f"UNet-XL B={B}", call, resblock_swapped_for_plain)
+    served.update(forward_host_vs_device(f"UNet-XL forward at B={B}", call,
+                                         served["wall_s"] * 1e3 / SERVE_STEPS))
+    served["profile"] = profile_forward(f"UNet-XL forward at B={B}", call)
     return served
 
 
@@ -514,25 +706,21 @@ def serve_mdm(dev, card):
         MotionRequest(text_embed=texts[i], seed=i) for i in range(SERVE_REQUESTS)])
     check_launches(served, "fused_self_attention", 8, card, "MDM bf16 text")
 
-    # is a step launch-bound? one CFG-doubled forward on the host clock vs on the device
+    # one CFG-doubled forward: kernel path against plain path in bf16, then host vs device time
     B = 2 * SERVE_REQUESTS
-    x = torch.randn((B, T_FRAMES, FEATS), device=dev, dtype=torch.bfloat16)
+    x = seeded_noise((B, T_FRAMES, FEATS), dev, seed=13).to(torch.bfloat16)
     t = torch.full((B,), 500, device=dev)
     y = {"text_embed": torch.from_numpy(np.concatenate([texts, texts])).to(dev),
          "uncond": torch.arange(B, device=dev) >= SERVE_REQUESTS}
-    with torch.no_grad():
-        device_ms, _ = timed_ms(lambda: model(x, t, y), [()])
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(50):
-            model(x, t, y)
-        torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3 / 50
-    served.update(forward_wall_ms=wall_ms, forward_device_ms=device_ms,
-                  step_wall_ms=served["wall_s"] * 1e3 / SERVE_STEPS)
-    print(f"[serve] MDM forward at B={B}: {wall_ms:.4f} ms on the host clock, {device_ms:.4f} ms "
-          f"of device time (idle {1 - device_ms / wall_ms:.1%}); served step "
-          f"{served['step_wall_ms']:.4f} ms", flush=True)
+
+    def call():
+        return model(x, t, y)
+
+    served["bf16_forward_max_abs_err"], served["bf16_forward_rel_rms"] = \
+        bf16_forward_kernel_vs_plain(f"MDM B={B}", call, attention_swapped_for_plain)
+    served.update(forward_host_vs_device(f"MDM forward at B={B}", call,
+                                         served["wall_s"] * 1e3 / SERVE_STEPS))
+    served["profile"] = profile_forward(f"MDM forward at B={B}", call)
     return served
 
 
@@ -602,7 +790,7 @@ def main() -> int:
     del model
     if sum(shapes.values()) != 33:
         raise SystemExit(f"expected 33 resblock halves per forward, found {shapes}")
-    rows = check_kernel(shapes, dev)
+    rows, big_rows = check_kernel(shapes, dev)
     ddim_err = ddim_kernel_vs_plain(dev)
     served = serve(dev, card)
 
@@ -633,6 +821,9 @@ def main() -> int:
         "bound_ms": per_forward("bound_ms"),
         "bound_by": "operations" if ops_bound >= per_forward("bound_ms") / 2 else "bytes",
         "library_ms": per_forward("library_ms"),
+        "host_ms_per_call": per_forward("host_ms") / 33,
+        "bf16_forward_max_abs_err": served["bf16_forward_max_abs_err"],
+        "bf16_forward_rel_rms": served["bf16_forward_rel_rms"],
     }, {
         "name": "fused_self_attention",
         "route": "cuda",
@@ -650,13 +841,22 @@ def main() -> int:
         "bound_ms": 8 * attn["bound_ms"],
         "bound_by": attn["bound_by"],
         "library_ms": 8 * attn["library_ms"],
+        "host_ms_per_call": attn["host_ms"],
+        "bf16_forward_max_abs_err": served_mdm["bf16_forward_max_abs_err"],
+        "bf16_forward_rel_rms": served_mdm["bf16_forward_rel_rms"],
     }]
+    previous = {"fused_conv_gn_mish": PREV_RESBLOCK_MS, "fused_self_attention": PREV_ATTENTION_MS}
+    for kern in kernels:
+        print(f"[kernel] before: {kern['name']} took {previous[kern['name']]} ms in its first "
+              f"version (PERF.md section 6, an earlier run on an NVIDIA H100 80GB HBM3 at 700 W); "
+              f"this run {kern['ms']:.4f} ms", flush=True)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
-         "shapes": rows, "serve": served, "attention_shapes": attn_rows,
-         "serve_mdm": served_mdm, "kernels": kernels}, indent=1))
+         "shapes": rows, "shapes_b64": big_rows, "serve": served, "attention_shapes": attn_rows,
+         "serve_mdm": served_mdm, "kernels": kernels,
+         "previous_ms_from_perf_md": previous}, indent=1))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

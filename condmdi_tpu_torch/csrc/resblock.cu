@@ -1,5 +1,5 @@
 // Fused resblock half for Hopper (sm_90a):
-//   Conv1d(k, SAME, +bias) -> GroupNorm(n_groups, eps, affine)
+//   Conv1d(k=5, SAME, +bias) -> GroupNorm(n_groups, eps, affine)
 //   -> optional AdaGN h*(1+scale[b])+shift[b] -> Mish -> optional +res
 //
 // Replaces the Pallas TPU kernel condmdi_tpu/ops/resblock.py `_kernel`
@@ -7,86 +7,90 @@
 // 128-lane cout tiles, pltpu.roll taps, one-hot segment matmuls) is not
 // carried over.
 //
-// What bounds it on an H100: per launch 2*B*T*Cin*Cout*k FLOPs against about
-// 2*(B*T*Cin + k*Cin*Cout + B*T*Cout (+res)) bytes in bf16. At B=8, T=200,
+// What bounds it on an H100: per launch 2*B*T*Cin*Cout*5 FLOPs against about
+// 2*(B*T*Cin + 5*Cin*Cout + B*T*Cout (+res)) bytes in bf16. At B=8, T=200,
 // 1024->1024 that is 16.8 GFLOP for ~17 MB, so the tensor cores set the
 // bound (~17 us at 989 TFLOP/s); at T=25 it is 2.1 GFLOP for 10.5 MB of
-// weights, so memory sets it (~3 us at 3.35 TB/s).
+// weights, so memory sets it (~3 us at 3.35 TB/s). What the kernel meets
+// first at B=8 is neither: every batch item's CTAs stream the same weights
+// out of L2, 100 to 200 MB per launch, at the 3.5 to 4.6 TB/s that the
+// CTAs together draw from L2.
 //
-// Design (one CTA per (batch item, group)): GroupNorm statistics span all of
-// T and the group's channels, so a CTA that owns one (b, group) can finish
-// the whole function without another pass or any intermediate in device
-// memory. It walks T in blocks of 128 rows; for each block it streams Cin in
-// chunks through shared memory (the x rows with a k-1 row halo, and the
-// group's weights for every tap) and runs the conv as k row-shifted GEMMs on
-// the tensor cores (mma.sync m16n8k16, bf16 in, f32 accumulate). The f32
-// accumulator of the whole T x group tile then sits in shared memory
-// (T*132*4 B, 106 KB at T=200) for the statistics (mean, then the centred
-// variance) and the epilogue, which writes the output once. float32 inputs
-// go through the same tensor-core path as a hi+lo bf16 split (three products
-// per tile: hi*hi + hi*lo + lo*hi), which keeps about 16 mantissa bits.
-// Loads are scalar, so Cin = 526 and odd T need no ragged-tail case; the
-// SAME padding is the zero rows of the halo. This is the simple, correct
-// first version: no cp.async/TMA pipelining, no wgmma, and only B*n_groups
-// CTAs, so it reaches a fraction of the bound (timings in PERF.md).
+// bfloat16 (the served type) -- `resblock_bf16_kernel`:
+//   * The weight arrives packed once per parameter (ops/resblock.py
+//     `pack_conv_weight`): [Cin_pad/32, 5, Cout_pad/8, 4, 8, 8]. Its innermost
+//     8 output channels x 8 input channels (128 contiguous bytes) are one core
+//     matrix of wgmma's shared-memory operand, so a stage's weights are copied
+//     in linear 16-byte pieces, five contiguous runs per CTA, and land in the
+//     layout the tensor cores read. x rows are 16-byte aligned (the caller
+//     pads Cin to a multiple of 8; the packed weight is zero there).
+//   * One thread-block cluster owns one (batch item, group), so GroupNorm
+//     never needs a second pass: 128 rows x 128 channels per CTA and clusters
+//     along T where T > 64 (T=200: 2 CTAs), 64 rows x 64 channels and clusters
+//     along the group's channels where T <= 64 (2 CTAs). B=8 gives 64 to 128
+//     CTAs; rows past T are zero in the tile and computed like any other.
+//   * Each CTA streams Cin in 32-channel stages (the x rows with their 2+2
+//     row halo, and the stage's weights for all 5 taps) through a ring of 4
+//     or 6 shared-memory buffers filled by 16-byte cp.async, two or four
+//     stages in flight while the tensor cores work on the two before them;
+//     rows outside [0, T) and channels past the row are zero-filled by the
+//     copy itself (src-size 0), which is the SAME padding. One __syncthreads
+//     per stage, no scalar load, no division in the loop. Each weight byte
+//     enters a CTA once: all of the CTA's rows sit in one tile.
+//   * The conv is 5 row-shifted GEMMs on one x tile, on wgmma (m64nNk16, bf16
+//     in, f32 accumulate) with both operands read from shared memory by
+//     descriptor, without swizzle. The x tile is stored per block of 8 input
+//     channels with its rows 16 bytes apart, so any 8 consecutive rows are a
+//     core matrix and tap t is the same tile 16 t bytes further on: no copy
+//     per tap, no fragment in registers. A stage's 10 wgmmas are left in
+//     flight while the threads start the copies two stages ahead. The
+//     pre-norm tile never leaves the accumulator registers.
+//   * GroupNorm statistics span the cluster: every CTA reduces its part in
+//     f32 in a fixed order, the parts are exchanged through distributed
+//     shared memory (map_shared_rank + cluster.sync) and summed in rank
+//     order by every CTA alike: the mean first, then the centred sum of
+//     squares. The per-channel vectors and the residual are fetched ahead of
+//     the statistics; the epilogue runs on the registers, with Mish on the
+//     fast exponential, and writes the output once.
+//
+// float32 (tests and the f32 sampler checks, never the served type) --
+// `resblock_f32_kernel`: one CTA per (batch item, group) walks T in 128-row
+// blocks and Cin in 16-channel chunks with scalar loads from the unpacked
+// [Cout, Cin, 5] weight, runs the tensor cores (mma.sync) on a hi+lo bf16
+// split (three products per tile, about 16 mantissa bits) and keeps the f32
+// pre-norm tile in shared memory (T*132*4 B), which limits it to T <= 299.
+// Timings of both are in PERF.md.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kThreads = 256;  // 8 warps: 4 along rows x 2 along channels
-constexpr int kBlockM = 128;   // output rows (time steps) per pass
-constexpr int kBlockN = 128;   // output channels per CTA: one group, zero-padded
-constexpr int kWarpM = 32;
-constexpr int kWarpN = 64;
-constexpr int kRedSlots = 64;
-constexpr int kTaps = 5;       // conv width of every resblock half (SAME padding 2)
+typedef __nv_bfloat16 bf16;
 
-template <typename T>
-struct Tile;
-template <>
-struct Tile<__nv_bfloat16> {
-  static constexpr int kSplit = 1;  // bf16 planes per value
-  static constexpr int kBK = 32;    // input channels per shared-memory chunk
-};
-template <>
-struct Tile<float> {
-  static constexpr int kSplit = 2;  // hi + lo
-  static constexpr int kBK = 16;
-};
+constexpr int kThreads = 256;    // 8 warps: two warpgroups in the bf16 kernel
+constexpr int kTaps = 5;         // conv width of every resblock half (SAME padding 2)
+constexpr int kHalo = kTaps / 2;
+constexpr int kMaxGroup = 128;   // widest group: one cluster holds one (batch item, group)
+constexpr int kMaxCluster = 8;   // portable cluster size
+constexpr int kMaxSmem = 232448; // dynamic + static shared memory of one block on sm_90
 
-template <typename T, int K>
-struct Smem {
-  static constexpr int kSplit = Tile<T>::kSplit;
-  static constexpr int kBK = Tile<T>::kBK;
-  static constexpr int kSK = kBK + 8;  // row pitch: conflict-free fragment loads
-  static constexpr int kXRows = kBlockM + K - 1;
-  static constexpr int kAccLd = kBlockN + 4;
-  static constexpr int kXElems = kXRows * kSK;        // per plane
-  static constexpr int kWElems = K * kBlockN * kSK;   // per plane
-  static size_t bytes(int t_len) {
-    return (size_t)t_len * kAccLd * 4 + (size_t)kSplit * (kXElems + kWElems) * 2 +
-           kRedSlots * 4;
-  }
-};
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ void store_f(float* d, float v) { *d = v; }
-__device__ __forceinline__ void store_f(__nv_bfloat16* d, float v) { *d = __float2bfloat16_rn(v); }
-
-// v as bf16 (kSplit == 1) or as hi + lo bf16 planes `plane` elements apart
-template <int kSplit>
-__device__ __forceinline__ void split_store(__nv_bfloat16* dst, int plane, float v) {
-  const __nv_bfloat16 hi = __float2bfloat16_rn(v);
-  dst[0] = hi;
-  if (kSplit == 2) dst[plane] = __float2bfloat16_rn(v - __bfloat162float(hi));
+__device__ __forceinline__ float mish(float h) {
+  const float sp = fmaxf(h, 0.f) + log1pf(expf(-fabsf(h)));  // softplus, no overflow
+  return h * tanhf(sp);
 }
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+// The same function as tanh(softplus(h)) = t / (t + 2), t = e^h (e^h + 2), on the
+// fast exponential and division: a few ulps of f32, far below a bf16 ulp. Past
+// h = 20 the ratio is 1 in f32, and e^h underflows to the right limit 0.
+__device__ __forceinline__ float mish_fast(float h) {
+  const float n = __expf(fminf(h, 20.f));
+  const float t = n * (n + 2.f);
+  return h * __fdividef(t, t + 2.f);
 }
 
 __device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a, uint32_t b0, uint32_t b1) {
@@ -97,15 +101,448 @@ __device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a, uint32_t b
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-__device__ __forceinline__ float mish(float h) {
-  const float sp = fmaxf(h, 0.f) + log1pf(expf(-fabsf(h)));  // softplus, no overflow
-  return h * tanhf(sp);
+// ------------------------------------------------------------------------- //
+// bfloat16: packed weights, cp.async ring, wgmma from shared memory, cluster GroupNorm
+// ------------------------------------------------------------------------- //
+
+constexpr int kBK = 32;           // input channels per stage = the packed weight's chunk
+constexpr int kWRowBytes = kBK * 2;  // one output channel of one tap of one chunk: 64 B
+
+// BM x BN outputs per CTA, two warpgroups of 64 rows x kWGN columns each
+template <int BM, int BN, int STAGES>
+struct Cfg {
+  static_assert(BM == 64 || BM == 128, "one or two 64-row warpgroup tiles");
+  static constexpr int kWGM = BM / 64;          // warpgroups along rows
+  static constexpr int kWGN = BN / (2 / kWGM);  // columns per warpgroup
+  static constexpr int kXRows = BM + kTaps - 1;
+  // The x tile holds, for each block of 8 input channels, all rows 16 B apart:
+  // any 8 consecutive rows are one 128-byte core matrix, whatever row they
+  // start at, which is what lets a tap read the same tile `tap` rows down.
+  // The rows of one channel block are padded to 2 (mod 8) rows, so that the
+  // four pieces of one row land in different banks.
+  static constexpr int kXPlaneRows = (kXRows + 5) / 8 * 8 + 2;
+  static constexpr int kXPlaneBytes = kXPlaneRows * 16;
+  static constexpr int kXBytes = (kBK / 8) * kXPlaneBytes;
+  static constexpr int kWTapBytes = BN * kWRowBytes;
+  static constexpr int kStageBytes = kXBytes + kTaps * kWTapBytes;
+  static constexpr int kSmem = STAGES * kStageBytes;
+  static constexpr int kNT = kWGN / 8;          // n8 column tiles per thread
+  static constexpr int kWPieces = BN * 4 / kThreads;  // 16-byte pieces per thread per tap
+  static_assert((BN * 4) % kThreads == 0, "one tap's weight pieces divide evenly");
+  static_assert(kXBytes % 16 == 0 && kStageBytes % 16 == 0, "tiles stay 16-byte aligned");
+  static_assert(STAGES >= 3 && kSmem + 4096 <= kMaxSmem, "the ring and the static part fit");
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared; all zeros when !ok (src is then not read)
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool ok) {
+  const int bytes = ok ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// writes made to shared memory by ordinary copies become visible to wgmma's reads
+__device__ __forceinline__ void fence_async_proxy() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Shared-memory descriptor of a K-major operand without swizzle: 8 x 8
+// core matrices of 128 contiguous bytes (8 rows of 16 B); `lbo` bytes
+// between the two core matrices of one k16 step, `sbo` bytes between
+// core matrices of neighbouring 8-row blocks.
+__device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32);
+}
+
+template <int N>
+struct Wgmma;
+template <>
+struct Wgmma<32> {
+  // d[64 x 32] += a[64 x 16] . b[16 x 32], both operands in shared memory, K-major
+  static __device__ __forceinline__ void ss(float (&d)[16], uint64_t a_desc, uint64_t b_desc) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7,"
+        " %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "%16, %17, p, 1, 1, 0, 0;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(a_desc), "l"(b_desc), "r"(1));
+  }
+};
+template <>
+struct Wgmma<128> {
+  // d[64 x 128] += a[64 x 16] . b[16 x 128], both operands in shared memory, K-major
+  static __device__ __forceinline__ void ss(float (&d)[64], uint64_t a_desc, uint64_t b_desc) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7,"
+        " %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19, %20, %21, %22, %23,"
+        " %24, %25, %26, %27, %28, %29, %30, %31,"
+        " %32, %33, %34, %35, %36, %37, %38, %39,"
+        " %40, %41, %42, %43, %44, %45, %46, %47,"
+        " %48, %49, %50, %51, %52, %53, %54, %55,"
+        " %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "%64, %65, p, 1, 1, 0, 0;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+          "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(a_desc), "l"(b_desc), "r"(1));
+  }
+};
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// Sum of v over every thread of every CTA of the cluster, the same value in
+// every thread, summed in a fixed order (lanes, warps, then cluster ranks).
+// `part` is this CTA's slot, read by the other CTAs through distributed
+// shared memory; a later call must use another slot.
+__device__ float cluster_sum(float v, float* warp_part, float* part, cg::cluster_group& cluster) {
+  v = warp_sum(v);
+  if ((threadIdx.x & 31) == 0) warp_part[threadIdx.x >> 5] = v;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float s = 0.f;
+#pragma unroll
+    for (int i = 0; i < kThreads / 32; ++i) s += warp_part[i];
+    *part = s;
+  }
+  cluster.sync();
+  float total = 0.f;
+  const unsigned n = cluster.num_blocks();
+  for (unsigned r = 0; r < n; ++r) total += *cluster.map_shared_rank(part, r);
+  return total;
+}
+
+template <int BM, int BN, int STAGES>
+__global__ void __launch_bounds__(kThreads, 1)
+resblock_bf16_kernel(const bf16* __restrict__ x,      // [B, T, x_pitch], x_pitch % 8 == 0
+                     const bf16* __restrict__ wp,     // packed, see pack_conv_weight
+                     const bf16* __restrict__ bias,   // [Cout]
+                     const bf16* __restrict__ gamma,  // [Cout]
+                     const bf16* __restrict__ beta,   // [Cout]
+                     const bf16* __restrict__ scale,  // [B, Cout] rows ss_stride apart, or null
+                     const bf16* __restrict__ shift,
+                     long long ss_stride,
+                     const bf16* __restrict__ res,    // [B, T, Cout] or null
+                     bf16* __restrict__ out,          // [B, T, Cout]
+                     int t_len, int x_pitch, int n_chunks, int cout, int group, int cn_tiles,
+                     float eps) {
+  using C = Cfg<BM, BN, STAGES>;
+  constexpr int kNT = C::kNT, kSteps = 2 * kTaps;
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ float s_warp[kThreads / 32];
+  __shared__ float s_part[2];
+  __shared__ float s_par[5][BN];  // bias, gamma, beta, 1 + scale, shift of this CTA's channels
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = blockIdx.x;  // the cluster spans the grid's x dimension
+  const int ct = rank / cn_tiles, cn = rank - ct * cn_tiles;
+  const int m0 = ct * BM;                 // first output row of this CTA
+  const int nc0 = cn * BN;                // first channel of this CTA within the group
+  const int n_first = blockIdx.y * group + nc0;
+  const int b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wg = warp >> 2;               // warpgroup
+  const int wg_m = C::kWGM == 2 ? wg : 0, wg_n = C::kWGM == 2 ? 0 : wg;
+  const int gq = lane >> 2, cq = lane & 3;  // accumulator fragment row / column pair
+  const bf16* xb = x + (size_t)b * t_len * x_pitch;
+  const int cout8 = (cout + 7) >> 3;      // 8-channel blocks of the packed weight
+  const uint32_t smem_base = smem_u32(smem_raw);
+
+  // This thread's 16-byte pieces of one tap's weight tile, the same in every
+  // stage. Piece q of the tile lies at byte 16 q in shared memory and holds
+  // channel (q/32)*8 + q%8, input channels 8*((q/8)%4) .. +7: core matrices of
+  // 8 channels x 8 input channels, the layout of the packed weight itself.
+  int w_src[C::kWPieces];
+  bool w_ok[C::kWPieces];
+#pragma unroll
+  for (int i = 0; i < C::kWPieces; ++i) {
+    const int q = tid + i * kThreads;
+    const int n = n_first + (q >> 5) * 8 + (q & 7), kb = (q >> 3) & 3;
+    w_ok[i] = n < cout8 * 8;
+    w_src[i] = (((n >> 3) * 4 + kb) * 8 + (n & 7)) * 8;  // in elements
+  }
+
+  auto load_stage = [&](int stage, int chunk) {
+    const uint32_t sx = smem_base + stage * C::kStageBytes;
+    const uint32_t sw = sx + C::kXBytes;
+    const int c0 = chunk * kBK;
+    // x rows t = m0 - halo + r; rows outside [0, T) are the SAME padding
+    for (int idx = tid; idx < C::kXRows * 4; idx += kThreads) {
+      const int r = idx >> 2, p = idx & 3;
+      const int t = m0 - kHalo + r, ch = c0 + p * 8;
+      const bool ok = t >= 0 && t < t_len && ch < x_pitch;
+      const bf16* src = ok ? xb + (size_t)t * x_pitch + ch : xb;
+      cp_async16(sx + p * C::kXPlaneBytes + r * 16, src, ok);
+    }
+    // this chunk's weights, tap by tap; channels past Cout are zero
+    const bf16* wc = wp + (size_t)chunk * kTaps * cout8 * (8 * kBK);
+#pragma unroll
+    for (int tap = 0; tap < kTaps; ++tap)
+#pragma unroll
+      for (int i = 0; i < C::kWPieces; ++i)
+        cp_async16(sw + tap * C::kWTapBytes + (tid + i * kThreads) * 16,
+                   w_ok[i] ? wc + (size_t)tap * cout8 * (8 * kBK) + w_src[i] : wp, w_ok[i]);
+  };
+
+  // the per-channel vectors of the epilogue, fetched while the main loop runs
+  // (its barriers make them visible); channels past the group read as zero
+  for (int i = tid; i < 5 * BN; i += kThreads) {
+    const int which = i / BN, col = i % BN;
+    const bf16* src = which == 0 ? bias : which == 1 ? gamma : which == 2 ? beta
+                      : which == 3 ? scale : shift;
+    float v = 0.f;
+    if (src != nullptr && nc0 + col < group)
+      v = __bfloat162float(src[(which >= 3 ? b * ss_stride : 0) + blockIdx.y * group + nc0 + col]);
+    s_par[which][col] = which == 3 ? 1.f + v : v;
+  }
+
+  float acc[kNT * 4];  // n8 tile j of this warp's 16 rows: acc[4j .. 4j+3]
+#pragma unroll
+  for (int i = 0; i < kNT * 4; ++i) acc[i] = 0.f;
+
+  // Both operands are read from shared memory by descriptor. A: this
+  // warpgroup's 64 rows of the x tile, `tap` rows down (output row r reads
+  // x-tile row r + tap). B: this warpgroup's columns of the tap's weights.
+  const uint32_t a_off = wg_m * 64 * 16;
+  const uint32_t b_off = C::kXBytes + wg_n * (C::kWGN / 8) * 512;
+
+  // One chunk: its 10 (tap, 16-channel half) steps as one group of wgmmas,
+  // left in flight while the threads go on to the next chunk's copies.
+  auto compute = [&](int c) {
+    const uint32_t st = smem_base + (c % STAGES) * C::kStageBytes;
+    wgmma_fence();
+#pragma unroll
+    for (int s = 0; s < kSteps; ++s)
+      Wgmma<C::kWGN>::ss(
+          acc,
+          wgmma_desc(st + a_off + (s & 1) * 2 * C::kXPlaneBytes + (s >> 1) * 16,
+                     C::kXPlaneBytes, 128),
+          wgmma_desc(st + b_off + (s >> 1) * C::kWTapBytes + (s & 1) * 256, 128, 512));
+    wgmma_commit();
+  };
+  // Ring protocol, per chunk c: this thread's wgmmas up to chunk c-2 are
+  // done and its copies of chunk c have landed; after the barrier that holds
+  // for every thread, so chunk c is readable and the buffer of chunk c-2 is
+  // free for chunk c + STAGES - 2.
+  auto advance = [&](int c) {
+    wgmma_wait<1>();
+    cp_async_wait<STAGES - 3>();
+    fence_async_proxy();
+    __syncthreads();
+    if (c + STAGES - 2 < n_chunks) load_stage((c + STAGES - 2) % STAGES, c + STAGES - 2);
+    cp_async_commit();
+  };
+
+#pragma unroll
+  for (int s = 0; s < STAGES - 2; ++s) {
+    if (s < n_chunks) load_stage(s, s);
+    cp_async_commit();
+  }
+  for (int c = 0; c < n_chunks; ++c) {
+    advance(c);
+    compute(c);
+  }
+  wgmma_wait<0>();
+  cp_async_wait<0>();
+
+  const int row_base = m0 + wg_m * 64 + (warp & 3) * 16 + gq;
+  const int lcol_base = wg_n * C::kWGN + 2 * cq;  // within this CTA's BN columns
+  const int col_base = nc0 + lcol_base;           // within the group
+  const int c_group0 = blockIdx.y * group;
+  const bool pairs = ((cout | group) & 1) == 0;   // channel pairs are 4-byte aligned
+  const bool row_ok[2] = {row_base < t_len, row_base + 8 < t_len};
+
+  // the residual, fetched before the statistics so that its latency hides behind them
+  float rv[kNT * 4];
+#pragma unroll
+  for (int i = 0; i < kNT * 4; ++i) rv[i] = 0.f;
+  if (res != nullptr) {
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int col = col_base + nt * 8;
+        const size_t o = ((size_t)b * t_len + row_base + half * 8) * cout + c_group0 + col;
+        if (row_ok[half] && pairs && col + 1 < group) {
+          const __nv_bfloat162 r2 = *reinterpret_cast<const __nv_bfloat162*>(res + o);
+          rv[nt * 4 + 2 * half] = __low2float(r2);
+          rv[nt * 4 + 2 * half + 1] = __high2float(r2);
+        } else if (row_ok[half]) {
+          if (col < group) rv[nt * 4 + 2 * half] = __bfloat162float(res[o]);
+          if (col + 1 < group) rv[nt * 4 + 2 * half + 1] = __bfloat162float(res[o + 1]);
+        }
+      }
+  }
+
+  // + conv bias; this thread's part of the sum over valid (row < T, channel < group)
+  float s = 0.f;
+#pragma unroll
+  for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      acc[nt * 4 + i] += s_par[0][lcol_base + nt * 8 + (i & 1)];
+      const bool ok = row_ok[i >> 1] && col_base + nt * 8 + (i & 1) < group;
+      s += ok ? acc[nt * 4 + i] : 0.f;
+    }
+  const float count = (float)t_len * (float)group;
+  const float mean = cluster_sum(s, s_warp, &s_part[0], cluster) / count;
+  float q = 0.f;
+#pragma unroll
+  for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const bool ok = row_ok[i >> 1] && col_base + nt * 8 + (i & 1) < group;
+      const float d = acc[nt * 4 + i] - mean;
+      q += ok ? d * d : 0.f;
+    }
+  const float rstd = rsqrtf(cluster_sum(q, s_warp, &s_part[1], cluster) / count + eps);
+
+  // epilogue: affine, AdaGN (1 + scale is 1 and shift 0 without it), Mish,
+  // residual; each output written once
+#pragma unroll
+  for (int nt = 0; nt < kNT; ++nt) {
+    const int lcol = lcol_base + nt * 8, col = col_base + nt * 8;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      if (!row_ok[half] || col >= group) continue;
+      float h[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        h[e] = (acc[nt * 4 + 2 * half + e] - mean) * rstd * s_par[1][lcol + e] + s_par[2][lcol + e];
+        h[e] = h[e] * s_par[3][lcol + e] + s_par[4][lcol + e];
+        h[e] = mish_fast(h[e]) + rv[nt * 4 + 2 * half + e];
+      }
+      const size_t o = ((size_t)b * t_len + row_base + half * 8) * cout + c_group0 + col;
+      if (pairs && col + 1 < group) {
+        *reinterpret_cast<__nv_bfloat162*>(out + o) = __floats2bfloat162_rn(h[0], h[1]);
+      } else {
+        out[o] = __float2bfloat16_rn(h[0]);
+        if (col + 1 < group) out[o + 1] = __float2bfloat16_rn(h[1]);
+      }
+    }
+  }
+  cluster.sync();  // no CTA leaves while another may still read its partial sums
+}
+
+template <int BM, int BN, int STAGES>
+int launch_bf16(const void* x, const void* wp, const void* bias, const void* gamma,
+                const void* beta, const void* scale, const void* shift, long long ss_stride,
+                const void* res, void* out, int batch, int t_len, int x_pitch, int cin_pad,
+                int cout, int n_groups, float eps, cudaStream_t stream) {
+  using C = Cfg<BM, BN, STAGES>;
+  auto kernel = resblock_bf16_kernel<BM, BN, STAGES>;
+  static cudaError_t attr_err =  // once per instantiation
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
+  if (attr_err != cudaSuccess) return (int)attr_err;
+  const int group = cout / n_groups;
+  const int ct_tiles = (t_len + BM - 1) / BM, cn_tiles = (group + BN - 1) / BN;
+  const int cluster_size = ct_tiles * cn_tiles;
+  if (cluster_size > kMaxCluster) return (int)cudaErrorInvalidValue;
+
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster_size, n_groups, batch);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = C::kSmem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster_size;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t err = cudaLaunchKernelEx(
+      &cfg, kernel, static_cast<const bf16*>(x), static_cast<const bf16*>(wp),
+      static_cast<const bf16*>(bias), static_cast<const bf16*>(gamma),
+      static_cast<const bf16*>(beta), static_cast<const bf16*>(scale),
+      static_cast<const bf16*>(shift), ss_stride, static_cast<const bf16*>(res),
+      static_cast<bf16*>(out), t_len, x_pitch, cin_pad / kBK, cout, group, cn_tiles, eps);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// ------------------------------------------------------------------------- //
+// float32: hi+lo bf16 split, one CTA per (batch item, group), unpacked weight
+// ------------------------------------------------------------------------- //
+
+namespace f32 {
+
+constexpr int kBlockM = 128;   // output rows (time steps) per pass
+constexpr int kBlockN = 128;   // output channels per CTA: one group, zero-padded
+constexpr int kWarpM = 32;     // 8 warps: 4 along rows x 2 along channels
+constexpr int kWarpN = 64;
+constexpr int kRedSlots = 64;
+constexpr int kBK = 16;        // input channels per shared-memory chunk
+constexpr int kSK = kBK + 8;   // row pitch: conflict-free fragment loads
+constexpr int kXRows = kBlockM + kTaps - 1;
+constexpr int kAccLd = kBlockN + 4;
+constexpr int kXElems = kXRows * kSK;          // per plane (hi, lo)
+constexpr int kWElems = kTaps * kBlockN * kSK; // per plane
+
+size_t smem_bytes(int t_len) {
+  return (size_t)t_len * kAccLd * 4 + (size_t)2 * (kXElems + kWElems) * 2 + kRedSlots * 4;
+}
+
+// v as hi + lo bf16 planes `plane` elements apart
+__device__ __forceinline__ void split_store(bf16* dst, int plane, float v) {
+  const bf16 hi = __float2bfloat16_rn(v);
+  dst[0] = hi;
+  dst[plane] = __float2bfloat16_rn(v - __bfloat162float(hi));
+}
+
+__device__ __forceinline__ uint32_t ld32(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
 }
 
 // sum over the block, the same value in every thread; fixed order
 __device__ float block_sum(float v, float* red) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  v = warp_sum(v);
   __syncthreads();  // earlier readers of red are done
   if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
   __syncthreads();
@@ -115,35 +552,31 @@ __device__ float block_sum(float v, float* red) {
   return s;
 }
 
-template <typename T, int K>
 __global__ void __launch_bounds__(kThreads)
-resblock_kernel(const T* __restrict__ x,      // [B, T, Cin]
-                const T* __restrict__ w,      // [Cout, Cin, K]
-                const T* __restrict__ bias,   // [Cout]
-                const T* __restrict__ gamma,  // [Cout]
-                const T* __restrict__ beta,   // [Cout]
-                const T* __restrict__ scale,  // [B, Cout] rows ss_stride apart, or null
-                const T* __restrict__ shift,
-                long long ss_stride,
-                const T* __restrict__ res,    // [B, T, Cout] or null
-                T* __restrict__ out,          // [B, T, Cout]
-                int t_len, int cin, int cout, int group, float eps) {
-  using S = Smem<T, K>;
-  constexpr int kSplit = S::kSplit, kBK = S::kBK, kSK = S::kSK, kXRows = S::kXRows;
-  constexpr int kAccLd = S::kAccLd, kHalo = K / 2;
-
+resblock_f32_kernel(const float* __restrict__ x,      // [B, T, x_pitch]
+                    const float* __restrict__ w,      // [Cout, Cin, 5]
+                    const float* __restrict__ bias,   // [Cout]
+                    const float* __restrict__ gamma,  // [Cout]
+                    const float* __restrict__ beta,   // [Cout]
+                    const float* __restrict__ scale,  // [B, Cout] rows ss_stride apart, or null
+                    const float* __restrict__ shift,
+                    long long ss_stride,
+                    const float* __restrict__ res,    // [B, T, Cout] or null
+                    float* __restrict__ out,          // [B, T, Cout]
+                    int t_len, int x_pitch, int cin, int cout, int group, float eps) {
+  constexpr int K = kTaps;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* s_acc = reinterpret_cast<float*>(smem_raw);
-  __nv_bfloat16* s_x = reinterpret_cast<__nv_bfloat16*>(s_acc + (size_t)t_len * kAccLd);
-  __nv_bfloat16* s_w = s_x + kSplit * S::kXElems;
-  float* s_red = reinterpret_cast<float*>(s_w + kSplit * S::kWElems);
+  bf16* s_x = reinterpret_cast<bf16*>(s_acc + (size_t)t_len * kAccLd);
+  bf16* s_w = s_x + 2 * kXElems;
+  float* s_red = reinterpret_cast<float*>(s_w + 2 * kWElems);
 
   const int n0 = blockIdx.x * group;  // first output channel of this group
   const int b = blockIdx.y;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int wm = warp >> 1, wn = warp & 1;
   const int gq = lane >> 2, cq = lane & 3;  // mma fragment row / column pair
-  const T* xb = x + (size_t)b * t_len * cin;
+  const float* xb = x + (size_t)b * t_len * x_pitch;
   const bool n_active = wn * kWarpN < group;
 
   for (int m0 = 0; m0 < t_len; m0 += kBlockM) {
@@ -164,8 +597,8 @@ resblock_kernel(const T* __restrict__ x,      // [B, T, Cin]
         const int r = idx / kBK, kk = idx % kBK;
         const int t = m0 - kHalo + r, ci = c0 + kk;
         float v = 0.f;
-        if (t >= 0 && t < t_len && ci < cin) v = to_f(xb[(size_t)t * cin + ci]);
-        split_store<kSplit>(s_x + r * kSK + kk, S::kXElems, v);
+        if (t >= 0 && t < t_len && ci < cin) v = xb[(size_t)t * x_pitch + ci];
+        split_store(s_x + r * kSK + kk, kXElems, v);
       }
       // weights w[n0 + n, ci, tap]: contiguous over (ci, tap) for each channel
 #pragma unroll 4
@@ -173,47 +606,41 @@ resblock_kernel(const T* __restrict__ x,      // [B, T, Cin]
         const int n = idx / (kBK * K), e = idx % (kBK * K);
         const int kk = e / K, tap = e % K, ci = c0 + kk;
         float v = 0.f;
-        if (n < group && ci < cin) v = to_f(w[((size_t)(n0 + n) * cin + ci) * K + tap]);
-        split_store<kSplit>(s_w + (tap * kBlockN + n) * kSK + kk, S::kWElems, v);
+        if (n < group && ci < cin) v = w[((size_t)(n0 + n) * cin + ci) * K + tap];
+        split_store(s_w + (tap * kBlockN + n) * kSK + kk, kWElems, v);
       }
       __syncthreads();
 
       if (m_active && n_active) {
         for (int tap = 0; tap < K; ++tap) {
+          uint32_t a[2][2][4];
 #pragma unroll
-          for (int ks = 0; ks < kBK; ks += 16) {
-            uint32_t a[kSplit][2][4];
+          for (int s = 0; s < 2; ++s)
 #pragma unroll
-            for (int s = 0; s < kSplit; ++s)
+            for (int mt = 0; mt < 2; ++mt) {
+              // output row m0 + row reads input row m0 + row + tap - halo = s_x row + tap
+              const bf16* pa = s_x + s * kXElems +
+                               (wm * kWarpM + mt * 16 + gq + tap) * kSK + 2 * cq;
+              a[s][mt][0] = ld32(pa);
+              a[s][mt][1] = ld32(pa + 8 * kSK);
+              a[s][mt][2] = ld32(pa + 8);
+              a[s][mt][3] = ld32(pa + 8 * kSK + 8);
+            }
 #pragma unroll
-              for (int mt = 0; mt < 2; ++mt) {
-                // output row m0 + row reads input row m0 + row + tap - halo = s_x row + tap
-                const __nv_bfloat16* pa = s_x + s * S::kXElems +
-                                          (wm * kWarpM + mt * 16 + gq + tap) * kSK + ks + 2 * cq;
-                a[s][mt][0] = ld32(pa);
-                a[s][mt][1] = ld32(pa + 8 * kSK);
-                a[s][mt][2] = ld32(pa + 8);
-                a[s][mt][3] = ld32(pa + 8 * kSK + 8);
-              }
+          for (int nt = 0; nt < 8; ++nt) {
+            uint32_t b0[2], b1[2];
 #pragma unroll
-            for (int nt = 0; nt < 8; ++nt) {
-              uint32_t b0[kSplit], b1[kSplit];
+            for (int s = 0; s < 2; ++s) {
+              const bf16* pb = s_w + s * kWElems +
+                               (tap * kBlockN + wn * kWarpN + nt * 8 + gq) * kSK + 2 * cq;
+              b0[s] = ld32(pb);
+              b1[s] = ld32(pb + 8);
+            }
 #pragma unroll
-              for (int s = 0; s < kSplit; ++s) {
-                const __nv_bfloat16* pb = s_w + s * S::kWElems +
-                                          (tap * kBlockN + wn * kWarpN + nt * 8 + gq) * kSK + ks +
-                                          2 * cq;
-                b0[s] = ld32(pb);
-                b1[s] = ld32(pb + 8);
-              }
-#pragma unroll
-              for (int mt = 0; mt < 2; ++mt) {
-                mma_bf16(acc[mt][nt], a[0][mt], b0[0], b1[0]);
-                if (kSplit == 2) {
-                  mma_bf16(acc[mt][nt], a[0][mt], b0[kSplit - 1], b1[kSplit - 1]);
-                  mma_bf16(acc[mt][nt], a[kSplit - 1][mt], b0[0], b1[0]);
-                }
-              }
+            for (int mt = 0; mt < 2; ++mt) {
+              mma_bf16(acc[mt][nt], a[0][mt], b0[0], b1[0]);
+              mma_bf16(acc[mt][nt], a[0][mt], b0[1], b1[1]);
+              mma_bf16(acc[mt][nt], a[1][mt], b0[0], b1[0]);
             }
           }
         }
@@ -231,11 +658,9 @@ resblock_kernel(const T* __restrict__ x,      // [B, T, Cin]
             const int row = m0 + wm * kWarpM + mt * 16 + gq + half * 8;
             const int col = wn * kWarpN + nt * 8 + 2 * cq;
             if (row < t_len) {
-              if (col < group)
-                s_acc[row * kAccLd + col] = acc[mt][nt][2 * half] + to_f(bias[n0 + col]);
+              if (col < group) s_acc[row * kAccLd + col] = acc[mt][nt][2 * half] + bias[n0 + col];
               if (col + 1 < group)
-                s_acc[row * kAccLd + col + 1] =
-                    acc[mt][nt][2 * half + 1] + to_f(bias[n0 + col + 1]);
+                s_acc[row * kAccLd + col + 1] = acc[mt][nt][2 * half + 1] + bias[n0 + col + 1];
             }
           }
     }
@@ -257,50 +682,63 @@ resblock_kernel(const T* __restrict__ x,      // [B, T, Cin]
   // epilogue: affine, AdaGN, Mish, residual; each output written once
   for (int idx = tid; idx < count; idx += kThreads) {
     const int r = idx / group, col = idx % group, c = n0 + col;
-    float h = (s_acc[r * kAccLd + col] - mean) * rstd * to_f(gamma[c]) + to_f(beta[c]);
-    if (scale != nullptr)
-      h = h * (1.f + to_f(scale[b * ss_stride + c])) + to_f(shift[b * ss_stride + c]);
+    float h = (s_acc[r * kAccLd + col] - mean) * rstd * gamma[c] + beta[c];
+    if (scale != nullptr) h = h * (1.f + scale[b * ss_stride + c]) + shift[b * ss_stride + c];
     h = mish(h);
     const size_t o = ((size_t)b * t_len + r) * cout + c;
-    if (res != nullptr) h += to_f(res[o]);
-    store_f(out + o, h);
+    if (res != nullptr) h += res[o];
+    out[o] = h;
   }
 }
 
-template <typename T, int K>
 int launch(const void* x, const void* w, const void* bias, const void* gamma, const void* beta,
            const void* scale, const void* shift, long long ss_stride, const void* res, void* out,
-           int batch, int t_len, int cin, int cout, int n_groups, float eps, cudaStream_t stream) {
-  const size_t smem = Smem<T, K>::bytes(t_len);
-  cudaError_t err = cudaFuncSetAttribute(
-      resblock_kernel<T, K>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  resblock_kernel<T, K><<<dim3(n_groups, batch), kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w), static_cast<const T*>(bias),
-      static_cast<const T*>(gamma), static_cast<const T*>(beta), static_cast<const T*>(scale),
-      static_cast<const T*>(shift), ss_stride, static_cast<const T*>(res), static_cast<T*>(out),
-      t_len, cin, cout, cout / n_groups, eps);
+           int batch, int t_len, int x_pitch, int cin, int cout, int n_groups, float eps,
+           cudaStream_t stream) {
+  const size_t smem = smem_bytes(t_len);
+  if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
+  static cudaError_t attr_err = cudaFuncSetAttribute(
+      resblock_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+  if (attr_err != cudaSuccess) return (int)attr_err;
+  auto f = [](const void* p) { return static_cast<const float*>(p); };
+  resblock_f32_kernel<<<dim3(n_groups, batch), kThreads, smem, stream>>>(
+      f(x), f(w), f(bias), f(gamma), f(beta), f(scale), f(shift), ss_stride, f(res),
+      static_cast<float*>(out), t_len, x_pitch, cin, cout, cout / n_groups, eps);
   return (int)cudaGetLastError();
 }
 
+}  // namespace f32
+
 }  // namespace
 
+// x: [B, T, x_pitch] contiguous, channels [cin, x_pitch) ignored. dtype 0 =
+// float32: w is [Cout, cin, 5]. dtype 1 = bfloat16: w is the packed
+// [cin/32, 5, Cout/8, 4, 8, 8] of ops/resblock.py `pack_conv_weight` (chunk of
+// 32 input channels, tap, block of 8 output channels, block of 8 input
+// channels, output channel, input channel; cin the padded width, a multiple of
+// 32) and x_pitch % 8 == 0. Returns the launch's error code, 0 on success.
 extern "C" int condmdi_resblock_forward(const void* x, const void* w, const void* bias,
                                         const void* gamma, const void* beta, const void* scale,
                                         const void* shift, long long ss_stride, const void* res,
-                                        void* out, int batch, int t_len, int cin, int cout, int k,
-                                        int n_groups, float eps, int dtype, void* stream) {
-  if (batch <= 0 || t_len <= 0 || cin <= 0 || n_groups <= 0 || cout % n_groups != 0 ||
-      cout / n_groups > kBlockN || k != kTaps || (scale == nullptr) != (shift == nullptr))
+                                        void* out, int batch, int t_len, int x_pitch, int cin,
+                                        int cout, int k, int n_groups, float eps, int dtype,
+                                        void* stream) {
+  if (batch <= 0 || batch > 65535 || t_len <= 0 || cin <= 0 || x_pitch <= 0 || n_groups <= 0 ||
+      n_groups > 65535 || cout % n_groups != 0 || cout / n_groups > kMaxGroup || k != kTaps ||
+      (scale == nullptr) != (shift == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch<float, kTaps>(x, w, bias, gamma, beta, scale, shift, ss_stride, res, out,
-                                batch, t_len, cin, cout, n_groups, eps, s);
-  if (dtype == 1)
-    return launch<__nv_bfloat16, kTaps>(x, w, bias, gamma, beta, scale, shift, ss_stride, res,
-                                        out, batch, t_len, cin, cout, n_groups, eps, s);
-  return (int)cudaErrorInvalidValue;
+    return f32::launch(x, w, bias, gamma, beta, scale, shift, ss_stride, res, out, batch, t_len,
+                       x_pitch, cin, cout, n_groups, eps, s);
+  if (dtype != 1 || cin % kBK != 0 || x_pitch % 8 != 0 || x_pitch > cin)
+    return (int)cudaErrorInvalidValue;
+#define CONDMDI_BF16(BM, BN, STAGES)                                                          \
+  launch_bf16<BM, BN, STAGES>(x, w, bias, gamma, beta, scale, shift, ss_stride, res, out,     \
+                              batch, t_len, x_pitch, cin, cout, n_groups, eps, s)
+  if (t_len <= 64) return CONDMDI_BF16(64, 64, 6);
+  return CONDMDI_BF16(128, 128, 4);
+#undef CONDMDI_BF16
 }
 
 extern "C" const char* condmdi_error_string(int err) {

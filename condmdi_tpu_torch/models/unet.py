@@ -8,7 +8,10 @@ alone. The layout is [B, T, C].
 
 Every resblock half (Conv1dBlock, Conv1dAdaGNBlock) calls
 ops.resblock.fused_conv_gn_mish: the Hopper kernel on CUDA, its plain
-version on the CPU. Downsample (k3 s2 p1), residual_conv (1×1), final_conv
+version on the CPU. The bf16 kernel reads a packed copy of the conv weight,
+which each half keeps and remakes when its weight changes; MDM_UNET pads its
+input's channels to a multiple of 8 (526 → 528) so that the kernel's rows
+are 16-byte aligned, and the first resblock ignores the padding. Downsample (k3 s2 p1), residual_conv (1×1), final_conv
 (1×1) and the upsample ConvTranspose (k4 s2, Flax 'SAME' ≡ torch padding 1)
 are plain convolutions the JAX package left to XLA; here they stay
 F.conv1d / F.linear / F.conv_transpose1d.
@@ -32,7 +35,7 @@ from condmdi_tpu_torch.models.layers import (
     GroupNormParams,
     init_params,
 )
-from condmdi_tpu_torch.ops.resblock import fused_conv_gn_mish, mish
+from condmdi_tpu_torch.ops.resblock import PackedConvWeight, fused_conv_gn_mish, mish
 
 
 def _conv1d(x: torch.Tensor, p: ConvParams, stride: int = 1, padding: int = 0) -> torch.Tensor:
@@ -43,39 +46,46 @@ def _conv1d(x: torch.Tensor, p: ConvParams, stride: int = 1, padding: int = 0) -
     return y.transpose(1, 2).contiguous()
 
 
-class Conv1dBlock(nn.Module):
-    """Conv(k) → GroupNorm(8) → Mish (→ +res), one fused kernel call."""
+class _ResblockHalf(nn.Module):
+    """What both resblock halves hold: the conv and norm parameters, and the bf16
+    kernel's packed copy of the conv weight (a plain attribute, not in the
+    state_dict, remade when the weight changes)."""
 
-    def __init__(self, in_channels, out_channels, kernel_size=5, n_groups=8, zero=False,
-                 *, device=None, dtype=None):
+    def __init__(self, in_channels, out_channels, kernel_size, n_groups, zero, device, dtype):
         super().__init__()
         self.n_groups = n_groups
         self.conv = ConvParams(in_channels, out_channels, kernel_size, zero_init=zero,
                                device=device, dtype=dtype)
         self.norm = GroupNormParams(out_channels, device=device, dtype=dtype)
+        self.packed = PackedConvWeight()
+
+
+class Conv1dBlock(_ResblockHalf):
+    """Conv(k) → GroupNorm(8) → Mish (→ +res), one fused kernel call."""
+
+    def __init__(self, in_channels, out_channels, kernel_size=5, n_groups=8, zero=False,
+                 *, device=None, dtype=None):
+        super().__init__(in_channels, out_channels, kernel_size, n_groups, zero, device, dtype)
 
     def forward(self, x, res=None):
         return fused_conv_gn_mish(
             x, self.conv.weight, self.conv.bias, self.norm.weight, self.norm.bias,
-            res=res, n_groups=self.n_groups,
+            res=res, n_groups=self.n_groups, packed=self.packed,
         )
 
 
-class Conv1dAdaGNBlock(nn.Module):
+class Conv1dAdaGNBlock(_ResblockHalf):
     """Conv → GroupNorm → (1+scale)·x + shift → Mish, one fused kernel call."""
 
     def __init__(self, in_channels, out_channels, kernel_size=5, n_groups=8,
                  *, device=None, dtype=None):
-        super().__init__()
-        self.n_groups = n_groups
-        self.conv = ConvParams(in_channels, out_channels, kernel_size,
-                               device=device, dtype=dtype)
-        self.norm = GroupNormParams(out_channels, device=device, dtype=dtype)
+        super().__init__(in_channels, out_channels, kernel_size, n_groups, False, device, dtype)
 
     def forward(self, x, scale, shift):
         return fused_conv_gn_mish(
             x, self.conv.weight, self.conv.bias, self.norm.weight, self.norm.bias,
             scale=scale.to(x.dtype), shift=shift.to(x.dtype), n_groups=self.n_groups,
+            packed=self.packed,
         )
 
 
@@ -97,10 +107,15 @@ class ResidualTemporalBlock(nn.Module):
             self.block1 = Conv1dBlock(in_channels, out_channels, kernel_size, **dd)
         self.block2 = Conv1dBlock(out_channels, out_channels, kernel_size, zero=zero, **dd)
 
-    def forward(self, x, t_emb):
-        """x: [B, T, C_in]; t_emb: [B, E]."""
-        cond = self.time_mlp(mish(t_emb))
-        res = x if self.residual_conv is None else _conv1d(x, self.residual_conv)
+    def forward(self, x, t_act):
+        """x: [B, T, C_in (+ alignment channels, which block1 ignores)]; t_act: [B, E],
+        the time embedding after its Mish (the same for every block, so the caller
+        takes it once)."""
+        cond = self.time_mlp(t_act)
+        if self.residual_conv is None:
+            res = x
+        else:
+            res = _conv1d(x[..., : self.residual_conv.weight.shape[1]], self.residual_conv)
         if self.adagn:
             scale, shift = cond.chunk(2, dim=-1)
             h = self.block1(x, scale, shift)
@@ -144,7 +159,7 @@ class TemporalUnet(nn.Module):
 
     def forward(self, x, cond):
         """x: [B, T, C] (T divisible by 2^(len(dim_mults)-1)); cond: [B, cond_dim]."""
-        c = self.time_fc2(mish(self.time_fc1(cond)))
+        c = mish(self.time_fc2(mish(self.time_fc1(cond))))  # every block's time_mlp(mish(·)) input
         h = []
         for ind in range(self.n_res):
             x = getattr(self, f"down{ind}_res1")(x, c)
@@ -210,21 +225,27 @@ class MDM_UNET(nn.Module):
         if (obs_x0 is None) != (obs_mask is None):
             raise ValueError("obs_x0 and obs_mask come together")
 
+        if T > self.pad_frames_to:
+            raise ValueError(f"{T} frames > pad target {self.pad_frames_to}")
+        # One zeroed buffer takes the input: right-padded to the UNet length (a
+        # multiple of 2^depth) and to a channel count that is a multiple of 8, so
+        # that the resblock kernel's rows are 16-byte aligned (2F = 526 -> 528).
+        # The first resblock ignores the alignment channels.
+        channels = 2 * Fdim if self.keyframe_conditioned else Fdim
+        buf = x.new_zeros((B, self.pad_frames_to, -(-channels // 8) * 8))
         if self.keyframe_conditioned:
             m = obs_mask.to(x.dtype)
-            x = obs_x0.to(x.dtype) * m + x * (1.0 - m)
-            x = torch.cat([x, m], dim=-1)  # [B, T, 2F]
+            buf[:, :T, :Fdim] = obs_x0.to(x.dtype) * m + x * (1.0 - m)
+            buf[:, :T, Fdim:channels] = m  # [B, T, 2F]
+        else:
+            buf[:, :T, :Fdim] = x
 
         emb = self.embed_timestep(timesteps)
         if "text_embed" in y:
             enc_text = y["text_embed"].to(emb.dtype)
             emb = emb + self.embed_text(mask_cond(enc_text, y.get("uncond", False)))
 
-        # static right-pad to the UNet length (multiple of 2^depth)
-        if T > self.pad_frames_to:
-            raise ValueError(f"{T} frames > pad target {self.pad_frames_to}")
-        x = F.pad(x, (0, 0, 0, self.pad_frames_to - T)).contiguous()
-        x = self.unet(x, emb)
+        x = self.unet(buf, emb)
         x = x[:, :T, :]
         if self.keyframe_conditioned:
             x = x[..., :Fdim]

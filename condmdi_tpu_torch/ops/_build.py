@@ -83,10 +83,10 @@ def _load(source: str, bind) -> ctypes.CDLL:
 def _bind_resblock(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.condmdi_resblock_forward.argtypes = [
-        p, p, p, p, p,           # x, w, b, gamma, beta
+        p, p, p, p, p,           # x, w (packed for bf16), b, gamma, beta
         p, p, ctypes.c_longlong,  # scale, shift, their row stride
         p, p,                    # res, out
-        i, i, i, i, i, i,        # B, T, Cin, Cout, k, n_groups
+        i, i, i, i, i, i, i,     # B, T, x's row pitch, Cin (padded for bf16), Cout, k, n_groups
         ctypes.c_float, i, p,    # eps, dtype code, stream
     ]
     lib.condmdi_resblock_forward.restype = i

@@ -13,12 +13,19 @@ every Conv1dBlock / Conv1dAdaGNBlock of the UNet calls:
 run can show that its resblock halves went through the kernel.
 
 Layouts follow the JAX package: x [B, T, Cin], res and the output
-[B, T, Cout]; the weight is in torch's Conv1d layout [Cout, Cin, k].
+[B, T, Cout]; the weight is in torch's Conv1d layout [Cout, Cin, k]. x may
+carry up to 7 trailing alignment channels beyond the weight's Cin (the UNet
+pads its 526-channel input to 528 so that rows are 16-byte aligned); they
+are ignored.
+
+The bfloat16 kernel reads the weight in a packed layout
+(`pack_conv_weight`). A module packs once per parameter and hands the call a
+`PackedConvWeight`, which repacks when the parameter changes; a call without
+one packs on the fly.
 """
 
 from __future__ import annotations
 
-import ctypes
 from typing import Optional
 
 import torch
@@ -26,9 +33,57 @@ import torch.nn.functional as F
 
 # dynamic shared memory a block may use on sm_90 (227 KB)
 _MAX_SMEM = 232448
-_BLOCK_N = 128  # output channels one CTA holds: the group width's upper bound
+_BLOCK_N = 128  # the group width's upper bound: one cluster holds one group
 _TAPS = 5  # the conv width the kernel is built for (every resblock half)
+_CHUNK = 32  # input channels per stage of the bf16 kernel = the packed weight's chunk
+_MAX_CLUSTER = 8  # thread blocks of one cluster (the portable limit)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def pack_conv_weight(w: torch.Tensor) -> torch.Tensor:
+    """[Cout, Cin, k] → [Cin_pad/32, k, Cout_pad/8, 4, 8, 8]: (chunk of 32 input
+    channels, tap, block of 8 output channels, block of 8 input channels, output
+    channel, input channel), Cin zero-padded to a multiple of 32 and Cout to one of 8.
+
+    The innermost 8 x 8 block (128 contiguous bytes in bf16) is one core matrix
+    of the tensor cores' shared-memory operand, so the kernel copies a stage's
+    weights in linear 16-byte pieces and the tile lands in the layout `wgmma`
+    reads; the stage of one CTA is k contiguous runs.
+    """
+    cout, cin, k = w.shape
+    cin_pad, cout_pad = -(-cin // _CHUNK) * _CHUNK, -(-cout // 8) * 8
+    wp = F.pad(w, (0, 0, 0, cin_pad - cin, 0, cout_pad - cout))
+    wp = wp.reshape(cout_pad // 8, 8, cin_pad // _CHUNK, _CHUNK // 8, 8, k)
+    return wp.permute(2, 5, 0, 3, 1, 4).contiguous()
+
+
+def unpack_conv_weight(wp: torch.Tensor, cout: int, cin: int) -> torch.Tensor:
+    """The inverse of `pack_conv_weight`: back to [cout, cin, k]."""
+    chunks, k, blocks = wp.shape[:3]
+    w = wp.permute(2, 4, 0, 3, 5, 1).reshape(blocks * 8, chunks * _CHUNK, k)
+    return w[:cout, :cin].contiguous()
+
+
+class PackedConvWeight:
+    """The packed copy of one conv weight, remade when the weight changes.
+
+    Held by the calling module as a plain attribute: not a parameter, not a
+    buffer, not in the state_dict. The key is the weight's version counter,
+    data pointer, dtype, device and shape, so `load_state_dict`, an in-place
+    update, `.to(dtype)` and `.to(device)` all invalidate it. (A write
+    through `weight.data` bypasses the version counter and is not seen.)
+    """
+
+    def __init__(self):
+        self._key = None
+        self._packed = None
+
+    def get(self, w: torch.Tensor) -> torch.Tensor:
+        key = (w._version, w.data_ptr(), w.dtype, w.device, tuple(w.shape))
+        if key != self._key:
+            self._packed = pack_conv_weight(w.detach())
+            self._key = key
+        return self._packed
 
 
 def mish(x: torch.Tensor) -> torch.Tensor:
@@ -45,8 +100,9 @@ def reference_conv_gn_mish(
     group's channels, with the biased variance, as Flax's GroupNorm.
     """
     k = w.shape[-1]
+    x_in = x[..., : w.shape[1]]  # alignment channels, if any, are not part of the conv
     y = F.conv1d(
-        x.float().transpose(1, 2), w.float(), b.float(), padding=k // 2
+        x_in.float().transpose(1, 2), w.float(), b.float(), padding=k // 2
     ).transpose(1, 2)  # [B, T, C]
     B, T, C = y.shape
     g = y.reshape(B, T, n_groups, C // n_groups)
@@ -63,7 +119,7 @@ def reference_conv_gn_mish(
 
 
 def fused_conv_gn_mish(
-    x: torch.Tensor,                       # [B, T, Cin]
+    x: torch.Tensor,                       # [B, T, Cin (+ up to 7 alignment channels)]
     w: torch.Tensor,                       # [Cout, Cin, k]
     b: torch.Tensor,                       # [Cout]
     gamma: torch.Tensor,                   # [Cout]
@@ -74,6 +130,7 @@ def fused_conv_gn_mish(
     *,
     n_groups: int = 8,
     eps: float = 1e-5,
+    packed: Optional[PackedConvWeight] = None,  # the caller's cache of w's packed copy
 ) -> torch.Tensor:
     """One fused Conv1d(k, SAME) → GroupNorm → [AdaGN] → Mish [→ +res]."""
     if (scale is None) != (shift is None):
@@ -84,78 +141,115 @@ def fused_conv_gn_mish(
         )
     if x.device.type != "cuda":
         raise ValueError(f"fused_conv_gn_mish: unsupported device {x.device}")
-    return _launch(x, w, b, gamma, beta, scale, shift, res, n_groups, eps)
+    return _launch(x, w, b, gamma, beta, scale, shift, res, n_groups, eps, packed)
 
 
 fused_conv_gn_mish.launches = 0
 
 
+def bf16_tiles(T: int) -> tuple[int, int, int]:
+    """(rows, channels, ring stages) of one CTA of the bf16 kernel at length T
+    (mirrors the dispatch in csrc/resblock.cu `condmdi_resblock_forward`)."""
+    if T <= 64:
+        return 64, 64, 6
+    return 128, 128, 4
+
+
+def cluster_size(T: int, group: int) -> int:
+    """Thread blocks that share one (batch item, group) in the bf16 kernel."""
+    bm, bn, _ = bf16_tiles(T)
+    return -(-T // bm) * -(-group // bn)
+
+
 def smem_bytes(T: int, k: int, dtype: torch.dtype) -> int:
-    """Dynamic shared memory of one CTA (mirrors Smem<T, K>::bytes in csrc/resblock.cu)."""
-    split = 2 if dtype == torch.float32 else 1
-    bk = 16 if dtype == torch.float32 else 32
-    sk = bk + 8
-    acc = T * (_BLOCK_N + 4) * 4
-    xs = split * (128 + k - 1) * sk * 2
-    ws = split * k * _BLOCK_N * sk * 2
-    return acc + xs + ws + 64 * 4
+    """Dynamic shared memory of one CTA (mirrors csrc/resblock.cu: `Cfg::kSmem`
+    for bfloat16, `f32::smem_bytes` for float32)."""
+    if dtype == torch.float32:
+        sk = 16 + 8
+        acc = T * (_BLOCK_N + 4) * 4
+        return acc + 2 * ((128 + k - 1) * sk + k * _BLOCK_N * sk) * 2 + 64 * 4
+    bm, bn, stages = bf16_tiles(T)
+    x_plane_rows = (bm + k - 1 + 5) // 8 * 8 + 2  # Cfg::kXPlaneRows
+    return stages * ((_CHUNK // 8) * x_plane_rows * 16 + k * bn * _CHUNK * 2)
 
 
-def _launch(x, w, b, gamma, beta, scale, shift, res, n_groups, eps):
-    tensors = [x, w, b, gamma, beta] + [t for t in (scale, shift, res) if t is not None]
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            "fused_conv_gn_mish has no backward kernel yet; call it under "
-            "torch.no_grad() on CUDA"
-        )
-    if x.dtype not in _DTYPE_CODES:
-        raise TypeError(f"fused_conv_gn_mish: unsupported dtype {x.dtype}")
-    if any(t.dtype != x.dtype or t.device != x.device for t in tensors):
-        raise TypeError("fused_conv_gn_mish: all inputs must share x's dtype and device")
-    B, T, cin = x.shape
-    cout, wcin, k = w.shape
-    if wcin != cin:
-        raise ValueError(f"fused_conv_gn_mish: weight {tuple(w.shape)} does not take Cin={cin}")
+def _launch(x, w, b, gamma, beta, scale, shift, res, n_groups, eps, packed=None):
+    """Check what the kernel takes, launch it on the current stream, count the launch.
+
+    Runs 33 times per UNet forward, so the checks are written to cost the
+    host little: no device access, no copies of tensors already contiguous.
+    """
+    dtype, device = x.dtype, x.device
+    code = _DTYPE_CODES.get(dtype)
+    if code is None:
+        raise TypeError(f"fused_conv_gn_mish: unsupported dtype {dtype}")
+    for t in (x, w, b, gamma, beta, scale, shift, res):
+        if t is None:
+            continue
+        if t.dtype != dtype or t.device != device:
+            raise TypeError("fused_conv_gn_mish: all inputs must share x's dtype and device")
+        if t.requires_grad and torch.is_grad_enabled():
+            raise NotImplementedError(
+                "fused_conv_gn_mish has no backward kernel yet; call it under "
+                "torch.no_grad() on CUDA"
+            )
+    B, T, xc = x.shape
+    cout, cin, k = w.shape
+    if not cin <= xc <= -(-cin // 8) * 8:
+        raise ValueError(f"fused_conv_gn_mish: weight {tuple(w.shape)} does not take Cin={xc}")
     if k != _TAPS:
         raise NotImplementedError(f"the kernel is built for k={_TAPS} taps, not {k}")
     if cout % n_groups:
         raise ValueError(f"Cout={cout} is not a multiple of n_groups={n_groups}")
-    if cout // n_groups > _BLOCK_N:
+    group = cout // n_groups
+    if group > _BLOCK_N:
         raise NotImplementedError(
-            f"group width {cout // n_groups} > {_BLOCK_N}: one CTA holds one group"
+            f"group width {group} > {_BLOCK_N}: one cluster holds one group"
         )
-    if smem_bytes(T, k, x.dtype) > _MAX_SMEM:
-        raise NotImplementedError(f"T={T} does not fit one CTA's shared memory")
-    for name, t, shape in (("b", b, (cout,)), ("gamma", gamma, (cout,)),
-                           ("beta", beta, (cout,)), ("res", res, (B, T, cout))):
-        if t is not None and tuple(t.shape) != shape:
-            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+    bf16 = dtype == torch.bfloat16
+    if bf16 and cluster_size(T, group) > _MAX_CLUSTER:
+        raise NotImplementedError(
+            f"T={T} needs a cluster of {cluster_size(T, group)} blocks, more than {_MAX_CLUSTER}"
+        )
+    if not bf16 and smem_bytes(T, k, dtype) > _MAX_SMEM:
+        raise NotImplementedError(f"T={T} does not fit one CTA's shared memory in float32")
+    if not (b.shape == gamma.shape == beta.shape == (cout,)):
+        raise ValueError(f"b, gamma and beta must have shape ({cout},)")
+    if res is not None and res.shape != (B, T, cout):
+        raise ValueError(f"res has shape {tuple(res.shape)}, expected {(B, T, cout)}")
     ss_stride = 0
     if scale is not None:
-        for t in (scale, shift):
-            if tuple(t.shape) != (B, cout) or t.stride(1) != 1:
-                raise ValueError("scale/shift must be [B, Cout] with unit column stride")
-        if scale.stride(0) != shift.stride(0):
-            raise ValueError("scale and shift must share a row stride")
+        if not (scale.shape == shift.shape == (B, cout)) or scale.stride(1) != 1 \
+                or shift.stride(1) != 1:
+            raise ValueError("scale/shift must be [B, Cout] with unit column stride")
         ss_stride = scale.stride(0)
+        if shift.stride(0) != ss_stride:
+            raise ValueError("scale and shift must share a row stride")
 
-    x = x.contiguous()
-    w = w.contiguous()
-    res = res.contiguous() if res is not None else None
-    out = torch.empty((B, T, cout), device=x.device, dtype=x.dtype)
+    x, b, gamma, beta, res = (
+        t if t is None or t.is_contiguous() else t.contiguous() for t in (x, b, gamma, beta, res)
+    )
+    if bf16:
+        if xc % 8:  # a one-off call with unaligned rows; the UNet pads once, at its input
+            x = F.pad(x, (0, -xc % 8))
+        w = packed.get(w) if packed is not None else pack_conv_weight(w)
+        w_cin = w.shape[0] * _CHUNK
+    else:
+        w = w if w.is_contiguous() else w.contiguous()
+        w_cin = cin
+    out = torch.empty((B, T, cout), device=device, dtype=dtype)
 
     from condmdi_tpu_torch.ops import _build
 
     lib = _build.load_resblock()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-    ptr = lambda t: ctypes.c_void_p(t.data_ptr() if t is not None else 0)  # noqa: E731
+    # plain ints and None: the bound argtypes convert them (None is a null pointer)
     err = lib.condmdi_resblock_forward(
-        ptr(x), ptr(w), ptr(b.contiguous()), ptr(gamma.contiguous()),
-        ptr(beta.contiguous()), ptr(scale), ptr(shift), ctypes.c_longlong(ss_stride),
-        ptr(res), ptr(out),
-        B, T, cin, cout, k, n_groups, ctypes.c_float(eps), _DTYPE_CODES[x.dtype],
-        ctypes.c_void_p(stream),
+        x.data_ptr(), w.data_ptr(), b.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+        None if scale is None else scale.data_ptr(),
+        None if shift is None else shift.data_ptr(), ss_stride,
+        None if res is None else res.data_ptr(), out.data_ptr(),
+        B, T, x.shape[2], w_cin, cout, k, n_groups, eps, code,
+        torch.cuda.current_stream(device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"resblock kernel launch failed: {_build.error_string(lib, err)}")

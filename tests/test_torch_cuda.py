@@ -70,6 +70,88 @@ def test_kernel_matches_plain(cuda_device, dtype, case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("B", [1, 3, 8])
+@pytest.mark.parametrize("T", [7, 25, 50, 100, 196, 197, 200, 260])
+@pytest.mark.parametrize("adagn,res", [(True, False), (False, True), (False, False), (True, True)])
+def test_kernel_matches_plain_over_lengths_and_batches(cuda_device, dtype, B, T, adagn, res):
+    """Both tilings of the bf16 kernel (64-row tiles with the cluster split along
+    the group's 128 channels, 128-row tiles with the cluster split along T), a
+    Cin that is no multiple of the 32-channel chunk, and the float32 kernel at
+    the same shapes."""
+    cin, cout, groups = 72, 256, 2
+    dt = getattr(torch, dtype)
+    args, kw = make_inputs(B, T, cin, cout, adagn, res, dt, cuda_device, seed=T + B)
+    with torch.no_grad():
+        got = resblock.fused_conv_gn_mish(*args, **kw, n_groups=groups).float()
+        torch.cuda.synchronize()
+        want = resblock.reference_conv_gn_mish(*args, **kw, n_groups=groups).float()
+    tol = BF16_TOL if dt == torch.bfloat16 else F32_TOL
+    assert torch.isfinite(got).all()
+    assert torch.all((got - want).abs() <= tol * (1 + want.abs()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_kernel_ignores_alignment_channels(cuda_device, dtype):
+    """x may carry trailing channels up to the next multiple of 8 (526 -> 528)."""
+    dt = getattr(torch, dtype)
+    args, kw = make_inputs(2, 40, 526, 256, True, False, dt, cuda_device)
+    x_padded = torch.cat([args[0], torch.full_like(args[0][..., :2], 7.0)], dim=-1)
+    with torch.no_grad():
+        got = resblock.fused_conv_gn_mish(x_padded, *args[1:], **kw).float()
+        want = resblock.reference_conv_gn_mish(*args, **kw).float()
+    tol = BF16_TOL if dt == torch.bfloat16 else F32_TOL
+    assert torch.all((got - want).abs() <= tol * (1 + want.abs()))
+
+
+@pytest.mark.cuda
+def test_module_output_follows_its_weight(cuda_device):
+    """The cached packed weight of a block is remade when the weight changes."""
+    from condmdi_tpu_torch.models.layers import init_params
+    from condmdi_tpu_torch.models.unet import Conv1dAdaGNBlock
+
+    block = init_params(Conv1dAdaGNBlock(64, 128, device=cuda_device), 0).to(torch.bfloat16)
+    args, kw = make_inputs(2, 50, 64, 128, True, False, torch.bfloat16, cuda_device)
+
+    def both():
+        with torch.no_grad():
+            got = block(args[0], kw["scale"], kw["shift"]).float()
+            want = resblock.reference_conv_gn_mish(
+                args[0], block.conv.weight, block.conv.bias, block.norm.weight,
+                block.norm.bias, **kw).float()
+        assert torch.all((got - want).abs() <= BF16_TOL * (1 + want.abs()))
+        return got
+
+    first = both()
+    with torch.no_grad():
+        block.conv.weight.mul_(-1.5)
+    second = both()
+    assert (first - second).abs().max() > 0.1
+    block.load_state_dict({k: torch.randn_like(v) * 0.05 for k, v in block.state_dict().items()})
+    both()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad", ["long_T_bf16", "long_T_f32", "group_width", "taps"])
+def test_kernel_wrapper_refuses_what_the_kernel_does_not_take(cuda_device, bad):
+    B, T, cin, cout, dt = 1, 16, 16, 64, torch.bfloat16
+    if bad == "long_T_bf16":
+        T = 1025  # nine 128-row tiles: more than one cluster holds
+    elif bad == "long_T_f32":
+        T, dt = 420, torch.float32  # the f32 pre-norm tile outgrows shared memory
+    elif bad == "group_width":
+        cout = 8 * 136
+    args, kw = make_inputs(B, T, cin, cout, False, False, dt, cuda_device)
+    if bad == "taps":
+        args[1] = args[1][..., :3].contiguous()
+    before = resblock.fused_conv_gn_mish.launches
+    with torch.no_grad(), pytest.raises(NotImplementedError):
+        resblock.fused_conv_gn_mish(*args, **kw)
+    assert resblock.fused_conv_gn_mish.launches == before
+
+
+@pytest.mark.cuda
 def test_kernel_refuses_autograd(cuda_device):
     args, _ = make_inputs(2, 16, 24, 32, False, False, torch.float32, cuda_device)
     args[0].requires_grad_(True)
@@ -109,6 +191,39 @@ def test_attention_kernel_matches_plain(cuda_device, dtype, case):
     tol = BF16_TOL if dt == torch.bfloat16 else F32_TOL
     assert got.shape == (B, T, D) and torch.isfinite(got).all()
     assert torch.all((got - want).abs() <= tol * (1 + want.abs()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("B", [1, 3, 8])
+@pytest.mark.parametrize("T", [7, 25, 50, 100, 196, 197, 200])
+@pytest.mark.parametrize("D,H", [(512, 4), (96, 4)])
+def test_attention_kernel_over_lengths_and_batches(cuda_device, dtype, B, T, D, H):
+    """One to four key tiles with a ragged last one, the served head width and one
+    that is a multiple of 8 but not of 16."""
+    dt = getattr(torch, dtype)
+    q, k, v = qkv_views(B, T, D, dt, cuda_device, seed=T + B)
+    with torch.no_grad():
+        got = attention.mha(q, k, v, H).float()
+        torch.cuda.synchronize()
+        want = attention._xla_attention(q, k, v, H).float()
+    tol = BF16_TOL if dt == torch.bfloat16 else F32_TOL
+    assert torch.isfinite(got).all()
+    assert torch.all((got - want).abs() <= tol * (1 + want.abs()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [100, 197, 300, 448])
+@pytest.mark.parametrize("B", [40, 70])
+def test_attention_kernel_at_many_heads_and_long_sequences(cuda_device, B, T):
+    """More (batch, head) pairs than the card has SMs, and sequences past 256."""
+    D, H = 128, 4
+    q, k, v = qkv_views(B, T, D, torch.bfloat16, cuda_device)
+    with torch.no_grad():
+        got = attention.mha(q, k, v, H).float()
+        torch.cuda.synchronize()
+        want = attention._xla_attention(q, k, v, H).float()
+    assert torch.all((got - want).abs() <= BF16_TOL * (1 + want.abs()))
 
 
 @pytest.mark.cuda

@@ -151,3 +151,67 @@ def test_smem_fits_the_main_path():
     for T in (200, 224, 25):
         for dtype in (torch.bfloat16, torch.float32):
             assert resblock.smem_bytes(T, 5, dtype) <= resblock._MAX_SMEM
+
+
+@pytest.mark.parametrize("cin", [526, 1024, 7])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pack_round_trips_and_pads_with_zeros(cin, dtype):
+    """unpack(pack(w)) == w, and the channels past Cin and Cout are zero."""
+    rng = np.random.default_rng(cin)
+    cout = 20  # not a multiple of the 8-channel block
+    w = torch.from_numpy(rng.standard_normal((cout, cin, 5)).astype(np.float32)).to(dtype)
+    wp = resblock.pack_conv_weight(w)
+    cin_pad = -(-cin // 32) * 32
+    assert wp.shape == (cin_pad // 32, 5, 3, 4, 8, 8) and wp.is_contiguous() and wp.dtype == dtype
+    assert torch.equal(resblock.unpack_conv_weight(wp, cout, cin), w)
+    full = resblock.unpack_conv_weight(wp, 24, cin_pad)
+    assert not full[:, cin:].any() and not full[cout:].any()
+    # the layout the kernel indexes: [chunk, tap, channel block, input block, channel, input]
+    chunk = (cin - 1) // 32  # the last chunk, partly padding unless Cin % 32 == 0
+    assert wp[chunk, 3, 13 // 8, 0, 13 % 8, 2] == w[13, chunk * 32 + 2, 3]
+
+
+def test_plain_version_ignores_alignment_channels():
+    """x may carry up to 7 trailing channels beyond the weight's Cin."""
+    args, kw = make_inputs(2, 16, 26, 32, adagn=True, res=True)
+    targs, tkw = to_torch(args, kw)
+    x_padded = torch.cat([targs[0], torch.full((2, 16, 6), 9.0)], dim=-1)  # 26 -> 32
+    got = resblock.fused_conv_gn_mish(x_padded, *targs[1:], **tkw)
+    assert torch.equal(got, resblock.reference_conv_gn_mish(*targs, **tkw))
+    with pytest.raises(ValueError, match="Cin"):
+        resblock._launch(torch.zeros(2, 16, 33), *targs[1:], None, None, None, 8, 1e-5)
+
+
+@pytest.mark.parametrize("T,group,expected", [
+    (200, 128, 2), (100, 128, 1), (50, 128, 2), (25, 128, 2), (224, 128, 2), (7, 4, 1), (1024, 128, 8),
+])
+def test_cluster_covers_one_batch_item_and_group(T, group, expected):
+    """The bf16 kernel's cluster: 64- or 128-row tiles along T, 64-column tiles at T <= 64."""
+    assert resblock.cluster_size(T, group) == expected
+    assert resblock.smem_bytes(T, 5, torch.bfloat16) <= resblock._MAX_SMEM
+
+
+def test_card_path_refuses_a_length_no_cluster_holds():
+    args, kw = make_inputs(1, 1025, 8, 16, adagn=False, res=False)
+    targs, _ = to_torch(args, kw)
+    targs = [t.to(torch.bfloat16) for t in targs]
+    with pytest.raises(NotImplementedError, match="cluster"):
+        resblock._launch(*targs, None, None, None, 8, 1e-5)
+    f32 = to_torch(*make_inputs(1, 420, 8, 16, adagn=False, res=False))[0]
+    with pytest.raises(NotImplementedError, match="shared memory"):
+        resblock._launch(*f32, None, None, None, 8, 1e-5)
+
+
+def test_packed_weight_cache_follows_the_weight():
+    cache = resblock.PackedConvWeight()
+    w = torch.nn.Parameter(torch.randn(8, 40, 5))
+    first = cache.get(w)
+    assert cache.get(w) is first  # unchanged weight: no repack
+    with torch.no_grad():
+        w.mul_(2.0)
+    second = cache.get(w)
+    assert second is not first and torch.equal(second, resblock.pack_conv_weight(w.detach()))
+    w.data = w.data.to(torch.bfloat16)
+    third = cache.get(w)
+    assert third.dtype == torch.bfloat16
+    assert torch.equal(third, resblock.pack_conv_weight(w.detach()))

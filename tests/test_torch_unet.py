@@ -179,3 +179,81 @@ def test_cfg_denoiser_matches_jax(scale):
     with torch.no_grad():
         got = tden(torch.from_numpy(x), torch.from_numpy(t)).numpy()
     np.testing.assert_allclose(got, want, atol=ATOL * scale, rtol=0)
+
+
+def _block_inputs(B=2, T=12, cin=24, cout=32, seed=0):
+    rng = np.random.default_rng(seed)
+    f = lambda *shape: torch.from_numpy(rng.standard_normal(shape).astype(np.float32))  # noqa: E731
+    return f(B, T, cin), 0.2 * f(B, cout), 0.2 * f(B, cout)
+
+
+def _fresh_block(seed, cin=24, cout=32):
+    from condmdi_tpu_torch.models.layers import init_params
+    from condmdi_tpu_torch.models.unet import Conv1dAdaGNBlock
+
+    return init_params(Conv1dAdaGNBlock(cin, cout, device="cpu"), seed)
+
+
+@pytest.mark.parametrize("change", ["load_state_dict", "in_place", "to_bfloat16"])
+def test_block_follows_new_weights_after_a_first_forward(change):
+    """The packed copy the card path would read is current with the weight after
+    every way the weights change once a forward has run, and so is the output."""
+    from condmdi_tpu_torch.ops.resblock import pack_conv_weight, reference_conv_gn_mish
+
+    block = _fresh_block(0)
+    x, scale, shift = _block_inputs()
+    with torch.no_grad():
+        before = block(x, scale, shift)
+    stale = block.packed.get(block.conv.weight).clone()
+    if change == "load_state_dict":
+        block.load_state_dict(_fresh_block(1).state_dict())
+    elif change == "in_place":
+        with torch.no_grad():
+            block.conv.weight.add_(0.05)
+    else:
+        block.to(torch.bfloat16)
+        x, scale, shift = (t.to(torch.bfloat16) for t in (x, scale, shift))
+    packed = block.packed.get(block.conv.weight)
+    assert packed.dtype == block.conv.weight.dtype
+    assert torch.equal(packed, pack_conv_weight(block.conv.weight.detach()))
+    assert not torch.equal(packed.float(), stale)
+    with torch.no_grad():
+        after = block(x, scale, shift)
+        want = reference_conv_gn_mish(x, block.conv.weight, block.conv.bias, block.norm.weight,
+                                      block.norm.bias, scale, shift)
+    assert torch.equal(after, want)
+    if change != "to_bfloat16":
+        assert (after - before).abs().max() > 1e-3
+
+
+def test_state_dict_keys_are_unchanged_by_a_forward():
+    tm = TorchUNet(**small_config(), device="cpu", seed=0)
+    keys = list(tm.state_dict())
+    x, obs, mask, text, t = inputs(2, 24)
+    with torch.no_grad():
+        tm(torch.from_numpy(x), torch.from_numpy(t), {"text_embed": torch.from_numpy(text)},
+           obs_x0=torch.from_numpy(obs), obs_mask=torch.from_numpy(mask))
+    half = tm.unet.down0_res1.block1
+    half.packed.get(half.conv.weight)
+    assert list(tm.state_dict()) == keys
+    assert not any("packed" in k for k in keys)
+    assert not any("packed" in n for n, _ in tm.named_buffers())
+
+
+@pytest.mark.parametrize("keyframes", [True, False])
+def test_padded_input_path_matches_jax(keyframes):
+    """The first resblock receives 2F = 526 (or F = 263) channels padded to a
+    multiple of 8, and the output still matches the JAX model."""
+    config = dict(small_config(), keyframe_conditioned=keyframes)
+    B, T = 2, 21
+    jm, params, tm = jax_pair(config, B, 24)
+    seen = []
+    handle = tm.unet.down0_res1.block1.register_forward_hook(
+        lambda _m, args, _out: seen.append(args[0].shape))
+    x, obs, mask, text, t = inputs(B, T, seed=2)
+    got, want = run_both(jm, params, tm, x, t, {"text_embed": text}, obs, mask)
+    handle.remove()
+    channels = 2 * F if keyframes else F
+    assert seen == [(B, 24, -(-channels // 8) * 8)] and seen[0][-1] % 8 == 0
+    assert tm.unet.down0_res1.block1.conv.weight.shape[1] == channels
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
