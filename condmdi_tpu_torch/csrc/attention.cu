@@ -5,32 +5,65 @@
 // Replaces the Pallas TPU kernel condmdi_tpu/ops/attention.py:34 `_attn_kernel`
 // (launched by `_pallas_self_attention`). The TPU layout (q/k/v transposed to
 // [B, H, Tp, hdp] and padded to 128 x 128 tiles, one (batch, head) block in
-// VMEM) is not carried over: this kernel reads the heads straight out of the
-// [B, T, D] column blocks of the fused QKV projection, with a row stride.
+// VMEM) is not carried over: both kernels here read the heads straight out of
+// the [B, T, D] column blocks of the fused QKV projection, with a row stride.
 //
 // What bounds it on an H100: bytes. At the served MDM shape (B=8 rows under
 // CFG, T=197, D=512, H=4, hd=128) q, k, v and out in bf16 are 6.46 MB, 1.93 us
 // at 3.35 TB/s, against 4*B*H*T^2*hd = 0.64 GFLOP, 0.64 us at 989 TFLOP/s.
 //
-// Design: one CTA per (tile of 64 query rows, head, batch item), four warps
-// of 16 query rows each. The CTA stages its Q tile in shared memory once and
-// keeps each warp's Q fragments in registers, then walks the keys in tiles
-// of 64: K row-major and V transposed into shared memory, S = Q.K^T on the
-// tensor cores (mma.sync m16n8k16, bf16 in, f32 accumulate), scale and mask
-// keys >= T in f32, an online softmax (running max and sum per row in f32),
-// and O += P.V with P taken from the S accumulators without a round trip
-// through shared memory. The scores never reach device memory, so the
-// kernel reads q, k and v and writes out: the bytes of the bound, apart from
-// K and V being read once per query tile (4 times at T=197). Normalisation
-// happens once at the end and only rows < T are written. float32 inputs go
-// through the same tensor-core path as a hi+lo bf16 split (hi*hi + hi*lo +
-// lo*hi for both products), which keeps about 16 mantissa bits. Any T works
-// (the last key tile is masked, padding query rows are zero and not
-// written); hd may be any multiple of 8 up to 128 (columns up to the next
-// multiple of 16 are zero in shared memory). This is the simple, correct
-// first version: loads are plain 16-byte loads staged through registers,
-// with no cp.async/TMA pipelining, no wgmma and no K/V reuse across query
-// tiles (timings in PERF.md).
+// Two hand-written kernels, and which shape takes which. The caller names the
+// route (ops/attention.py `attention_route`, a function of the shape and the
+// type alone), and this file refuses a route that the shape does not fit:
+//
+//   route 1, "wgmma" -- `resident::attention_resident_kernel`: bfloat16 with a
+//     head width of 32, 64 or 128 whose K and V fit one block's shared memory,
+//     4*hd*(16*ceil(T/16) + 1) <= 231,424 bytes: T <= 448 at hd=128, 896 at
+//     hd=64, 1792 at hd=32. This is what the models serve (T <= 225).
+//   route 0, "mma_sync" -- `tiled::attention_tiled_kernel`: float32 always,
+//     and bfloat16 at every other head width (multiples of 8 up to 128) or
+//     longer T. It walks K and V in 64-key tiles, so any T works.
+//
+// route 1, the design. One CTA is one warpgroup (128 threads) and owns one
+// head of one batch item and `q_tiles` consecutive 64-row query tiles of it.
+//   * All of the head's K and V go to shared memory once, by 16-byte cp.async
+//     issued up front, one commit group per 64-key tile in the order the tiles
+//     are used, so the first tile's products start while the later tiles are
+//     still on their way and no load waits for a product. Rows T..16*ceil(T/16)
+//     are zero-filled by the copy itself.
+//   * The layout is the one wgmma reads without swizzle and without any
+//     transpose in software: per block of 8 columns a plane, rows 16 bytes
+//     apart, so that any 8 rows x 8 columns are one 128-byte core matrix. K is
+//     the K-major operand of S = Q.K^T (8 keys x 8 columns per core matrix), V
+//     the MN-major operand of O += P.V through the transpose bit (8 keys x 8
+//     columns again): the same layout serves both. A plane has an odd number
+//     of rows, so the 16 pieces of one global row land in different banks.
+//   * Q never enters shared memory: each thread loads its A fragments (the
+//     m16n8k16 fragment layout, which wgmma shares) from global memory once per
+//     query tile, ahead of the K/V copies, and the next tile's fragments while
+//     the current tile computes. P stays in registers too: the S accumulators
+//     of two 8-key tiles are the A fragment of one k16 step of P.V.
+//   * Both products are wgmma (m64n64k16 for S, m64n{hd}k16 for O), bf16 in,
+//     f32 accumulate; the online softmax runs in the log2 domain in f32, keys
+//     >= T masked to -inf after the product; normalisation once at the end,
+//     rows >= T not written.
+//   * With K and V at 107 KB for T=197, hd=128 and no shared memory for Q or
+//     the output, two CTAs share an SM: while one does its softmax the other
+//     owns the tensor cores, and a new CTA's loads overlap its neighbour's
+//     products. The grid comes from B*H: one query tile per CTA while that
+//     leaves the card short of two CTAs per SM (the served batch: K and V are
+//     then read once per query tile, out of L2), all query tiles of a head in
+//     one CTA when there are heads enough (the evaluation batch: every byte of
+//     q, k, v read once).
+//
+// route 0 is the first version of this kernel, unchanged: one CTA per (tile of
+// 64 query rows, head, batch item), four warps of 16 query rows each, K
+// row-major and V transposed into shared memory tile by tile with plain
+// 16-byte loads staged through registers, mma.sync m16n8k16, the same online
+// softmax. float32 inputs go through the tensor cores as a hi+lo bf16 split
+// (hi*hi + hi*lo + lo*hi for both products), which keeps about 16 mantissa
+// bits. hd may be any multiple of 8 up to 128 (columns up to the next multiple
+// of 16 are zero in shared memory). Timings of both routes are in PERF.md.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -39,16 +72,386 @@
 
 namespace {
 
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kMaxHd = 128;       // widest head either kernel takes
+constexpr int kMaxSmem = 232448;  // dynamic + static shared memory of one block on sm_90
+
+// two floats as one bf16x2 register, `lo` in the low half (the lower index)
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// ------------------------------------------------------------------------- //
+// route 1: bfloat16, K and V of one head resident in shared memory, wgmma
+// ------------------------------------------------------------------------- //
+
+namespace resident {
+
+typedef __nv_bfloat16 bf16;
+
+constexpr int kThreads = 128;   // one warpgroup: 4 warps x 16 query rows
+constexpr int kBlockM = 64;     // query rows per tile
+constexpr int kBlockN = 64;     // keys per tile
+constexpr int kSmemBudget = kMaxSmem - 1024;  // what ops/attention.py routes by
+constexpr int kMaxWaitGroups = 7;
+
+// bytes of one 8-column plane: 16 B per row, rows padded to an odd count
+__host__ __device__ constexpr int plane_bytes(int t_len) { return (((t_len + 15) & ~15) + 1) * 16; }
+__host__ __device__ constexpr long long smem_bytes(int t_len, int hd) {
+  return 2LL * (hd / 8) * plane_bytes(t_len);
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared; all zeros when !ok (src is then not read)
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool ok) {
+  const int bytes = ok ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// Wait until at most min(n, kMaxWaitGroups) of this thread's newest groups are
+// pending. Groups complete in order, so waiting for more than asked is safe.
+__device__ __forceinline__ void cp_async_wait_pending(int n) {
+  switch (n) {
+    case 0: cp_async_wait<0>(); break;
+    case 1: cp_async_wait<1>(); break;
+    case 2: cp_async_wait<2>(); break;
+    case 3: cp_async_wait<3>(); break;
+    case 4: cp_async_wait<4>(); break;
+    case 5: cp_async_wait<5>(); break;
+    case 6: cp_async_wait<6>(); break;
+    default: cp_async_wait<kMaxWaitGroups>(); break;
+  }
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// writes made to shared memory by ordinary copies become visible to wgmma's reads
+__device__ __forceinline__ void fence_async_proxy() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// keeps the compiler from moving uses of an accumulator across a wgmma wait
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// Shared-memory descriptor of an operand without swizzle: core matrices of 128
+// contiguous bytes (8 rows of 16 B); `lbo` bytes between core matrices that
+// are neighbours along the product's depth (k), `sbo` bytes between
+// neighbours along the operand's other dimension (n).
+__device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32);
+}
+
+__device__ __forceinline__ float fast_exp2(float x) {  // 2^x; -inf gives +0
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+#define CONDMDI_D8(d, o)                                                                     \
+  "+f"(d[o]), "+f"(d[o + 1]), "+f"(d[o + 2]), "+f"(d[o + 3]), "+f"(d[o + 4]), "+f"(d[o + 5]), \
+      "+f"(d[o + 6]), "+f"(d[o + 7])
+
+// d[64 x N] (+)= a[64 x 16] . b[16 x N]: a in registers (this thread's m16n8k16
+// A fragment of its warp's 16 rows), b in shared memory by descriptor, K-major
+// (TNSP 0) or MN-major (TNSP 1). scale_d 0 overwrites d.
+template <int N, int TNSP>
+struct WgmmaRS;
+template <int TNSP>
+struct WgmmaRS<32, TNSP> {
+  static __device__ __forceinline__ void run(float (&d)[16], const uint32_t (&a)[4],
+                                             uint64_t b_desc, int scale_d) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1, %22;\n"
+        "}\n"
+        : CONDMDI_D8(d, 0), CONDMDI_D8(d, 8)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b_desc), "r"(scale_d), "n"(TNSP));
+  }
+};
+template <int TNSP>
+struct WgmmaRS<64, TNSP> {
+  static __device__ __forceinline__ void run(float (&d)[32], const uint32_t (&a)[4],
+                                             uint64_t b_desc, int scale_d) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n"
+        "}\n"
+        : CONDMDI_D8(d, 0), CONDMDI_D8(d, 8), CONDMDI_D8(d, 16), CONDMDI_D8(d, 24)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b_desc), "r"(scale_d), "n"(TNSP));
+  }
+};
+template <int TNSP>
+struct WgmmaRS<128, TNSP> {
+  static __device__ __forceinline__ void run(float (&d)[64], const uint32_t (&a)[4],
+                                             uint64_t b_desc, int scale_d) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+        " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+        " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1, %70;\n"
+        "}\n"
+        : CONDMDI_D8(d, 0), CONDMDI_D8(d, 8), CONDMDI_D8(d, 16), CONDMDI_D8(d, 24),
+          CONDMDI_D8(d, 32), CONDMDI_D8(d, 40), CONDMDI_D8(d, 48), CONDMDI_D8(d, 56)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b_desc), "r"(scale_d), "n"(TNSP));
+  }
+};
+#undef CONDMDI_D8
+
+// This thread's A fragments of query rows row0 and row0 + 8, all HD/16 depth
+// steps, straight from global memory; rows >= T read as zero.
+template <int HD>
+__device__ __forceinline__ void load_q_fragments(uint32_t (&qf)[HD / 16][4],
+                                                 const bf16* __restrict__ q_head,
+                                                 long long stride_t, int row0, int t_len,
+                                                 int cq) {
+  const bool ok0 = row0 < t_len, ok1 = row0 + 8 < t_len;
+  const unsigned int* p0 =
+      reinterpret_cast<const unsigned int*>(q_head + (long long)row0 * stride_t + 2 * cq);
+  const unsigned int* p1 =
+      reinterpret_cast<const unsigned int*>(q_head + (long long)(row0 + 8) * stride_t + 2 * cq);
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {  // 8 columns are 4 words
+    qf[kk][0] = ok0 ? __ldg(p0 + 8 * kk) : 0u;
+    qf[kk][1] = ok1 ? __ldg(p1 + 8 * kk) : 0u;
+    qf[kk][2] = ok0 ? __ldg(p0 + 8 * kk + 4) : 0u;
+    qf[kk][3] = ok1 ? __ldg(p1 + 8 * kk + 4) : 0u;
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kThreads, 2)
+attention_resident_kernel(const bf16* __restrict__ q,  // [B, T, *] rows stride_t apart, head h at column h*HD
+                          const bf16* __restrict__ k,
+                          const bf16* __restrict__ v,
+                          bf16* __restrict__ out,      // [B, T, H*HD] contiguous
+                          long long stride_b, long long stride_t,
+                          int t_len, int heads, int q_tiles, float scale_log2) {
+  constexpr int kNB = HD / 8;    // 8-column planes of K and of V
+  constexpr int kNK = HD / 16;   // depth steps of Q.K^T
+  extern __shared__ __align__(128) unsigned char smem_resident[];
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gq = lane >> 2, cq = lane & 3;  // fragment row / column pair
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int n_tiles = (t_len + kBlockN - 1) / kBlockN;  // key tiles = query tiles
+  const int qt0 = blockIdx.x * q_tiles;
+  const int qt1 = min(qt0 + q_tiles, n_tiles);
+  const int t_pad = (t_len + 15) & ~15;
+  const uint32_t plane = plane_bytes(t_len);
+  const uint32_t s_k = smem_u32(smem_resident), s_v = s_k + kNB * plane;
+  const long long head = (long long)b * stride_b + (long long)h * HD;
+  const bf16* q_head = q + head;
+  const bf16* k_head = k + head;
+  const bf16* v_head = v + head;
+
+  // Q first, so that its loads are not queued behind the K/V copies
+  uint32_t qf[kNK][4];
+  load_q_fragments<HD>(qf, q_head, stride_t, qt0 * kBlockM + warp * 16 + gq, t_len, cq);
+
+  // all of K and V, one commit group per key tile, in the order of use
+  for (int j = 0; j < n_tiles; ++j) {
+    const int r0 = j * kBlockN;
+    const int pieces = min(kBlockN, t_pad - r0) * kNB;
+    for (int idx = tid; idx < pieces; idx += kThreads) {
+      const int row = r0 + idx / kNB, c = idx % kNB;
+      const bool ok = row < t_len;
+      const long long src = ok ? (long long)row * stride_t + c * 8 : 0;
+      const uint32_t dst = c * plane + row * 16;
+      cp_async16(s_k + dst, k_head + src, ok);
+      cp_async16(s_v + dst, v_head + src, ok);
+    }
+    cp_async_commit();
+  }
+
+  for (int qt = qt0; qt < qt1; ++qt) {
+    const int row_base = qt * kBlockM + warp * 16 + gq;
+    uint32_t q_next[kNK][4];
+    if (qt + 1 < qt1)
+      load_q_fragments<HD>(q_next, q_head, stride_t, row_base + kBlockM, t_len, cq);
+
+    float o[HD / 2];  // n8 tile t of this warp's 16 rows: o[4t .. 4t+3]
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+    // rows gq and gq + 8: running max of the raw scores, this thread's part of the row sum
+    float row_max[2] = {-INFINITY, -INFINITY};
+    float row_sum[2] = {0.f, 0.f};
+
+    for (int j = 0; j < n_tiles; ++j) {
+      const int n0 = j * kBlockN;
+      if (qt == qt0) {  // the tile's copies have landed, for every thread
+        cp_async_wait_pending(n_tiles - 1 - j);
+        fence_async_proxy();
+        __syncthreads();
+      }
+
+      // S = Q . K^T: 64 rows x 64 keys
+      float s[32];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kNK; ++kk)
+        WgmmaRS<64, 0>::run(s, qf[kk],
+                            wgmma_desc(s_k + 2 * kk * plane + n0 * 16, plane, 128), kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+
+      if (n0 + kBlockN > t_len) {  // the ragged last tile: keys >= T
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int col = n0 + (i >> 2) * 8 + 2 * cq + (i & 1);
+          s[i] = col < t_len ? s[i] : -INFINITY;
+        }
+      }
+      float tile_max[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int i = 0; i < 32; ++i) tile_max[(i >> 1) & 1] = fmaxf(tile_max[(i >> 1) & 1], s[i]);
+      float corr[2], max_scaled[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        // the four threads of a quad hold one row; key n0 < T keeps the max finite
+        tile_max[r] = fmaxf(tile_max[r], __shfl_xor_sync(0xffffffffu, tile_max[r], 1));
+        tile_max[r] = fmaxf(tile_max[r], __shfl_xor_sync(0xffffffffu, tile_max[r], 2));
+        const float new_max = fmaxf(row_max[r], tile_max[r]);
+        corr[r] = fast_exp2((row_max[r] - new_max) * scale_log2);  // 0 on the first tile
+        row_max[r] = new_max;
+        row_sum[r] *= corr[r];
+        max_scaled[r] = new_max * scale_log2;
+      }
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int r = (i >> 1) & 1;
+        s[i] = fast_exp2(fmaf(s[i], scale_log2, -max_scaled[r]));  // masked keys give 0
+        row_sum[r] += s[i];
+      }
+      if (j > 0) {
+#pragma unroll
+        for (int i = 0; i < HD / 2; ++i) o[i] *= corr[(i >> 1) & 1];
+      }
+
+      // O += P . V: the S accumulators of key tiles 2kk, 2kk+1 are the A fragment of step kk
+      uint32_t pa[kBlockN / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < kBlockN / 16; ++kk) {
+        pa[kk][0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
+        pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+        pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+        pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBlockN / 16; ++kk)
+        if (n0 + kk * 16 < t_pad)  // rows past the zero-filled ones were never copied
+          WgmmaRS<HD, 1>::run(o, pa[kk], wgmma_desc(s_v + (n0 + kk * 16) * 16, 128, plane), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(o);
+    }
+
+    // normalise and write rows < T
+    float inv[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      row_sum[r] += __shfl_xor_sync(0xffffffffu, row_sum[r], 1);
+      row_sum[r] += __shfl_xor_sync(0xffffffffu, row_sum[r], 2);
+      inv[r] = 1.f / row_sum[r];
+    }
+    const int d_model = heads * HD;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = row_base + 8 * half;
+      if (row < t_len) {
+        bf16* dst = out + ((long long)b * t_len + row) * d_model + h * HD + 2 * cq;
+#pragma unroll
+        for (int t = 0; t < kNB; ++t)
+          *reinterpret_cast<__nv_bfloat162*>(dst + t * 8) = __floats2bfloat162_rn(
+              o[4 * t + 2 * half] * inv[half], o[4 * t + 2 * half + 1] * inv[half]);
+      }
+    }
+
+    if (qt + 1 < qt1) {
+#pragma unroll
+      for (int kk = 0; kk < kNK; ++kk)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) qf[kk][i] = q_next[kk][i];
+    }
+  }
+}
+
+template <int HD>
+int launch(const void* q, const void* k, const void* v, void* out, int batch, int t_len,
+           int heads, long long stride_b, long long stride_t, int q_tiles,
+           cudaStream_t stream) {
+  auto kernel = attention_resident_kernel<HD>;
+  static cudaError_t attr_err = [&] {  // once per instantiation
+    cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         kSmemBudget);
+    if (e != cudaSuccess) return e;
+    // all of the SM's memory as shared memory, so that two CTAs fit where their sizes allow
+    return cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                (int)cudaSharedmemCarveoutMaxShared);
+  }();
+  if (attr_err != cudaSuccess) return (int)attr_err;
+  const int n_tiles = (t_len + kBlockM - 1) / kBlockM;
+  const dim3 grid((n_tiles + q_tiles - 1) / q_tiles, heads, batch);
+  const float scale_log2 = kLog2e / sqrtf((float)HD);
+  kernel<<<grid, kThreads, (size_t)smem_bytes(t_len, HD), stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<bf16*>(out), stride_b, stride_t, t_len, heads, q_tiles, scale_log2);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace resident
+
+// ------------------------------------------------------------------------- //
+// route 0: float32 and whatever route 1 does not hold; key tiles, mma.sync
+// ------------------------------------------------------------------------- //
+
+namespace tiled {
 constexpr int kThreads = 128;           // 4 warps x 16 query rows
 constexpr int kBlockM = 64;             // query rows per CTA
 constexpr int kBlockN = 64;             // keys per tile
-constexpr int kMaxHd = 128;             // widest head the kernel takes
 constexpr int kPitch = kMaxHd + 8;      // Q/K row pitch (bf16): conflict-free fragment loads
 constexpr int kVtPitch = kBlockN + 8;   // V^T row pitch (bf16)
 constexpr int kQPlane = kBlockM * kPitch;
 constexpr int kKPlane = kBlockN * kPitch;
 constexpr int kVPlane = kMaxHd * kVtPitch;
-constexpr float kLog2e = 1.4426950408889634f;
 
 template <typename T>
 struct Split;
@@ -68,12 +471,6 @@ constexpr size_t smem_bytes() {
 
 __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// two floats as one bf16x2 register, `lo` in the low half (the lower index)
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 __device__ __forceinline__ float bf16_residual(float v) {
@@ -167,7 +564,7 @@ __device__ void load_cols(const T* __restrict__ base, long long stride_t, int ro
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-attention_kernel(const T* __restrict__ q,   // [B, T, *] rows stride_t apart, head h at column h*hd
+attention_tiled_kernel(const T* __restrict__ q,   // [B, T, *] rows stride_t apart, head h at column h*hd
                  const T* __restrict__ k,
                  const T* __restrict__ v,
                  T* __restrict__ out,       // [B, T, H*hd] contiguous
@@ -343,34 +740,52 @@ int launch(const void* q, const void* k, const void* v, void* out, int batch, in
            int heads, int hd, long long stride_b, long long stride_t, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<T>();
   cudaError_t err = cudaFuncSetAttribute(
-      attention_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      attention_tiled_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((t_len + kBlockM - 1) / kBlockM, heads, batch);
   const float scale_log2 = kLog2e / sqrtf((float)hd);
-  attention_kernel<T><<<grid, kThreads, smem, stream>>>(
+  attention_tiled_kernel<T><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(out), stride_b, stride_t, t_len, heads, hd, scale_log2);
   return (int)cudaGetLastError();
 }
+}  // namespace tiled
 
 }  // namespace
 
 // q, k, v: [B, T, H*hd] views sharing (stride_b, stride_t) in elements, unit
 // column stride, 16-byte aligned rows; out: [B, T, H*hd] contiguous.
-// dtype 0 = float32, 1 = bfloat16. Returns the launch's cudaGetLastError().
+// dtype 0 = float32, 1 = bfloat16. route 0 = the tiled mma.sync kernel, 1 = the
+// resident wgmma kernel, which also takes the number of 64-row query tiles one
+// CTA walks. Returns the launch's cudaGetLastError(), or cudaErrorInvalidValue
+// for a route that the shape or the type does not fit.
 extern "C" int condmdi_attention_forward(const void* q, const void* k, const void* v, void* out,
                                          int batch, int t_len, int heads, int head_dim,
                                          long long stride_b, long long stride_t, int dtype,
-                                         void* stream) {
+                                         int route, int q_tiles, void* stream) {
   if (batch <= 0 || batch > 65535 || t_len <= 0 || heads <= 0 || heads > 65535 ||
       head_dim <= 0 || head_dim > kMaxHd || head_dim % 8 != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (route == 1) {
+    if (dtype != 1 || q_tiles <= 0 ||
+        resident::smem_bytes(t_len, head_dim) > resident::kSmemBudget)
+      return (int)cudaErrorInvalidValue;
+#define CONDMDI_RESIDENT(HD) \
+  resident::launch<HD>(q, k, v, out, batch, t_len, heads, stride_b, stride_t, q_tiles, s)
+    if (head_dim == 128) return CONDMDI_RESIDENT(128);
+    if (head_dim == 64) return CONDMDI_RESIDENT(64);
+    if (head_dim == 32) return CONDMDI_RESIDENT(32);
+#undef CONDMDI_RESIDENT
+    return (int)cudaErrorInvalidValue;
+  }
+  if (route != 0) return (int)cudaErrorInvalidValue;
   if (dtype == 0)
-    return launch<float>(q, k, v, out, batch, t_len, heads, head_dim, stride_b, stride_t, s);
+    return tiled::launch<float>(q, k, v, out, batch, t_len, heads, head_dim, stride_b, stride_t,
+                                s);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k, v, out, batch, t_len, heads, head_dim, stride_b,
-                                 stride_t, s);
+    return tiled::launch<__nv_bfloat16>(q, k, v, out, batch, t_len, heads, head_dim, stride_b,
+                                        stride_t, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -105,7 +105,7 @@ def _bind_attention(lib: ctypes.CDLL) -> None:
         p, p, p, p,   # q, k, v, out
         i, i, i, i,   # B, T, heads, head_dim
         ll, ll,       # batch and row strides of q/k/v, in elements
-        i, p,         # dtype code, stream
+        i, i, i, p,   # dtype code, route code, query tiles per CTA (route 1), stream
     ]
     lib.condmdi_attention_forward.restype = i
     lib.condmdi_error_string.argtypes = [i]

@@ -3,9 +3,11 @@
 Counterpart of condmdi_tpu/ops/attention.py, with the same names:
 
   * `fused_self_attention` is a `torch.autograd.Function`. Its forward sends
-    a CUDA tensor to the hand-written Hopper kernel (csrc/attention.cu, built
-    and bound by ops/_build.py) or raises; it never falls back to the plain
-    version. A CPU tensor takes `_xla_attention`, the plain PyTorch version.
+    a CUDA tensor to one of the two hand-written Hopper kernels of
+    csrc/attention.cu (built and bound by ops/_build.py) or raises; it never
+    falls back to the plain version. A CPU tensor takes `_xla_attention`, the
+    plain PyTorch version. Which kernel runs is `attention_route`, a function
+    of the shape and the type alone.
     Its backward recomputes the softmax in plain torch, formula for formula
     as the JAX package's `_fused_bwd` does in XLA: that backward was never a
     Pallas kernel.
@@ -30,6 +32,11 @@ import torch
 _MAX_HEAD_DIM = 128  # the widest head the kernel takes (multiples of 8)
 _MAX_GRID_Z = 65535  # CUDA's limit on the grid's batch dimension
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_ROUTE_CODES = {"mma_sync": 0, "wgmma": 1}
+_WGMMA_HEAD_DIMS = (32, 64, 128)  # head widths the resident kernel is instantiated for
+_WGMMA_SMEM_BUDGET = 232448 - 1024  # a block's shared memory on sm_90, less a reserve
+_QUERY_TILE = 64  # query rows of one tile of either kernel
+_sm_counts: dict[int, int] = {}
 
 
 def _split_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -106,8 +113,51 @@ def multihead_attention(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
     return mha(q, k, v, num_heads)
 
 
+def resident_smem_bytes(T: int, hd: int) -> int:
+    """Shared memory of the resident kernel: K and V of one head as hd/8 planes
+    each, 16 bytes a row, rows padded to a multiple of 16 and then to an odd count."""
+    return 4 * hd * (16 * -(-T // 16) + 1)
+
+
+def attention_route(B: int, T: int, H: int, hd: int, dtype: torch.dtype) -> str:
+    """Which kernel of csrc/attention.cu a [B, T, H*hd] self-attention takes.
+
+    "wgmma": bfloat16, a head width of 32, 64 or 128, and K and V of one head
+    within a block's shared memory (T <= 448 at hd=128): all of K and V resident,
+    both products on wgmma. "mma_sync": everything else the kernels take
+    (float32; other head widths; longer T): 64-key tiles, mma.sync. The answer
+    depends on the shape and the type only, never on a build or a launch.
+    """
+    if (dtype == torch.bfloat16 and hd in _WGMMA_HEAD_DIMS
+            and resident_smem_bytes(T, hd) <= _WGMMA_SMEM_BUDGET):
+        return "wgmma"
+    return "mma_sync"
+
+
+def query_tiles_per_cta(B: int, T: int, H: int, sm_count: int) -> int:
+    """How many 64-row query tiles of one head a CTA of the resident kernel walks.
+
+    A CTA loads all of its head's K and V, so fewer CTAs per head mean fewer
+    bytes; but the card wants two CTAs on each SM. The answer is the largest
+    count that still leaves 2 * sm_count CTAs, and 1 where even that many
+    tiles do not exist (the served batch).
+    """
+    tiles = -(-T // _QUERY_TILE)
+    for per_cta in range(tiles, 1, -1):
+        if B * H * -(-tiles // per_cta) >= 2 * sm_count:
+            return per_cta
+    return 1
+
+
+def _sm_count(device: torch.device) -> int:
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    if index not in _sm_counts:
+        _sm_counts[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    return _sm_counts[index]
+
+
 def _launch(q, k, v, num_heads: int) -> torch.Tensor:
-    """Check what the kernel takes, launch it on the current stream, count the launch."""
+    """Check what the kernels take, launch one on the current stream, count the launch."""
     if q.dtype not in _DTYPE_CODES:
         raise TypeError(f"fused_self_attention: unsupported dtype {q.dtype}")
     if any(t.dtype != q.dtype or t.device != q.device for t in (k, v)):
@@ -133,6 +183,8 @@ def _launch(q, k, v, num_heads: int) -> torch.Tensor:
     for t in (q, k, v):  # the kernel reads rows in 16-byte vectors
         if t.data_ptr() % 16 or (t.stride(0) * size) % 16 or (t.stride(1) * size) % 16:
             raise ValueError("fused_self_attention: q/k/v rows must be 16-byte aligned")
+    route = attention_route(B, T, num_heads, hd, q.dtype)
+    q_tiles = query_tiles_per_cta(B, T, num_heads, _sm_count(q.device)) if route == "wgmma" else 1
     out = torch.empty((B, T, D), device=q.device, dtype=q.dtype)
 
     from condmdi_tpu_torch.ops import _build
@@ -143,9 +195,11 @@ def _launch(q, k, v, num_heads: int) -> torch.Tensor:
         ctypes.c_void_p(q.data_ptr()), ctypes.c_void_p(k.data_ptr()),
         ctypes.c_void_p(v.data_ptr()), ctypes.c_void_p(out.data_ptr()),
         B, T, num_heads, hd, ctypes.c_longlong(q.stride(0)), ctypes.c_longlong(q.stride(1)),
-        _DTYPE_CODES[q.dtype], ctypes.c_void_p(stream),
+        _DTYPE_CODES[q.dtype], _ROUTE_CODES[route], q_tiles, ctypes.c_void_p(stream),
     )
     if err != 0:
-        raise RuntimeError(f"attention kernel launch failed: {_build.error_string(lib, err)}")
+        raise RuntimeError(
+            f"attention kernel launch failed (route {route}): {_build.error_string(lib, err)}"
+        )
     fused_self_attention.launches += 1
     return out
