@@ -65,6 +65,7 @@
 // bits. hd may be any multiple of 8 up to 128 (columns up to the next multiple
 // of 16 are zero in shared memory). Timings of both routes are in PERF.md.
 
+#include <cuda.h>  // CUtensorMap and its enums; the driver's encoder is taken at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -94,44 +95,58 @@ constexpr int kThreads = 128;   // one warpgroup: 4 warps x 16 query rows
 constexpr int kBlockM = 64;     // query rows per tile
 constexpr int kBlockN = 64;     // keys per tile
 constexpr int kSmemBudget = kMaxSmem - 1024;  // what ops/attention.py routes by
-constexpr int kMaxWaitGroups = 7;
+constexpr int kMaxTiles = 32;   // key tiles of the longest sequence the budget holds (hd=32)
+constexpr int kBarrierBytes = kMaxTiles * 8;
+// S = Q.K^T always reads 64 rows of a K tile; where the last tile is shorter it
+// reads on into V, and V must reach that far
+constexpr int kOverread = (kBlockN - 16) * 128;
 
-// bytes of one 8-column plane: 16 B per row, rows padded to an odd count
-__host__ __device__ constexpr int plane_bytes(int t_len) { return (((t_len + 15) & ~15) + 1) * 16; }
+// K and V of one head: rows of hd bf16, padded to a multiple of 16 rows; then the barriers
+__host__ __device__ constexpr int padded_rows(int t_len) { return (t_len + 15) & ~15; }
 __host__ __device__ constexpr long long smem_bytes(int t_len, int hd) {
-  return 2LL * (hd / 8) * plane_bytes(t_len);
+  const long long one = 2LL * hd * padded_rows(t_len);  // K, or V
+  return 2 * one + (one < kOverread ? kOverread - one : 0) + kBarrierBytes;
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// 16 bytes global -> shared; all zeros when !ok (src is then not read)
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool ok) {
-  const int bytes = ok ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(bytes)
+__device__ __forceinline__ void mbarrier_init(uint32_t bar, int arrivals) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(arrivals) : "memory");
+}
+// one arrival that also announces `bytes` of copies which will complete on the barrier
+__device__ __forceinline__ void mbarrier_arrive_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
                : "memory");
 }
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
+// spin until the barrier's phase with this parity is complete
+__device__ __forceinline__ void mbarrier_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
 }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+// One TMA copy of a box of the 3-D view (columns; rows; batch items) into shared
+// memory, completing on the barrier; rows >= T arrive as zeros.
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int col, int row, int batch_item) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(row), "r"(batch_item)
+      : "memory");
 }
-// Wait until at most min(n, kMaxWaitGroups) of this thread's newest groups are
-// pending. Groups complete in order, so waiting for more than asked is safe.
-__device__ __forceinline__ void cp_async_wait_pending(int n) {
-  switch (n) {
-    case 0: cp_async_wait<0>(); break;
-    case 1: cp_async_wait<1>(); break;
-    case 2: cp_async_wait<2>(); break;
-    case 3: cp_async_wait<3>(); break;
-    case 4: cp_async_wait<4>(); break;
-    case 5: cp_async_wait<5>(); break;
-    case 6: cp_async_wait<6>(); break;
-    default: cp_async_wait<kMaxWaitGroups>(); break;
-  }
+__device__ __forceinline__ void tma_prefetch_map(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -144,8 +159,9 @@ template <int N>
 __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
-// writes made to shared memory by ordinary copies become visible to wgmma's reads
-__device__ __forceinline__ void fence_async_proxy() {
+// the barriers' initialisation becomes visible to the copies that complete on them
+__device__ __forceinline__ void fence_barrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 // keeps the compiler from moving uses of an accumulator across a wgmma wait
@@ -155,13 +171,17 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// Shared-memory descriptor of an operand without swizzle: core matrices of 128
-// contiguous bytes (8 rows of 16 B); `lbo` bytes between core matrices that
-// are neighbours along the product's depth (k), `sbo` bytes between
-// neighbours along the operand's other dimension (n).
+// Shared-memory descriptor of an operand stored as rows of ROW_BYTES (128 or 64)
+// under the swizzle of that width, the layout a TMA box with the same swizzle
+// lands in. `sbo`: bytes between groups of 8 rows. `lbo`: for the MN-major
+// operand, bytes between two ROW_BYTES-wide column groups; unused (16) for the
+// K-major one, whose depth steps move the start address inside the row.
+template <int ROW_BYTES>
 __device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  static_assert(ROW_BYTES == 128 || ROW_BYTES == 64, "128-byte or 64-byte swizzle");
+  constexpr uint64_t kLayout = ROW_BYTES == 128 ? 1 : 2;
   return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32);
+         ((uint64_t)(sbo >> 4) << 32) | (kLayout << 62);
 }
 
 __device__ __forceinline__ float fast_exp2(float x) {  // 2^x; -inf gives +0
@@ -258,14 +278,21 @@ __device__ __forceinline__ void load_q_fragments(uint32_t (&qf)[HD / 16][4],
 template <int HD>
 __global__ void __launch_bounds__(kThreads, 2)
 attention_resident_kernel(const bf16* __restrict__ q,  // [B, T, *] rows stride_t apart, head h at column h*HD
-                          const bf16* __restrict__ k,
-                          const bf16* __restrict__ v,
                           bf16* __restrict__ out,      // [B, T, H*HD] contiguous
+                          // k and v as 3-D views (H*HD columns; T rows; B) in boxes of
+                          // min(HD, 64) columns x 64 rows, and x the last key tile's rows
+                          const __grid_constant__ CUtensorMap k_full,
+                          const __grid_constant__ CUtensorMap k_last,
+                          const __grid_constant__ CUtensorMap v_full,
+                          const __grid_constant__ CUtensorMap v_last,
                           long long stride_b, long long stride_t,
                           int t_len, int heads, int q_tiles, float scale_log2) {
-  constexpr int kNB = HD / 8;    // 8-column planes of K and of V
-  constexpr int kNK = HD / 16;   // depth steps of Q.K^T
-  extern __shared__ __align__(128) unsigned char smem_resident[];
+  constexpr int kNK = HD / 16;                 // depth steps of Q.K^T
+  constexpr int kCols = HD < 64 ? HD : 64;     // columns of one box: one swizzled row
+  constexpr int kRowBytes = kCols * 2;
+  constexpr int kGroups = HD / kCols;          // column groups of a key tile
+  constexpr int kTileBytes = kBlockN * HD * 2; // one full key tile of K, or of V
+  extern __shared__ __align__(1024) unsigned char smem_resident[];
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int gq = lane >> 2, cq = lane & 3;  // fragment row / column pair
@@ -273,32 +300,48 @@ attention_resident_kernel(const bf16* __restrict__ q,  // [B, T, *] rows stride_
   const int n_tiles = (t_len + kBlockN - 1) / kBlockN;  // key tiles = query tiles
   const int qt0 = blockIdx.x * q_tiles;
   const int qt1 = min(qt0 + q_tiles, n_tiles);
-  const int t_pad = (t_len + 15) & ~15;
-  const uint32_t plane = plane_bytes(t_len);
-  const uint32_t s_k = smem_u32(smem_resident), s_v = s_k + kNB * plane;
-  const long long head = (long long)b * stride_b + (long long)h * HD;
-  const bf16* q_head = q + head;
-  const bf16* k_head = k + head;
-  const bf16* v_head = v + head;
+  const int last_rows = padded_rows(t_len) - (n_tiles - 1) * kBlockN;  // 16, 32, 48 or 64
+  const uint32_t s_k = smem_u32(smem_resident);
+  const uint32_t s_v = s_k + 2 * HD * padded_rows(t_len);
+  // one barrier per key tile, behind K, V and what S may read past them
+  const uint32_t bars = s_k + (uint32_t)smem_bytes(t_len, HD) - kBarrierBytes;
+  const bf16* q_head = q + (long long)b * stride_b + (long long)h * HD;
+  if ((s_k & 1023) != 0) __trap();  // the swizzle is a function of the address
 
-  // Q first, so that its loads are not queued behind the K/V copies
+  if (tid == 0) {
+    tma_prefetch_map(&k_last);
+    tma_prefetch_map(&v_last);
+    if (n_tiles > 1) {
+      tma_prefetch_map(&k_full);
+      tma_prefetch_map(&v_full);
+    }
+  }
+  // Q first: its loads are in flight while the barriers are set up
   uint32_t qf[kNK][4];
   load_q_fragments<HD>(qf, q_head, stride_t, qt0 * kBlockM + warp * 16 + gq, t_len, cq);
 
-  // all of K and V, one commit group per key tile, in the order of use
-  for (int j = 0; j < n_tiles; ++j) {
-    const int r0 = j * kBlockN;
-    const int pieces = min(kBlockN, t_pad - r0) * kNB;
-    for (int idx = tid; idx < pieces; idx += kThreads) {
-      const int row = r0 + idx / kNB, c = idx % kNB;
-      const bool ok = row < t_len;
-      const long long src = ok ? (long long)row * stride_t + c * 8 : 0;
-      const uint32_t dst = c * plane + row * 16;
-      cp_async16(s_k + dst, k_head + src, ok);
-      cp_async16(s_v + dst, v_head + src, ok);
+  // All of K and V by TMA, one barrier per key tile, in the order of use. Tile
+  // j lands as [column group][row][kCols columns] under the swizzle, full tiles
+  // kTileBytes apart; the last tile has `last_rows` rows.
+  if (tid == 0) {
+    for (int j = 0; j < n_tiles; ++j) mbarrier_init(bars + 8 * j, 1);
+    fence_barrier_init();
+    for (int j = 0; j < n_tiles; ++j) {
+      const bool last = j == n_tiles - 1;
+      const int rows = last ? last_rows : kBlockN;
+      const uint32_t bar = bars + 8 * j;
+      mbarrier_arrive_expect_tx(bar, 2 * rows * HD * 2);
+#pragma unroll
+      for (int g = 0; g < kGroups; ++g)
+        tma_load_3d(s_k + j * kTileBytes + g * rows * kRowBytes, last ? &k_last : &k_full, bar,
+                    h * HD + g * kCols, j * kBlockN, b);
+#pragma unroll
+      for (int g = 0; g < kGroups; ++g)
+        tma_load_3d(s_v + j * kTileBytes + g * rows * kRowBytes, last ? &v_last : &v_full, bar,
+                    h * HD + g * kCols, j * kBlockN, b);
     }
-    cp_async_commit();
   }
+  __syncthreads();  // the barriers exist before anyone waits on them
 
   for (int qt = qt0; qt < qt1; ++qt) {
     const int row_base = qt * kBlockM + warp * 16 + gq;
@@ -315,19 +358,23 @@ attention_resident_kernel(const bf16* __restrict__ q,  // [B, T, *] rows stride_
 
     for (int j = 0; j < n_tiles; ++j) {
       const int n0 = j * kBlockN;
-      if (qt == qt0) {  // the tile's copies have landed, for every thread
-        cp_async_wait_pending(n_tiles - 1 - j);
-        fence_async_proxy();
-        __syncthreads();
-      }
+      const bool last = j == n_tiles - 1;
+      const int rows = last ? last_rows : kBlockN;
+      const uint32_t group = rows * kRowBytes;  // bytes between the tile's column groups
+      const uint32_t k_tile = s_k + j * kTileBytes, v_tile = s_v + j * kTileBytes;
+      if (qt == qt0) mbarrier_wait(bars + 8 * j, 0);  // later query tiles find K and V in place
 
-      // S = Q . K^T: 64 rows x 64 keys
+      // S = Q . K^T: 64 rows x 64 keys. Past the last tile's rows the product
+      // reads whatever follows in shared memory; those keys are masked below.
       float s[32];
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kNK; ++kk)
-        WgmmaRS<64, 0>::run(s, qf[kk],
-                            wgmma_desc(s_k + 2 * kk * plane + n0 * 16, plane, 128), kk > 0);
+        WgmmaRS<64, 0>::run(
+            s, qf[kk],
+            wgmma_desc<kRowBytes>(k_tile + (16 * kk / kCols) * group + (16 * kk % kCols) * 2, 16,
+                                  8 * kRowBytes),
+            kk > 0);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(s);
@@ -339,26 +386,35 @@ attention_resident_kernel(const bf16* __restrict__ q,  // [B, T, *] rows stride_
           s[i] = col < t_len ? s[i] : -INFINITY;
         }
       }
-      float tile_max[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-      for (int i = 0; i < 32; ++i) tile_max[(i >> 1) & 1] = fmaxf(tile_max[(i >> 1) & 1], s[i]);
+      // s[4t + 2r + e]: row gq + 8r, key n0 + 8t + 2cq + e
       float corr[2], max_scaled[2];
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
+        float m[4];
+#pragma unroll
+        for (int t = 0; t < 4; ++t)
+          m[t] = fmaxf(fmaxf(s[4 * t + 2 * r], s[4 * t + 2 * r + 1]),
+                       fmaxf(s[4 * t + 16 + 2 * r], s[4 * t + 16 + 2 * r + 1]));
+        float tile_max = fmaxf(fmaxf(m[0], m[1]), fmaxf(m[2], m[3]));
         // the four threads of a quad hold one row; key n0 < T keeps the max finite
-        tile_max[r] = fmaxf(tile_max[r], __shfl_xor_sync(0xffffffffu, tile_max[r], 1));
-        tile_max[r] = fmaxf(tile_max[r], __shfl_xor_sync(0xffffffffu, tile_max[r], 2));
-        const float new_max = fmaxf(row_max[r], tile_max[r]);
+        tile_max = fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, 1));
+        tile_max = fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, 2));
+        const float new_max = fmaxf(row_max[r], tile_max);
         corr[r] = fast_exp2((row_max[r] - new_max) * scale_log2);  // 0 on the first tile
         row_max[r] = new_max;
-        row_sum[r] *= corr[r];
         max_scaled[r] = new_max * scale_log2;
       }
 #pragma unroll
-      for (int i = 0; i < 32; ++i) {
-        const int r = (i >> 1) & 1;
-        s[i] = fast_exp2(fmaf(s[i], scale_log2, -max_scaled[r]));  // masked keys give 0
-        row_sum[r] += s[i];
+      for (int i = 0; i < 32; ++i)  // masked keys give 0
+        s[i] = fast_exp2(fmaf(s[i], scale_log2, -max_scaled[(i >> 1) & 1]));
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float part[4];
+#pragma unroll
+        for (int t = 0; t < 4; ++t)
+          part[t] = (s[4 * t + 2 * r] + s[4 * t + 2 * r + 1]) +
+                    (s[4 * t + 16 + 2 * r] + s[4 * t + 16 + 2 * r + 1]);
+        row_sum[r] = fmaf(row_sum[r], corr[r], (part[0] + part[1]) + (part[2] + part[3]));
       }
       if (j > 0) {
 #pragma unroll
@@ -377,8 +433,10 @@ attention_resident_kernel(const bf16* __restrict__ q,  // [B, T, *] rows stride_
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kBlockN / 16; ++kk)
-        if (n0 + kk * 16 < t_pad)  // rows past the zero-filled ones were never copied
-          WgmmaRS<HD, 1>::run(o, pa[kk], wgmma_desc(s_v + (n0 + kk * 16) * 16, 128, plane), 1);
+        if (kk * 16 < rows)  // the last tile holds no rows past the zero-filled ones
+          WgmmaRS<HD, 1>::run(
+              o, pa[kk], wgmma_desc<kRowBytes>(v_tile + kk * 16 * kRowBytes, group, 8 * kRowBytes),
+              1);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(o);
@@ -399,7 +457,7 @@ attention_resident_kernel(const bf16* __restrict__ q,  // [B, T, *] rows stride_
       if (row < t_len) {
         bf16* dst = out + ((long long)b * t_len + row) * d_model + h * HD + 2 * cq;
 #pragma unroll
-        for (int t = 0; t < kNB; ++t)
+        for (int t = 0; t < HD / 8; ++t)
           *reinterpret_cast<__nv_bfloat162*>(dst + t * 8) = __floats2bfloat162_rn(
               o[4 * t + 2 * half] * inv[half], o[4 * t + 2 * half + 1] * inv[half]);
       }
@@ -412,6 +470,46 @@ attention_resident_kernel(const bf16* __restrict__ q,  // [B, T, *] rows stride_
         for (int i = 0; i < 4; ++i) qf[kk][i] = q_next[kk][i];
     }
   }
+}
+
+// The driver's tensor-map encoder, taken through the runtime so that nothing
+// links against the driver library.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled tensor_map_encoder() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) !=
+            cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      p = nullptr;
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// x [B, T, cols] (rows stride_t elements apart, 16-byte aligned) as a 3-D bf16
+// tensor (cols; T; B), cut in boxes of (box_cols; box_rows; 1) that land in
+// shared memory as rows of box_cols bf16 under the swizzle of that width (128
+// or 64 bytes), which is how wgmma reads them.
+bool encode_map(CUtensorMap* map, const void* x, int batch, int t_len, int cols,
+                long long stride_b, long long stride_t, int box_rows, int box_cols) {
+  EncodeTiled encode = tensor_map_encoder();
+  if (encode == nullptr) return false;
+  if (batch == 1) stride_b = (long long)t_len * stride_t;  // unused, but must be a valid stride
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)t_len, (cuuint64_t)batch};
+  const cuuint64_t strides[2] = {(cuuint64_t)stride_t * 2, (cuuint64_t)stride_b * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows, 1};
+  const cuuint32_t steps[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(x), dims, strides,
+                box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                box_cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <int HD>
@@ -429,11 +527,26 @@ int launch(const void* q, const void* k, const void* v, void* out, int batch, in
   }();
   if (attr_err != cudaSuccess) return (int)attr_err;
   const int n_tiles = (t_len + kBlockM - 1) / kBlockM;
+  const int last_rows = padded_rows(t_len) - (n_tiles - 1) * kBlockN;
+  CUtensorMap k_full, k_last, v_full, v_last;
+  const int cols = heads * HD;
+  constexpr int kCols = HD < 64 ? HD : 64;
+  if (!encode_map(&k_last, k, batch, t_len, cols, stride_b, stride_t, last_rows, kCols) ||
+      !encode_map(&v_last, v, batch, t_len, cols, stride_b, stride_t, last_rows, kCols))
+    return (int)cudaErrorInvalidValue;
+  if (n_tiles > 1) {
+    if (!encode_map(&k_full, k, batch, t_len, cols, stride_b, stride_t, kBlockN, kCols) ||
+        !encode_map(&v_full, v, batch, t_len, cols, stride_b, stride_t, kBlockN, kCols))
+      return (int)cudaErrorInvalidValue;
+  } else {  // never used by the kernel
+    k_full = k_last;
+    v_full = v_last;
+  }
   const dim3 grid((n_tiles + q_tiles - 1) / q_tiles, heads, batch);
   const float scale_log2 = kLog2e / sqrtf((float)HD);
   kernel<<<grid, kThreads, (size_t)smem_bytes(t_len, HD), stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(out), stride_b, stride_t, t_len, heads, q_tiles, scale_log2);
+      static_cast<const bf16*>(q), static_cast<bf16*>(out), k_full, k_last, v_full, v_last,
+      stride_b, stride_t, t_len, heads, q_tiles, scale_log2);
   return (int)cudaGetLastError();
 }
 
@@ -769,7 +882,8 @@ extern "C" int condmdi_attention_forward(const void* q, const void* k, const voi
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (route == 1) {
     if (dtype != 1 || q_tiles <= 0 ||
-        resident::smem_bytes(t_len, head_dim) > resident::kSmemBudget)
+        resident::smem_bytes(t_len, head_dim) > resident::kSmemBudget ||
+        (t_len + resident::kBlockN - 1) / resident::kBlockN > resident::kMaxTiles)
       return (int)cudaErrorInvalidValue;
 #define CONDMDI_RESIDENT(HD) \
   resident::launch<HD>(q, k, v, out, batch, t_len, heads, stride_b, stride_t, q_tiles, s)

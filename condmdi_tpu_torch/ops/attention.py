@@ -114,9 +114,11 @@ def multihead_attention(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
 
 
 def resident_smem_bytes(T: int, hd: int) -> int:
-    """Shared memory of the resident kernel: K and V of one head as hd/8 planes
-    each, 16 bytes a row, rows padded to a multiple of 16 and then to an odd count."""
-    return 4 * hd * (16 * -(-T // 16) + 1)
+    """Shared memory of the resident kernel (csrc/attention.cu `resident::smem_bytes`):
+    K and V of one head, rows padded to a multiple of 16; V at least as long as
+    the 64-row product over a short K tile reads; 32 barriers."""
+    one = 2 * hd * 16 * -(-T // 16)
+    return 2 * one + max(0, (64 - 16) * 128 - one) + 32 * 8
 
 
 def attention_route(B: int, T: int, H: int, hd: int, dtype: torch.dtype) -> str:
