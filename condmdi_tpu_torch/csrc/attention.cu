@@ -162,7 +162,6 @@ __device__ __forceinline__ void wgmma_wait() {
 // the barriers' initialisation becomes visible to the copies that complete on them
 __device__ __forceinline__ void fence_barrier_init() {
   asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 // keeps the compiler from moving uses of an accumulator across a wgmma wait
 template <int N>
@@ -316,7 +315,7 @@ attention_resident_kernel(const bf16* __restrict__ q,  // [B, T, *] rows stride_
       tma_prefetch_map(&v_full);
     }
   }
-  // Q first: its loads are in flight while the barriers are set up
+  // Q straight to registers; its loads are on their way before the copies are
   uint32_t qf[kNK][4];
   load_q_fragments<HD>(qf, q_head, stride_t, qt0 * kBlockM + warp * 16 + gq, t_len, cq);
 
@@ -343,106 +342,131 @@ attention_resident_kernel(const bf16* __restrict__ q,  // [B, T, *] rows stride_
   }
   __syncthreads();  // the barriers exist before anyone waits on them
 
-  for (int qt = qt0; qt < qt1; ++qt) {
-    const int row_base = qt * kBlockM + warp * 16 + gq;
-    uint32_t q_next[kNK][4];
-    if (qt + 1 < qt1)
-      load_q_fragments<HD>(q_next, q_head, stride_t, row_base + kBlockM, t_len, cq);
+  float o[HD / 2];  // n8 tile t of this warp's 16 rows: o[4t .. 4t+3]
+  float s[32];      // scores of one key tile: s[4t + 2r + e] is row gq + 8r, key 8t + 2cq + e
+  uint32_t pa[kBlockN / 16][4];  // P of one key tile as the A fragments of P.V
+  // rows gq and gq + 8: running max of the raw scores, this thread's part of the row sum
+  float row_max[2], row_sum[2], corr[2];
+  bool first_q_tile = true;  // later query tiles find K and V in place
 
-    float o[HD / 2];  // n8 tile t of this warp's 16 rows: o[4t .. 4t+3]
+  // S = Q . K^T of key tile j: 64 rows x 64 keys, left in flight. Past the
+  // last tile's rows the product reads whatever follows in shared memory;
+  // those keys are masked before use.
+  auto issue_scores = [&](int j) {
+    const uint32_t group = (j == n_tiles - 1 ? last_rows : kBlockN) * kRowBytes;
+    const uint32_t k_tile = s_k + j * kTileBytes;
+    if (first_q_tile) mbarrier_wait(bars + 8 * j, 0);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kNK; ++kk)
+      WgmmaRS<64, 0>::run(
+          s, qf[kk],
+          wgmma_desc<kRowBytes>(k_tile + (16 * kk / kCols) * group + (16 * kk % kCols) * 2, 16,
+                                8 * kRowBytes),
+          kk > 0);
+    wgmma_commit();
+  };
+  // O += P . V of key tile j, left in flight; the last tile holds no rows past
+  // the zero-filled ones
+  auto issue_pv = [&](int j, int rows) {
+    const uint32_t v_tile = s_v + j * kTileBytes;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBlockN / 16; ++kk)
+      if (kk * 16 < rows)
+        WgmmaRS<HD, 1>::run(
+            o, pa[kk],
+            wgmma_desc<kRowBytes>(v_tile + kk * 16 * kRowBytes, rows * kRowBytes, 8 * kRowBytes),
+            1);
+    wgmma_commit();
+  };
+  // the online softmax of key tile j on the finished scores: s becomes P
+  // (unnormalised), corr the factor that the earlier tiles' sums and O take
+  auto softmax = [&](int j) {
+    const int n0 = j * kBlockN;
+    if (n0 + kBlockN > t_len) {  // the ragged last tile: keys >= T
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int col = n0 + (i >> 2) * 8 + 2 * cq + (i & 1);
+        s[i] = col < t_len ? s[i] : -INFINITY;
+      }
+    }
+    float max_scaled[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float m[4];
+#pragma unroll
+      for (int t = 0; t < 4; ++t)
+        m[t] = fmaxf(fmaxf(s[4 * t + 2 * r], s[4 * t + 2 * r + 1]),
+                     fmaxf(s[4 * t + 16 + 2 * r], s[4 * t + 16 + 2 * r + 1]));
+      float tile_max = fmaxf(fmaxf(m[0], m[1]), fmaxf(m[2], m[3]));
+      // the four threads of a quad hold one row; key n0 < T keeps the max finite
+      tile_max = fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, 1));
+      tile_max = fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, 2));
+      const float new_max = fmaxf(row_max[r], tile_max);
+      corr[r] = fast_exp2((row_max[r] - new_max) * scale_log2);  // 0 on the first tile
+      row_max[r] = new_max;
+      max_scaled[r] = new_max * scale_log2;
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i)  // masked keys give 0
+      s[i] = fast_exp2(fmaf(s[i], scale_log2, -max_scaled[(i >> 1) & 1]));
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float part[4];
+#pragma unroll
+      for (int t = 0; t < 4; ++t)
+        part[t] = (s[4 * t + 2 * r] + s[4 * t + 2 * r + 1]) +
+                  (s[4 * t + 16 + 2 * r] + s[4 * t + 16 + 2 * r + 1]);
+      row_sum[r] = fmaf(row_sum[r], corr[r], (part[0] + part[1]) + (part[2] + part[3]));
+    }
+  };
+  // the S accumulators of key tiles 2kk, 2kk+1 are the A fragment of step kk
+  auto pack_p = [&]() {
+#pragma unroll
+    for (int kk = 0; kk < kBlockN / 16; ++kk) {
+      pa[kk][0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
+      pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+      pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+      pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+    }
+  };
+
+  for (int qt = qt0; qt < qt1; ++qt) {
 #pragma unroll
     for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
-    // rows gq and gq + 8: running max of the raw scores, this thread's part of the row sum
-    float row_max[2] = {-INFINITY, -INFINITY};
-    float row_sum[2] = {0.f, 0.f};
+    row_max[0] = row_max[1] = -INFINITY;
+    row_sum[0] = row_sum[1] = 0.f;
 
-    for (int j = 0; j < n_tiles; ++j) {
-      const int n0 = j * kBlockN;
-      const bool last = j == n_tiles - 1;
-      const int rows = last ? last_rows : kBlockN;
-      const uint32_t group = rows * kRowBytes;  // bytes between the tile's column groups
-      const uint32_t k_tile = s_k + j * kTileBytes, v_tile = s_v + j * kTileBytes;
-      if (qt == qt0) mbarrier_wait(bars + 8 * j, 0);  // later query tiles find K and V in place
-
-      // S = Q . K^T: 64 rows x 64 keys. Past the last tile's rows the product
-      // reads whatever follows in shared memory; those keys are masked below.
-      float s[32];
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < kNK; ++kk)
-        WgmmaRS<64, 0>::run(
-            s, qf[kk],
-            wgmma_desc<kRowBytes>(k_tile + (16 * kk / kCols) * group + (16 * kk % kCols) * 2, 16,
-                                  8 * kRowBytes),
-            kk > 0);
-      wgmma_commit();
-      wgmma_wait<0>();
+    // Key tile j's scores and key tile j-1's P.V are issued together: the
+    // tensor cores work on P.V through tile j's softmax.
+    issue_scores(0);
+    wgmma_wait<0>();
+    fence_regs(s);
+    softmax(0);
+    pack_p();
+    for (int j = 1; j < n_tiles; ++j) {
+      issue_scores(j);
+      issue_pv(j - 1, kBlockN);
+      wgmma_wait<1>();  // the scores are done, P.V may still run
       fence_regs(s);
-
-      if (n0 + kBlockN > t_len) {  // the ragged last tile: keys >= T
-#pragma unroll
-        for (int i = 0; i < 32; ++i) {
-          const int col = n0 + (i >> 2) * 8 + 2 * cq + (i & 1);
-          s[i] = col < t_len ? s[i] : -INFINITY;
-        }
-      }
-      // s[4t + 2r + e]: row gq + 8r, key n0 + 8t + 2cq + e
-      float corr[2], max_scaled[2];
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        float m[4];
-#pragma unroll
-        for (int t = 0; t < 4; ++t)
-          m[t] = fmaxf(fmaxf(s[4 * t + 2 * r], s[4 * t + 2 * r + 1]),
-                       fmaxf(s[4 * t + 16 + 2 * r], s[4 * t + 16 + 2 * r + 1]));
-        float tile_max = fmaxf(fmaxf(m[0], m[1]), fmaxf(m[2], m[3]));
-        // the four threads of a quad hold one row; key n0 < T keeps the max finite
-        tile_max = fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, 1));
-        tile_max = fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, 2));
-        const float new_max = fmaxf(row_max[r], tile_max);
-        corr[r] = fast_exp2((row_max[r] - new_max) * scale_log2);  // 0 on the first tile
-        row_max[r] = new_max;
-        max_scaled[r] = new_max * scale_log2;
-      }
-#pragma unroll
-      for (int i = 0; i < 32; ++i)  // masked keys give 0
-        s[i] = fast_exp2(fmaf(s[i], scale_log2, -max_scaled[(i >> 1) & 1]));
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        float part[4];
-#pragma unroll
-        for (int t = 0; t < 4; ++t)
-          part[t] = (s[4 * t + 2 * r] + s[4 * t + 2 * r + 1]) +
-                    (s[4 * t + 16 + 2 * r] + s[4 * t + 16 + 2 * r + 1]);
-        row_sum[r] = fmaf(row_sum[r], corr[r], (part[0] + part[1]) + (part[2] + part[3]));
-      }
-      if (j > 0) {
-#pragma unroll
-        for (int i = 0; i < HD / 2; ++i) o[i] *= corr[(i >> 1) & 1];
-      }
-
-      // O += P . V: the S accumulators of key tiles 2kk, 2kk+1 are the A fragment of step kk
-      uint32_t pa[kBlockN / 16][4];
-#pragma unroll
-      for (int kk = 0; kk < kBlockN / 16; ++kk) {
-        pa[kk][0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
-        pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
-        pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
-        pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
-      }
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < kBlockN / 16; ++kk)
-        if (kk * 16 < rows)  // the last tile holds no rows past the zero-filled ones
-          WgmmaRS<HD, 1>::run(
-              o, pa[kk], wgmma_desc<kRowBytes>(v_tile + kk * 16 * kRowBytes, group, 8 * kRowBytes),
-              1);
-      wgmma_commit();
-      wgmma_wait<0>();
+      softmax(j);
+      wgmma_wait<0>();  // P.V is done: O may be rescaled, P overwritten
       fence_regs(o);
+#pragma unroll
+      for (int i = 0; i < HD / 2; ++i) o[i] *= corr[(i >> 1) & 1];
+      pack_p();
     }
+    // every product with this tile's Q is done: fetch the next tile's behind the last P.V
+    issue_pv(n_tiles - 1, last_rows);
+    if (qt + 1 < qt1)
+      load_q_fragments<HD>(qf, q_head, stride_t, (qt + 1) * kBlockM + warp * 16 + gq, t_len, cq);
+    wgmma_wait<0>();
+    fence_regs(o);
+    first_q_tile = false;
 
     // normalise and write rows < T
+    const int row_base = qt * kBlockM + warp * 16 + gq;
     float inv[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -461,13 +485,6 @@ attention_resident_kernel(const bf16* __restrict__ q,  // [B, T, *] rows stride_
           *reinterpret_cast<__nv_bfloat162*>(dst + t * 8) = __floats2bfloat162_rn(
               o[4 * t + 2 * half] * inv[half], o[4 * t + 2 * half + 1] * inv[half]);
       }
-    }
-
-    if (qt + 1 < qt1) {
-#pragma unroll
-      for (int kk = 0; kk < kNK; ++kk)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) qf[kk][i] = q_next[kk][i];
     }
   }
 }
