@@ -253,25 +253,61 @@ struct WgmmaRS<128, TNSP> {
 };
 #undef CONDMDI_D8
 
-// This thread's A fragments of query rows row0 and row0 + 8, all HD/16 depth
-// steps, straight from global memory; rows >= T read as zero.
+// A 4 x 4 transpose of words across the four lanes of a quad (cq is the lane's
+// index in it): in, w[d] is the word meant for lane d; out, w[s] is the word
+// that lane s meant for this lane. It turns 16 contiguous bytes a lane into the
+// 4-byte column pairs of the mma fragments, and back.
+__device__ __forceinline__ void quad_transpose(uint32_t (&w)[4], int cq) {
+  const bool hi = (cq & 2) != 0, lo = (cq & 1) != 0;
+  uint32_t a = hi ? w[0] : w[2], b = hi ? w[1] : w[3];
+  a = __shfl_xor_sync(0xffffffffu, a, 2);
+  b = __shfl_xor_sync(0xffffffffu, b, 2);
+  w[0] = hi ? a : w[0];
+  w[1] = hi ? b : w[1];
+  w[2] = hi ? w[2] : a;
+  w[3] = hi ? w[3] : b;
+  a = lo ? w[0] : w[1];
+  b = lo ? w[2] : w[3];
+  a = __shfl_xor_sync(0xffffffffu, a, 1);
+  b = __shfl_xor_sync(0xffffffffu, b, 1);
+  w[0] = lo ? a : w[0];
+  w[2] = lo ? b : w[2];
+  w[1] = lo ? w[1] : a;
+  w[3] = lo ? w[3] : b;
+}
+
+// Query rows row0 and row0 + 8 of one head, as the four lanes of a quad read
+// them: 64 contiguous bytes of a row at a time, 16 a lane. Rows >= T read as
+// zero. Only issues the loads.
 template <int HD>
-__device__ __forceinline__ void load_q_fragments(uint32_t (&qf)[HD / 16][4],
-                                                 const bf16* __restrict__ q_head,
-                                                 long long stride_t, int row0, int t_len,
-                                                 int cq) {
-  const bool ok0 = row0 < t_len, ok1 = row0 + 8 < t_len;
-  const unsigned int* p0 =
-      reinterpret_cast<const unsigned int*>(q_head + (long long)row0 * stride_t + 2 * cq);
-  const unsigned int* p1 =
-      reinterpret_cast<const unsigned int*>(q_head + (long long)(row0 + 8) * stride_t + 2 * cq);
+__device__ __forceinline__ void load_q_rows(uint4 (&raw)[2][HD / 32],
+                                            const bf16* __restrict__ q_head, long long stride_t,
+                                            int row0, int t_len, int cq) {
 #pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) {  // 8 columns are 4 words
-    qf[kk][0] = ok0 ? __ldg(p0 + 8 * kk) : 0u;
-    qf[kk][1] = ok1 ? __ldg(p1 + 8 * kk) : 0u;
-    qf[kk][2] = ok0 ? __ldg(p0 + 8 * kk + 4) : 0u;
-    qf[kk][3] = ok1 ? __ldg(p1 + 8 * kk + 4) : 0u;
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    const uint4* p = reinterpret_cast<const uint4*>(q_head + (long long)row * stride_t) + cq;
+#pragma unroll
+    for (int i = 0; i < HD / 32; ++i)  // 32 columns are 4 lanes x 16 bytes
+      raw[r][i] = row < t_len ? __ldg(p + 4 * i) : make_uint4(0u, 0u, 0u, 0u);
   }
+}
+
+// The rows that `load_q_rows` fetched as this thread's A fragments of all
+// HD/16 depth steps: lane cq holds columns 2cq, 2cq+1 of every block of 8.
+template <int HD>
+__device__ __forceinline__ void q_fragments(uint32_t (&qf)[HD / 16][4],
+                                            const uint4 (&raw)[2][HD / 32], int cq) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+#pragma unroll
+    for (int i = 0; i < HD / 32; ++i) {
+      uint32_t w[4] = {raw[r][i].x, raw[r][i].y, raw[r][i].z, raw[r][i].w};
+      quad_transpose(w, cq);
+#pragma unroll
+      for (int d = 0; d < 4; ++d)  // block 4i+d: the low or high half of depth step (4i+d)/2
+        qf[(4 * i + d) / 2][((4 * i + d) & 1) * 2 + r] = w[d];
+    }
 }
 
 template <int HD>
@@ -315,17 +351,12 @@ attention_resident_kernel(const bf16* __restrict__ q,  // [B, T, *] rows stride_
       tma_prefetch_map(&v_full);
     }
   }
-  // Q straight to registers; its loads are on their way before the copies are
-  uint32_t qf[kNK][4];
-  load_q_fragments<HD>(qf, q_head, stride_t, qt0 * kBlockM + warp * 16 + gq, t_len, cq);
-
   // All of K and V by TMA, one barrier per key tile, in the order of use. Tile
   // j lands as [column group][row][kCols columns] under the swizzle, full tiles
-  // kTileBytes apart; the last tile has `last_rows` rows.
-  if (tid == 0) {
-    for (int j = 0; j < n_tiles; ++j) mbarrier_init(bars + 8 * j, 1);
-    fence_barrier_init();
-    for (int j = 0; j < n_tiles; ++j) {
+  // kTileBytes apart; the last tile has `last_rows` rows. Tile 0 goes first,
+  // then the loads of Q, straight to registers, then the other tiles.
+  auto copy_tiles = [&](int j0, int j1) {
+    for (int j = j0; j < j1; ++j) {
       const bool last = j == n_tiles - 1;
       const int rows = last ? last_rows : kBlockN;
       const uint32_t bar = bars + 8 * j;
@@ -339,9 +370,18 @@ attention_resident_kernel(const bf16* __restrict__ q,  // [B, T, *] rows stride_
         tma_load_3d(s_v + j * kTileBytes + g * rows * kRowBytes, last ? &v_last : &v_full, bar,
                     h * HD + g * kCols, j * kBlockN, b);
     }
+  };
+  if (tid == 0) {
+    for (int j = 0; j < n_tiles; ++j) mbarrier_init(bars + 8 * j, 1);
+    fence_barrier_init();
+    copy_tiles(0, 1);
   }
+  uint4 q_rows[2][HD / 32];
+  load_q_rows<HD>(q_rows, q_head, stride_t, qt0 * kBlockM + warp * 16 + gq, t_len, cq);
+  if (tid == 0) copy_tiles(1, n_tiles);
   __syncthreads();  // the barriers exist before anyone waits on them
 
+  uint32_t qf[kNK][4];  // Q of one query tile as the A fragments of Q.K^T
   float o[HD / 2];  // n8 tile t of this warp's 16 rows: o[4t .. 4t+3]
   float s[32];      // scores of one key tile: s[4t + 2r + e] is row gq + 8r, key 8t + 2cq + e
   uint32_t pa[kBlockN / 16][4];  // P of one key tile as the A fragments of P.V
@@ -433,6 +473,7 @@ attention_resident_kernel(const bf16* __restrict__ q,  // [B, T, *] rows stride_
   };
 
   for (int qt = qt0; qt < qt1; ++qt) {
+    q_fragments<HD>(qf, q_rows, cq);
 #pragma unroll
     for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
     row_max[0] = row_max[1] = -INFINITY;
@@ -457,10 +498,10 @@ attention_resident_kernel(const bf16* __restrict__ q,  // [B, T, *] rows stride_
       for (int i = 0; i < HD / 2; ++i) o[i] *= corr[(i >> 1) & 1];
       pack_p();
     }
-    // every product with this tile's Q is done: fetch the next tile's behind the last P.V
+    // the next query tile's rows are fetched behind the last P.V and the stores
     issue_pv(n_tiles - 1, last_rows);
     if (qt + 1 < qt1)
-      load_q_fragments<HD>(qf, q_head, stride_t, (qt + 1) * kBlockM + warp * 16 + gq, t_len, cq);
+      load_q_rows<HD>(q_rows, q_head, stride_t, (qt + 1) * kBlockM + warp * 16 + gq, t_len, cq);
     wgmma_wait<0>();
     fence_regs(o);
     first_q_tile = false;
@@ -478,12 +519,16 @@ attention_resident_kernel(const bf16* __restrict__ q,  // [B, T, *] rows stride_
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       const int row = row_base + 8 * half;
-      if (row < t_len) {
-        bf16* dst = out + ((long long)b * t_len + row) * d_model + h * HD + 2 * cq;
+      uint4* dst = reinterpret_cast<uint4*>(out + ((long long)b * t_len + row) * d_model + h * HD) + cq;
 #pragma unroll
-        for (int t = 0; t < HD / 8; ++t)
-          *reinterpret_cast<__nv_bfloat162*>(dst + t * 8) = __floats2bfloat162_rn(
-              o[4 * t + 2 * half] * inv[half], o[4 * t + 2 * half + 1] * inv[half]);
+      for (int i = 0; i < HD / 32; ++i) {  // 4 blocks of 8 columns: 16 contiguous bytes a lane
+        uint32_t w[4];
+#pragma unroll
+        for (int d = 0; d < 4; ++d)
+          w[d] = pack_bf16(o[4 * (4 * i + d) + 2 * half] * inv[half],
+                           o[4 * (4 * i + d) + 2 * half + 1] * inv[half]);
+        quad_transpose(w, cq);
+        if (row < t_len) dst[4 * i] = make_uint4(w[0], w[1], w[2], w[3]);
       }
     }
   }
