@@ -97,6 +97,8 @@ constexpr int kBlockN = 64;     // keys per tile
 constexpr int kSmemBudget = kMaxSmem - 1024;  // what ops/attention.py routes by
 constexpr int kMaxTiles = 32;   // key tiles of the longest sequence the budget holds (hd=32)
 constexpr int kBarrierBytes = kMaxTiles * 8;
+constexpr int kTilesAhead = 2;  // key tiles whose copies are in flight ahead of the one in use
+constexpr float kMaxSlack = 8.f;  // log2 of how far P may outgrow 1 before the row's reference moves
 // S = Q.K^T always reads 64 rows of a K tile; where the last tile is shorter it
 // reads on into V, and V must reach that far
 constexpr int kOverread = (kBlockN - 16) * 128;
@@ -354,7 +356,8 @@ attention_resident_kernel(const bf16* __restrict__ q,  // [B, T, *] rows stride_
   // All of K and V by TMA, one barrier per key tile, in the order of use. Tile
   // j lands as [column group][row][kCols columns] under the swizzle, full tiles
   // kTileBytes apart; the last tile has `last_rows` rows. Tile 0 goes first,
-  // then the loads of Q, straight to registers, then the other tiles.
+  // then the loads of Q, straight to registers, then the next tile; the others
+  // follow as the tiles before them land.
   auto copy_tiles = [&](int j0, int j1) {
     for (int j = j0; j < j1; ++j) {
       const bool last = j == n_tiles - 1;
@@ -378,7 +381,7 @@ attention_resident_kernel(const bf16* __restrict__ q,  // [B, T, *] rows stride_
   }
   uint4 q_rows[2][HD / 32];
   load_q_rows<HD>(q_rows, q_head, stride_t, qt0 * kBlockM + warp * 16 + gq, t_len, cq);
-  if (tid == 0) copy_tiles(1, n_tiles);
+  if (tid == 0) copy_tiles(1, min(kTilesAhead, n_tiles));
   __syncthreads();  // the barriers exist before anyone waits on them
 
   uint32_t qf[kNK][4];  // Q of one query tile as the A fragments of Q.K^T
@@ -387,6 +390,7 @@ attention_resident_kernel(const bf16* __restrict__ q,  // [B, T, *] rows stride_
   uint32_t pa[kBlockN / 16][4];  // P of one key tile as the A fragments of P.V
   // rows gq and gq + 8: running max of the raw scores, this thread's part of the row sum
   float row_max[2], row_sum[2], corr[2];
+  const float max_slack = kMaxSlack / scale_log2;  // in units of the raw scores
   bool first_q_tile = true;  // later query tiles find K and V in place
 
   // S = Q . K^T of key tile j: 64 rows x 64 keys, left in flight. Past the
@@ -395,7 +399,13 @@ attention_resident_kernel(const bf16* __restrict__ q,  // [B, T, *] rows stride_
   auto issue_scores = [&](int j) {
     const uint32_t group = (j == n_tiles - 1 ? last_rows : kBlockN) * kRowBytes;
     const uint32_t k_tile = s_k + j * kTileBytes;
-    if (first_q_tile) mbarrier_wait(bars + 8 * j, 0);
+    if (first_q_tile) {
+      mbarrier_wait(bars + 8 * j, 0);
+      // tile j is here: ask for the one kTilesAhead further on, so that a CTA
+      // has its next tiles in flight and no more, and every CTA's first tiles
+      // are not queued behind the others' last
+      if (tid == 0 && j + kTilesAhead < n_tiles) copy_tiles(j + kTilesAhead, j + kTilesAhead + 1);
+    }
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kNK; ++kk)
@@ -420,9 +430,12 @@ attention_resident_kernel(const bf16* __restrict__ q,  // [B, T, *] rows stride_
             1);
     wgmma_commit();
   };
-  // the online softmax of key tile j on the finished scores: s becomes P
-  // (unnormalised), corr the factor that the earlier tiles' sums and O take
-  auto softmax = [&](int j) {
+  // The online softmax of key tile j on the finished scores: s becomes P
+  // (unnormalised). A row's reference maximum moves only when the tile's own
+  // maximum exceeds it by more than kMaxSlack (then P would outgrow 2^kMaxSlack),
+  // and then for the whole warp: returns whether it did, with corr the factor
+  // that the earlier tiles' O takes. Any reference gives the same quotient.
+  auto softmax = [&](int j) -> bool {
     const int n0 = j * kBlockN;
     if (n0 + kBlockN > t_len) {  // the ragged last tile: keys >= T
 #pragma unroll
@@ -431,7 +444,7 @@ attention_resident_kernel(const bf16* __restrict__ q,  // [B, T, *] rows stride_
         s[i] = col < t_len ? s[i] : -INFINITY;
       }
     }
-    float max_scaled[2];
+    float tile_max[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       float m[4];
@@ -439,15 +452,24 @@ attention_resident_kernel(const bf16* __restrict__ q,  // [B, T, *] rows stride_
       for (int t = 0; t < 4; ++t)
         m[t] = fmaxf(fmaxf(s[4 * t + 2 * r], s[4 * t + 2 * r + 1]),
                      fmaxf(s[4 * t + 16 + 2 * r], s[4 * t + 16 + 2 * r + 1]));
-      float tile_max = fmaxf(fmaxf(m[0], m[1]), fmaxf(m[2], m[3]));
+      tile_max[r] = fmaxf(fmaxf(m[0], m[1]), fmaxf(m[2], m[3]));
       // the four threads of a quad hold one row; key n0 < T keeps the max finite
-      tile_max = fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, 1));
-      tile_max = fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, 2));
-      const float new_max = fmaxf(row_max[r], tile_max);
-      corr[r] = fast_exp2((row_max[r] - new_max) * scale_log2);  // 0 on the first tile
-      row_max[r] = new_max;
-      max_scaled[r] = new_max * scale_log2;
+      tile_max[r] = fmaxf(tile_max[r], __shfl_xor_sync(0xffffffffu, tile_max[r], 1));
+      tile_max[r] = fmaxf(tile_max[r], __shfl_xor_sync(0xffffffffu, tile_max[r], 2));
     }
+    // always on the first tile, where the reference is -inf
+    const bool moved = __any_sync(0xffffffffu, tile_max[0] > row_max[0] + max_slack ||
+                                                   tile_max[1] > row_max[1] + max_slack);
+    if (moved) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float new_max = fmaxf(row_max[r], tile_max[r]);
+        corr[r] = fast_exp2((row_max[r] - new_max) * scale_log2);  // 0 on the first tile
+        row_max[r] = new_max;
+        row_sum[r] *= corr[r];
+      }
+    }
+    const float max_scaled[2] = {row_max[0] * scale_log2, row_max[1] * scale_log2};
 #pragma unroll
     for (int i = 0; i < 32; ++i)  // masked keys give 0
       s[i] = fast_exp2(fmaf(s[i], scale_log2, -max_scaled[(i >> 1) & 1]));
@@ -458,8 +480,9 @@ attention_resident_kernel(const bf16* __restrict__ q,  // [B, T, *] rows stride_
       for (int t = 0; t < 4; ++t)
         part[t] = (s[4 * t + 2 * r] + s[4 * t + 2 * r + 1]) +
                   (s[4 * t + 16 + 2 * r] + s[4 * t + 16 + 2 * r + 1]);
-      row_sum[r] = fmaf(row_sum[r], corr[r], (part[0] + part[1]) + (part[2] + part[3]));
+      row_sum[r] += (part[0] + part[1]) + (part[2] + part[3]);
     }
+    return moved;
   };
   // the S accumulators of key tiles 2kk, 2kk+1 are the A fragment of step kk
   auto pack_p = [&]() {
@@ -491,11 +514,13 @@ attention_resident_kernel(const bf16* __restrict__ q,  // [B, T, *] rows stride_
       issue_pv(j - 1, kBlockN);
       wgmma_wait<1>();  // the scores are done, P.V may still run
       fence_regs(s);
-      softmax(j);
+      const bool moved = softmax(j);
       wgmma_wait<0>();  // P.V is done: O may be rescaled, P overwritten
       fence_regs(o);
+      if (moved) {
 #pragma unroll
-      for (int i = 0; i < HD / 2; ++i) o[i] *= corr[(i >> 1) & 1];
+        for (int i = 0; i < HD / 2; ++i) o[i] *= corr[(i >> 1) & 1];
+      }
       pack_p();
     }
     // the next query tile's rows are fetched behind the last P.V and the stores
