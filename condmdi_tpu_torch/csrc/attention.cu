@@ -122,9 +122,11 @@ __device__ __forceinline__ void mbarrier_arrive_expect_tx(uint32_t bar, uint32_t
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
                : "memory");
 }
-// spin until the barrier's phase with this parity is complete
+// Spin until the barrier's phase with this parity is complete. A wait that
+// never ends is a fault of the protocol: trap, so that the launch fails
+// instead of hanging the card.
 __device__ __forceinline__ void mbarrier_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
+  uint32_t done, spins = 0;
   do {
     asm volatile(
         "{\n"
@@ -135,6 +137,7 @@ __device__ __forceinline__ void mbarrier_wait(uint32_t bar, uint32_t parity) {
         : "=r"(done)
         : "r"(bar), "r"(parity)
         : "memory");
+    if (!done && ++spins > (1u << 22)) __trap();
   } while (!done);
 }
 // One TMA copy of a box of the 3-D view (columns; rows; batch items) into shared
@@ -323,7 +326,8 @@ attention_resident_kernel(const bf16* __restrict__ q,  // [B, T, *] rows stride_
                           const __grid_constant__ CUtensorMap v_full,
                           const __grid_constant__ CUtensorMap v_last,
                           long long stride_b, long long stride_t,
-                          int t_len, int heads, int q_tiles, float scale_log2) {
+                          int t_len, int heads, int items_per_cta, int ctas_with_one_more,
+                          float scale_log2) {
   constexpr int kNK = HD / 16;                 // depth steps of Q.K^T
   constexpr int kCols = HD < 64 ? HD : 64;     // columns of one box: one swizzled row
   constexpr int kRowBytes = kCols * 2;
@@ -333,16 +337,17 @@ attention_resident_kernel(const bf16* __restrict__ q,  // [B, T, *] rows stride_
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int gq = lane >> 2, cq = lane & 3;  // fragment row / column pair
-  const int h = blockIdx.y, b = blockIdx.z;
   const int n_tiles = (t_len + kBlockN - 1) / kBlockN;  // key tiles = query tiles
-  const int qt0 = blockIdx.x * q_tiles;
-  const int qt1 = min(qt0 + q_tiles, n_tiles);
+  // A work item is one query tile of one head of one batch item, numbered with
+  // the query tiles of a head together. This CTA takes a contiguous range, so
+  // most of its items find their head's K and V in place.
+  const int item0 = blockIdx.x * items_per_cta + min((int)blockIdx.x, ctas_with_one_more);
+  const int item1 = item0 + items_per_cta + ((int)blockIdx.x < ctas_with_one_more ? 1 : 0);
   const int last_rows = padded_rows(t_len) - (n_tiles - 1) * kBlockN;  // 16, 32, 48 or 64
   const uint32_t s_k = smem_u32(smem_resident);
   const uint32_t s_v = s_k + 2 * HD * padded_rows(t_len);
   // one barrier per key tile, behind K, V and what S may read past them
   const uint32_t bars = s_k + (uint32_t)smem_bytes(t_len, HD) - kBarrierBytes;
-  const bf16* q_head = q + (long long)b * stride_b + (long long)h * HD;
   if ((s_k & 1023) != 0) __trap();  // the swizzle is a function of the address
 
   if (tid == 0) {
@@ -358,7 +363,7 @@ attention_resident_kernel(const bf16* __restrict__ q,  // [B, T, *] rows stride_
   // kTileBytes apart; the last tile has `last_rows` rows. Tile 0 goes first,
   // then the loads of Q, straight to registers, then the next tile; the others
   // follow as the tiles before them land.
-  auto copy_tiles = [&](int j0, int j1) {
+  auto copy_tiles = [&](int j0, int j1, int h, int b) {
     for (int j = j0; j < j1; ++j) {
       const bool last = j == n_tiles - 1;
       const int rows = last ? last_rows : kBlockN;
@@ -374,14 +379,23 @@ attention_resident_kernel(const bf16* __restrict__ q,  // [B, T, *] rows stride_
                     h * HD + g * kCols, j * kBlockN, b);
     }
   };
+  // the batch item, head and query tile of the item in hand, and of the one after it
+  int b = item0 / (n_tiles * heads);
+  int h = item0 / n_tiles - b * heads;
+  int qt = item0 - (b * heads + h) * n_tiles;
+  int next_b, next_h, next_qt;
+  uint4 q_rows[2][HD / 32];  // an item's Q rows on their way
+  auto fetch_q = [&](int b, int h, int qt) {
+    load_q_rows<HD>(q_rows, q + (long long)b * stride_b + (long long)h * HD, stride_t,
+                    qt * kBlockM + warp * 16 + gq, t_len, cq);
+  };
   if (tid == 0) {
     for (int j = 0; j < n_tiles; ++j) mbarrier_init(bars + 8 * j, 1);
     fence_barrier_init();
-    copy_tiles(0, 1);
+    copy_tiles(0, 1, h, b);
   }
-  uint4 q_rows[2][HD / 32];
-  load_q_rows<HD>(q_rows, q_head, stride_t, qt0 * kBlockM + warp * 16 + gq, t_len, cq);
-  if (tid == 0) copy_tiles(1, min(kTilesAhead, n_tiles));
+  fetch_q(b, h, qt);
+  if (tid == 0) copy_tiles(1, min(kTilesAhead, n_tiles), h, b);
   __syncthreads();  // the barriers exist before anyone waits on them
 
   uint32_t qf[kNK][4];  // Q of one query tile as the A fragments of Q.K^T
@@ -391,7 +405,9 @@ attention_resident_kernel(const bf16* __restrict__ q,  // [B, T, *] rows stride_
   // rows gq and gq + 8: running max of the raw scores, this thread's part of the row sum
   float row_max[2], row_sum[2], corr[2];
   const float max_slack = kMaxSlack / scale_log2;  // in units of the raw scores
-  bool first_q_tile = true;  // later query tiles find K and V in place
+  bool new_head = true;    // this item must wait for K and V; the head's later items find them in place
+  bool first_head = true;  // later heads find their copies issued by the head before
+  uint32_t parity = 0;     // of the barriers' phase that belongs to this head
 
   // S = Q . K^T of key tile j: 64 rows x 64 keys, left in flight. Past the
   // last tile's rows the product reads whatever follows in shared memory;
@@ -399,12 +415,13 @@ attention_resident_kernel(const bf16* __restrict__ q,  // [B, T, *] rows stride_
   auto issue_scores = [&](int j) {
     const uint32_t group = (j == n_tiles - 1 ? last_rows : kBlockN) * kRowBytes;
     const uint32_t k_tile = s_k + j * kTileBytes;
-    if (first_q_tile) {
-      mbarrier_wait(bars + 8 * j, 0);
+    if (new_head) {
+      mbarrier_wait(bars + 8 * j, parity);
       // tile j is here: ask for the one kTilesAhead further on, so that a CTA
       // has its next tiles in flight and no more, and every CTA's first tiles
       // are not queued behind the others' last
-      if (tid == 0 && j + kTilesAhead < n_tiles) copy_tiles(j + kTilesAhead, j + kTilesAhead + 1);
+      if (first_head && tid == 0 && j + kTilesAhead < n_tiles)
+        copy_tiles(j + kTilesAhead, j + kTilesAhead + 1, h, b);
     }
     wgmma_fence();
 #pragma unroll
@@ -495,7 +512,18 @@ attention_resident_kernel(const bf16* __restrict__ q,  // [B, T, *] rows stride_
     }
   };
 
-  for (int qt = qt0; qt < qt1; ++qt) {
+  for (int item = item0; item < item1; ++item) {
+    next_qt = qt + 1 < n_tiles ? qt + 1 : 0;
+    next_h = next_qt > 0 ? h : h + 1 < heads ? h + 1 : 0;
+    next_b = next_qt > 0 || next_h > 0 ? b : b + 1;
+    // Where the next item belongs to another head, a key tile is free once
+    // its P.V is done, for every warp: the next head's copy of that tile
+    // goes out at once, so its K and V arrive while this item still computes.
+    const bool hand_over = item + 1 < item1 && next_qt == 0;
+    auto copy_next_heads = [&](int j) {
+      __syncthreads();
+      if (tid == 0) copy_tiles(j, j + 1, next_h, next_b);
+    };
     q_fragments<HD>(qf, q_rows, cq);
 #pragma unroll
     for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
@@ -517,19 +545,24 @@ attention_resident_kernel(const bf16* __restrict__ q,  // [B, T, *] rows stride_
       const bool moved = softmax(j);
       wgmma_wait<0>();  // P.V is done: O may be rescaled, P overwritten
       fence_regs(o);
+      if (hand_over) copy_next_heads(j - 1);
       if (moved) {
 #pragma unroll
         for (int i = 0; i < HD / 2; ++i) o[i] *= corr[(i >> 1) & 1];
       }
       pack_p();
     }
-    // the next query tile's rows are fetched behind the last P.V and the stores
+    // the next item's Q rows are fetched behind the last P.V and the stores
     issue_pv(n_tiles - 1, last_rows);
-    if (qt + 1 < qt1)
-      load_q_rows<HD>(q_rows, q_head, stride_t, (qt + 1) * kBlockM + warp * 16 + gq, t_len, cq);
+    if (item + 1 < item1) fetch_q(next_b, next_h, next_qt);
     wgmma_wait<0>();
     fence_regs(o);
-    first_q_tile = false;
+    if (hand_over) copy_next_heads(n_tiles - 1);
+    new_head = hand_over;
+    if (hand_over) {
+      first_head = false;
+      parity ^= 1;
+    }
 
     // normalise and write rows < T
     const int row_base = qt * kBlockM + warp * 16 + gq;
@@ -544,7 +577,8 @@ attention_resident_kernel(const bf16* __restrict__ q,  // [B, T, *] rows stride_
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       const int row = row_base + 8 * half;
-      uint4* dst = reinterpret_cast<uint4*>(out + ((long long)b * t_len + row) * d_model + h * HD) + cq;
+      uint4* dst = reinterpret_cast<uint4*>(
+                       out + ((long long)b * t_len + row) * d_model + h * HD) + cq;
 #pragma unroll
       for (int i = 0; i < HD / 32; ++i) {  // 4 blocks of 8 columns: 16 contiguous bytes a lane
         uint32_t w[4];
@@ -556,6 +590,9 @@ attention_resident_kernel(const bf16* __restrict__ q,  // [B, T, *] rows stride_
         if (row < t_len) dst[4 * i] = make_uint4(w[0], w[1], w[2], w[3]);
       }
     }
+    b = next_b;
+    h = next_h;
+    qt = next_qt;
   }
 }
 
@@ -601,7 +638,7 @@ bool encode_map(CUtensorMap* map, const void* x, int batch, int t_len, int cols,
 
 template <int HD>
 int launch(const void* q, const void* k, const void* v, void* out, int batch, int t_len,
-           int heads, long long stride_b, long long stride_t, int q_tiles,
+           int heads, long long stride_b, long long stride_t, int max_ctas,
            cudaStream_t stream) {
   auto kernel = attention_resident_kernel<HD>;
   static cudaError_t attr_err = [&] {  // once per instantiation
@@ -629,11 +666,15 @@ int launch(const void* q, const void* k, const void* v, void* out, int batch, in
     k_full = k_last;
     v_full = v_last;
   }
-  const dim3 grid((n_tiles + q_tiles - 1) / q_tiles, heads, batch);
+  // one CTA a query tile while the card holds them all at once, else max_ctas
+  // CTAs with a contiguous range of query tiles each
+  const long long items = (long long)batch * heads * n_tiles;
+  if (items > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const int grid = (int)(items < max_ctas ? items : max_ctas);
   const float scale_log2 = kLog2e / sqrtf((float)HD);
   kernel<<<grid, kThreads, (size_t)smem_bytes(t_len, HD), stream>>>(
       static_cast<const bf16*>(q), static_cast<bf16*>(out), k_full, k_last, v_full, v_last,
-      stride_b, stride_t, t_len, heads, q_tiles, scale_log2);
+      stride_b, stride_t, t_len, heads, (int)(items / grid), (int)(items % grid), scale_log2);
   return (int)cudaGetLastError();
 }
 
@@ -956,24 +997,24 @@ int launch(const void* q, const void* k, const void* v, void* out, int batch, in
 // q, k, v: [B, T, H*hd] views sharing (stride_b, stride_t) in elements, unit
 // column stride, 16-byte aligned rows; out: [B, T, H*hd] contiguous.
 // dtype 0 = float32, 1 = bfloat16. route 0 = the tiled mma.sync kernel, 1 = the
-// resident wgmma kernel, which also takes the number of 64-row query tiles one
-// CTA walks. Returns the launch's cudaGetLastError(), or cudaErrorInvalidValue
+// resident wgmma kernel, which also takes the most CTAs to launch (they share
+// out the query tiles). Returns the launch's cudaGetLastError(), or cudaErrorInvalidValue
 // for a route that the shape or the type does not fit.
 extern "C" int condmdi_attention_forward(const void* q, const void* k, const void* v, void* out,
                                          int batch, int t_len, int heads, int head_dim,
                                          long long stride_b, long long stride_t, int dtype,
-                                         int route, int q_tiles, void* stream) {
+                                         int route, int max_ctas, void* stream) {
   if (batch <= 0 || batch > 65535 || t_len <= 0 || heads <= 0 || heads > 65535 ||
       head_dim <= 0 || head_dim > kMaxHd || head_dim % 8 != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (route == 1) {
-    if (dtype != 1 || q_tiles <= 0 ||
+    if (dtype != 1 || max_ctas <= 0 ||
         resident::smem_bytes(t_len, head_dim) > resident::kSmemBudget ||
         (t_len + resident::kBlockN - 1) / resident::kBlockN > resident::kMaxTiles)
       return (int)cudaErrorInvalidValue;
 #define CONDMDI_RESIDENT(HD) \
-  resident::launch<HD>(q, k, v, out, batch, t_len, heads, stride_b, stride_t, q_tiles, s)
+  resident::launch<HD>(q, k, v, out, batch, t_len, heads, stride_b, stride_t, max_ctas, s)
     if (head_dim == 128) return CONDMDI_RESIDENT(128);
     if (head_dim == 64) return CONDMDI_RESIDENT(64);
     if (head_dim == 32) return CONDMDI_RESIDENT(32);

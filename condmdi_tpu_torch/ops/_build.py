@@ -105,7 +105,8 @@ def _bind_attention(lib: ctypes.CDLL) -> None:
         p, p, p, p,   # q, k, v, out
         i, i, i, i,   # B, T, heads, head_dim
         ll, ll,       # batch and row strides of q/k/v, in elements
-        i, i, i, p,   # dtype code, route code, query tiles per CTA (route 1), stream
+        i, i,         # dtype code, route code
+        i, p,         # route 1: most CTAs to launch; stream
     ]
     lib.condmdi_attention_forward.restype = i
     lib.condmdi_error_string.argtypes = [i]

@@ -35,7 +35,10 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _ROUTE_CODES = {"mma_sync": 0, "wgmma": 1}
 _WGMMA_HEAD_DIMS = (32, 64, 128)  # head widths the resident kernel is instantiated for
 _WGMMA_SMEM_BUDGET = 232448 - 1024  # a block's shared memory on sm_90, less a reserve
-_QUERY_TILE = 64  # query rows of one tile of either kernel
+# The resident kernel's grid: one CTA a 64-row query tile while two CTAs an SM
+# hold them all, else two CTAs an SM with a contiguous range of query tiles each
+# (what its shared memory allows at the served shapes).
+_CTAS_PER_SM = 2
 _sm_counts: dict[int, int] = {}
 
 
@@ -136,21 +139,6 @@ def attention_route(B: int, T: int, H: int, hd: int, dtype: torch.dtype) -> str:
     return "mma_sync"
 
 
-def query_tiles_per_cta(B: int, T: int, H: int, sm_count: int) -> int:
-    """How many 64-row query tiles of one head a CTA of the resident kernel walks.
-
-    A CTA loads all of its head's K and V, so fewer CTAs per head mean fewer
-    bytes; but the card wants two CTAs on each SM. The answer is the largest
-    count that still leaves 2 * sm_count CTAs, and 1 where even that many
-    tiles do not exist (the served batch).
-    """
-    tiles = -(-T // _QUERY_TILE)
-    for per_cta in range(tiles, 1, -1):
-        if B * H * -(-tiles // per_cta) >= 2 * sm_count:
-            return per_cta
-    return 1
-
-
 def _sm_count(device: torch.device) -> int:
     index = device.index if device.index is not None else torch.cuda.current_device()
     if index not in _sm_counts:
@@ -186,7 +174,6 @@ def _launch(q, k, v, num_heads: int) -> torch.Tensor:
         if t.data_ptr() % 16 or (t.stride(0) * size) % 16 or (t.stride(1) * size) % 16:
             raise ValueError("fused_self_attention: q/k/v rows must be 16-byte aligned")
     route = attention_route(B, T, num_heads, hd, q.dtype)
-    q_tiles = query_tiles_per_cta(B, T, num_heads, _sm_count(q.device)) if route == "wgmma" else 1
     out = torch.empty((B, T, D), device=q.device, dtype=q.dtype)
 
     from condmdi_tpu_torch.ops import _build
@@ -197,7 +184,8 @@ def _launch(q, k, v, num_heads: int) -> torch.Tensor:
         ctypes.c_void_p(q.data_ptr()), ctypes.c_void_p(k.data_ptr()),
         ctypes.c_void_p(v.data_ptr()), ctypes.c_void_p(out.data_ptr()),
         B, T, num_heads, hd, ctypes.c_longlong(q.stride(0)), ctypes.c_longlong(q.stride(1)),
-        _DTYPE_CODES[q.dtype], _ROUTE_CODES[route], q_tiles, ctypes.c_void_p(stream),
+        _DTYPE_CODES[q.dtype], _ROUTE_CODES[route], _CTAS_PER_SM * _sm_count(q.device),
+        ctypes.c_void_p(stream),
     )
     if err != 0:
         raise RuntimeError(
