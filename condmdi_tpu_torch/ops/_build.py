@@ -72,6 +72,9 @@ def build_all(sources: list[str]) -> list[Path]:
 
 
 def _load(source: str, bind) -> ctypes.CDLL:
+    lib = _libs.get(source)
+    if lib is not None:  # the usual case, without the lock
+        return lib
     with _lock:
         if source not in _libs:
             lib = ctypes.CDLL(str(build(source)))

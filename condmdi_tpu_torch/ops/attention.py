@@ -24,13 +24,14 @@ the contiguous hd = D / H column blocks.
 
 from __future__ import annotations
 
-import ctypes
 import math
 
 import torch
 
+from condmdi_tpu_torch.ops import _build
+
 _MAX_HEAD_DIM = 128  # the widest head the kernel takes (multiples of 8)
-_MAX_GRID_Z = 65535  # CUDA's limit on the grid's batch dimension
+_MAX_GRID = 65535  # CUDA's limit on the y and z grid dimensions, which the tiled kernel uses for H and B
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _ROUTE_CODES = {"mma_sync": 0, "wgmma": 1}
 _WGMMA_HEAD_DIMS = (32, 64, 128)  # head widths the resident kernel is instantiated for
@@ -139,25 +140,31 @@ def attention_route(B: int, T: int, H: int, hd: int, dtype: torch.dtype) -> str:
     return "mma_sync"
 
 
-def _sm_count(device: torch.device) -> int:
-    index = device.index if device.index is not None else torch.cuda.current_device()
-    if index not in _sm_counts:
-        _sm_counts[index] = torch.cuda.get_device_properties(index).multi_processor_count
-    return _sm_counts[index]
+def _sm_count(index: int) -> int:
+    count = _sm_counts.get(index)
+    if count is None:
+        count = _sm_counts[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    return count
 
 
 def _launch(q, k, v, num_heads: int) -> torch.Tensor:
-    """Check what the kernels take, launch one on the current stream, count the launch."""
-    if q.dtype not in _DTYPE_CODES:
-        raise TypeError(f"fused_self_attention: unsupported dtype {q.dtype}")
-    if any(t.dtype != q.dtype or t.device != q.device for t in (k, v)):
+    """Check what the kernels take, launch one on the current stream, count the launch.
+
+    Written for a short host path (a served step is bound by the host): no
+    temporaries beyond the output, plain ints to ctypes, the stream's raw handle.
+    """
+    dtype, device, shape = q.dtype, q.device, q.shape
+    code = _DTYPE_CODES.get(dtype)
+    if code is None:
+        raise TypeError(f"fused_self_attention: unsupported dtype {dtype}")
+    if k.dtype != dtype or v.dtype != dtype or k.device != device or v.device != device:
         raise TypeError("fused_self_attention: q, k and v must share a dtype and a device")
-    if q.dim() != 3 or k.shape != q.shape or v.shape != q.shape:
+    if len(shape) != 3 or k.shape != shape or v.shape != shape:
         raise ValueError(
             f"fused_self_attention: q, k, v must be one [B, T, D] shape, got "
-            f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}"
+            f"{tuple(shape)}, {tuple(k.shape)}, {tuple(v.shape)}"
         )
-    B, T, D = q.shape
+    B, T, D = shape
     if num_heads <= 0 or D % num_heads:
         raise ValueError(f"D={D} is not a multiple of num_heads={num_heads}")
     hd = D // num_heads
@@ -165,27 +172,26 @@ def _launch(q, k, v, num_heads: int) -> torch.Tensor:
         raise NotImplementedError(
             f"the kernel takes head widths that are multiples of 8 up to {_MAX_HEAD_DIM}, not {hd}"
         )
-    if B > _MAX_GRID_Z:
-        raise NotImplementedError(f"B={B} exceeds the grid limit {_MAX_GRID_Z}")
-    if not (q.stride() == k.stride() == v.stride() and q.stride(2) == 1):
+    route = attention_route(B, T, num_heads, hd, dtype)
+    if route == "mma_sync" and (B > _MAX_GRID or num_heads > _MAX_GRID):
+        raise NotImplementedError(f"B={B} or H={num_heads} exceeds the grid limit {_MAX_GRID}")
+    strides = q.stride()
+    if strides[2] != 1 or k.stride() != strides or v.stride() != strides:
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        strides = q.stride()
     size = q.element_size()
-    for t in (q, k, v):  # the kernel reads rows in 16-byte vectors
-        if t.data_ptr() % 16 or (t.stride(0) * size) % 16 or (t.stride(1) * size) % 16:
-            raise ValueError("fused_self_attention: q/k/v rows must be 16-byte aligned")
-    route = attention_route(B, T, num_heads, hd, q.dtype)
-    out = torch.empty((B, T, D), device=q.device, dtype=q.dtype)
-
-    from condmdi_tpu_torch.ops import _build
+    q_ptr, k_ptr, v_ptr = q.data_ptr(), k.data_ptr(), v.data_ptr()
+    if (q_ptr | k_ptr | v_ptr | (strides[0] * size) | (strides[1] * size)) % 16:
+        # both kernels read rows in 16-byte pieces
+        raise ValueError("fused_self_attention: q/k/v rows must be 16-byte aligned")
+    out = torch.empty(shape, device=device, dtype=dtype)
 
     lib = _build.load_attention()
-    stream = torch.cuda.current_stream(q.device).cuda_stream
+    index = device.index
     err = lib.condmdi_attention_forward(
-        ctypes.c_void_p(q.data_ptr()), ctypes.c_void_p(k.data_ptr()),
-        ctypes.c_void_p(v.data_ptr()), ctypes.c_void_p(out.data_ptr()),
-        B, T, num_heads, hd, ctypes.c_longlong(q.stride(0)), ctypes.c_longlong(q.stride(1)),
-        _DTYPE_CODES[q.dtype], _ROUTE_CODES[route], _CTAS_PER_SM * _sm_count(q.device),
-        ctypes.c_void_p(stream),
+        q_ptr, k_ptr, v_ptr, out.data_ptr(), B, T, num_heads, hd, strides[0], strides[1],
+        code, _ROUTE_CODES[route], _CTAS_PER_SM * _sm_count(index),
+        torch._C._cuda_getCurrentRawStream(index),
     )
     if err != 0:
         raise RuntimeError(
