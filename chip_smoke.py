@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Phases, in order; any failure exits non-zero:
-  1. setup: card name and power limit, torch/CUDA versions, both kernels
+  1. setup: card name and power limit, torch/CUDA versions, both sources
      built at once (one nvcc each), their ptxas register/spill lines;
   2. the fused resblock kernel against its plain PyTorch version at every
      distinct resblock shape of a UNet-XL forward (pad 200), as the forward
@@ -24,10 +24,14 @@ Phases, in order; any failure exits non-zero:
      kernel's launch count must equal 33 x steps x batches; one bf16 forward
      at B=8, kernel path against plain path; that forward on the host clock
      against its device time, and its device time by kernel (torch.profiler);
-  5. the fused self-attention kernel against its plain version in bf16 and
+  5. the fused self-attention kernels against their plain version in bf16 and
      float32 at the MDM served shape, the bench batch, DiT / trans_dec and a
-     ragged shape, with times as in phase 2 (q, k, v are the column views of
-     one [B, T, 3D] projection, as on the path);
+     ragged shape, with the route each took (bf16: the resident wgmma kernel;
+     float32: the tiled mma.sync one) and times as in phase 2 beside one
+     scaled_dot_product_attention call (q, k, v are the column views of one
+     [B, T, 3D] projection, as on the path); then one `mha` call captured in a
+     CUDA graph on a side stream and replayed twice on new contents, which
+     must equal the eager call bit for bit;
   6. the MDM path, kernel against plain: the full-width bench MDM (trans_enc,
      8 layers, latent 512) over a float32 DDIM-20, B=2;
   7. MDM keyframe editing under autograd, kernel against plain: no_cond MDM,
@@ -38,7 +42,8 @@ Phases, in order; any failure exits non-zero:
      path; that forward on the host clock against its device time, which says
      whether a step is launch-bound, and its device time by kernel;
   9. one full-width MDM_DiT (dit_prenorm) forward, kernel against plain, with
-     its 8 launches;
+     its 8 launches; for information, one bf16 MDM forward at the evaluation
+     batch (B=128), device time by kernel and attention's share of it;
  10. a {"kernels": [...]} line, the card line, and the final {"ok": true, ...}.
 
 Per-shape results also go to chiprun_out/chip_smoke.json. Imports nothing of
@@ -84,6 +89,7 @@ BF16_FORWARD_OUTLIER = 2.0 ** -4
 # HBM3, 700 W). Not measured by this run, so not part of the kernels line.
 PREV_RESBLOCK_MS = 17.34   # the 33 halves of one UNet-XL forward at B=8, bf16
 PREV_ATTENTION_MS = 0.368  # the 8 self-attentions of one MDM forward at B=8, bf16
+PREV_ATTENTION_BENCH_BATCH_MS = 0.290  # one self-attention at B=128, same kernel and card
 SERVE_REQUESTS, SERVE_STEPS, GUIDANCE = 4, 1000, 2.5
 MDM = dict(njoints=FEATS, latent_dim=512, ff_size=1024, num_layers=8, num_heads=4)  # bench.py mdm
 MDM_TOKENS = T_FRAMES + 1  # the frames and the conditioning token
@@ -109,14 +115,20 @@ def timed_ms(fn, inputs, reps=5, iters=10) -> tuple[float, float]:
     """(device ms, host ms) per call. Device: median over `reps` of the mean time
     of `iters` calls, cycling `inputs`; each repeat starts behind a spin kernel
     longer than the host takes to enqueue the calls, so host overhead between
-    launches is not counted. Host: the time to enqueue one call."""
+    launches is not counted. Host: the time to enqueue one call, taken last, when
+    every input set has been through `fn` (a sampler's activations come back to
+    the same addresses step after step, so what a call sets up once per
+    address, on either side of a comparison, is not part of a step)."""
+    def enqueue_s():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(iters):
+            fn(*inputs[i % len(inputs)])
+        return time.perf_counter() - t0
+
     for i in range(3):
         fn(*inputs[i % len(inputs)])
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for i in range(iters):
-        fn(*inputs[i % len(inputs)])
-    host_s = time.perf_counter() - t0
+    host_s = enqueue_s()
     torch.cuda.synchronize()
     spin_cycles = int(4e9 * host_s) + 2_000_000  # twice the host time at up to 2 GHz
     times = []
@@ -129,7 +141,7 @@ def timed_ms(fn, inputs, reps=5, iters=10) -> tuple[float, float]:
         e1.record()
         torch.cuda.synchronize()
         times.append(e0.elapsed_time(e1) / iters)
-    return statistics.median(times), host_s * 1e3 / iters
+    return statistics.median(times), enqueue_s() * 1e3 / iters
 
 
 # --------------------------------------------------------------------------- #
@@ -427,7 +439,8 @@ def forward_host_vs_device(label, call, step_wall_ms):
 
 def profile_forward(label, call, top=8, iters=3):
     """Device time of one forward by kernel name (torch.profiler over `iters`
-    forwards): which launches the step's device time is made of."""
+    forwards): which launches the step's device time is made of. Returns the
+    forward's device ms, its launches and the `top` kernels by time."""
     from torch.profiler import ProfilerActivity, profile
 
     with torch.no_grad():
@@ -445,7 +458,7 @@ def profile_forward(label, call, top=8, iters=3):
     total = sum(r[1] for r in rows)
     if total == 0:
         print(f"[profile] {label}: the profiler saw no device time; not measured", flush=True)
-        return []
+        return dict(total_ms=None, launches=None, top=[])
     print(f"[profile] {label}: {total / iters / 1e3:.4f} ms of device time per forward in "
           f"{sum(r[2] for r in rows) // iters} launches; the largest:", flush=True)
     out = []
@@ -453,7 +466,7 @@ def profile_forward(label, call, top=8, iters=3):
         out.append(dict(name=name[:100], ms_per_forward=us / iters / 1e3, launches=count // iters))
         print(f"[profile]   {us / iters / 1e3:8.4f} ms  {count // iters:4d} x  {name[:100]}",
               flush=True)
-    return out
+    return dict(total_ms=total / iters / 1e3, launches=sum(r[2] for r in rows) // iters, top=out)
 
 
 @contextlib.contextmanager
@@ -595,7 +608,7 @@ def attn_bound_ms(B, T, D, H, itemsize=2) -> tuple[float, str]:
 
 
 def check_attention(dev):
-    from condmdi_tpu_torch.ops.attention import _launch, _xla_attention
+    from condmdi_tpu_torch.ops.attention import _launch, _xla_attention, attention_route
 
     gen = torch.Generator(device=dev).manual_seed(3)
 
@@ -607,6 +620,7 @@ def check_attention(dev):
         row = dict(shape=name, B=B, T=T, D=D, H=H)
         for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, F32_TOL)):
             q, k, v = qkv_views(B, T, D, dtype)
+            route = attention_route(B, T, H, D // H, dtype)
             with torch.no_grad():
                 got = _launch(q, k, v, H)
                 torch.cuda.synchronize()
@@ -615,7 +629,9 @@ def check_attention(dev):
             bad = (err > tol * (1 + want.float().abs())).sum().item()
             tag = "bf16" if dtype == torch.bfloat16 else "f32"
             row[f"max_abs_err_{tag}"] = err.max().item()
-            print(f"[attention] {tag} {name} B={B} T={T} D={D} H={H}: max_abs_err="
+            row[f"route_{tag}"] = route
+            print(f"[attention] {tag} {name} B={B} T={T} D={D} H={H}, route {route}: "
+                  f"max_abs_err="
                   f"{err.max().item():.3e} (tol {tol:.1e}*(1+|plain|)), {bad} outside", flush=True)
             if bad or not torch.isfinite(got).all():
                 raise SystemExit(f"the attention kernel disagrees with its plain version at {row}")
@@ -629,12 +645,44 @@ def check_attention(dev):
             row["library_ms"], row["library_host_ms"] = timed_ms(
                 F.scaled_dot_product_attention, heads_first)
         row["bound_ms"], row["bound_by"] = attn_bound_ms(B, T, D, H)
-        print(f"[attention] times bf16 {name}: kernel {row['ms']:.4f} ms, plain "
+        print(f"[attention] times bf16 {name} (route {row['route_bf16']}): kernel "
+              f"{row['ms']:.4f} ms, plain "
               f"{row['plain_ms']:.4f} ms, library (SDPA) {row['library_ms']:.4f} ms, bound "
               f"{row['bound_ms']:.4f} ms ({row['bound_by']}); host enqueue per call: kernel "
               f"wrapper {row['host_ms']:.4f} ms, SDPA {row['library_host_ms']:.4f} ms", flush=True)
         rows.append(row)
     return rows
+
+
+def attention_graph_replay(dev):
+    """One `mha` call of the served shape captured into a CUDA graph on a side
+    stream and replayed on new contents of the same buffers: each replay must
+    equal the eager call on those contents bit for bit (the same kernel on the
+    same inputs), in bf16 (the resident kernel) and in float32 (the tiled one)."""
+    from condmdi_tpu_torch.ops.attention import _launch, mha
+
+    _, B, T, D, H = ATTN_SHAPES[0]
+    gen = torch.Generator(device=dev).manual_seed(17)
+    for dtype in (torch.bfloat16, torch.float32):
+        qkv = torch.randn((B, T, 3 * D), generator=gen, device=dev).to(dtype)
+        q, k, v = qkv.chunk(3, dim=-1)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        graph = torch.cuda.CUDAGraph()
+        with torch.no_grad(), torch.cuda.graph(graph, stream=side):
+            out = mha(q, k, v, H)
+        for replay in range(2):
+            qkv.copy_(torch.randn((B, T, 3 * D), generator=gen, device=dev).to(dtype))
+            graph.replay()
+            torch.cuda.synchronize()
+            with torch.no_grad():
+                eager = _launch(q, k, v, H)
+            differs = (out != eager).sum().item()
+            print(f"[attention] CUDA graph, {str(dtype).split('.')[-1]}, replay {replay + 1} on new "
+                  f"contents: {differs} elements differ from the eager call, max|out| = "
+                  f"{out.float().abs().max().item():.3f}", flush=True)
+            if differs or not torch.isfinite(out).all() or out.float().abs().max() == 0:
+                raise SystemExit("the captured attention call does not replay the eager one")
 
 
 # --------------------------------------------------------------------------- #
@@ -724,6 +772,39 @@ def serve_mdm(dev, card):
     return served
 
 
+def mdm_bench_batch_forward(dev, attn_rows):
+    """For information: one bf16 MDM forward at the evaluation batch (B=128),
+    device time by kernel, and the share of it that the 8 attention launches
+    take; beside it what the share was with the first attention kernel, from
+    that kernel's time at this shape (PERF.md section 6)."""
+    B = 128
+    model = build_mdm(dev, torch.bfloat16)
+    x = seeded_noise((B, T_FRAMES, FEATS), dev, seed=14).to(torch.bfloat16)
+    t = torch.full((B,), 500, device=dev)
+    text, _, _ = keyframe_inputs(B, 7)
+    y = {"text_embed": text.to(dev)}
+    reset_counts()
+    with torch.no_grad():
+        out = model(x, t, y)
+    torch.cuda.synchronize()
+    launches = read_counts()["fused_self_attention"]
+    if launches != 8 or not torch.isfinite(out).all() or out.shape != (B, T_FRAMES, FEATS):
+        raise SystemExit(f"MDM forward at B={B}: {launches} attention launches, shape {out.shape}")
+    prof = profile_forward(f"MDM forward at B={B}", lambda: model(x, t, y), top=6)
+    attn_ms = sum(r["ms_per_forward"] for r in prof["top"] if "attention" in r["name"])
+    if prof["total_ms"]:
+        before_ms = 8 * PREV_ATTENTION_BENCH_BATCH_MS
+        alone = next(r for r in attn_rows if r["shape"] == "mdm_bench_batch")
+        print(f"[profile] MDM forward at B={B}: attention {attn_ms:.4f} ms in the forward "
+              f"({8 * alone['ms']:.4f} ms as 8 launches alone on cold inputs), "
+              f"{attn_ms / prof['total_ms']:.1%} of {prof['total_ms']:.4f} ms; with the first "
+              f"kernel's {before_ms:.3f} ms it was "
+              f"{before_ms / (prof['total_ms'] - attn_ms + before_ms):.1%} of "
+              f"{prof['total_ms'] - attn_ms + before_ms:.3f} ms", flush=True)
+    prof["attention_ms"] = attn_ms
+    return prof
+
+
 def dit_kernel_vs_plain(dev):
     from condmdi_tpu_torch.models.dit import MDM_DiT
 
@@ -776,9 +857,17 @@ def main() -> int:
           + ", ".join(f"{s} {_build.build_seconds.get(s, 0.0):.2f} s" for s in sources) + ")",
           flush=True)
     for source in sources:
+        seen = set()
         for line in _build.build_log.get(source, "").splitlines():
-            if "registers" in line or "spill" in line:  # ptxas -v, one pair per instantiation
+            # ptxas -v: registers and spills, one pair per instantiation, and once each any
+            # note that it serialised wgmma (C7510 to C7518; C7519 only says where it put a
+            # warpgroup.arrive)
+            note = line.split("in the function")[0].split("in function")[0].strip()
+            if "Used " in line or "spill" in line:
                 print(f"[setup] ptxas {source}: {line.strip()}", flush=True)
+            elif "(C75" in line and "(C7519)" not in line and note not in seen:
+                seen.add(note)
+                print(f"[setup] ptxas {source}: {note}", flush=True)
 
     # the main path's resblock shapes, from one bf16 UNet-XL forward at B=8
     model = build_xl(dev, torch.bfloat16)
@@ -795,10 +884,12 @@ def main() -> int:
     served = serve(dev, card)
 
     attn_rows = check_attention(dev)
+    attention_graph_replay(dev)
     mdm_ddim_err = mdm_ddim_kernel_vs_plain(dev)
     recg_err = mdm_recguidance_kernel_vs_plain(dev)
     served_mdm = serve_mdm(dev, card)
     dit_err = dit_kernel_vs_plain(dev)
+    bench_forward = mdm_bench_batch_forward(dev, attn_rows)
 
     def per_forward(key):
         return sum(r[key] * r["per_forward"] for r in rows)
@@ -855,7 +946,7 @@ def main() -> int:
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
          "shapes": rows, "shapes_b64": big_rows, "serve": served, "attention_shapes": attn_rows,
-         "serve_mdm": served_mdm, "kernels": kernels,
+         "serve_mdm": served_mdm, "mdm_forward_b128": bench_forward, "kernels": kernels,
          "previous_ms_from_perf_md": previous}, indent=1))
     print(json.dumps({"kernels": kernels}))
     print(card)

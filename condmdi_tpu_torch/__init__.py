@@ -17,8 +17,11 @@ Module names mirror the JAX package so each counterpart is easy to find:
   weights.py  Flax parameter tree → this package's state_dict
   serving.py  micro-batching MotionServer
 
-Importing the package builds nothing and touches no device. Entry points
-run on CUDA unless the caller passes `device="cpu"`.
+Importing the package builds nothing and touches no device. The entry points
+that run a model (the denoisers, `SamplePipeline`, `MotionServer`) run on CUDA
+unless the caller passes `device="cpu"`. `DiffusionSchedule.create` only builds
+constant tables: it makes them on the host by default and the pipeline moves
+them to its own device.
 """
 
 __version__ = "0.1.0"

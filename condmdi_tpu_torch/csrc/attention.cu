@@ -18,43 +18,45 @@
 //
 //   route 1, "wgmma" -- `resident::attention_resident_kernel`: bfloat16 with a
 //     head width of 32, 64 or 128 whose K and V fit one block's shared memory,
-//     4*hd*(16*ceil(T/16) + 1) <= 231,424 bytes: T <= 448 at hd=128, 896 at
+//     4*hd*16*ceil(T/16) + 256 <= 231,424 bytes: T <= 448 at hd=128, 896 at
 //     hd=64, 1792 at hd=32. This is what the models serve (T <= 225).
 //   route 0, "mma_sync" -- `tiled::attention_tiled_kernel`: float32 always,
 //     and bfloat16 at every other head width (multiples of 8 up to 128) or
 //     longer T. It walks K and V in 64-key tiles, so any T works.
 //
-// route 1, the design. One CTA is one warpgroup (128 threads) and owns one
-// head of one batch item and `q_tiles` consecutive 64-row query tiles of it.
-//   * All of the head's K and V go to shared memory once, by 16-byte cp.async
-//     issued up front, one commit group per 64-key tile in the order the tiles
-//     are used, so the first tile's products start while the later tiles are
-//     still on their way and no load waits for a product. Rows T..16*ceil(T/16)
-//     are zero-filled by the copy itself.
-//   * The layout is the one wgmma reads without swizzle and without any
-//     transpose in software: per block of 8 columns a plane, rows 16 bytes
-//     apart, so that any 8 rows x 8 columns are one 128-byte core matrix. K is
-//     the K-major operand of S = Q.K^T (8 keys x 8 columns per core matrix), V
-//     the MN-major operand of O += P.V through the transpose bit (8 keys x 8
-//     columns again): the same layout serves both. A plane has an odd number
-//     of rows, so the 16 pieces of one global row land in different banks.
-//   * Q never enters shared memory: each thread loads its A fragments (the
-//     m16n8k16 fragment layout, which wgmma shares) from global memory once per
-//     query tile, ahead of the K/V copies, and the next tile's fragments while
-//     the current tile computes. P stays in registers too: the S accumulators
+// route 1, the design. A CTA is one warpgroup (128 threads). A work item is one
+// 64-row query tile of one head of one batch item; a CTA takes a contiguous
+// range of items (one item each while two CTAs an SM hold them all: the
+// served batch).
+//   * All of a head's K and V are resident in shared memory. One thread asks
+//     the TMA for them up front, a box of min(hd, 64) columns x 64 rows at a
+//     time, one mbarrier per 64-key tile in the order of use: the first tile's
+//     products start while the later tiles are on their way, and no computing
+//     thread issues a copy. Rows T..16*ceil(T/16) arrive as zeros from the
+//     hardware, inside the batch item.
+//   * A box lands as rows of 128 bytes (64 at hd=32) under the swizzle of that
+//     width, which wgmma reads by descriptor with no transpose in software: K
+//     as the K-major operand of S = Q.K^T, V as the MN-major operand of
+//     O += P.V through the transpose bit. The tensor maps depend on addresses
+//     and shapes only; the C entry keeps the last ones.
+//   * Q never enters shared memory and neither does the output: the four lanes
+//     of a quad read (write) 64 contiguous bytes of a row, 16 each, and a 4x4
+//     transpose by shuffles turns them into (out of) the m16n8k16 fragment
+//     layout that wgmma shares. P stays in registers too: the S accumulators
 //     of two 8-key tiles are the A fragment of one k16 step of P.V.
 //   * Both products are wgmma (m64n64k16 for S, m64n{hd}k16 for O), bf16 in,
-//     f32 accumulate; the online softmax runs in the log2 domain in f32, keys
-//     >= T masked to -inf after the product; normalisation once at the end,
-//     rows >= T not written.
-//   * With K and V at 107 KB for T=197, hd=128 and no shared memory for Q or
-//     the output, two CTAs share an SM: while one does its softmax the other
-//     owns the tensor cores, and a new CTA's loads overlap its neighbour's
-//     products. The grid comes from B*H: one query tile per CTA while that
-//     leaves the card short of two CTAs per SM (the served batch: K and V are
-//     then read once per query tile, out of L2), all query tiles of a head in
-//     one CTA when there are heads enough (the evaluation batch: every byte of
-//     q, k, v read once).
+//     f32 accumulate. Key tile j's scores are issued together with tile j-1's
+//     P.V, so the tensor cores work on P.V through tile j's softmax; the first
+//     and the last tile are peeled, because the assembler serialises the
+//     products unless the loop's structure is fixed.
+//   * The online softmax runs in the log2 domain in f32, keys >= T masked to
+//     -inf after the product. A row's reference maximum moves only when a tile
+//     exceeds it by 2^8 (any reference gives the same quotient), so most tiles
+//     skip rescaling O. Normalisation once at the end, rows >= T not written.
+//   * With K and V at 107 KB for T=197, hd=128, two CTAs share an SM. Within a
+//     CTA's range most items find their head's K and V in place; where the
+//     head changes, each key tile's place is handed over as the last item's
+//     P.V frees it: the next head's copy of that tile goes out at once.
 //
 // route 0 is the first version of this kernel, unchanged: one CTA per (tile of
 // 64 query rows, head, batch item), four warps of 16 query rows each, K
@@ -63,7 +65,8 @@
 // softmax. float32 inputs go through the tensor cores as a hi+lo bf16 split
 // (hi*hi + hi*lo + lo*hi for both products), which keeps about 16 mantissa
 // bits. hd may be any multiple of 8 up to 128 (columns up to the next multiple
-// of 16 are zero in shared memory). Timings of both routes are in PERF.md.
+// of 16 are zero in shared memory). Timings of both routes, and what was tried
+// and dropped on the way, are in PERF.md.
 
 #include <cuda.h>  // CUtensorMap and its enums; the driver's encoder is taken at run time
 #include <cuda_bf16.h>
@@ -99,7 +102,6 @@ constexpr int kBlockN = 64;     // keys per tile
 constexpr int kSmemBudget = kMaxSmem - 1024;  // what ops/attention.py routes by
 constexpr int kMaxTiles = 32;   // key tiles of the longest sequence the budget holds (hd=32)
 constexpr int kBarrierBytes = kMaxTiles * 8;
-constexpr int kTilesAhead = 2;  // key tiles whose copies are in flight ahead of the one in use
 constexpr float kMaxSlack = 8.f;  // log2 of how far P may outgrow 1 before the row's reference moves
 // S = Q.K^T always reads 64 rows of a K tile; where the last tile is shorter it
 // reads on into V, and V must reach that far
@@ -151,9 +153,6 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
       "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(row), "r"(batch_item)
       : "memory");
-}
-__device__ __forceinline__ void tma_prefetch_map(const CUtensorMap* map) {
-  asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -295,8 +294,8 @@ __device__ __forceinline__ void load_q_rows(uint4 (&raw)[2][HD / 32],
     const int row = row0 + 8 * r;
     const uint4* p = reinterpret_cast<const uint4*>(q_head + (long long)row * stride_t) + cq;
 #pragma unroll
-    for (int i = 0; i < HD / 32; ++i)  // 32 columns are 4 lanes x 16 bytes
-      raw[r][i] = row < t_len ? __ldg(p + 4 * i) : make_uint4(0u, 0u, 0u, 0u);
+    for (int i = 0; i < HD / 32; ++i)  // 32 columns are 4 lanes x 16 bytes; read once: streaming
+      raw[r][i] = row < t_len ? __ldcs(p + 4 * i) : make_uint4(0u, 0u, 0u, 0u);
   }
 }
 
@@ -352,19 +351,10 @@ attention_resident_kernel(const bf16* __restrict__ q,  // [B, T, *] rows stride_
   const uint32_t bars = s_k + (uint32_t)smem_bytes(t_len, HD) - kBarrierBytes;
   if ((s_k & 1023) != 0) __trap();  // the swizzle is a function of the address
 
-  if (tid == 0) {
-    tma_prefetch_map(&k_last);
-    tma_prefetch_map(&v_last);
-    if (n_tiles > 1) {
-      tma_prefetch_map(&k_full);
-      tma_prefetch_map(&v_full);
-    }
-  }
   // All of K and V by TMA, one barrier per key tile, in the order of use. Tile
   // j lands as [column group][row][kCols columns] under the swizzle, full tiles
   // kTileBytes apart; the last tile has `last_rows` rows. Tile 0 goes first,
-  // then the loads of Q, straight to registers, then the next tile; the others
-  // follow as the tiles before them land.
+  // then the loads of Q, straight to registers, then the other tiles.
   auto copy_tiles = [&](int j0, int j1, int h, int b) {
     for (int j = j0; j < j1; ++j) {
       const bool last = j == n_tiles - 1;
@@ -397,7 +387,7 @@ attention_resident_kernel(const bf16* __restrict__ q,  // [B, T, *] rows stride_
     copy_tiles(0, 1, h, b);
   }
   fetch_q(b, h, qt);
-  if (tid == 0) copy_tiles(1, min(kTilesAhead, n_tiles), h, b);
+  if (tid == 0) copy_tiles(1, n_tiles, h, b);
   __syncthreads();  // the barriers exist before anyone waits on them
 
   uint32_t qf[kNK][4];  // Q of one query tile as the A fragments of Q.K^T
@@ -407,9 +397,8 @@ attention_resident_kernel(const bf16* __restrict__ q,  // [B, T, *] rows stride_
   // rows gq and gq + 8: running max of the raw scores, this thread's part of the row sum
   float row_max[2], row_sum[2], corr[2];
   const float max_slack = kMaxSlack / scale_log2;  // in units of the raw scores
-  bool new_head = true;    // this item must wait for K and V; the head's later items find them in place
-  bool first_head = true;  // later heads find their copies issued by the head before
-  uint32_t parity = 0;     // of the barriers' phase that belongs to this head
+  bool new_head = true;  // this item waits for K and V; the head's later items find them in place
+  uint32_t parity = 0;   // of the barriers' phase that belongs to this head
 
   // S = Q . K^T of key tile j: 64 rows x 64 keys, left in flight. Past the
   // last tile's rows the product reads whatever follows in shared memory;
@@ -417,14 +406,7 @@ attention_resident_kernel(const bf16* __restrict__ q,  // [B, T, *] rows stride_
   auto issue_scores = [&](int j) {
     const uint32_t group = (j == n_tiles - 1 ? last_rows : kBlockN) * kRowBytes;
     const uint32_t k_tile = s_k + j * kTileBytes;
-    if (new_head) {
-      mbarrier_wait(bars + 8 * j, parity);
-      // tile j is here: ask for the one kTilesAhead further on, so that a CTA
-      // has its next tiles in flight and no more, and every CTA's first tiles
-      // are not queued behind the others' last
-      if (first_head && tid == 0 && j + kTilesAhead < n_tiles)
-        copy_tiles(j + kTilesAhead, j + kTilesAhead + 1, h, b);
-    }
+    if (new_head) mbarrier_wait(bars + 8 * j, parity);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kNK; ++kk)
@@ -561,10 +543,7 @@ attention_resident_kernel(const bf16* __restrict__ q,  // [B, T, *] rows stride_
     fence_regs(o);
     if (hand_over) copy_next_heads(n_tiles - 1);
     new_head = hand_over;
-    if (hand_over) {
-      first_head = false;
-      parity ^= 1;
-    }
+    parity ^= hand_over ? 1u : 0u;
 
     // normalise and write rows < T
     const int row_base = qt * kBlockM + warp * 16 + gq;

@@ -111,6 +111,13 @@ class DiffusionSchedule:
         rescale_timesteps: bool = False,
         device: str | torch.device = "cpu",
     ) -> "DiffusionSchedule":
+        """The schedule's constant tables from `betas`, computed in float64 with numpy.
+
+        It runs no model and launches nothing, so unlike the package's entry
+        points it defaults to the host: the tables are made on the CPU and
+        `SamplePipeline` moves them to its own device (`.to(device)`). Pass
+        `device` to place them directly.
+        """
         betas = np.asarray(betas, dtype=np.float64)
         if betas.ndim != 1 or not ((betas > 0).all() and (betas <= 1).all()):
             raise ValueError("betas must be a 1-D array in (0, 1]")

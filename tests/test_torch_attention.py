@@ -1,9 +1,10 @@
 """The port's attention (condmdi_tpu_torch/ops/attention.py) against the JAX
 package's, on the CPU: the plain version against JAX's `_xla_attention` (self,
 cross and causal) and against the Pallas kernel in interpret mode; the
-recompute backward against `jax.vjp`; and the dispatch, which on the CPU never
-builds or launches the kernel. The Hopper kernel itself is held to its plain
-version on the card by tests/test_torch_cuda.py and chip_smoke.py."""
+recompute backward against `jax.vjp`; the dispatch, which on the CPU never
+builds or launches a kernel; and the choice between the two Hopper kernels,
+which is a function of the shape and the type. The kernels themselves are held
+to the plain version on the card by tests/test_torch_cuda.py and chip_smoke.py."""
 
 import numpy as np
 import pytest
@@ -144,3 +145,92 @@ def test_other_devices_raise():
     q = torch.zeros(1, 4, 16, device="meta")
     with pytest.raises(ValueError, match="device"):
         attention.fused_self_attention.apply(q, q, q, 2)
+
+
+@pytest.mark.parametrize("case", [
+    # (B, T, H, hd, dtype, route)
+    (8, 197, 4, 128, torch.bfloat16, "wgmma"),     # MDM as served
+    (128, 197, 4, 128, torch.bfloat16, "wgmma"),   # the evaluation batch
+    (8, 196, 4, 128, torch.bfloat16, "wgmma"),     # DiT / trans_dec
+    (3, 25, 2, 64, torch.bfloat16, "wgmma"),
+    (2, 7, 2, 32, torch.bfloat16, "wgmma"),
+    (1, 448, 1, 128, torch.bfloat16, "wgmma"),     # the longest K and V that fit at hd 128 ...
+    (1, 449, 1, 128, torch.bfloat16, "mma_sync"),  # ... and one row more
+    (1, 896, 1, 64, torch.bfloat16, "wgmma"),
+    (1, 897, 1, 64, torch.bfloat16, "mma_sync"),
+    (1, 1792, 1, 32, torch.bfloat16, "wgmma"),
+    (1, 1793, 1, 32, torch.bfloat16, "mma_sync"),
+    (2, 70, 4, 24, torch.bfloat16, "mma_sync"),    # a width the resident kernel is not built for
+    (2, 70, 4, 16, torch.bfloat16, "mma_sync"),
+    (2, 70, 1, 96, torch.bfloat16, "mma_sync"),
+    (8, 197, 4, 128, torch.float32, "mma_sync"),   # float32 stays on the first kernel
+    (3, 25, 2, 64, torch.float32, "mma_sync"),
+])
+def test_route_is_a_function_of_shape_and_dtype(case):
+    B, T, H, hd, dtype, route = case
+    assert attention.attention_route(B, T, H, hd, dtype) == route
+    # neither the batch nor the number of heads moves it
+    assert attention.attention_route(1, T, 1, hd, dtype) == route
+    assert attention.attention_route(4096, T, 64, hd, dtype) == route
+
+
+@pytest.mark.parametrize("T,hd", [(197, 128), (448, 128), (16, 32), (7, 64), (896, 64), (1792, 32)])
+def test_resident_route_fits_a_blocks_shared_memory(T, hd):
+    """What routes to the resident kernel fits the 227 KB a block may use, with
+    K and V of one head side by side, rows padded to 16; at the served shape two
+    such CTAs fit one SM (228 KB, 1 KB reserved for each)."""
+    need = attention.resident_smem_bytes(T, hd)
+    rows = 16 * -(-T // 16)
+    one = rows * hd * 2  # K, or V
+    assert need >= 2 * one + 32 * 8
+    assert need <= 232448 - 1024
+    # the scores of the last key tile read 64 rows of each column group of K,
+    # however few the tile has: what they read past K must lie inside V
+    last_rows = rows - 64 * (-(-T // 64) - 1)
+    assert one + (64 - last_rows) * min(hd, 64) * 2 <= need - 32 * 8
+    if (T, hd) == (197, 128):
+        assert 2 * (need + 1024) <= 228 * 1024
+
+
+def test_the_kernels_build_for_sm90a_against_the_runtime_alone():
+    """wgmma and setmaxnreg need the `a` target; the tensor-map encoder is taken
+    through the runtime at run time, so nothing links against the driver library."""
+    flags = " ".join(_build.NVCC_FLAGS)
+    assert "arch=compute_90a,code=sm_90a" in flags and "-shared" in flags
+    assert "-lcuda" not in _build.NVCC_FLAGS
+    source = (_build.CSRC_DIR / "attention.cu").read_text()
+    assert "cudaGetDriverEntryPoint" in source and "cuTensorMapEncodeTiled" in source
+    assert 'extern "C" int condmdi_attention_forward' in source
+
+
+def test_card_path_names_the_route_when_a_launch_fails(monkeypatch):
+    """A launch that the C entry refuses raises with the route in the message,
+    counts nothing and never takes the plain version."""
+    class Refusing:
+        @staticmethod
+        def condmdi_attention_forward(*args):
+            Refusing.args = args
+            return 1
+
+        @staticmethod
+        def condmdi_error_string(err):
+            return b"invalid argument"
+
+    def never_plain(*_a, **_k):
+        raise AssertionError("the card path fell back to the plain version")
+
+    monkeypatch.setattr(_build, "load_attention", lambda: Refusing)
+    monkeypatch.setattr(attention, "_xla_attention", never_plain)
+    monkeypatch.setattr(attention, "_sm_count", lambda index: 132)
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream", lambda index: 0, raising=False)
+    qkv = torch.zeros(2, 70, 3 * 256, dtype=torch.bfloat16)
+    q, k, v = qkv.chunk(3, dim=-1)
+    before = attention.fused_self_attention.launches
+    with pytest.raises(RuntimeError, match="route wgmma"):
+        attention._launch(q, k, v, 2)
+    assert attention.fused_self_attention.launches == before
+    # the views went over as they lie: pointers 2 * 256 bytes apart, the projection's strides
+    args = Refusing.args
+    assert args[1] - args[0] == args[2] - args[1] == 2 * 256
+    assert args[4:10] == (2, 70, 2, 128, 70 * 768, 768)
+    assert args[10:13] == (1, 1, 2 * 132)

@@ -226,6 +226,112 @@ def test_attention_kernel_at_many_heads_and_long_sequences(cuda_device, B, T):
     assert torch.all((got - want).abs() <= BF16_TOL * (1 + want.abs()))
 
 
+def assert_attention_matches_plain(q, k, v, H):
+    before = attention.fused_self_attention.launches
+    with torch.no_grad():
+        got = attention.mha(q, k, v, H).float()
+        torch.cuda.synchronize()
+        want = attention._xla_attention(q, k, v, H).float()
+    assert attention.fused_self_attention.launches == before + 1
+    assert got.shape == q.shape and torch.isfinite(got).all()
+    assert torch.all((got - want).abs() <= BF16_TOL * (1 + want.abs()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [63, 64, 65, 127, 128, 129, 192, 193, 256])
+@pytest.mark.parametrize("D,H", [(256, 2), (128, 2), (64, 2)])
+def test_attention_kernel_at_the_tile_edges(cuda_device, T, D, H):
+    """bf16 on the resident kernel at head widths 128, 64 and 32: a sequence one
+    short of, equal to and one past a multiple of the 64-row tiles."""
+    assert attention.attention_route(3, T, H, D // H, torch.bfloat16) == "wgmma"
+    assert_attention_matches_plain(*qkv_views(3, T, D, torch.bfloat16, cuda_device, seed=T), H)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,D,H,route", [
+    (448, 128, 1, "wgmma"), (449, 128, 1, "mma_sync"),   # hd 128: K and V of 448 rows fit, 449 do not
+    (896, 128, 2, "wgmma"), (897, 128, 2, "mma_sync"),   # hd 64
+    (200, 96, 4, "mma_sync"), (200, 64, 4, "mma_sync"),  # hd 24 and 16: not a resident width
+])
+def test_attention_kernel_on_each_side_of_the_route_limit(cuda_device, T, D, H, route):
+    assert attention.attention_route(2, T, H, D // H, torch.bfloat16) == route
+    assert_attention_matches_plain(*qkv_views(2, T, D, torch.bfloat16, cuda_device), H)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pairs", [1, 33, 133, 512])
+@pytest.mark.parametrize("T", [65, 197])
+def test_attention_kernel_below_and_above_the_cards_sm_count(cuda_device, pairs, T):
+    """B*H of 1, 33, 133 and 512 (batch, head) pairs: fewer query tiles than the
+    132 SMs hold, and more, where a CTA walks a range of them (heads change
+    inside a range, and the ranges' lengths differ by one)."""
+    H = 1 if pairs % 2 else 2
+    assert_attention_matches_plain(
+        *qkv_views(pairs // H, T, 64 * H, torch.bfloat16, cuda_device, seed=pairs), H)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("layout", ["contiguous", "column_views", "offset_16_bytes"])
+def test_attention_kernel_reads_q_k_v_where_they_lie(cuda_device, dtype, layout):
+    """q, k, v as three contiguous tensors, as the column views of one projection,
+    and as views whose first element lies 16 bytes into their buffer's rows."""
+    B, T, D, H = 4, 130, 256, 2
+    dt = getattr(torch, dtype)
+    shift = {"bfloat16": 8, "float32": 4}[dtype] if layout == "offset_16_bytes" else 0
+    rng = np.random.default_rng(11)
+    buf = torch.from_numpy(rng.standard_normal((B, T, 3 * D + shift)).astype(np.float32))
+    q, k, v = buf.to(cuda_device, dt)[..., shift:].chunk(3, dim=-1)
+    if layout == "contiguous":
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    else:
+        assert q.stride(1) == 3 * D + shift and (q.data_ptr() - buf.data_ptr()) % 16 == 0
+    if layout == "offset_16_bytes":
+        assert q.storage_offset() * q.element_size() == 16
+    before = attention.fused_self_attention.launches
+    with torch.no_grad():
+        got = attention.mha(q, k, v, H).float()
+        torch.cuda.synchronize()
+        want = attention._xla_attention(q, k, v, H).float()
+    assert attention.fused_self_attention.launches == before + 1
+    tol = BF16_TOL if dt == torch.bfloat16 else F32_TOL
+    assert torch.all((got - want).abs() <= tol * (1 + want.abs()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_attention_kernel_replays_inside_a_cuda_graph(cuda_device, dtype):
+    """One call of `mha` captured on a side stream and replayed on new contents of
+    the same buffers: the launch allocates through torch only, stays on the
+    current stream and never synchronises."""
+    B, T, D, H = 8, 197, 512, 4
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(21)
+
+    def fresh():
+        return torch.from_numpy(rng.standard_normal((B, T, 3 * D)).astype(np.float32)).to(
+            cuda_device, dt)
+
+    qkv = fresh()
+    q, k, v = qkv.chunk(3, dim=-1)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side), torch.no_grad():
+        attention.mha(q, k, v, H)  # the build and the first launch stay outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.no_grad(), torch.cuda.graph(graph, stream=side):
+        out = attention.mha(q, k, v, H)
+    tol = BF16_TOL if dt == torch.bfloat16 else F32_TOL
+    for _ in range(2):
+        qkv.copy_(fresh())
+        graph.replay()
+        torch.cuda.synchronize()
+        want = attention._xla_attention(q, k, v, H).float()
+        assert torch.all((out.float() - want).abs() <= tol * (1 + want.abs()))
+
+
 @pytest.mark.cuda
 def test_attention_backward_runs_through_the_kernel_forward(cuda_device):
     """Autograd on the card: the kernel forward, the recompute backward."""

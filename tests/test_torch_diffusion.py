@@ -207,3 +207,21 @@ def test_p_mean_variance_guided_branches_through_unet(small_unet, imputate, recg
     for key in ("mean", "pred_xstart", "model_output"):
         np.testing.assert_allclose(got[key].detach().numpy(), np.asarray(want[key]),
                                    atol=UNET_ATOL, rtol=0, err_msg=key)
+
+
+def test_schedule_tables_are_made_on_the_host_and_moved_by_the_pipeline():
+    """`DiffusionSchedule.create` builds constants: it defaults to the CPU, takes
+    a device, and `SamplePipeline` moves whatever it is given to its own device
+    (the package's other entry points default to CUDA)."""
+    from condmdi_tpu_torch.diffusion import DiffusionConfig
+    from condmdi_tpu_torch.sampling.pipeline import SamplePipeline
+
+    betas = ts.get_named_beta_schedule("cosine", 20)
+    sched = ts.DiffusionSchedule.create(betas)
+    assert sched.betas.device.type == "cpu" and sched.timestep_map.device.type == "cpu"
+    assert "host" in ts.DiffusionSchedule.create.__doc__
+    assert ts.DiffusionSchedule.create(betas, device="meta").betas.device.type == "meta"
+    pipe = SamplePipeline(lambda x, t, y, **kw: x, sched, DiffusionConfig(), device="cpu")
+    assert pipe.sched.betas.device.type == "cpu"
+    with pytest.raises(RuntimeError, match="CUDA"):  # no card here: the default device refuses
+        SamplePipeline(lambda x, t, y, **kw: x, sched, DiffusionConfig())
