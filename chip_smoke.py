@@ -879,17 +879,29 @@ def main() -> int:
     del model
     if sum(shapes.values()) != 33:
         raise SystemExit(f"expected 33 resblock halves per forward, found {shapes}")
-    rows, big_rows = check_kernel(shapes, dev)
-    ddim_err = ddim_kernel_vs_plain(dev)
-    served = serve(dev, card)
+    phase_seconds = {"1 setup": time.perf_counter() - t0}
 
-    attn_rows = check_attention(dev)
-    attention_graph_replay(dev)
-    mdm_ddim_err = mdm_ddim_kernel_vs_plain(dev)
-    recg_err = mdm_recguidance_kernel_vs_plain(dev)
-    served_mdm = serve_mdm(dev, card)
-    dit_err = dit_kernel_vs_plain(dev)
-    bench_forward = mdm_bench_batch_forward(dev, attn_rows)
+    def phase(name, fn, *args):
+        """Run one phase and keep its host seconds (the whole script has a time limit)."""
+        start = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        phase_seconds[name] = time.perf_counter() - start
+        return out
+
+    rows, big_rows = phase("2 resblock kernel", check_kernel, shapes, dev)
+    ddim_err = phase("3 UNet-XL DDIM", ddim_kernel_vs_plain, dev)
+    served = phase("4 UNet-XL serving", serve, dev, card)
+    attn_rows = phase("5 attention kernels", check_attention, dev)
+    phase("5 attention CUDA graph", attention_graph_replay, dev)
+    mdm_ddim_err = phase("6 MDM DDIM", mdm_ddim_kernel_vs_plain, dev)
+    recg_err = phase("7 MDM guidance", mdm_recguidance_kernel_vs_plain, dev)
+    served_mdm = phase("8 MDM serving", serve_mdm, dev, card)
+    dit_err = phase("9 DiT forward", dit_kernel_vs_plain, dev)
+    bench_forward = phase("9 MDM forward at B=128", mdm_bench_batch_forward, dev, attn_rows)
+    print("[time] host seconds by phase: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in phase_seconds.items())
+          + f"; {sum(phase_seconds.values()):.1f} in all", flush=True)
 
     def per_forward(key):
         return sum(r[key] * r["per_forward"] for r in rows)
@@ -947,6 +959,7 @@ def main() -> int:
         {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
          "shapes": rows, "shapes_b64": big_rows, "serve": served, "attention_shapes": attn_rows,
          "serve_mdm": served_mdm, "mdm_forward_b128": bench_forward, "kernels": kernels,
+         "phase_seconds": phase_seconds,
          "previous_ms_from_perf_md": previous}, indent=1))
     print(json.dumps({"kernels": kernels}))
     print(card)

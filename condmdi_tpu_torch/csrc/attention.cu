@@ -32,7 +32,7 @@
 //     the TMA for them up front, a box of min(hd, 64) columns x 64 rows at a
 //     time, one mbarrier per 64-key tile in the order of use: the first tile's
 //     products start while the later tiles are on their way, and no computing
-//     thread issues a copy. Rows T..16*ceil(T/16) arrive as zeros from the
+//     thread starts a copy. Rows T..16*ceil(T/16) arrive as zeros from the
 //     hardware, inside the batch item.
 //   * A box lands as rows of 128 bytes (64 at hd=32) under the swizzle of that
 //     width, which wgmma reads by descriptor with no transpose in software: K
@@ -45,7 +45,7 @@
 //     layout that wgmma shares. P stays in registers too: the S accumulators
 //     of two 8-key tiles are the A fragment of one k16 step of P.V.
 //   * Both products are wgmma (m64n64k16 for S, m64n{hd}k16 for O), bf16 in,
-//     f32 accumulate. Key tile j's scores are issued together with tile j-1's
+//     f32 accumulate. Key tile j's scores are started together with tile j-1's
 //     P.V, so the tensor cores work on P.V through tile j's softmax; the first
 //     and the last tile are peeled, because the assembler serialises the
 //     products unless the loop's structure is fixed.
@@ -68,7 +68,7 @@
 // of 16 are zero in shared memory). Timings of both routes, and what was tried
 // and dropped on the way, are in PERF.md.
 
-#include <cuda.h>  // CUtensorMap and its enums; the driver's encoder is taken at run time
+#include <cuda.h>  // CUtensorMap and its enums; libcuda's encoder is taken at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -102,7 +102,7 @@ constexpr int kBlockN = 64;     // keys per tile
 constexpr int kSmemBudget = kMaxSmem - 1024;  // what ops/attention.py routes by
 constexpr int kMaxTiles = 32;   // key tiles of the longest sequence the budget holds (hd=32)
 constexpr int kBarrierBytes = kMaxTiles * 8;
-constexpr float kMaxSlack = 8.f;  // log2 of how far P may outgrow 1 before the row's reference moves
+constexpr float kMaxSlack = 8.f;  // log2 of how far P may outgrow 1 before a row's reference moves
 // S = Q.K^T always reads 64 rows of a K tile; where the last tile is shorter it
 // reads on into V, and V must reach that far
 constexpr int kOverread = (kBlockN - 16) * 128;
@@ -284,7 +284,7 @@ __device__ __forceinline__ void quad_transpose(uint32_t (&w)[4], int cq) {
 
 // Query rows row0 and row0 + 8 of one head, as the four lanes of a quad read
 // them: 64 contiguous bytes of a row at a time, 16 a lane. Rows >= T read as
-// zero. Only issues the loads.
+// zero. Only starts the loads.
 template <int HD>
 __device__ __forceinline__ void load_q_rows(uint4 (&raw)[2][HD / 32],
                                             const bf16* __restrict__ q_head, long long stride_t,
@@ -318,7 +318,7 @@ __device__ __forceinline__ void q_fragments(uint32_t (&qf)[HD / 16][4],
 
 template <int HD>
 __global__ void __launch_bounds__(kThreads, 2)
-attention_resident_kernel(const bf16* __restrict__ q,  // [B, T, *] rows stride_t apart, head h at column h*HD
+attention_resident_kernel(const bf16* __restrict__ q,  // [B, T, *], rows stride_t apart, head h at h*HD
                           bf16* __restrict__ out,      // [B, T, H*HD] contiguous
                           // k and v as 3-D views (H*HD columns; T rows; B) in boxes of
                           // min(HD, 64) columns x 64 rows, and x the last key tile's rows
@@ -403,7 +403,7 @@ attention_resident_kernel(const bf16* __restrict__ q,  // [B, T, *] rows stride_
   // S = Q . K^T of key tile j: 64 rows x 64 keys, left in flight. Past the
   // last tile's rows the product reads whatever follows in shared memory;
   // those keys are masked before use.
-  auto issue_scores = [&](int j) {
+  auto start_scores = [&](int j) {
     const uint32_t group = (j == n_tiles - 1 ? last_rows : kBlockN) * kRowBytes;
     const uint32_t k_tile = s_k + j * kTileBytes;
     if (new_head) mbarrier_wait(bars + 8 * j, parity);
@@ -419,7 +419,7 @@ attention_resident_kernel(const bf16* __restrict__ q,  // [B, T, *] rows stride_
   };
   // O += P . V of key tile j, left in flight; the last tile holds no rows past
   // the zero-filled ones
-  auto issue_pv = [&](int j, int rows) {
+  auto start_pv = [&](int j, int rows) {
     const uint32_t v_tile = s_v + j * kTileBytes;
     wgmma_fence();
 #pragma unroll
@@ -514,16 +514,16 @@ attention_resident_kernel(const bf16* __restrict__ q,  // [B, T, *] rows stride_
     row_max[0] = row_max[1] = -INFINITY;
     row_sum[0] = row_sum[1] = 0.f;
 
-    // Key tile j's scores and key tile j-1's P.V are issued together: the
+    // Key tile j's scores and key tile j-1's P.V are started together: the
     // tensor cores work on P.V through tile j's softmax.
-    issue_scores(0);
+    start_scores(0);
     wgmma_wait<0>();
     fence_regs(s);
     softmax(0);
     pack_p();
     for (int j = 1; j < n_tiles; ++j) {
-      issue_scores(j);
-      issue_pv(j - 1, kBlockN);
+      start_scores(j);
+      start_pv(j - 1, kBlockN);
       wgmma_wait<1>();  // the scores are done, P.V may still run
       fence_regs(s);
       const bool moved = softmax(j);
@@ -537,7 +537,7 @@ attention_resident_kernel(const bf16* __restrict__ q,  // [B, T, *] rows stride_
       pack_p();
     }
     // the next item's Q rows are fetched behind the last P.V and the stores
-    issue_pv(n_tiles - 1, last_rows);
+    start_pv(n_tiles - 1, last_rows);
     if (item + 1 < item1) fetch_q(next_b, next_h, next_qt);
     wgmma_wait<0>();
     fence_regs(o);
@@ -577,8 +577,8 @@ attention_resident_kernel(const bf16* __restrict__ q,  // [B, T, *] rows stride_
   }
 }
 
-// The driver's tensor-map encoder, taken through the runtime so that nothing
-// links against the driver library.
+// libcuda's tensor-map encoder, taken through the runtime so that nothing
+// links against libcuda itself.
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
@@ -603,7 +603,7 @@ EncodeTiled tensor_map_encoder() {
 // or 64 bytes), which is how wgmma reads them.
 //
 // A map is a function of these arguments alone (never of the tensor's
-// contents), and the driver takes about a microsecond to encode one, so the
+// contents), and encoding one takes a few microseconds of host time, so the
 // last maps are kept: a sampler's activations come back to the same addresses
 // step after step.
 struct MapKey {

@@ -31,8 +31,8 @@ import torch
 from condmdi_tpu_torch.ops import _build
 
 _MAX_HEAD_DIM = 128  # the widest head the kernel takes (multiples of 8)
-_MAX_GRID = 65535  # CUDA's limit on the y and z grid dimensions, which the tiled kernel uses for H and B
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_MAX_GRID = 65535  # CUDA's limit on grid y and z, where the tiled kernel puts H and B
+_DTYPES = {torch.float32: (0, 4), torch.bfloat16: (1, 2)}  # the C entry's code, bytes a value
 _ROUTE_CODES = {"mma_sync": 0, "wgmma": 1}
 _WGMMA_HEAD_DIMS = (32, 64, 128)  # head widths the resident kernel is instantiated for
 _WGMMA_SMEM_BUDGET = 232448 - 1024  # a block's shared memory on sm_90, less a reserve
@@ -153,11 +153,14 @@ def _launch(q, k, v, num_heads: int) -> torch.Tensor:
     Written for a short host path (a served step is bound by the host): no
     temporaries beyond the output, plain ints to ctypes, the stream's raw handle.
     """
-    dtype, device, shape = q.dtype, q.device, q.shape
-    code = _DTYPE_CODES.get(dtype)
-    if code is None:
+    dtype, shape = q.dtype, q.shape
+    known = _DTYPES.get(dtype)
+    if known is None:
         raise TypeError(f"fused_self_attention: unsupported dtype {dtype}")
-    if k.dtype != dtype or v.dtype != dtype or k.device != device or v.device != device:
+    code, size = known
+    index = q.get_device()  # -1 on the CPU, which only the tests send here
+    if (k.dtype is not dtype or v.dtype is not dtype
+            or k.get_device() != index or v.get_device() != index):
         raise TypeError("fused_self_attention: q, k and v must share a dtype and a device")
     if len(shape) != 3 or k.shape != shape or v.shape != shape:
         raise ValueError(
@@ -179,15 +182,13 @@ def _launch(q, k, v, num_heads: int) -> torch.Tensor:
     if strides[2] != 1 or k.stride() != strides or v.stride() != strides:
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
         strides = q.stride()
-    size = q.element_size()
     q_ptr, k_ptr, v_ptr = q.data_ptr(), k.data_ptr(), v.data_ptr()
     if (q_ptr | k_ptr | v_ptr | (strides[0] * size) | (strides[1] * size)) % 16:
         # both kernels read rows in 16-byte pieces
         raise ValueError("fused_self_attention: q/k/v rows must be 16-byte aligned")
-    out = torch.empty(shape, device=device, dtype=dtype)
+    out = torch.empty(shape, device=q.device, dtype=dtype)
 
     lib = _build.load_attention()
-    index = device.index
     err = lib.condmdi_attention_forward(
         q_ptr, k_ptr, v_ptr, out.data_ptr(), B, T, num_heads, hd, strides[0], strides[1],
         code, _ROUTE_CODES[route], _CTAS_PER_SM * _sm_count(index),

@@ -194,7 +194,7 @@ def test_resident_route_fits_a_blocks_shared_memory(T, hd):
 
 def test_the_kernels_build_for_sm90a_against_the_runtime_alone():
     """wgmma and setmaxnreg need the `a` target; the tensor-map encoder is taken
-    through the runtime at run time, so nothing links against the driver library."""
+    through the runtime at run time, so nothing links against libcuda itself."""
     flags = " ".join(_build.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags and "-shared" in flags
     assert "-lcuda" not in _build.NVCC_FLAGS

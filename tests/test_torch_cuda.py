@@ -249,7 +249,7 @@ def test_attention_kernel_at_the_tile_edges(cuda_device, T, D, H):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("T,D,H,route", [
-    (448, 128, 1, "wgmma"), (449, 128, 1, "mma_sync"),   # hd 128: K and V of 448 rows fit, 449 do not
+    (448, 128, 1, "wgmma"), (449, 128, 1, "mma_sync"),   # hd 128: K and V of 448 rows fit
     (896, 128, 2, "wgmma"), (897, 128, 2, "mma_sync"),   # hd 64
     (200, 96, 4, "mma_sync"), (200, 64, 4, "mma_sync"),  # hd 24 and 16: not a resident width
 ])
