@@ -1,8 +1,9 @@
 """Where the resident attention kernel's time goes, on one NVIDIA GPU.
 
-    python3 -m condmdi_tpu_torch.tools.attention_probe [timeline] [variants] [host] [batches]
+    python3 -m condmdi_tpu_torch.tools.attention_probe [MODE ...]
 
-With no argument it runs all four. Each mode prints the card's name and power
+MODE is any of timeline, variants, layouts, host, batches.
+With no argument it runs all five. Each mode prints the card's name and power
 limit first; none of them is part of the package's paths or of chip_smoke.py.
 
   timeline  builds a copy of csrc/attention.cu with clock stamps at a CTA's
@@ -12,6 +13,9 @@ limit first; none of them is part of the package's paths or of chip_smoke.py.
   variants  builds copies with parts switched off (the results are wrong, the
             times tell what each part costs) and times them as chip_smoke.py
             times phase 5;
+  layouts   three of the variants at the evaluation batch's size with q, k, v as
+            column views of one projection, as contiguous tensors, and with one
+            dense head a row: does the time depend on where the bytes lie;
   host      the host's cost of one wrapper call, by part, beside one
             scaled_dot_product_attention call;
   batches   kernel against scaled_dot_product_attention over batch sizes.
@@ -201,6 +205,25 @@ def variants(dev):
     _build._libs.pop("attention.cu")
 
 
+def layouts(dev):
+    gen = torch.Generator(device=dev).manual_seed(1)
+    cases = {  # the same bytes of q, k, v and the same number of (batch, head) pairs
+        "column views, B=128 H=4 D=512": ((128, 197, 512, 4), False),
+        "contiguous q, k, v, B=128 H=4 D=512": ((128, 197, 512, 4), True),
+        "contiguous, one head a row, B=512 H=1 D=128": ((512, 197, 128, 1), True),
+    }
+    data = {}
+    for name, (shape, contiguous) in cases.items():
+        data[name] = [tuple(t.contiguous() for t in s) if contiguous else s
+                      for s in qkv_sets(shape, dev, gen)]
+    for i, variant in enumerate(("as committed", "no arithmetic", "K and V copies alone")):
+        load(f"layout{i}", build(f"layout{i}", edited(VARIANTS[variant])))
+        for name, (shape, _) in cases.items():
+            us = kernel_us(data[name], shape[3])
+            print(f"[layouts] {variant:>22} | {name:44s}: {us:6.1f} us", flush=True)
+    _build._libs.pop("attention.cu")
+
+
 # --------------------------------------------------------------------------- #
 # host, batches
 # --------------------------------------------------------------------------- #
@@ -254,7 +277,8 @@ def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         print("attention_probe: torch.cuda.is_available() is False", file=sys.stderr)
         return 2
-    modes = {"timeline": timeline, "variants": variants, "host": host, "batches": batches}
+    modes = {"timeline": timeline, "variants": variants, "layouts": layouts, "host": host,
+             "batches": batches}
     chosen = argv or list(modes)
     if any(m not in modes for m in chosen):
         print(__doc__, file=sys.stderr)
