@@ -1,18 +1,19 @@
 """Where the resident attention kernel's time goes, on one NVIDIA GPU.
 
-    python3 -m condmdi_tpu_torch.tools.attention_probe [MODE ...]
+    python3 attention_probe.py [MODE ...]
 
-MODE is any of timeline, variants, layouts, host, batches.
-With no argument it runs all five. Each mode prints the card's name and power
-limit first; none of them is part of the package's paths or of chip_smoke.py.
+MODE is any of timeline, variants, layouts, host, batches. With no argument it
+runs all five. It prints the card's name and power limit first. It stands
+beside chip_smoke.py, whose timing method it uses; nothing in the package or in
+chip_smoke.py needs it.
 
-  timeline  builds a copy of csrc/attention.cu with clock stamps at a CTA's
-            milestones and prints, for the served shape and the evaluation
-            batch, the cycles since the CTA's start at which each was reached
-            (percentiles over the CTAs);
-  variants  builds copies with parts switched off (the results are wrong, the
-            times tell what each part costs) and times them as chip_smoke.py
-            times phase 5;
+  timeline  builds csrc/attention.cu with -DCONDMDI_PROBE_STAMPS (clock stamps at
+            a CTA's milestones) and prints, for the served shape and the
+            evaluation batch, the cycles since the CTA's start at which each
+            was reached (percentiles over the CTAs);
+  variants  builds it with -DCONDMDI_PROBE_OFF=<mask>, parts of the resident
+            kernel switched off (the results are wrong, the times tell what
+            each part costs), and times each as chip_smoke.py times phase 5;
   layouts   three of the variants at the evaluation batch's size with q, k, v as
             column views of one projection, as contiguous tensors, and with one
             dense head a row: does the time depend on where the bytes lie;
@@ -20,59 +21,78 @@ limit first; none of them is part of the package's paths or of chip_smoke.py.
             scaled_dot_product_attention call;
   batches   kernel against scaled_dot_product_attention over batch sizes.
 
-The copies are made by exact-text edits of the source and fail loudly when the
-source has moved on; they are built into the package's build directory.
+The probe libraries are built into the package's build directory, all at once.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import subprocess
 import sys
 import time
-from pathlib import Path
 
 import torch
 import torch.nn.functional as F
 
-ROOT = Path(__file__).resolve().parents[2]
-sys.path.insert(0, str(ROOT))
-
-import chip_smoke as cs  # noqa: E402  (the timing method and the card line)
-from condmdi_tpu_torch.ops import _build, attention  # noqa: E402
+import chip_smoke as cs  # the timing method and the card line
+from condmdi_tpu_torch.ops import _build, attention
 
 SOURCE = _build.CSRC_DIR / "attention.cu"
 SERVED, BENCH = (8, 197, 512, 4), (128, 197, 512, 4)  # (B, T, D, H)
 SLOTS = 32  # 8-byte stamps a CTA
+# csrc/attention.cu `ProbeOff`
+SCORES, PV, SOFTMAX, STORES, Q_LOADS, SLACK, SECOND_CTA = 1, 2, 4, 8, 16, 32, 64
+ARITHMETIC = SCORES | PV | SOFTMAX
+VARIANTS = {
+    "as committed": 0,
+    "no scores": SCORES,
+    "no P.V": PV,
+    "no softmax": SOFTMAX,
+    "no output stores": STORES,
+    "reference maximum moves every tile": SLACK,
+    "one CTA an SM": SECOND_CTA,
+    "no arithmetic": ARITHMETIC,
+    "no arithmetic, no stores": ARITHMETIC | STORES,
+    "K and V copies alone": ARITHMETIC | STORES | Q_LOADS,
+    "K and V copies alone, one CTA an SM": ARITHMETIC | STORES | Q_LOADS | SECOND_CTA,
+}
+_started: dict[str, tuple] = {}  # define -> (library path, nvcc process or None)
 
 
-def edited(edits: list[tuple[str, str]]) -> str:
-    src = SOURCE.read_text()
-    for old, new in edits:
-        if src.count(old) != 1:
-            raise SystemExit(f"attention_probe: the source no longer holds exactly one\n{old!r}")
-        src = src.replace(old, new)
-    return src
+def start_build(define: str) -> None:
+    """Start nvcc on the kernel's source with one more -D, unless that library exists."""
+    if define in _started:
+        return
+    digest = hashlib.sha256(SOURCE.read_bytes() + define.encode()).hexdigest()[:16]
+    out = _build.BUILD_DIR / f"probe_{digest}.so"
+    proc = None
+    if not out.exists():
+        _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        proc = subprocess.Popen(
+            [_build.find_nvcc(), *_build.NVCC_FLAGS, f"-D{define}", "-o", str(out), str(SOURCE)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    _started[define] = (out, proc)
 
 
-def build(name: str, src: str) -> subprocess.Popen:
-    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = _build.BUILD_DIR / f"probe_{name}.cu"
-    cu.write_text(src)
-    return subprocess.Popen(
-        [_build.find_nvcc(), *_build.NVCC_FLAGS, "-o", str(cu.with_suffix(".so")), str(cu)],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-
-
-def load(name: str, proc: subprocess.Popen) -> ctypes.CDLL:
-    """The built copy, bound, and put in place of the package's library."""
-    out, _ = proc.communicate()
-    if proc.returncode:
-        raise SystemExit(f"attention_probe: nvcc failed on {name}:\n{out[-3000:]}")
-    lib = ctypes.CDLL(str(_build.BUILD_DIR / f"probe_{name}.so"))
+def load(define: str) -> ctypes.CDLL:
+    """The library built with `define`, bound, and put in place of the package's."""
+    start_build(define)
+    out, proc = _started[define]
+    if proc is not None:
+        log, _ = proc.communicate()
+        if proc.returncode:
+            out.unlink(missing_ok=True)
+            raise SystemExit(f"attention_probe: nvcc -D{define} failed:\n{log[-3000:]}")
+        _started[define] = (out, None)
+    lib = ctypes.CDLL(str(out))
     _build._bind_attention(lib)
     _build._libs["attention.cu"] = lib
     return lib
+
+
+def off(mask: int) -> str:
+    return f"CONDMDI_PROBE_OFF={mask}"
 
 
 def qkv_sets(shape, dev, gen):
@@ -99,42 +119,15 @@ def sdpa_us(sets, shape) -> float:
 # --------------------------------------------------------------------------- #
 # timeline
 # --------------------------------------------------------------------------- #
-CTA = "(size_t)blockIdx.x * 32"
-STAMP = "if (dbg && threadIdx.x == 0) dbg[" + CTA + " + (%s)] = clock64();"
-TIMELINE_EDITS = [
-    ("namespace resident {\n",
-     "namespace resident {\nstatic unsigned long long* g_dbg = nullptr;\n"),
-    ("                          float scale_log2) {\n",
-     "                          float scale_log2, unsigned long long* dbg) {\n  " + STAMP % "0"
-     + "\n"),
-    ("    fence_barrier_init();\n", "    fence_barrier_init();\n    " + STAMP % "1" + "\n"),
-    ("  __syncthreads();  // the barriers exist before anyone waits on them\n",
-     "  __syncthreads();\n  " + STAMP % "2" + "\n  int item_no = 0;\n"),
-    ("    q_fragments<HD>(qf, q_rows, cq);\n",
-     "    if (item_no < 8) { " + STAMP % "3 + 3 * item_no"
-     + " }\n    q_fragments<HD>(qf, q_rows, cq);\n"),
-    ("    if (new_head) mbarrier_wait(bars + 8 * j, parity);\n",
-     "    if (new_head) { mbarrier_wait(bars + 8 * j, parity); if (j == 0 && item_no < 8) { "
-     + STAMP % "4 + 3 * item_no" + " } }\n"),
-    ("    new_head = hand_over;\n",
-     "    new_head = hand_over;\n    if (item_no < 8) { " + STAMP % "5 + 3 * item_no" + " }\n"),
-    ("    qt = next_qt;\n  }\n}",
-     "    qt = next_qt;\n    ++item_no;\n  }\n  " + STAMP % "30" + "\n}"),
-    ("(int)(items % grid), scale_log2);\n", "(int)(items % grid), scale_log2, g_dbg);\n"),
-    ('extern "C" const char* condmdi_error_string',
-     'extern "C" void condmdi_probe_stamps(void* p) {\n'
-     "  resident::g_dbg = static_cast<unsigned long long*>(p);\n}\n"
-     'extern "C" const char* condmdi_error_string'),
-]
-
-
 def timeline(dev):
-    lib = load("timeline", build("timeline", edited(TIMELINE_EDITS)))
+    lib = load("CONDMDI_PROBE_STAMPS")
     lib.condmdi_probe_stamps.argtypes = [ctypes.c_void_p]
+    lib.condmdi_probe_stamps.restype = ctypes.c_int
     gen = torch.Generator(device=dev).manual_seed(0)
     names = {1: "barriers ready", 2: "copies and Q loads started, CTA synchronised", 30: "end"}
     for it in range(8):
-        names.update({3 + 3 * it: f"item {it} begins", 4 + 3 * it: f"item {it}: tile 0 in place",
+        names.update({3 + 3 * it: f"item {it} begins",
+                      4 + 3 * it: f"item {it}: tile 0 in place, its scores started",
                       5 + 3 * it: f"item {it} computed"})
     for shape in (SERVED, BENCH):
         B, T, _, H = shape
@@ -165,40 +158,11 @@ def timeline(dev):
 # --------------------------------------------------------------------------- #
 # variants
 # --------------------------------------------------------------------------- #
-NO_SCORES = ("    for (int kk = 0; kk < kNK; ++kk)\n      WgmmaRS<64, 0>::run(",
-             "    for (int kk = 0; kk < kNK; ++kk)\n      if (t_len < 0) WgmmaRS<64, 0>::run(")
-NO_PV = ("      if (kk * 16 < rows)\n", "      if (kk * 16 < rows && t_len < 0)\n")
-NO_SOFTMAX = [("      const bool moved = softmax(j);", "      const bool moved = false;"),
-              ("    softmax(0);\n", "")]
-NO_STORE = ("if (row < t_len) dst[4 * i] = make_uint4", "if (row < 0) dst[4 * i] = make_uint4")
-NO_Q = ("raw[r][i] = row < t_len ? __ldcs(p + 4 * i) : make_uint4(0u, 0u, 0u, 0u);",
-        "raw[r][i] = row < 0 ? __ldcs(p + 4 * i) : make_uint4(1u, 0u, 0u, 0u);")
-ALWAYS_RESCALE = ("constexpr float kMaxSlack = 8.f;", "constexpr float kMaxSlack = 0.f;")
-ONE_CTA_AN_SM = ("const int grid = (int)(items < max_ctas ? items : max_ctas);",
-                 "const int grid = (int)(items < max_ctas / 2 ? items : max_ctas / 2);")
-NO_ARITHMETIC = [NO_SCORES, NO_PV, *NO_SOFTMAX]
-VARIANTS = {
-    "as committed": [],
-    "no scores": [NO_SCORES],
-    "no P.V": [NO_PV],
-    "no softmax": NO_SOFTMAX,
-    "no output stores": [NO_STORE],
-    "reference maximum moves every tile": [ALWAYS_RESCALE],
-    "one CTA an SM": [ONE_CTA_AN_SM],
-    "no arithmetic": NO_ARITHMETIC,
-    "no arithmetic, no stores": [*NO_ARITHMETIC, NO_STORE],
-    "K and V copies alone": [*NO_ARITHMETIC, NO_STORE, NO_Q],
-    "K and V copies alone, one CTA an SM": [*NO_ARITHMETIC, NO_STORE, NO_Q, ONE_CTA_AN_SM],
-}
-
-
 def variants(dev):
-    procs = {name: build(f"variant{i}", edited(edits))
-             for i, (name, edits) in enumerate(VARIANTS.items())}
     gen = torch.Generator(device=dev).manual_seed(3)
     data = {shape: qkv_sets(shape, dev, gen) for shape in (SERVED, BENCH)}
-    for i, (name, proc) in enumerate(procs.items()):
-        load(f"variant{i}", proc)
+    for name, mask in VARIANTS.items():
+        load(off(mask))
         times = [kernel_us(data[shape], shape[3]) for shape in (SERVED, BENCH)]
         print(f"[variants] {name:>38}: served {times[0]:6.1f} us, evaluation batch "
               f"{times[1]:6.1f} us", flush=True)
@@ -216,8 +180,8 @@ def layouts(dev):
     for name, (shape, contiguous) in cases.items():
         data[name] = [tuple(t.contiguous() for t in s) if contiguous else s
                       for s in qkv_sets(shape, dev, gen)]
-    for i, variant in enumerate(("as committed", "no arithmetic", "K and V copies alone")):
-        load(f"layout{i}", build(f"layout{i}", edited(VARIANTS[variant])))
+    for variant in ("as committed", "no arithmetic", "K and V copies alone"):
+        load(off(VARIANTS[variant]))
         for name, (shape, _) in cases.items():
             us = kernel_us(data[name], shape[3])
             print(f"[layouts] {variant:>22} | {name:44s}: {us:6.1f} us", flush=True)
@@ -237,7 +201,7 @@ def host(dev):
 
     def c_entry():
         lib.condmdi_attention_forward(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                                      B, T, H, D // H, q.stride(0), q.stride(1), 1, 1, 264, stream)
+                                      B, T, H, D // H, q.stride(0), q.stride(1), 1, 1, stream)
 
     def per_call_us(fn, n=3000):
         for _ in range(50):
@@ -284,6 +248,13 @@ def main(argv: list[str]) -> int:
         print(__doc__, file=sys.stderr)
         return 2
     dev = torch.device("cuda")
+    if "timeline" in chosen:
+        start_build("CONDMDI_PROBE_STAMPS")
+    if "variants" in chosen or "layouts" in chosen:
+        for name, mask in VARIANTS.items():
+            if "variants" in chosen or name in ("as committed", "no arithmetic",
+                                                "K and V copies alone"):
+                start_build(off(mask))
     print(f"[probe] {cs.card_line()}; torch {torch.__version__}, CUDA {torch.version.cuda}",
           flush=True)
     for m in chosen:

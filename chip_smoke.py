@@ -115,20 +115,14 @@ def timed_ms(fn, inputs, reps=5, iters=10) -> tuple[float, float]:
     """(device ms, host ms) per call. Device: median over `reps` of the mean time
     of `iters` calls, cycling `inputs`; each repeat starts behind a spin kernel
     longer than the host takes to enqueue the calls, so host overhead between
-    launches is not counted. Host: the time to enqueue one call, taken last, when
-    every input set has been through `fn` (a sampler's activations come back to
-    the same addresses step after step, so what a call sets up once per
-    address, on either side of a comparison, is not part of a step)."""
-    def enqueue_s():
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for i in range(iters):
-            fn(*inputs[i % len(inputs)])
-        return time.perf_counter() - t0
-
+    launches is not counted. Host: the time to enqueue one call."""
     for i in range(3):
         fn(*inputs[i % len(inputs)])
-    host_s = enqueue_s()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(iters):
+        fn(*inputs[i % len(inputs)])
+    host_s = time.perf_counter() - t0
     torch.cuda.synchronize()
     spin_cycles = int(4e9 * host_s) + 2_000_000  # twice the host time at up to 2 GHz
     times = []
@@ -141,7 +135,7 @@ def timed_ms(fn, inputs, reps=5, iters=10) -> tuple[float, float]:
         e1.record()
         torch.cuda.synchronize()
         times.append(e0.elapsed_time(e1) / iters)
-    return statistics.median(times), enqueue_s() * 1e3 / iters
+    return statistics.median(times), host_s * 1e3 / iters
 
 
 # --------------------------------------------------------------------------- #

@@ -12,9 +12,11 @@
 // CFG, T=197, D=512, H=4, hd=128) q, k, v and out in bf16 are 6.46 MB, 1.93 us
 // at 3.35 TB/s, against 4*B*H*T^2*hd = 0.64 GFLOP, 0.64 us at 989 TFLOP/s.
 //
-// Two hand-written kernels, and which shape takes which. The caller names the
-// route (ops/attention.py `attention_route`, a function of the shape and the
-// type alone), and this file refuses a route that the shape does not fit:
+// Two hand-written kernels, and which shape takes which: `route_of` below, a
+// function of the shape and the type alone, exported as
+// `condmdi_attention_route`. The caller names the route it expects
+// (ops/attention.py `attention_route`, the same function in Python, so that it
+// can be asked where there is no card), and the entry point refuses any other:
 //
 //   route 1, "wgmma" -- `resident::attention_resident_kernel`: bfloat16 with a
 //     head width of 32, 64 or 128 whose K and V fit one block's shared memory,
@@ -37,8 +39,8 @@
 //   * A box lands as rows of 128 bytes (64 at hd=32) under the swizzle of that
 //     width, which wgmma reads by descriptor with no transpose in software: K
 //     as the K-major operand of S = Q.K^T, V as the MN-major operand of
-//     O += P.V through the transpose bit. The tensor maps depend on addresses
-//     and shapes only; the C entry keeps the last ones.
+//     O += P.V through the transpose bit. The tensor maps depend on the
+//     tensors' addresses, so the C entry encodes them on every call.
 //   * Q never enters shared memory and neither does the output: the four lanes
 //     of a quad read (write) 64 contiguous bytes of a row, 16 each, and a 4x4
 //     transpose by shuffles turns them into (out of) the m16n8k16 fragment
@@ -74,9 +76,39 @@
 #include <math.h>
 #include <stdint.h>
 
-#include <mutex>
+#include <atomic>
+
+// Probe builds only. attention_probe.py compiles copies of this file with
+// -DCONDMDI_PROBE_OFF=<mask of ProbeOff>, which switches parts of the resident
+// kernel off (the results are then wrong; the times tell what each part
+// costs), or with -DCONDMDI_PROBE_STAMPS, which records clock64() at a CTA's
+// milestones, 32 slots a CTA. The package's build defines neither, and every
+// line that names them folds away.
+#ifndef CONDMDI_PROBE_OFF
+#define CONDMDI_PROBE_OFF 0
+#endif
+#ifdef CONDMDI_PROBE_STAMPS
+__device__ unsigned long long* g_probe_stamps = nullptr;
+#define CONDMDI_STAMP(slot)                                                   \
+  do {                                                                        \
+    if (g_probe_stamps != nullptr && threadIdx.x == 0)                        \
+      g_probe_stamps[(size_t)blockIdx.x * 32 + (slot)] = clock64();           \
+  } while (0)
+#else
+#define CONDMDI_STAMP(slot) \
+  do {                      \
+    (void)(slot);           \
+  } while (0)
+#endif
 
 namespace {
+
+enum ProbeOff {
+  kOffScores = 1, kOffPv = 2, kOffSoftmax = 4, kOffStores = 8, kOffQ = 16,
+  kOffSlack = 32,      // a row's reference maximum moves on every tile
+  kOffSecondCta = 64,  // one CTA an SM
+};
+__host__ __device__ constexpr bool probe_off(int part) { return (CONDMDI_PROBE_OFF & part) != 0; }
 
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kMaxHd = 128;       // widest head either kernel takes
@@ -102,7 +134,7 @@ constexpr int kBlockN = 64;     // keys per tile
 constexpr int kSmemBudget = kMaxSmem - 1024;  // what ops/attention.py routes by
 constexpr int kMaxTiles = 32;   // key tiles of the longest sequence the budget holds (hd=32)
 constexpr int kBarrierBytes = kMaxTiles * 8;
-constexpr float kMaxSlack = 8.f;  // log2 of how far P may outgrow 1 before a row's reference moves
+constexpr float kMaxSlack = probe_off(kOffSlack) ? 0.f : 8.f;  // log2 of how far P may outgrow 1 before a row's reference moves
 // S = Q.K^T always reads 64 rows of a K tile; where the last tile is shorter it
 // reads on into V, and V must reach that far
 constexpr int kOverread = (kBlockN - 16) * 128;
@@ -295,7 +327,9 @@ __device__ __forceinline__ void load_q_rows(uint4 (&raw)[2][HD / 32],
     const uint4* p = reinterpret_cast<const uint4*>(q_head + (long long)row * stride_t) + cq;
 #pragma unroll
     for (int i = 0; i < HD / 32; ++i)  // 32 columns are 4 lanes x 16 bytes; read once: streaming
-      raw[r][i] = row < t_len ? __ldcs(p + 4 * i) : make_uint4(0u, 0u, 0u, 0u);
+      raw[r][i] = row < (probe_off(kOffQ) ? 0 : t_len)
+                      ? __ldcs(p + 4 * i)
+                      : make_uint4(probe_off(kOffQ) ? 1u : 0u, 0u, 0u, 0u);
   }
 }
 
@@ -335,6 +369,7 @@ attention_resident_kernel(const bf16* __restrict__ q,  // [B, T, *], rows stride
   constexpr int kGroups = HD / kCols;          // column groups of a key tile
   constexpr int kTileBytes = kBlockN * HD * 2; // one full key tile of K, or of V
   extern __shared__ __align__(1024) unsigned char smem_resident[];
+  CONDMDI_STAMP(0);
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int gq = lane >> 2, cq = lane & 3;  // fragment row / column pair
@@ -384,11 +419,13 @@ attention_resident_kernel(const bf16* __restrict__ q,  // [B, T, *], rows stride
   if (tid == 0) {
     for (int j = 0; j < n_tiles; ++j) mbarrier_init(bars + 8 * j, 1);
     fence_barrier_init();
+    CONDMDI_STAMP(1);
     copy_tiles(0, 1, h, b);
   }
   fetch_q(b, h, qt);
   if (tid == 0) copy_tiles(1, n_tiles, h, b);
   __syncthreads();  // the barriers exist before anyone waits on them
+  CONDMDI_STAMP(2);
 
   uint32_t qf[kNK][4];  // Q of one query tile as the A fragments of Q.K^T
   float o[HD / 2];  // n8 tile t of this warp's 16 rows: o[4t .. 4t+3]
@@ -410,11 +447,12 @@ attention_resident_kernel(const bf16* __restrict__ q,  // [B, T, *], rows stride
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kNK; ++kk)
-      WgmmaRS<64, 0>::run(
-          s, qf[kk],
-          wgmma_desc<kRowBytes>(k_tile + (16 * kk / kCols) * group + (16 * kk % kCols) * 2, 16,
-                                8 * kRowBytes),
-          kk > 0);
+      if (!probe_off(kOffScores) || t_len < 0)
+        WgmmaRS<64, 0>::run(
+            s, qf[kk],
+            wgmma_desc<kRowBytes>(k_tile + (16 * kk / kCols) * group + (16 * kk % kCols) * 2, 16,
+                                  8 * kRowBytes),
+            kk > 0);
     wgmma_commit();
   };
   // O += P . V of key tile j, left in flight; the last tile holds no rows past
@@ -424,7 +462,7 @@ attention_resident_kernel(const bf16* __restrict__ q,  // [B, T, *], rows stride
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kBlockN / 16; ++kk)
-      if (kk * 16 < rows)
+      if (kk * 16 < rows && (!probe_off(kOffPv) || t_len < 0))
         WgmmaRS<HD, 1>::run(
             o, pa[kk],
             wgmma_desc<kRowBytes>(v_tile + kk * 16 * kRowBytes, rows * kRowBytes, 8 * kRowBytes),
@@ -508,6 +546,8 @@ attention_resident_kernel(const bf16* __restrict__ q,  // [B, T, *], rows stride
       __syncthreads();
       if (tid == 0) copy_tiles(j, j + 1, next_h, next_b);
     };
+    const int stamp = 3 * (item - item0 < 8 ? item - item0 : 8);  // slots 3..26: the first 8 items
+    CONDMDI_STAMP(3 + stamp);
     q_fragments<HD>(qf, q_rows, cq);
 #pragma unroll
     for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
@@ -517,16 +557,17 @@ attention_resident_kernel(const bf16* __restrict__ q,  // [B, T, *], rows stride
     // Key tile j's scores and key tile j-1's P.V are started together: the
     // tensor cores work on P.V through tile j's softmax.
     start_scores(0);
+    if (new_head) CONDMDI_STAMP(4 + stamp);  // tile 0 of a new head in place
     wgmma_wait<0>();
     fence_regs(s);
-    softmax(0);
+    if (!probe_off(kOffSoftmax)) softmax(0);
     pack_p();
     for (int j = 1; j < n_tiles; ++j) {
       start_scores(j);
       start_pv(j - 1, kBlockN);
       wgmma_wait<1>();  // the scores are done, P.V may still run
       fence_regs(s);
-      const bool moved = softmax(j);
+      const bool moved = probe_off(kOffSoftmax) ? false : softmax(j);
       wgmma_wait<0>();  // P.V is done: O may be rescaled, P overwritten
       fence_regs(o);
       if (hand_over) copy_next_heads(j - 1);
@@ -544,6 +585,7 @@ attention_resident_kernel(const bf16* __restrict__ q,  // [B, T, *], rows stride
     if (hand_over) copy_next_heads(n_tiles - 1);
     new_head = hand_over;
     parity ^= hand_over ? 1u : 0u;
+    CONDMDI_STAMP(5 + stamp);  // the item is computed
 
     // normalise and write rows < T
     const int row_base = qt * kBlockM + warp * 16 + gq;
@@ -568,13 +610,15 @@ attention_resident_kernel(const bf16* __restrict__ q,  // [B, T, *], rows stride
           w[d] = pack_bf16(o[4 * (4 * i + d) + 2 * half] * inv[half],
                            o[4 * (4 * i + d) + 2 * half + 1] * inv[half]);
         quad_transpose(w, cq);
-        if (row < t_len) dst[4 * i] = make_uint4(w[0], w[1], w[2], w[3]);
+        if (row < (probe_off(kOffStores) ? 0 : t_len))
+          dst[4 * i] = make_uint4(w[0], w[1], w[2], w[3]);
       }
     }
     b = next_b;
     h = next_h;
     qt = next_qt;
   }
+  CONDMDI_STAMP(30);
 }
 
 // libcuda's tensor-map encoder, taken through the runtime so that nothing
@@ -600,72 +644,57 @@ EncodeTiled tensor_map_encoder() {
 // x [B, T, cols] (rows stride_t elements apart, 16-byte aligned) as a 3-D bf16
 // tensor (cols; T; B), cut in boxes of (box_cols; box_rows; 1) that land in
 // shared memory as rows of box_cols bf16 under the swizzle of that width (128
-// or 64 bytes), which is how wgmma reads them.
-//
-// A map is a function of these arguments alone (never of the tensor's
-// contents), and encoding one takes a few microseconds of host time, so the
-// last maps are kept: a sampler's activations come back to the same addresses
-// step after step.
-struct MapKey {
-  const void* x;
-  long long stride_b, stride_t;
-  int batch, t_len, cols, box_rows, box_cols;
-  bool operator==(const MapKey& o) const {
-    return x == o.x && stride_b == o.stride_b && stride_t == o.stride_t && batch == o.batch &&
-           t_len == o.t_len && cols == o.cols && box_rows == o.box_rows && box_cols == o.box_cols;
-  }
-};
-struct MapSlot {
-  MapKey key;
-  CUtensorMap map;
-  bool filled;
-};
-constexpr int kMapSlots = 256;
-MapSlot g_map_slots[kMapSlots];
-std::mutex g_map_mutex;  // ctypes calls run without the interpreter's lock
-
+// or 64 bytes), which is how wgmma reads them. About 3 us of host time a map.
 bool encode_map(CUtensorMap* map, const void* x, int batch, int t_len, int cols,
                 long long stride_b, long long stride_t, int box_rows, int box_cols) {
-  if (batch == 1) stride_b = (long long)t_len * stride_t;  // unused, but must be a valid stride
-  const MapKey key = {x, stride_b, stride_t, batch, t_len, cols, box_rows, box_cols};
-  const uintptr_t bits = reinterpret_cast<uintptr_t>(x);
-  MapSlot& slot = g_map_slots[((bits >> 8) ^ (bits >> 16) ^ (uintptr_t)box_rows) % kMapSlots];
-  std::lock_guard<std::mutex> guard(g_map_mutex);
-  if (slot.filled && slot.key == key) {
-    *map = slot.map;
-    return true;
-  }
   EncodeTiled encode = tensor_map_encoder();
   if (encode == nullptr) return false;
+  if (batch == 1) stride_b = (long long)t_len * stride_t;  // unused, but must be a valid stride
   const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)t_len, (cuuint64_t)batch};
   const cuuint64_t strides[2] = {(cuuint64_t)stride_t * 2, (cuuint64_t)stride_b * 2};
   const cuuint32_t box[3] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows, 1};
   const cuuint32_t steps[3] = {1, 1, 1};
-  if (encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(x), dims, strides, box,
-             steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
-             box_cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
-    return false;
-  slot.key = key;
-  slot.map = *map;
-  slot.filled = true;
-  return true;
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(x), dims, strides, box,
+                steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                box_cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Once per device and instantiation: the kernel may use a block's whole shared
+// memory, and the SM keeps all of its memory as shared memory, so that two CTAs
+// fit where their sizes allow. Gives the current device's number of SMs.
+constexpr int kMaxDevices = 64;
+constexpr int kCtasPerSm = probe_off(kOffSecondCta) ? 1 : 2;  // what shared memory allows as served
+template <int HD>
+cudaError_t prepare_device(int* sm_count) {
+  static std::atomic<int> sms[kMaxDevices];  // 0 until the device is prepared
+  int device = 0;
+  cudaError_t e = cudaGetDevice(&device);
+  if (e != cudaSuccess) return e;
+  if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
+  int n = sms[device].load(std::memory_order_acquire);
+  if (n == 0) {
+    auto kernel = attention_resident_kernel<HD>;
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBudget);
+    if (e != cudaSuccess) return e;
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             (int)cudaSharedmemCarveoutMaxShared);
+    if (e != cudaSuccess) return e;
+    e = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, device);
+    if (e != cudaSuccess) return e;
+    sms[device].store(n, std::memory_order_release);
+  }
+  *sm_count = n;
+  return cudaSuccess;
 }
 
 template <int HD>
 int launch(const void* q, const void* k, const void* v, void* out, int batch, int t_len,
-           int heads, long long stride_b, long long stride_t, int max_ctas,
-           cudaStream_t stream) {
-  auto kernel = attention_resident_kernel<HD>;
-  static cudaError_t attr_err = [&] {  // once per instantiation
-    cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         kSmemBudget);
-    if (e != cudaSuccess) return e;
-    // all of the SM's memory as shared memory, so that two CTAs fit where their sizes allow
-    return cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-                                (int)cudaSharedmemCarveoutMaxShared);
-  }();
-  if (attr_err != cudaSuccess) return (int)attr_err;
+           int heads, long long stride_b, long long stride_t, cudaStream_t stream) {
+  int sm_count = 0;
+  const cudaError_t ready = prepare_device<HD>(&sm_count);
+  if (ready != cudaSuccess) return (int)ready;
   const int n_tiles = (t_len + kBlockM - 1) / kBlockM;
   const int last_rows = padded_rows(t_len) - (n_tiles - 1) * kBlockN;
   CUtensorMap k_full, k_last, v_full, v_last;
@@ -674,21 +703,22 @@ int launch(const void* q, const void* k, const void* v, void* out, int batch, in
   if (!encode_map(&k_last, k, batch, t_len, cols, stride_b, stride_t, last_rows, kCols) ||
       !encode_map(&v_last, v, batch, t_len, cols, stride_b, stride_t, last_rows, kCols))
     return (int)cudaErrorInvalidValue;
-  if (n_tiles > 1) {
+  if (n_tiles > 1 && last_rows != kBlockN) {
     if (!encode_map(&k_full, k, batch, t_len, cols, stride_b, stride_t, kBlockN, kCols) ||
         !encode_map(&v_full, v, batch, t_len, cols, stride_b, stride_t, kBlockN, kCols))
       return (int)cudaErrorInvalidValue;
-  } else {  // never used by the kernel
+  } else {  // the same boxes, or never used by the kernel
     k_full = k_last;
     v_full = v_last;
   }
-  // one CTA a query tile while the card holds them all at once, else max_ctas
-  // CTAs with a contiguous range of query tiles each
+  // one CTA a query tile while the card holds them all at once, else kCtasPerSm
+  // CTAs an SM with a contiguous range of query tiles each
   const long long items = (long long)batch * heads * n_tiles;
   if (items > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const int max_ctas = kCtasPerSm * sm_count;
   const int grid = (int)(items < max_ctas ? items : max_ctas);
   const float scale_log2 = kLog2e / sqrtf((float)HD);
-  kernel<<<grid, kThreads, (size_t)smem_bytes(t_len, HD), stream>>>(
+  attention_resident_kernel<HD><<<grid, kThreads, (size_t)smem_bytes(t_len, HD), stream>>>(
       static_cast<const bf16*>(q), static_cast<bf16*>(out), k_full, k_last, v_full, v_last,
       stride_b, stride_t, t_len, heads, (int)(items / grid), (int)(items % grid), scale_log2);
   return (int)cudaGetLastError();
@@ -1008,44 +1038,61 @@ int launch(const void* q, const void* k, const void* v, void* out, int batch, in
 }
 }  // namespace tiled
 
+// Which kernel a self-attention of T rows and this head width and type takes:
+// 1, the resident wgmma kernel, or 0, the tiled mma.sync one. The one place in
+// this file that decides it, from the shape and the type alone.
+int route_of(int t_len, int head_dim, int dtype) {
+  const bool resident_fits =
+      dtype == 1 && (head_dim == 32 || head_dim == 64 || head_dim == 128) &&
+      resident::smem_bytes(t_len, head_dim) <= resident::kSmemBudget &&
+      (t_len + resident::kBlockN - 1) / resident::kBlockN <= resident::kMaxTiles;
+  return resident_fits ? 1 : 0;
+}
+
 }  // namespace
+
+// dtype 0 = float32, 1 = bfloat16; see `route_of`.
+extern "C" int condmdi_attention_route(int t_len, int head_dim, int dtype) {
+  return route_of(t_len, head_dim, dtype);
+}
 
 // q, k, v: [B, T, H*hd] views sharing (stride_b, stride_t) in elements, unit
 // column stride, 16-byte aligned rows; out: [B, T, H*hd] contiguous.
-// dtype 0 = float32, 1 = bfloat16. route 0 = the tiled mma.sync kernel, 1 = the
-// resident wgmma kernel, which also takes the most CTAs to launch (they share
-// out the query tiles). Returns the launch's cudaGetLastError(), or cudaErrorInvalidValue
-// for a route that the shape or the type does not fit.
+// dtype 0 = float32, 1 = bfloat16. `route` is the kernel the caller expects, as
+// `condmdi_attention_route` names it. Launches on the current device. Returns
+// the launch's cudaGetLastError(), or cudaErrorInvalidValue for a shape or a
+// type that the kernels do not take and for a route that is not this shape's.
 extern "C" int condmdi_attention_forward(const void* q, const void* k, const void* v, void* out,
                                          int batch, int t_len, int heads, int head_dim,
                                          long long stride_b, long long stride_t, int dtype,
-                                         int route, int max_ctas, void* stream) {
-  if (batch <= 0 || batch > 65535 || t_len <= 0 || heads <= 0 || heads > 65535 ||
-      head_dim <= 0 || head_dim > kMaxHd || head_dim % 8 != 0)
+                                         int route, void* stream) {
+  if (batch <= 0 || t_len <= 0 || heads <= 0 || head_dim <= 0 || head_dim > kMaxHd ||
+      head_dim % 8 != 0 || (dtype != 0 && dtype != 1) || route != route_of(t_len, head_dim, dtype))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (route == 1) {
-    if (dtype != 1 || max_ctas <= 0 ||
-        resident::smem_bytes(t_len, head_dim) > resident::kSmemBudget ||
-        (t_len + resident::kBlockN - 1) / resident::kBlockN > resident::kMaxTiles)
-      return (int)cudaErrorInvalidValue;
 #define CONDMDI_RESIDENT(HD) \
-  resident::launch<HD>(q, k, v, out, batch, t_len, heads, stride_b, stride_t, max_ctas, s)
+  resident::launch<HD>(q, k, v, out, batch, t_len, heads, stride_b, stride_t, s)
     if (head_dim == 128) return CONDMDI_RESIDENT(128);
     if (head_dim == 64) return CONDMDI_RESIDENT(64);
-    if (head_dim == 32) return CONDMDI_RESIDENT(32);
+    return CONDMDI_RESIDENT(32);
 #undef CONDMDI_RESIDENT
-    return (int)cudaErrorInvalidValue;
   }
-  if (route != 0) return (int)cudaErrorInvalidValue;
+  if (batch > 65535 || heads > 65535)  // the tiled kernel's grid puts them in y and z
+    return (int)cudaErrorInvalidValue;
   if (dtype == 0)
     return tiled::launch<float>(q, k, v, out, batch, t_len, heads, head_dim, stride_b, stride_t,
                                 s);
-  if (dtype == 1)
-    return tiled::launch<__nv_bfloat16>(q, k, v, out, batch, t_len, heads, head_dim, stride_b,
-                                        stride_t, s);
-  return (int)cudaErrorInvalidValue;
+  return tiled::launch<__nv_bfloat16>(q, k, v, out, batch, t_len, heads, head_dim, stride_b,
+                                      stride_t, s);
 }
+
+#ifdef CONDMDI_PROBE_STAMPS
+// where the next launches record their stamps (device memory, 32 slots a CTA), or null
+extern "C" int condmdi_probe_stamps(void* p) {
+  return (int)cudaMemcpyToSymbol(g_probe_stamps, &p, sizeof(p));
+}
+#endif
 
 extern "C" const char* condmdi_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

@@ -108,10 +108,12 @@ def _bind_attention(lib: ctypes.CDLL) -> None:
         p, p, p, p,   # q, k, v, out
         i, i, i, i,   # B, T, heads, head_dim
         ll, ll,       # batch and row strides of q/k/v, in elements
-        i, i,         # dtype code, route code
-        i, p,         # route 1: most CTAs to launch; stream
+        i, i,         # dtype code, the route the caller expects
+        p,            # stream
     ]
     lib.condmdi_attention_forward.restype = i
+    lib.condmdi_attention_route.argtypes = [i, i, i]  # T, head_dim, dtype code
+    lib.condmdi_attention_route.restype = i
     lib.condmdi_error_string.argtypes = [i]
     lib.condmdi_error_string.restype = ctypes.c_char_p
 

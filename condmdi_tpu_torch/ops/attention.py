@@ -33,14 +33,9 @@ from condmdi_tpu_torch.ops import _build
 _MAX_HEAD_DIM = 128  # the widest head the kernel takes (multiples of 8)
 _MAX_GRID = 65535  # CUDA's limit on grid y and z, where the tiled kernel puts H and B
 _DTYPES = {torch.float32: (0, 4), torch.bfloat16: (1, 2)}  # the C entry's code, bytes a value
-_ROUTE_CODES = {"mma_sync": 0, "wgmma": 1}
+_ROUTE_CODES = {"mma_sync": 0, "wgmma": 1}  # as csrc/attention.cu `route_of` numbers them
 _WGMMA_HEAD_DIMS = (32, 64, 128)  # head widths the resident kernel is instantiated for
 _WGMMA_SMEM_BUDGET = 232448 - 1024  # a block's shared memory on sm_90, less a reserve
-# The resident kernel's grid: one CTA a 64-row query tile while two CTAs an SM
-# hold them all, else two CTAs an SM with a contiguous range of query tiles each
-# (what its shared memory allows at the served shapes).
-_CTAS_PER_SM = 2
-_sm_counts: dict[int, int] = {}
 
 
 def _split_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -118,7 +113,8 @@ def multihead_attention(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
 
 
 def resident_smem_bytes(T: int, hd: int) -> int:
-    """Shared memory of the resident kernel (csrc/attention.cu `resident::smem_bytes`):
+    """Shared memory of the resident kernel (csrc/attention.cu `resident::smem_bytes`,
+    which `attention_route` mirrors with it):
     K and V of one head, rows padded to a multiple of 16; V at least as long as
     the 64-row product over a short K tile reads; 32 barriers."""
     one = 2 * hd * 16 * -(-T // 16)
@@ -133,18 +129,16 @@ def attention_route(B: int, T: int, H: int, hd: int, dtype: torch.dtype) -> str:
     both products on wgmma. "mma_sync": everything else the kernels take
     (float32; other head widths; longer T): 64-key tiles, mma.sync. The answer
     depends on the shape and the type only, never on a build or a launch.
+
+    This is csrc/attention.cu `route_of` (exported as `condmdi_attention_route`)
+    once more in Python, so that the route can be asked where there is no card.
+    The C entry refuses a launch whose route is not its own answer, and
+    tests/test_torch_cuda.py holds the two together on the card.
     """
     if (dtype == torch.bfloat16 and hd in _WGMMA_HEAD_DIMS
             and resident_smem_bytes(T, hd) <= _WGMMA_SMEM_BUDGET):
         return "wgmma"
     return "mma_sync"
-
-
-def _sm_count(index: int) -> int:
-    count = _sm_counts.get(index)
-    if count is None:
-        count = _sm_counts[index] = torch.cuda.get_device_properties(index).multi_processor_count
-    return count
 
 
 def _launch(q, k, v, num_heads: int) -> torch.Tensor:
@@ -191,8 +185,7 @@ def _launch(q, k, v, num_heads: int) -> torch.Tensor:
     lib = _build.load_attention()
     err = lib.condmdi_attention_forward(
         q_ptr, k_ptr, v_ptr, out.data_ptr(), B, T, num_heads, hd, strides[0], strides[1],
-        code, _ROUTE_CODES[route], _CTAS_PER_SM * _sm_count(index),
-        torch._C._cuda_getCurrentRawStream(index),
+        code, _ROUTE_CODES[route], torch._C._cuda_getCurrentRawStream(index),
     )
     if err != 0:
         raise RuntimeError(

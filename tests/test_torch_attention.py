@@ -221,7 +221,6 @@ def test_card_path_names_the_route_when_a_launch_fails(monkeypatch):
 
     monkeypatch.setattr(_build, "load_attention", lambda: Refusing)
     monkeypatch.setattr(attention, "_xla_attention", never_plain)
-    monkeypatch.setattr(attention, "_sm_count", lambda index: 132)
     monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream", lambda index: 0, raising=False)
     qkv = torch.zeros(2, 70, 3 * 256, dtype=torch.bfloat16)
     q, k, v = qkv.chunk(3, dim=-1)
@@ -233,4 +232,45 @@ def test_card_path_names_the_route_when_a_launch_fails(monkeypatch):
     args = Refusing.args
     assert args[1] - args[0] == args[2] - args[1] == 2 * 256
     assert args[4:10] == (2, 70, 2, 128, 70 * 768, 768)
-    assert args[10:13] == (1, 1, 2 * 132)
+    assert args[10:] == (1, 1, 0)  # bfloat16, the wgmma route, the stream
+
+
+def test_probe_switches_are_the_sources_and_the_package_builds_without_them(monkeypatch):
+    """attention_probe.py names the parts of the resident kernel it switches off
+    by the bits of csrc/attention.cu `ProbeOff`; the package's own build passes
+    no probe macro, so its library is the kernel as written."""
+    import re
+
+    monkeypatch.syspath_prepend(str(_build.PKG_DIR.parent))
+    import attention_probe as probe
+
+    source = (_build.CSRC_DIR / "attention.cu").read_text()
+    body = re.search(r"enum ProbeOff \{(.*?)\};", source, re.S).group(1)
+    bits = {name: int(value) for name, value in re.findall(r"(kOff\w+) = (\d+)", body)}
+    assert bits == {"kOffScores": probe.SCORES, "kOffPv": probe.PV, "kOffSoftmax": probe.SOFTMAX,
+                    "kOffStores": probe.STORES, "kOffQ": probe.Q_LOADS, "kOffSlack": probe.SLACK,
+                    "kOffSecondCta": probe.SECOND_CTA}
+    assert sorted(bits.values()) == [1, 2, 4, 8, 16, 32, 64]
+    assert probe.VARIANTS["as committed"] == 0
+    assert all(0 <= mask < 128 for mask in probe.VARIANTS.values())
+    assert not any("CONDMDI_PROBE" in flag for flag in _build.NVCC_FLAGS)
+    assert "#define CONDMDI_PROBE_OFF 0" in source
+
+
+def test_entry_point_has_one_route_function():
+    """The C entry decides the route in `route_of` alone: it is what the exported
+    `condmdi_attention_route` returns and what `condmdi_attention_forward` holds
+    the caller's route against, and the binding declares both."""
+    source = (_build.CSRC_DIR / "attention.cu").read_text()
+    assert source.count("int route_of(int t_len, int head_dim, int dtype)") == 1
+    assert "return route_of(t_len, head_dim, dtype);" in source
+    assert "route != route_of(t_len, head_dim, dtype)" in source
+
+    class Lib:
+        class _Fn:
+            pass
+        condmdi_attention_forward, condmdi_attention_route, condmdi_error_string = _Fn(), _Fn(), _Fn()
+
+    _build._bind_attention(Lib)
+    assert len(Lib.condmdi_attention_forward.argtypes) == 13
+    assert len(Lib.condmdi_attention_route.argtypes) == 3

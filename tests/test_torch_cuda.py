@@ -363,3 +363,60 @@ def test_attention_wrapper_refuses_what_the_kernel_does_not_take(cuda_device, ba
     with pytest.raises((NotImplementedError, TypeError)):
         attention.fused_self_attention.apply(q, k, v, H)
     assert attention.fused_self_attention.launches == before
+
+
+@pytest.mark.cuda
+def test_python_route_is_the_librarys_route(cuda_device):
+    """`attention_route` (Python, asked without a card) and csrc/attention.cu
+    `route_of` (what the entry point enforces) agree at every head width the
+    kernels take, at each T around a tile edge or a shared-memory limit."""
+    from condmdi_tpu_torch.ops import _build
+
+    lib = _build.load_attention()
+    lengths = sorted({t + d for t in (1, 16, 64, 197, 448, 896, 1792, 2048) for d in (-1, 0, 1)
+                      if t + d >= 1})
+    for dtype, (code, _) in attention._DTYPES.items():
+        for hd in range(8, 129, 8):
+            for T in lengths:
+                want = lib.condmdi_attention_route(T, hd, code)
+                assert attention._ROUTE_CODES[attention.attention_route(1, T, 1, hd, dtype)] == want, \
+                    (T, hd, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_entry_point_refuses_a_route_that_is_not_the_shapes(cuda_device, dtype):
+    """The library launches nothing when the caller expects the other kernel."""
+    from condmdi_tpu_torch.ops import _build
+
+    lib = _build.load_attention()
+    dt = getattr(torch, dtype)
+    B, T, D, H = 2, 70, 128, 2
+    q, k, v = qkv_views(B, T, D, dt, cuda_device)
+    out = torch.zeros(B, T, D, device=cuda_device, dtype=dt)
+    code = attention._DTYPES[dt][0]
+    wrong = 1 - lib.condmdi_attention_route(T, D // H, code)
+    err = lib.condmdi_attention_forward(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, T, H, D // H,
+        q.stride(0), q.stride(1), code, wrong, torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert err != 0 and "invalid" in _build.error_string(lib, err)
+    assert out.abs().max().item() == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,raises", [("bfloat16", False), ("float32", True)])
+def test_attention_batch_past_the_grid_limit(cuda_device, dtype, raises):
+    """70,000 batch items: the resident kernel numbers its work along grid x and
+    takes them; the tiled kernel puts the batch in grid z and the wrapper says
+    so before anything is launched."""
+    B, T, D, H = 70_000, 3, 32, 1
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.randn(B, T, D, device=cuda_device).to(dt) for _ in range(3))
+    if raises:
+        before = attention.fused_self_attention.launches
+        with pytest.raises(NotImplementedError, match="grid limit"):
+            attention.mha(q, k, v, H)
+        assert attention.fused_self_attention.launches == before
+    else:
+        assert_attention_matches_plain(q, k, v, H)

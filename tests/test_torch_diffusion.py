@@ -223,5 +223,9 @@ def test_schedule_tables_are_made_on_the_host_and_moved_by_the_pipeline():
     assert ts.DiffusionSchedule.create(betas, device="meta").betas.device.type == "meta"
     pipe = SamplePipeline(lambda x, t, y, **kw: x, sched, DiffusionConfig(), device="cpu")
     assert pipe.sched.betas.device.type == "cpu"
-    with pytest.raises(RuntimeError, match="CUDA"):  # no card here: the default device refuses
-        SamplePipeline(lambda x, t, y, **kw: x, sched, DiffusionConfig())
+    if torch.cuda.is_available():  # the default device is the card
+        assert SamplePipeline(lambda x, t, y, **kw: x, sched,
+                              DiffusionConfig()).sched.betas.device.type == "cuda"
+    else:  # no card: the default device refuses
+        with pytest.raises(RuntimeError, match="CUDA"):
+            SamplePipeline(lambda x, t, y, **kw: x, sched, DiffusionConfig())
