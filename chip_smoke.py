@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Phases, in order; any failure exits non-zero:
-  1. setup: card name and power limit, torch/CUDA versions, both sources
+  1. setup: card name and power limit, torch/CUDA versions, the three sources
      built at once (one nvcc each), their ptxas register/spill lines;
   2. the fused resblock kernel against its plain PyTorch version at every
      distinct resblock shape of a UNet-XL forward (pad 200), as the forward
@@ -44,7 +44,30 @@ Phases, in order; any failure exits non-zero:
   9. one full-width MDM_DiT (dit_prenorm) forward, kernel against plain, with
      its 8 launches; for information, one bf16 MDM forward at the evaluation
      batch (B=128), device time by kernel and attention's share of it;
- 10. a {"kernels": [...]} line, the card line, and the final {"ok": true, ...}.
+ 10. the int8 conv kernel against its plain version at every int8 conv shape
+     of one UNet-XL int8_static forward at B=8 (the 41 QConv calls, recorded
+     by a hook; the first block's x has 528 channels for a 526-channel
+     weight), each in the three activation-scale forms (dynamic per tensor,
+     static per tensor, per input channel folded into the weight) and in
+     bf16 and f32; then bf16 times in the served form (static per tensor):
+     kernel, plain, the library composite (amax + quantize + im2col +
+     torch._int_mm + dequant), bound, host enqueue, and for information the
+     bf16 cuDNN conv the float twin pays; the same for MDM's four int8 QDense
+     shapes at B=8 and B=128 (dynamic);
+ 11. the int8 paths, kernel against plain: UNet-XL int8_static over a float32
+     DDIM-20 at B=2 (820 launches); one bf16 int8_static UNet-XL forward and
+     one bf16 int8 MDM forward at B=8; then the port's
+     bench.verify_trajectory("unet_int8_static") against the committed golden
+     tests/golden/bench_traj_unet_pad200.json (mean-relative <= 0.10), beside
+     the float family's max-abs result (printed, for information);
+ 12. mixed-step serving: the bf16 int8_static UNet-XL calibrated along one
+     CFG 2.5, 1000-step DDPM trajectory at the served shape
+     (calibrate_act_scales_trajectory), then phase 4's 4 keyframe requests
+     through MotionServer with MixedStepDenoiser at k_float = 250: exactly
+     41 x 750 int8 and 33 x 250 resblock launches; samples/s beside phase 4's;
+     one int8 forward's host time, device time and kernels by time;
+ 13. a {"kernels": [...]} line (three kernels), the card line, and the final
+     {"ok": true, ...}.
 
 Per-shape results also go to chiprun_out/chip_smoke.json. Imports nothing of
 JAX or of the JAX package.
@@ -99,6 +122,14 @@ ATTN_SHAPES = [  # (name, B, T, D, H)
     ("dit_trans_dec", 8, T_FRAMES, 512, 4),    # no conditioning token in the sequence
     ("ragged", 3, 25, 128, 2),                 # hd 64, one ragged key tile
 ]
+# the int8 kernel against its plain version: float32 within INT8_F32_TOL * (1 + |plain|)
+# (the integer sums are exact on both sides, the epilogue is the same two float32
+# roundings), bfloat16 within one output ulp (INT8_BF16_ULP * |plain|)
+INT8_F32_TOL = 1e-6
+INT8_BF16_ULP = 2.0 ** -7
+PEAK_INT8_OPS = 1979e12  # H100 SXM dense int8 tensor-core rate
+MDM_QDENSE = [(512, 1536), (512, 512), (512, 1024), (1024, 512)]  # qkv, attn_out, ff1, ff2
+K_FLOAT = 250  # the mixed-step sampler's float tail (bench.py BENCH_FLOAT_LAST_K)
 PROMPTS = ["a person walks forward", "a person jumps in place", "someone waves with the left hand",
            "a person sits down slowly"]
 
@@ -322,17 +353,20 @@ def check_kernel(shapes, dev, batch=8):
 def perturbed(model, dev, dtype):
     """Seeded weights, every weight then perturbed (the zero-init output layers
     would otherwise denoise to exactly 0)."""
+    from condmdi_tpu_torch.models.unet import cast_weights
+
     gen = torch.Generator().manual_seed(11)
     with torch.no_grad():
         for _, p in sorted(model.named_parameters()):
             p.add_((0.02 * torch.randn(p.shape, generator=gen)).to(dev))
-    return model.to(dtype).requires_grad_(False).eval()
+    # the weights only: an int8 model's calibrated amaxes stay float32
+    return cast_weights(model, dtype).requires_grad_(False).eval()
 
 
-def build_xl(dev, dtype):
+def build_xl(dev, dtype, **kw):
     from condmdi_tpu_torch.models.unet import MDM_UNET
 
-    return perturbed(MDM_UNET(**XL, device=dev, seed=0), dev, dtype)
+    return perturbed(MDM_UNET(**XL, **kw, device=dev, seed=0), dev, dtype)
 
 
 def build_mdm(dev, dtype, **kw):
@@ -507,18 +541,22 @@ def ddim_kernel_vs_plain(dev):
 
 def reset_counts():
     from condmdi_tpu_torch.ops.attention import fused_self_attention
+    from condmdi_tpu_torch.ops.quant import int8_conv1d
     from condmdi_tpu_torch.ops.resblock import fused_conv_gn_mish
 
     fused_conv_gn_mish.launches = 0
     fused_self_attention.launches = 0
+    int8_conv1d.launches = 0
 
 
 def read_counts():
     from condmdi_tpu_torch.ops.attention import fused_self_attention
+    from condmdi_tpu_torch.ops.quant import int8_conv1d
     from condmdi_tpu_torch.ops.resblock import fused_conv_gn_mish
 
     return {"fused_conv_gn_mish": fused_conv_gn_mish.launches,
-            "fused_self_attention": fused_self_attention.launches}
+            "fused_self_attention": fused_self_attention.launches,
+            "int8_conv1d": int8_conv1d.launches}
 
 
 def serve_requests(pipe, requests):
@@ -829,6 +867,340 @@ def dit_kernel_vs_plain(dev):
     return err.max().item()
 
 
+# --------------------------------------------------------------------------- #
+# phase 10: the int8 kernel against plain at every int8 shape of the main path
+# --------------------------------------------------------------------------- #
+def record_int8_shapes(model, x, t, y, kw):
+    """(Cin, Cout, k, stride, padding, T, x channels) -> count, over the QConvs of
+    one int8 UNet forward."""
+    from condmdi_tpu_torch.models.unet import QConv
+
+    counts: dict[tuple, int] = {}
+
+    def hook(mod, args, _out):
+        key = (mod.in_channels, mod.bias.shape[0], mod.weight.shape[-1], mod.stride,
+               mod.padding, args[0].shape[1], args[0].shape[2])
+        counts[key] = counts.get(key, 0) + 1
+
+    handles = [m.register_forward_hook(hook) for m in model.modules() if isinstance(m, QConv)]
+    with torch.no_grad():
+        model(x, t, y, **kw)
+    for h in handles:
+        h.remove()
+    return counts
+
+
+def int8_inputs(B, T, cin, cout, k, form, dtype, gen, dev, xc=None):
+    """x [B, T, xc >= cin] (zeros past cin), the kernel's quantized weight for a
+    [cout, cin, k] conv, and the activation scale of `form`: "dynamic" (None),
+    "static" (a per-tensor scale below the amax, so some values clip) or
+    "per_channel" (a [Cin] scale folded into the weight codes)."""
+    from condmdi_tpu_torch.ops.quant import (Quantized, activation_scale, pack_int8_weight,
+                                             quantize_weight_per_channel)
+
+    x = torch.randn((B, T, cin), generator=gen, device=dev)
+    x = x * (1 + torch.rand(cin, generator=gen, device=dev))
+    w = torch.randn((cout, cin, k), generator=gen, device=dev) / (cin * k) ** 0.5
+    bias = 0.1 * torch.randn(cout, generator=gen, device=dev)
+    a_scale = None
+    if form == "static":
+        a_scale = activation_scale(0.8 * x.abs().amax())
+    elif form == "per_channel":
+        a_scale = activation_scale(0.8 * x.abs().amax(dim=(0, 1)))
+        w = w * a_scale[None, :, None]
+    wq, w_scale = quantize_weight_per_channel(w)
+    x = F.pad(x, (0, (xc or cin) - cin)).to(dtype)
+    return x, Quantized(wq, w_scale, bias, a_scale, pack_int8_weight(wq))
+
+
+def int8_call(x, q, stride, padding, kernel=True):
+    from condmdi_tpu_torch.ops.quant import int8_conv1d, plain_int8_conv1d
+
+    pc = q.a_scale is not None and q.a_scale.ndim == 1
+    if kernel:
+        return int8_conv1d(x, q.wq, q.w_scale, q.bias, stride, padding, q.a_scale,
+                           per_channel=pc, packed=q.packed)
+    return plain_int8_conv1d(x, q.wq, q.w_scale, q.bias, stride, padding, q.a_scale, pc)
+
+
+def int8_kernel_against_plain(label, x, q, stride, padding):
+    """max |kernel - plain| of one call, or exit: within INT8_F32_TOL * (1 + |plain|)
+    in float32, one bfloat16 ulp of |plain| in bfloat16. Returns (max error,
+    whether the two are equal bit for bit)."""
+    with torch.no_grad():
+        got = int8_call(x, q, stride, padding).float()
+        torch.cuda.synchronize()
+        want = int8_call(x, q, stride, padding, kernel=False).float()
+    err = (got - want).abs()
+    bf16 = x.dtype == torch.bfloat16
+    bad = (err > (INT8_BF16_ULP * want.abs() if bf16 else INT8_F32_TOL * (1 + want.abs()))).sum().item()
+    exact = bool(torch.equal(got, want))
+    print(f"[int8] {label}: max_abs_err={err.max().item():.3e} "
+          f"({'1 bf16 ulp' if bf16 else f'{INT8_F32_TOL:.0e}*(1+|plain|)'}), {bad} outside, "
+          f"bit-exact {exact}", flush=True)
+    if bad or not torch.isfinite(got).all() or want.abs().max() == 0:
+        raise SystemExit(f"the int8 kernel disagrees with its plain version: {label}")
+    return err.max().item(), exact
+
+
+def int8_bound_ms(B, T, t_out, cin, cout, k, itemsize=2) -> tuple[float, str]:
+    """The conv's int8 operations and the function's bytes: x read once, the int8
+    codes, the f32 scales and bias, the output written once (alignment channels
+    are no part of the function)."""
+    ops = 2.0 * B * t_out * cin * cout * k
+    nbytes = B * T * cin * itemsize + cout * cin * k + 8 * cout + B * t_out * cout * itemsize
+    t_ops, t_bytes = ops / PEAK_INT8_OPS, nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def library_int8(x, q, lib_w, cin, k, stride, padding, cout):
+    """torch.amax (dynamic) + quantize + im2col + torch._int_mm + dequant: the
+    yardstick only, never called by the port. K and N are zero-padded to
+    multiples of 8, which _int_mm needs (lib_w [K_pad, N_pad] is made before)."""
+    B = x.shape[0]
+    xf = x[..., :cin].float()
+    s = q.a_scale if q.a_scale is not None else torch.clamp(xf.abs().amax(), min=1e-8) / 127.0
+    xq = torch.clamp(torch.round(xf / s), -127, 127).to(torch.int8)
+    cols = F.pad(xq, (0, 0, padding, padding)).unfold(1, k, stride)
+    t_out = cols.shape[1]
+    cols = cols.reshape(B * t_out, cin * k)
+    if lib_w.shape[0] != cin * k:
+        cols = F.pad(cols, (0, lib_w.shape[0] - cin * k))
+    acc = torch._int_mm(cols, lib_w)[:, :cout]
+    scale = q.w_scale if q.a_scale is not None and q.a_scale.ndim == 1 else s * q.w_scale
+    return (acc.float() * scale + q.bias).reshape(B, t_out, cout).to(x.dtype)
+
+
+def library_weight(q):
+    cout, cin, k = q.wq.shape
+    kp, npad = -(-cin * k // 8) * 8, -(-cout // 8) * 8
+    w = F.pad(q.wq.reshape(cout, cin * k), (0, kp - cin * k, 0, npad - cout))
+    return w.t()  # [K_pad, N_pad], column-major, as cuBLASLt's int8 product takes it
+
+
+def time_int8(B, T, cin, cout, k, stride, padding, xc, form, gen, dev, cudnn=True):
+    """bf16 times of one shape: the kernel (through a weight quantized and packed
+    beforehand, as the modules call it), its host enqueue, the plain version, the
+    library composite, and for information the bf16 cuDNN conv the float twin
+    pays; enough input sets to exceed L2."""
+    one = 2 * B * T * (xc or cin) + cout * cin * k
+    n_sets = max(2, -(-64 * 2**20 // one))
+    sets = [int8_inputs(B, T, cin, cout, k, form, torch.bfloat16, gen, dev, xc)
+            for _ in range(n_sets)]
+    out = {}
+    with torch.no_grad():
+        out["ms"], out["host_ms"] = timed_ms(lambda x, q: int8_call(x, q, stride, padding), sets)
+        out["plain_ms"], _ = timed_ms(lambda x, q: int8_call(x, q, stride, padding, False), sets)
+        lib = [(x, q, library_weight(q)) for x, q in sets]
+        out["library_ms"], out["library_host_ms"] = timed_ms(
+            lambda x, q, w: library_int8(x, q, w, cin, k, stride, padding, cout), lib)
+        if cudnn:
+            conv_in = [(x[..., :cin].transpose(1, 2).contiguous(),
+                        torch.randn((cout, cin, k), generator=gen, device=dev).to(torch.bfloat16),
+                        q.bias.to(torch.bfloat16)) for x, q in sets]
+            out["cudnn_bf16_ms"], _ = timed_ms(
+                lambda x, w, b: F.conv1d(x, w, b, stride=stride, padding=padding), conv_in)
+    return out
+
+
+def check_int8(shapes, dev, batch=8):
+    """Every int8 conv shape of one UNet-XL forward at B=8, in each activation-scale
+    form and in bf16 and f32; then bf16 times in the served form (static
+    per-tensor). Then MDM's four int8 QDense shapes at B=8 and B=128."""
+    gen = torch.Generator(device=dev).manual_seed(21)
+    rows = []
+    for (cin, cout, k, stride, pad, T, xc), count in sorted(shapes.items()):
+        t_out = (T + 2 * pad - k) // stride + 1
+        row = dict(cin=cin, cout=cout, k=k, stride=stride, padding=pad, T=T, t_out=t_out,
+                   x_channels=xc, B=batch, per_forward=count)
+        errs = {"bf16": [], "f32": []}
+        exact = True
+        for form in ("dynamic", "static", "per_channel"):
+            for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+                x, q = int8_inputs(batch, T, cin, cout, k, form, dtype, gen, dev, xc)
+                err, same = int8_kernel_against_plain(
+                    f"{tag} {form} x[{batch},{T},{xc}] Cin={cin} Cout={cout} k={k} s={stride}",
+                    x, q, stride, pad)
+                errs[tag].append(err)
+                exact &= same
+        row["max_abs_err_bf16"], row["max_abs_err_f32"] = max(errs["bf16"]), max(errs["f32"])
+        row["bit_exact"] = exact
+        row.update(time_int8(batch, T, cin, cout, k, stride, pad, xc, "static", gen, dev))
+        row["bound_ms"], row["bound_by"] = int8_bound_ms(batch, T, t_out, cin, cout, k)
+        print(f"[int8] times bf16 static Cin={cin} Cout={cout} k={k} s={stride} T={T}: kernel "
+              f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms, "
+              f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}), {count} per forward; host "
+              f"enqueue per call: kernel wrapper {row['host_ms']:.4f} ms, library composite "
+              f"{row['library_host_ms']:.4f} ms; for information bf16 cuDNN conv "
+              f"{row['cudnn_bf16_ms']:.4f} ms", flush=True)
+        rows.append(row)
+    dense = []
+    for B in (8, 128):
+        for din, dout in MDM_QDENSE:
+            T = B * MDM_TOKENS
+            row = dict(rows=T, din=din, dout=dout, B=B)
+            for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+                x, q = int8_inputs(1, T, din, dout, 1, "dynamic", dtype, gen, dev)
+                row[f"max_abs_err_{tag}"], _ = int8_kernel_against_plain(
+                    f"{tag} QDense B={B} rows={T} {din}->{dout}", x, q, 1, 0)
+            row.update(time_int8(1, T, din, dout, 1, 1, 0, None, "dynamic", gen, dev,
+                                 cudnn=False))
+            row["bound_ms"], row["bound_by"] = int8_bound_ms(1, T, T, din, dout, 1)
+            print(f"[int8] times bf16 dynamic QDense B={B} {din}->{dout}: kernel {row['ms']:.4f} ms, "
+                  f"plain {row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms, bound "
+                  f"{row['bound_ms']:.4f} ms ({row['bound_by']}); host enqueue per call "
+                  f"{row['host_ms']:.4f} ms", flush=True)
+            dense.append(row)
+    return rows, dense
+
+
+# --------------------------------------------------------------------------- #
+# phases 11 and 12: the int8 paths and mixed-step serving
+# --------------------------------------------------------------------------- #
+@contextlib.contextmanager
+def int8_swapped_for_plain():
+    """The int8 kernel's launch replaced by its plain version, this run only."""
+    import condmdi_tpu_torch.ops.quant as quant
+
+    launch = quant._launch
+    quant._launch = lambda x, wq, ws, b, stride, pad, a_scale, pc, packed: \
+        quant.plain_int8_conv1d(x, wq, ws, b, stride, pad, a_scale, pc)
+    try:
+        yield
+    finally:
+        quant._launch = launch
+
+
+def calibrate_on_q_sample(model, B, dev, seed):
+    """Static scales from q_sample states of the keyframe inputs at five timestep
+    fractions (ops.quant.calibrate_act_scales)."""
+    from condmdi_tpu_torch.ops.quant import calibrate_act_scales
+
+    text, obs, mask = keyframe_inputs(B, seed)
+    calibrate_act_scales(model, schedule(SERVE_STEPS).to(dev), obs.to(dev),
+                         {"text_embed": text.to(dev)},
+                         generator=torch.Generator(device=dev).manual_seed(seed),
+                         obs_x0=obs.to(dev), obs_mask=mask.to(dev))
+
+
+def int8_paths(dev, model):
+    """f32 DDIM-20 at B=2 kernel path against plain path; one bf16 int8_static
+    UNet-XL forward and one bf16 mdm_int8 forward at B=8, kernel against plain;
+    the port's verify_trajectory against the committed golden, int8_static
+    beside float."""
+    from condmdi_tpu_torch import bench
+    from condmdi_tpu_torch.models.unet import cast_weights
+
+    out = {}
+    B = 2
+    calibrate_on_q_sample(model, B, dev, 31)
+    pipe = pipeline(model, schedule(20), dev, method="ddim")
+    text, obs, mask = keyframe_inputs(B, 0)
+    noise = seeded_noise((B, T_FRAMES, FEATS), dev)
+
+    def run():
+        return pipe.sample((B, T_FRAMES, FEATS), {"text_embed": text.to(dev)},
+                           obs_x0=obs.to(dev), obs_mask=mask.to(dev), noise=noise)
+
+    reset_counts()
+    out["ddim_max_abs_err_f32"] = kernel_vs_plain(
+        "int8 ddim", f"UNet-XL int8_static f32 DDIM-20 B={B}", run, int8_swapped_for_plain)
+    launches = read_counts()["int8_conv1d"]
+    print(f"[int8 ddim] int8_conv1d launches in the kernel run: {launches} (expected 41 x 20)",
+          flush=True)
+    if launches != 41 * 20:
+        raise SystemExit(f"int8 DDIM launches {launches} != {41 * 20}")
+
+    Bf = 2 * SERVE_REQUESTS
+    calibrate_on_q_sample(model, Bf, dev, 32)  # in float32, then the weights to bf16
+    cast_weights(model, torch.bfloat16)
+    text, obs, mask = (a.to(dev) for a in keyframe_inputs(Bf, 2))
+    x = seeded_noise((Bf, T_FRAMES, FEATS), dev, seed=12).to(torch.bfloat16)
+    t = torch.full((Bf,), 500, device=dev)
+    y = {"text_embed": text, "uncond": torch.arange(Bf, device=dev) >= SERVE_REQUESTS}
+    out["unet_bf16_forward_max_abs_err"], out["unet_bf16_forward_rel_rms"] = \
+        bf16_forward_kernel_vs_plain(f"UNet-XL int8_static B={Bf}",
+                                     lambda: model(x, t, y, obs_x0=obs, obs_mask=mask),
+                                     int8_swapped_for_plain)
+
+    mdm = build_mdm(dev, torch.bfloat16, precision_mode="int8")
+    xm = seeded_noise((Bf, T_FRAMES, FEATS), dev, seed=13).to(torch.bfloat16)
+    out["mdm_bf16_forward_max_abs_err"], out["mdm_bf16_forward_rel_rms"] = \
+        bf16_forward_kernel_vs_plain(f"MDM int8 B={Bf}", lambda: mdm(xm, t, {"text_embed": text}),
+                                     int8_swapped_for_plain)
+    del mdm
+
+    for which in ("unet_int8_static", "unet"):
+        start = time.perf_counter()
+        ok, err = bench.check_against_golden(which, bench.verify_trajectory(which, device=dev),
+                                             DDIM_TOL)
+        crit = "mean-relative <= 0.10" if "int8" in which else f"max-abs <= {DDIM_TOL:.0e}"
+        print(f"[golden] port verify_trajectory({which!r}) f32 DDIM-20 B=2 against "
+              f"tests/golden/bench_traj_{bench.golden_name(which)}.json: {err:.4e} ({crit}) -> {ok}; "
+              f"{time.perf_counter() - start:.1f} s", flush=True)
+        out[f"golden_{which}"] = err
+        if which != "unet" and not ok:
+            raise SystemExit(f"{which}: the trajectory does not match the committed golden")
+    return out
+
+
+def serve_mixed(dev, card, model, float_served):
+    """Calibrate the bf16 int8_static UNet-XL along one CFG 2.5 DDPM trajectory at the
+    served shape, then serve phase 4's 4 keyframe requests with the float-tail
+    mixed-step denoiser (k_float = 250)."""
+    from condmdi_tpu_torch.diffusion import DiffusionConfig
+    from condmdi_tpu_torch.models.unet import MixedStepDenoiser
+    from condmdi_tpu_torch.ops.quant import calibrate_act_scales_trajectory
+    from condmdi_tpu_torch.serving import MotionRequest
+
+    def bf16_apply(m):  # bf16 model, sampler math in float32
+        return lambda x, t, y, **kw: m(x.to(torch.bfloat16), t, y, **kw).float()
+
+    text, obs, mask = keyframe_inputs(SERVE_REQUESTS, 1)
+    start = time.perf_counter()
+    calibrate_act_scales_trajectory(
+        model, schedule(SERVE_STEPS).to(dev), DiffusionConfig(),
+        (SERVE_REQUESTS, T_FRAMES, FEATS), {"text_embed": text.to(dev)},
+        guidance_param=GUIDANCE, obs_x0=obs.to(dev), obs_mask=mask.to(dev),
+        generator=torch.Generator(device=dev).manual_seed(100), apply_fn=bf16_apply(model))
+    torch.cuda.synchronize()
+    calib_s = time.perf_counter() - start
+    mixed = MixedStepDenoiser(model, K_FLOAT)
+    served = serve_requests(pipeline(bf16_apply(mixed), schedule(SERVE_STEPS), dev), [
+        MotionRequest(text_embed=text[i].numpy(), obs_x0=obs[i].numpy(),
+                      obs_mask=mask[i].numpy(), seed=i) for i in range(SERVE_REQUESTS)])
+    served["calibration_s"] = calib_s
+    n = len(served["batches"])
+    # the steps whose model timestep is below k_float take the float twin
+    n_float = int((schedule(SERVE_STEPS).timestep_map < K_FLOAT).sum())
+    want = {"int8_conv1d": 41 * (SERVE_STEPS - n_float) * n,
+            "fused_conv_gn_mish": 33 * n_float * n}
+    print(f"[mixed] {card}: UNet-XL int8_static + float tail (k_float={K_FLOAT}), bf16, "
+          f"{SERVE_STEPS}-step DDPM, CFG {GUIDANCE}, {SERVE_REQUESTS} requests in batches "
+          f"{served['batches']}: wall {served['wall_s']:.3f} s, {served['samples_per_s']:.4f} "
+          f"samples/s (phase 4, bf16 float, this run: {float_served['samples_per_s']:.4f}); "
+          f"calibration {calib_s:.2f} s; launches {served['launches']} (expected {want})",
+          flush=True)
+    for kern, count in want.items():
+        if served["launches"][kern] != count:
+            raise SystemExit(f"mixed-step {kern} launches {served['launches'][kern]} != {count}")
+
+    # one CFG-doubled int8 forward of the served step: host against device time, kernels by time
+    B = 2 * SERVE_REQUESTS
+    text, obs, mask = (a.to(dev) for a in keyframe_inputs(B, 2))
+    x = seeded_noise((B, T_FRAMES, FEATS), dev, seed=12).to(torch.bfloat16)
+    t = torch.full((B,), 500, device=dev)
+    y = {"text_embed": text, "uncond": torch.arange(B, device=dev) >= SERVE_REQUESTS}
+
+    def call():
+        return model(x, t, y, obs_x0=obs, obs_mask=mask)
+
+    served.update(forward_host_vs_device(f"UNet-XL int8_static forward at B={B}", call,
+                                         served["wall_s"] * 1e3 / SERVE_STEPS))
+    served["profile"] = profile_forward(f"UNet-XL int8_static forward at B={B}", call)
+    return served
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -843,10 +1215,11 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
-    sources = ["resblock.cu", "attention.cu"]
+    sources = ["resblock.cu", "attention.cu", "quant.cu"]
     _build.build_all(sources)
     _build.load_resblock()
     _build.load_attention()
+    _build.load_quant()
     print(f"[setup] kernels ready in {time.perf_counter() - t0:.2f} s (nvcc, in parallel: "
           + ", ".join(f"{s} {_build.build_seconds.get(s, 0.0):.2f} s" for s in sources) + ")",
           flush=True)
@@ -893,15 +1266,29 @@ def main() -> int:
     served_mdm = phase("8 MDM serving", serve_mdm, dev, card)
     dit_err = phase("9 DiT forward", dit_kernel_vs_plain, dev)
     bench_forward = phase("9 MDM forward at B=128", mdm_bench_batch_forward, dev, attn_rows)
+
+    # the int8 path's conv shapes, from one UNet-XL int8_static forward at B=8
+    int8_model = build_xl(dev, torch.float32, precision_mode="int8_static")
+    int8_shapes = record_int8_shapes(
+        int8_model, torch.randn(8, T_FRAMES, FEATS, device=dev), torch.full((8,), 500, device=dev),
+        {"text_embed": text.to(dev)}, dict(obs_x0=obs.to(dev), obs_mask=mask.to(dev)))
+    if sum(int8_shapes.values()) != 41:
+        raise SystemExit(f"expected 41 int8 convs per forward, found {int8_shapes}")
+    int8_rows, dense_rows = phase("10 int8 kernel", check_int8, int8_shapes, dev)
+    int8_out = phase("11 int8 paths", int8_paths, dev, int8_model)
+    mixed = phase("12 mixed-step serving", serve_mixed, dev, card, int8_model, served)
     print("[time] host seconds by phase: "
           + ", ".join(f"{k} {v:.1f}" for k, v in phase_seconds.items())
           + f"; {sum(phase_seconds.values()):.1f} in all", flush=True)
 
-    def per_forward(key):
-        return sum(r[key] * r["per_forward"] for r in rows)
+    def per_forward(key, shape_rows=rows):
+        return sum(r[key] * r["per_forward"] for r in shape_rows)
 
-    ops_bound = sum(r["bound_ms"] * r["per_forward"] for r in rows
-                    if r["bound_by"] == "operations")
+    def bound_by(shape_rows):
+        ops_bound = sum(r["bound_ms"] * r["per_forward"] for r in shape_rows
+                        if r["bound_by"] == "operations")
+        return "operations" if ops_bound >= per_forward("bound_ms", shape_rows) / 2 else "bytes"
+
     attn = next(r for r in attn_rows if r["shape"] == "mdm_served")
     kernels = [{
         "name": "fused_conv_gn_mish",
@@ -916,7 +1303,7 @@ def main() -> int:
         "ms": per_forward("ms"),
         "plain_ms": per_forward("plain_ms"),
         "bound_ms": per_forward("bound_ms"),
-        "bound_by": "operations" if ops_bound >= per_forward("bound_ms") / 2 else "bytes",
+        "bound_by": bound_by(rows),
         "library_ms": per_forward("library_ms"),
         "host_ms_per_call": per_forward("host_ms") / 33,
         "bf16_forward_max_abs_err": served["bf16_forward_max_abs_err"],
@@ -941,9 +1328,32 @@ def main() -> int:
         "host_ms_per_call": attn["host_ms"],
         "bf16_forward_max_abs_err": served_mdm["bf16_forward_max_abs_err"],
         "bf16_forward_rel_rms": served_mdm["bf16_forward_rel_rms"],
+    }, {
+        "name": "int8_conv1d",
+        "route": "cuda",
+        "source": "condmdi_tpu_torch/csrc/quant.cu",
+        "replaces": "condmdi_tpu/ops/quant.py:56",
+        "launches": mixed["launches"]["int8_conv1d"],
+        "max_abs_err": max(r["max_abs_err_bf16"] for r in int8_rows + dense_rows),
+        "max_abs_err_f32": max(r["max_abs_err_f32"] for r in int8_rows + dense_rows),
+        "bit_exact_at_every_conv_shape": all(r["bit_exact"] for r in int8_rows),
+        "ddim_max_abs_err_f32": int8_out["ddim_max_abs_err_f32"],
+        # times: the 41 int8 convs of one UNet-XL int8_static forward at B=8, bf16
+        "ms": per_forward("ms", int8_rows),
+        "plain_ms": per_forward("plain_ms", int8_rows),
+        "bound_ms": per_forward("bound_ms", int8_rows),
+        "bound_by": bound_by(int8_rows),
+        "library_ms": per_forward("library_ms", int8_rows),
+        "host_ms_per_call": per_forward("host_ms", int8_rows) / 41,
+        "cudnn_bf16_ms_for_information": per_forward("cudnn_bf16_ms", int8_rows),
+        "bf16_forward_max_abs_err": int8_out["unet_bf16_forward_max_abs_err"],
+        "bf16_forward_rel_rms": int8_out["unet_bf16_forward_rel_rms"],
+        "mdm_bf16_forward_rel_rms": int8_out["mdm_bf16_forward_rel_rms"],
+        "golden_mean_rel_unet_int8_static": int8_out["golden_unet_int8_static"],
+        "golden_max_abs_unet_float": int8_out["golden_unet"],
     }]
     previous = {"fused_conv_gn_mish": PREV_RESBLOCK_MS, "fused_self_attention": PREV_ATTENTION_MS}
-    for kern in kernels:
+    for kern in kernels[:2]:
         print(f"[kernel] before: {kern['name']} took {previous[kern['name']]} ms in its first "
               f"version (PERF.md section 6, an earlier run on an NVIDIA H100 80GB HBM3 at 700 W); "
               f"this run {kern['ms']:.4f} ms", flush=True)
@@ -952,7 +1362,9 @@ def main() -> int:
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
          "shapes": rows, "shapes_b64": big_rows, "serve": served, "attention_shapes": attn_rows,
-         "serve_mdm": served_mdm, "mdm_forward_b128": bench_forward, "kernels": kernels,
+         "serve_mdm": served_mdm, "mdm_forward_b128": bench_forward,
+         "int8_shapes": int8_rows, "int8_qdense": dense_rows, "int8_paths": int8_out,
+         "serve_mixed": mixed, "kernels": kernels,
          "phase_seconds": phase_seconds,
          "previous_ms_from_perf_md": previous}, indent=1))
     print(json.dumps({"kernels": kernels}))

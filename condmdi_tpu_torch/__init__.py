@@ -1,11 +1,13 @@
 """condmdi_tpu_torch — the PyTorch/CUDA port of condmdi_tpu for NVIDIA Hopper.
 
 Serves keyframe-conditioned motion in-betweening with the temporal UNet
-denoiser, and text-to-motion with the MDM transformer and DiT denoisers. Two
-hand-written CUDA kernels for sm_90a carry them: every resblock half of the
-UNet runs through csrc/resblock.cu (conv1d → GroupNorm → AdaGN → Mish →
-+residual), every MDM/DiT self-attention through csrc/attention.cu. Each
-kernel's plain PyTorch version serves CPU tensors only.
+denoiser (float, or the int8 serving variant with its float-tail mixed
+step), and text-to-motion with the MDM transformer and DiT denoisers. Three
+hand-written CUDA kernels for sm_90a carry them: every float resblock half of
+the UNet runs through csrc/resblock.cu (conv1d → GroupNorm → AdaGN → Mish →
++residual), every MDM/DiT self-attention through csrc/attention.cu, every
+int8 conv and dense through csrc/quant.cu. Each kernel's plain PyTorch
+version serves CPU tensors only.
 
 Module names mirror the JAX package so each counterpart is easy to find:
   diffusion/  schedules + respacing, Gaussian diffusion math, DDPM/DDIM loops
@@ -16,6 +18,7 @@ Module names mirror the JAX package so each counterpart is easy to find:
   sampling/   SamplePipeline (model + schedule + guidance → motions)
   weights.py  Flax parameter tree → this package's state_dict
   serving.py  micro-batching MotionServer
+  bench.py    the JAX bench's models without JAX, checked against its goldens
 
 Importing the package builds nothing and touches no device. The entry points
 that run a model (the denoisers, `SamplePipeline`, `MotionServer`) run on CUDA

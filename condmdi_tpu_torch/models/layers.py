@@ -44,22 +44,6 @@ class Dense(ParamModule):
         return F.linear(x, self.weight, self.bias)
 
 
-class ConvParams(ParamModule):
-    """Conv1d weight [Cout, Cin, k] and bias [Cout] (Flax kernel is [k, Cin, Cout])."""
-
-    def __init__(self, in_channels, out_channels, kernel_size, *, zero_init=False,
-                 device=None, dtype=None):
-        super().__init__()
-        self.weight = _empty((out_channels, in_channels, kernel_size), device, dtype)
-        self.bias = _empty((out_channels,), device, dtype)
-        self.zero_init = zero_init
-
-    def reset_parameters(self, generator: torch.Generator) -> None:
-        _, cin, k = self.weight.shape
-        _lecun_(self.weight, cin * k, self.zero_init, generator)
-        _const_(self.bias, 0.0)
-
-
 class ConvTransposeParams(ParamModule):
     """ConvTranspose1d weight [Cin, Cout, k] and bias [Cout], torch layout."""
 

@@ -25,10 +25,13 @@ Dense projections, LayerNorm and GELU are plain PyTorch; the JAX package
 left them to XLA. The model takes no obs_x0/obs_mask: keyframes reach it
 through the sampler's InpaintingState.
 
-Not ported here (ROADMAP Queue A 1): arch `gru`, the `*_large` output head,
-and `precision_mode="int8"` (with the int8 slice, Queue B 3). Dropout and
-the classifier-free condition dropout act only in training, which waits for
-its own slice.
+`precision_mode="int8"` runs the encoder layers' four projections (`qkv`,
+`attn_out`, `ff1`, `ff2`) as int8 QDense, as the JAX package does; attention
+and every other Dense stay float.
+
+Not ported here (ROADMAP Queue A 1): arch `gru` and the `*_large` output
+head. Dropout and the classifier-free condition dropout act only in
+training, which waits for its own slice.
 """
 
 from __future__ import annotations
@@ -44,6 +47,7 @@ from condmdi_tpu_torch.models.cfg import mask_cond
 from condmdi_tpu_torch.models.embeddings import EmbedAction, PositionalEncoding, TimestepEmbedder
 from condmdi_tpu_torch.models.layers import Dense, LayerNorm, init_params
 from condmdi_tpu_torch.ops.attention import mha, multihead_attention
+from condmdi_tpu_torch.ops.quant import QuantizedWeight, int8_matmul
 
 
 def activate(x: torch.Tensor, activation: str) -> torch.Tensor:
@@ -52,16 +56,26 @@ def activate(x: torch.Tensor, activation: str) -> torch.Tensor:
 
 
 class QDense(Dense):
-    """Dense with the JAX package's precision switch; float mode only so far."""
+    """Dense with the JAX package's precision switch: "float", or "int8"
+    (per-output-feature weight codes made in the weight's dtype, dynamic
+    per-tensor activation scale, int32 accumulation) through
+    ops.quant.int8_matmul: the Hopper int8 kernel on CUDA, its plain version
+    on the CPU. The weight is quantized once per parameter and remade when it
+    changes (`QuantizedWeight`)."""
 
     def __init__(self, in_features, out_features, precision_mode="float", *, device=None,
                  dtype=None):
-        if precision_mode != "float":
-            raise NotImplementedError(
-                f"QDense precision_mode={precision_mode!r} waits for the int8 slice "
-                "(ROADMAP Queue A 2, Queue B 3)"
-            )
+        if precision_mode not in ("float", "int8"):
+            raise ValueError(f"QDense precision_mode={precision_mode!r}: 'float' or 'int8'")
         super().__init__(in_features, out_features, device=device, dtype=dtype)
+        self.precision_mode = precision_mode
+        self.quantized = QuantizedWeight()
+
+    def forward(self, x):
+        if self.precision_mode == "float":
+            return super().forward(x)
+        q = self.quantized.get(self.weight, self.bias)
+        return int8_matmul(x, self.weight, q.bias, packed=q.packed, quantized=(q.wq, q.w_scale))
 
 
 class TransformerEncoderLayer(nn.Module):

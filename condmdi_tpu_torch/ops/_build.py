@@ -123,5 +123,26 @@ def load_attention() -> ctypes.CDLL:
     return _load("attention.cu", _bind_attention)
 
 
+def _bind_quant(lib: ctypes.CDLL) -> None:
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.condmdi_int8_conv1d.argtypes = [
+        p, i, ll, ll,   # x, dtype code, x's batch and row strides in elements
+        p, i,           # a_scale ([1] or [Cin] float32), per-channel flag
+        p, p, p,        # packed int8 weight, w_scale, bias (or null)
+        p, p,           # the codes' scratch [B, T, Cin padded to 64] int8, out
+        i, i, i, i, i,  # B, T, Cin, Cin padded to 64, Cout
+        i, i, i, i,     # k, stride, padding, T out
+        p,              # stream
+    ]
+    lib.condmdi_int8_conv1d.restype = i
+    lib.condmdi_error_string.argtypes = [i]
+    lib.condmdi_error_string.restype = ctypes.c_char_p
+
+
+def load_quant() -> ctypes.CDLL:
+    """The int8 conv1d/matmul kernel's library, built on first call."""
+    return _load("quant.cu", _bind_quant)
+
+
 def error_string(lib: ctypes.CDLL, err: int) -> str:
     return f"{err} ({lib.condmdi_error_string(err).decode()})"

@@ -13,6 +13,10 @@ layout transforms:
                                            gradient)
   GroupNorm / LayerNorm scale/bias       → weight/bias
   EmbedAction action_embedding           → kept as it is ([num_actions, D])
+  int8_prequant QConv kernel_q [k, Cin, Cout] int8, scale [Cout]
+                                         → weight_q [Cout, Cin, k] int8,
+                                           weight_scale (not a norm's weight)
+  act_scale collection amax              → the QConv's amax buffer
 
 One function serves the UNet, MDM and DiT families.
 """
@@ -46,35 +50,50 @@ def _read(source) -> dict[tuple[str, ...], np.ndarray]:
     return _flatten(source)
 
 
-def _convert(path: tuple[str, ...], arr: np.ndarray) -> tuple[str, np.ndarray]:
+def _convert(path: tuple[str, ...], arr: np.ndarray, prequant: bool) -> tuple[str, np.ndarray]:
     *mods, leaf = path
+    if leaf == "kernel_q":  # an int8_prequant QConv's codes, kept int8
+        return "weight_q", arr.transpose(2, 1, 0)
     if leaf == "kernel":
         if arr.ndim == 2:  # Dense
             return "weight", arr.T
         if mods[-1].endswith("_upsample"):  # ConvTranspose
             return "weight", arr[::-1].transpose(1, 2, 0)
         return "weight", arr.transpose(2, 1, 0)  # Conv
-    if leaf == "scale":  # GroupNorm, LayerNorm
-        return "weight", arr
+    if leaf == "scale":  # beside kernel_q: the weight scale; else GroupNorm, LayerNorm
+        return ("weight_scale" if prequant else "weight"), arr
     if leaf in ("bias", "action_embedding"):
         return leaf, arr
     raise KeyError(f"no port layout for Flax parameter {'/'.join(path)}")
 
 
 def load_flax_params(source) -> dict[str, torch.Tensor]:
-    """state_dict for the port's MDM_UNET, MDM or MDM_DiT from Flax params.
+    """state_dict for the port's MDM_UNET, MDM or MDM_DiT from Flax variables.
 
     `source` is a nested Flax param dict of numpy arrays (with or without
-    the top-level "params" key) or the path of a flat npz whose keys are
-    "params//…" paths (as scripts/gate_params_io.py exports them; its
-    `__params_fingerprint__`/`__step__` entries are skipped).
+    the top-level "params" key, and with an "act_scale" collection beside
+    it, whose `amax` leaves become the QConvs' amax buffers), or the path of
+    a flat npz whose keys are "params//…" paths (as
+    scripts/gate_params_io.py exports them; its
+    `__params_fingerprint__`/`__step__` entries are skipped). Floating
+    arrays become float32; the int8 codes of an int8_prequant tree
+    (`kernel_q`) stay int8, and the `scale` beside them becomes
+    `weight_scale`.
     """
-    flat = _read(source)
+    flat = {}
+    for path, arr in _read(source).items():
+        if path[0] == "act_scale":
+            flat[path[1:-1] + ("amax",)] = arr
+        else:
+            flat[path[1:] if path[0] == "params" else path] = arr
+    prequant = {path[:-1] for path in flat if path[-1] == "kernel_q"}
     sd = {}
     for path, arr in flat.items():
-        if path[0] == "params":
-            path = path[1:]
-        leaf, value = _convert(path, arr)
+        if path[-1] == "amax":
+            sd[".".join(path)] = torch.from_numpy(np.array(arr, dtype=np.float32))
+            continue
+        leaf, value = _convert(path, arr, path[:-1] in prequant)
         key = ".".join(path[:-1] + (leaf,))
-        sd[key] = torch.from_numpy(np.array(value, dtype=np.float32))
+        dtype = np.int8 if leaf == "weight_q" else np.float32
+        sd[key] = torch.from_numpy(np.array(value, dtype=dtype))
     return sd

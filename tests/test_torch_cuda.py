@@ -420,3 +420,200 @@ def test_attention_batch_past_the_grid_limit(cuda_device, dtype, raises):
         assert attention.fused_self_attention.launches == before
     else:
         assert_attention_matches_plain(q, k, v, H)
+
+
+# --------------------------------------------------------------------------- #
+# the int8 conv / matmul kernel (csrc/quant.cu)
+# --------------------------------------------------------------------------- #
+INT8_F32_TOL = 1e-6   # |kernel - plain| <= tol * (1 + |plain|): the sums are exact on both
+INT8_BF16_ULP = 2.0 ** -7  # one bfloat16 ulp of |plain| at most
+
+
+def int8_case(B, T, cin, cout, k, form, dtype, device, xc=None, seed=11):
+    """x [B, T, xc >= cin] (zeros past cin), the codes and scales of a [cout, cin, k]
+    weight, and the activation scale of `form`: None (dynamic), a scalar below
+    the amax (some values clip), or a per-channel vector folded into the codes."""
+    from condmdi_tpu_torch.ops import quant
+
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn((B, T, cin), generator=gen) * (1 + torch.rand(cin, generator=gen))
+    x = torch.nn.functional.pad(x, (0, (xc or cin) - cin))
+    w = torch.randn((cout, cin, k), generator=gen) / (cin * k) ** 0.5
+    bias = 0.1 * torch.randn(cout, generator=gen)
+    a_scale, per_channel = None, False
+    if form == "static":
+        a_scale = quant.activation_scale(0.8 * x.abs().amax())
+    elif form == "per_channel":
+        a_scale, per_channel = quant.activation_scale(0.8 * x[..., :cin].abs().amax(dim=(0, 1))), True
+        w = w * a_scale[None, :, None]
+    wq, w_scale = quant.quantize_weight_per_channel(w)
+    dev = dict(device=device)
+    return (x.to(device, dtype), wq.to(**dev), w_scale.to(**dev), bias.to(**dev),
+            None if a_scale is None else a_scale.to(**dev), per_channel)
+
+
+def assert_int8_matches_plain(x, wq, w_scale, bias, a_scale, per_channel, stride=1, padding=0):
+    from condmdi_tpu_torch.ops import quant
+
+    before = quant.int8_conv1d.launches
+    with torch.no_grad():
+        got = quant.int8_conv1d(x, wq, w_scale, bias, stride, padding, a_scale,
+                                per_channel=per_channel).float()
+        torch.cuda.synchronize()
+        want = quant.plain_int8_conv1d(x, wq, w_scale, bias, stride, padding, a_scale,
+                                       per_channel).float()
+    assert quant.int8_conv1d.launches == before + 1
+    assert torch.isfinite(got).all() and got.shape == want.shape
+    if x.dtype == torch.bfloat16:
+        assert torch.all((got - want).abs() <= INT8_BF16_ULP * want.abs())
+    else:
+        assert torch.all((got - want).abs() <= INT8_F32_TOL * (1 + want.abs()))
+    return got, want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("form", ["dynamic", "static", "per_channel"])
+@pytest.mark.parametrize("case", [
+    # (B, T, Cin, x channels, Cout, k, stride, padding): the UNet-XL's int8 convs at
+    # pad 200 and their edges
+    (8, 200, 526, 528, 1024, 5, 1, 2),    # first block: Cin 526 inside a 528-channel buffer
+    (8, 200, 526, 528, 1024, 1, 1, 0),    # its residual conv reads the same buffer
+    (8, 25, 2048, 2048, 1024, 5, 1, 2),   # the up blocks' Cin 2048 at the deepest level
+    (8, 50, 1024, 1024, 1024, 3, 2, 1),   # the last downsample: T' = 25
+    (8, 200, 1024, 1024, 263, 1, 1, 0),   # final_conv: Cout 263, masked stores
+    (1, 200, 1024, 1024, 1024, 5, 1, 2),  # B = 1
+    (128, 25, 1024, 1024, 1024, 5, 1, 2),  # B = 128
+    (3, 17, 40, 40, 24, 3, 2, 1),         # K not a multiple of 32, odd T, one partial tile
+    (2, 130, 72, 80, 72, 5, 1, 2),        # three row tiles, a partial channel tile
+])
+def test_int8_kernel_matches_plain(cuda_device, dtype, form, case):
+    B, T, cin, xc, cout, k, stride, pad = case
+    x, wq, ws, bias, a_scale, pc = int8_case(B, T, cin, cout, k, form, getattr(torch, dtype),
+                                             cuda_device, xc)
+    assert_int8_matches_plain(x, wq, ws, bias, a_scale, pc, stride, pad)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_int8_kernel_reads_a_strided_view(cuda_device, dtype):
+    """x as a view into a wider buffer, at an offset of 10 channels: the kernel
+    takes its batch and row strides and reads nothing else."""
+    x, wq, ws, bias, _, _ = int8_case(4, 60, 40, 32, 5, "dynamic", getattr(torch, dtype),
+                                      cuda_device, xc=64)
+    view = x[:, :, 10:50]
+    assert view.stride(1) == 64
+    got, _ = assert_int8_matches_plain(view, wq, ws, bias, None, False, 1, 2)
+    want, _ = assert_int8_matches_plain(view.contiguous(), wq, ws, bias, None, False, 1, 2)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_int8_kernel_rounds_ties_to_even(cuda_device, dtype):
+    """Activations exactly half way between two codes (a power-of-two scale keeps
+    them exact): round half to even, as jnp.round, so every code is even."""
+    from condmdi_tpu_torch.ops import quant
+
+    dt = getattr(torch, dtype)
+    s = torch.tensor(0.125, device=cuda_device)
+    n = torch.arange(-126, 126, device=cuda_device, dtype=torch.float32)
+    x = ((n + 0.5) * s).reshape(1, -1, 1).repeat(1, 1, 32).to(dt)  # [1, 252, 32], exact
+    wq = torch.ones((8, 32, 1), dtype=torch.int8, device=cuda_device)
+    ws = torch.ones(8, device=cuda_device)
+    got, want = assert_int8_matches_plain(x, wq, ws, None, s, False)
+    assert torch.equal(got, want)
+    codes = torch.round(x[0, :, 0].float() / s)
+    assert torch.all(codes % 2 == 0) and torch.all((codes - (n + 0.5)).abs() == 0.5)
+    assert torch.equal(got[0, :, 0], (32 * codes * s).to(dt).float())
+    assert quant.int8_conv1d.launches > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("rows,din,dout", [(8 * 197, 512, 1536), (8 * 197, 1024, 512),
+                                           (128 * 197, 512, 1024), (5, 48, 40)])
+def test_int8_matmul_matches_plain(cuda_device, dtype, rows, din, dout):
+    """MDM's int8 QDense shapes at B = 8 and 128, and a tiny one."""
+    from condmdi_tpu_torch.ops import quant
+
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    dt = getattr(torch, dtype)
+    x = torch.randn((rows, din), generator=gen, device=cuda_device).to(dt)
+    w = (torch.randn((dout, din), generator=gen, device=cuda_device) / din ** 0.5).to(dt)
+    b = (0.1 * torch.randn(dout, generator=gen, device=cuda_device)).to(dt)
+    before = quant.int8_conv1d.launches
+    with torch.no_grad():
+        got = quant.int8_matmul(x, w, b).float()
+        torch.cuda.synchronize()
+        wq, ws = quant.quantize_weight_per_channel(w)
+        want = quant.plain_int8_conv1d(x[None], wq[:, :, None], ws, b)[0].float()
+    assert quant.int8_conv1d.launches == before + 1
+    tol = INT8_BF16_ULP * want.abs() if dt == torch.bfloat16 else INT8_F32_TOL * (1 + want.abs())
+    assert torch.all((got - want).abs() <= tol)
+
+
+@pytest.mark.cuda
+def test_int8_qconv_cache_follows_weight_and_recalibration(cuda_device):
+    """A QConv's quantized weight (packed codes, and the per-channel scales folded
+    into them) is remade after an in-place weight change and after a
+    recalibration; its output keeps to the plain version on the same state."""
+    from condmdi_tpu_torch.models.unet import QConv
+    from condmdi_tpu_torch.ops import quant
+
+    conv = QConv(96, 64, 5, padding=2, precision_mode="int8_static_pc", device=cuda_device)
+    conv.requires_grad_(False)
+    torch.nn.init.normal_(conv.weight, std=0.05)
+    conv.bias.normal_()
+    x = torch.randn((2, 40, 96), device=cuda_device).to(torch.bfloat16)
+
+    def check():
+        got = conv(x).float()
+        s = quant.activation_scale(conv.amax)
+        wq, ws = quant.quantize_weight_per_channel(conv.weight.float() * s[None, :, None])
+        want = quant.plain_int8_conv1d(x, wq, ws, conv.bias, 1, 2, s, True).float()
+        assert torch.all((got - want).abs() <= INT8_BF16_ULP * want.abs())
+        return got
+
+    with torch.no_grad(), quant.calibration(conv):
+        conv(x)
+    first = check()
+    conv.weight.mul_(-1.5)
+    second = check()
+    with torch.no_grad(), quant.calibration(conv):
+        conv(3 * x)  # the running max grows: a recalibration
+    third = check()
+    assert not torch.equal(first, second) and not torch.equal(second, third)
+
+
+@pytest.mark.cuda
+def test_int8_kernel_refuses_autograd(cuda_device):
+    from condmdi_tpu_torch.ops import quant
+
+    x, wq, ws, bias, _, _ = int8_case(2, 20, 32, 16, 5, "dynamic", torch.float32, cuda_device)
+    with pytest.raises(NotImplementedError, match="backward"):
+        quant.int8_conv1d(x.requires_grad_(True), wq, ws, bias, 1, 2)
+
+
+@pytest.mark.cuda
+def test_float_twin_shares_storage_on_the_card(cuda_device):
+    """The mixed-step sampler's float twin reads the int8 model's own parameters:
+    the same storage, and its packed resblock weights follow an in-place change."""
+    from condmdi_tpu_torch.models.unet import MDM_UNET, MixedStepDenoiser
+
+    model = MDM_UNET(njoints=263, latent_dim=32, dim_mults=(1, 2), keyframe_conditioned=True,
+                     pad_frames_to=32, zero=False, precision_mode="int8_static",
+                     device=cuda_device).requires_grad_(False)
+    mixed = MixedStepDenoiser(model, 250)
+    own = dict(model.named_parameters())
+    assert all(p.data_ptr() == own[n].data_ptr() for n, p in mixed.twin.named_parameters())
+    x = torch.randn((2, 28, 263), device=cuda_device)
+    y = {"text_embed": torch.randn((2, 512), device=cuda_device)}
+    kw = dict(obs_x0=torch.zeros_like(x), obs_mask=torch.zeros(x.shape, dtype=torch.bool,
+                                                                 device=cuda_device))
+    t = torch.full((2,), 10, device=cuda_device)
+    with torch.no_grad():
+        before = mixed(x, t, y, **kw)
+        model.unet.mid_block1.block1.conv.weight.mul_(-1.0)
+        after = mixed(x, t, y, **kw)
+    assert not torch.equal(before, after)

@@ -42,6 +42,7 @@ def test_import_loads_neither_jax_nor_the_jax_package():
         "import condmdi_tpu_torch.sampling.pipeline, condmdi_tpu_torch.ops.resblock\n"
         "import condmdi_tpu_torch.ops.attention, condmdi_tpu_torch.models.mdm\n"
         "import condmdi_tpu_torch.models.dit, condmdi_tpu_torch.models.text\n"
+        "import condmdi_tpu_torch.ops.quant, condmdi_tpu_torch.bench\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'flax', 'condmdi_tpu')]\n"
         "assert not bad, bad\n"
