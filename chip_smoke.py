@@ -52,8 +52,9 @@ Phases, in order; any failure exits non-zero:
      bf16 and f32; then bf16 times in the served form (static per tensor):
      kernel, plain, the library composite (amax + quantize + im2col +
      torch._int_mm + dequant), bound, host enqueue, and for information the
-     bf16 cuDNN conv the float twin pays; the same for MDM's four int8 QDense
-     shapes at B=8 and B=128 (dynamic);
+     bf16 cuDNN conv the float twin pays, each beside the first int8 kernel's time and
+     with the tiles and split of the K steps the launch took; the same for
+     MDM's four int8 QDense shapes at B=8 and B=128 (dynamic);
  11. the int8 paths, kernel against plain: UNet-XL int8_static over a float32
      DDIM-20 at B=2 (820 launches); one bf16 int8_static UNet-XL forward and
      one bf16 int8 MDM forward at B=8; then the port's
@@ -66,7 +67,14 @@ Phases, in order; any failure exits non-zero:
      through MotionServer with MixedStepDenoiser at k_float = 250: exactly
      41 x 750 int8 and 33 x 250 resblock launches; samples/s beside phase 4's;
      one int8 forward's host time, device time and kernels by time;
- 13. a {"kernels": [...]} line (three kernels), the card line, and the final
+ 13. UNet-XL keyframe editing under autograd, kernel against plain: keyframes
+     every 10th frame, imputation and reconstruction guidance at weight 0.05
+     over a 50-step respaced DDPM, f32, B=2; the guidance gradient runs
+     through the resblock kernel's autograd Function (exactly 33 x 50
+     launches in the kernel run);
+ 14. the same with the int8_static UNet-XL through the int8 kernel's autograd
+     Function (exactly 41 x 50 launches);
+ 15. a {"kernels": [...]} line (three kernels), the card line, and the final
      {"ok": true, ...}.
 
 Per-shape results also go to chiprun_out/chip_smoke.json. Imports nothing of
@@ -107,12 +115,32 @@ DDIM_TOL = 5e-3           # max |kernel path - plain path| over a whole f32 samp
 # wrong tile, which an rms over the whole output would hide.
 BF16_FORWARD_REL_RMS = 2e-2
 BF16_FORWARD_OUTLIER = 2.0 ** -4
-# What the first versions of the two kernels took, for the "before" lines only
-# (PERF.md section 6, re-measured with this script's method; NVIDIA H100 80GB
-# HBM3, 700 W). Not measured by this run, so not part of the kernels line.
+# What the first versions of the kernels took, for the "before" lines only
+# (PERF.md section 6, measured with this script's method; NVIDIA H100 80GB HBM3,
+# 700 W). Not measured by this run, so not part of the kernels line.
 PREV_RESBLOCK_MS = 17.34   # the 33 halves of one UNet-XL forward at B=8, bf16
 PREV_ATTENTION_MS = 0.368  # the 8 self-attentions of one MDM forward at B=8, bf16
 PREV_ATTENTION_BENCH_BATCH_MS = 0.290  # one self-attention at B=128, same kernel and card
+# The first int8 kernel (mma.sync, one CTA per batch item and 64 rows), bf16, static
+# scale, B=8: the 41 convs of one UNet-XL forward and each conv shape, keyed
+# (Cin, Cout, k, stride, T in); MDM's QDense (Din, Dout, B), dynamic
+PREV_INT8_MS = 1.6347
+PREV_INT8_SHAPE_MS = {
+    (526, 1024, 5, 1, 200): 0.0491, (526, 1024, 1, 1, 200): 0.0214,
+    (1024, 1024, 5, 1, 200): 0.0764, (1024, 1024, 5, 1, 100): 0.0412,
+    (1024, 1024, 5, 1, 50): 0.0339, (1024, 1024, 5, 1, 25): 0.0330,
+    (2048, 1024, 5, 1, 100): 0.0719, (2048, 1024, 5, 1, 50): 0.0583,
+    (2048, 1024, 5, 1, 25): 0.0569, (2048, 1024, 1, 1, 100): 0.0269,
+    (2048, 1024, 1, 1, 50): 0.0224, (2048, 1024, 1, 1, 25): 0.0207,
+    (1024, 1024, 3, 2, 200): 0.0362, (1024, 1024, 3, 2, 100): 0.0284,
+    (1024, 1024, 3, 2, 50): 0.0269, (1024, 263, 1, 1, 200): 0.0199,
+}
+PREV_QDENSE_MS = {
+    (512, 1536, 8): 0.0432, (512, 512, 8): 0.0324, (512, 1024, 8): 0.0369, (1024, 512, 8): 0.0399,
+    (512, 1536, 128): 0.3636, (512, 512, 128): 0.1757, (512, 1024, 128): 0.2642,
+    (1024, 512, 128): 0.2803,
+}
+GUIDANCE_STEPS, GUIDANCE_WEIGHT = 50, 0.05  # phases 7, 13, 14
 SERVE_REQUESTS, SERVE_STEPS, GUIDANCE = 4, 1000, 2.5
 MDM = dict(njoints=FEATS, latent_dim=512, ff_size=1024, num_layers=8, num_heads=4)  # bench.py mdm
 MDM_TOKENS = T_FRAMES + 1  # the frames and the conditioning token
@@ -739,7 +767,7 @@ def mdm_recguidance_kernel_vs_plain(dev):
     Function's backward on the card."""
     from condmdi_tpu_torch.sampling.pipeline import build_inpainting_state
 
-    B, steps = 2, 50
+    B, steps = 2, GUIDANCE_STEPS
     model = build_mdm(dev, torch.float32, cond_mode="no_cond")
     pipe = pipeline(lambda x, t, y, **_: model(x, t, y), schedule(steps), dev)
     _, obs, mask = keyframe_inputs(B, 4)
@@ -748,7 +776,7 @@ def mdm_recguidance_kernel_vs_plain(dev):
     # chaotic: on the CPU a 1e-6 relative perturbation of the attention output
     # moved the result by 56; at 0.05 a 1e-5 one moved it by 5e-5
     inpaint = build_inpainting_state(obs, mask, imputate=True, reconstruction_guidance=True,
-                                     reconstruction_weight=0.05, diffusion_steps=steps)
+                                     reconstruction_weight=GUIDANCE_WEIGHT, diffusion_steps=steps)
     noise = seeded_noise((B, T_FRAMES, FEATS), dev, seed=8)
     outs = []
 
@@ -1003,6 +1031,27 @@ def time_int8(B, T, cin, cout, k, stride, padding, xc, form, gen, dev, cudnn=Tru
     return out
 
 
+def int8_plan(B, T, cin, cout, k, stride, padding, dev):
+    """The tiles and split of the K steps a launch takes on this card (the
+    library's own plan, condmdi_int8_conv1d_plan)."""
+    import ctypes
+
+    from condmdi_tpu_torch.ops import _build
+
+    out = (ctypes.c_int * 5)()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    err = _build.load_quant().condmdi_int8_conv1d_plan(B, T, -(-cin // 128) * 128, cout, k, stride,
+                                                       padding, sms, out)
+    if err:
+        raise SystemExit(f"condmdi_int8_conv1d_plan failed: {err}")
+    return dict(zip(("t_pad", "m_tiles", "n_tiles", "split", "steps"), list(out)))
+
+
+def plan_text(plan):
+    return (f"tiles {plan['m_tiles']} x {plan['n_tiles']} of 128 x 128, {plan['steps']} K steps "
+            f"split {plan['split']} ways, {plan['m_tiles'] * plan['n_tiles'] * plan['split']} CTAs")
+
+
 def check_int8(shapes, dev, batch=8):
     """Every int8 conv shape of one UNet-XL forward at B=8, in each activation-scale
     form and in bf16 and f32; then bf16 times in the served form (static
@@ -1027,12 +1076,14 @@ def check_int8(shapes, dev, batch=8):
         row["bit_exact"] = exact
         row.update(time_int8(batch, T, cin, cout, k, stride, pad, xc, "static", gen, dev))
         row["bound_ms"], row["bound_by"] = int8_bound_ms(batch, T, t_out, cin, cout, k)
+        row["plan"] = int8_plan(batch, T, cin, cout, k, stride, pad, dev)
         print(f"[int8] times bf16 static Cin={cin} Cout={cout} k={k} s={stride} T={T}: kernel "
-              f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms, "
-              f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}), {count} per forward; host "
-              f"enqueue per call: kernel wrapper {row['host_ms']:.4f} ms, library composite "
-              f"{row['library_host_ms']:.4f} ms; for information bf16 cuDNN conv "
-              f"{row['cudnn_bf16_ms']:.4f} ms", flush=True)
+              f"{row['ms']:.4f} ms (before: {PREV_INT8_SHAPE_MS.get((cin, cout, k, stride, T))} ms "
+              f"with the first int8 kernel), plain {row['plain_ms']:.4f} ms, library "
+              f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}), "
+              f"{count} per forward; {plan_text(row['plan'])}; host enqueue per call: kernel "
+              f"wrapper {row['host_ms']:.4f} ms, library composite {row['library_host_ms']:.4f} ms; "
+              f"for information bf16 cuDNN conv {row['cudnn_bf16_ms']:.4f} ms", flush=True)
         rows.append(row)
     dense = []
     for B in (8, 128):
@@ -1046,10 +1097,12 @@ def check_int8(shapes, dev, batch=8):
             row.update(time_int8(1, T, din, dout, 1, 1, 0, None, "dynamic", gen, dev,
                                  cudnn=False))
             row["bound_ms"], row["bound_by"] = int8_bound_ms(1, T, T, din, dout, 1)
-            print(f"[int8] times bf16 dynamic QDense B={B} {din}->{dout}: kernel {row['ms']:.4f} ms, "
-                  f"plain {row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms, bound "
-                  f"{row['bound_ms']:.4f} ms ({row['bound_by']}); host enqueue per call "
-                  f"{row['host_ms']:.4f} ms", flush=True)
+            row["plan"] = int8_plan(1, T, din, dout, 1, 1, 0, dev)
+            print(f"[int8] times bf16 dynamic QDense B={B} {din}->{dout}: kernel {row['ms']:.4f} ms "
+                  f"(before: {PREV_QDENSE_MS.get((din, dout, B))} ms with the first int8 kernel), plain "
+                  f"{row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms, bound "
+                  f"{row['bound_ms']:.4f} ms ({row['bound_by']}); {plan_text(row['plan'])}; host "
+                  f"enqueue per call {row['host_ms']:.4f} ms", flush=True)
             dense.append(row)
     return rows, dense
 
@@ -1142,6 +1195,56 @@ def int8_paths(dev, model):
         if which != "unet" and not ok:
             raise SystemExit(f"{which}: the trajectory does not match the committed golden")
     return out
+
+
+def unet_recguidance_kernel_vs_plain(dev, precision_mode):
+    """Keyframes every 10th frame on UNet-XL, imputation and reconstruction
+    guidance over a respaced DDPM, f32, B=2: the guidance gradient runs through
+    the kernel's autograd Function (the kernel forward, the plain version's
+    recompute backward) on the card, then the same run with the kernel swapped
+    for its plain version. In float mode the two paths differ by the kernel's
+    rounding (tolerance DDIM_TOL). In int8_static they take the same float
+    operations on the same values: the int8 sums are exact, and the recompute
+    gives x a gradient of exactly zero through the codes, as JAX's autodiff
+    does; so they must agree bit for bit."""
+    from condmdi_tpu_torch.sampling.pipeline import build_inpainting_state
+
+    B, steps = 2, GUIDANCE_STEPS
+    float_mode = precision_mode == "float"
+    model = build_xl(dev, torch.float32, precision_mode=precision_mode)
+    if not float_mode:
+        calibrate_on_q_sample(model, B, dev, 33)
+    pipe = pipeline(model, schedule(steps), dev)
+    text, obs, mask = (a.to(dev) for a in keyframe_inputs(B, 4))
+    inpaint = build_inpainting_state(obs, mask, imputate=True, reconstruction_guidance=True,
+                                     reconstruction_weight=GUIDANCE_WEIGHT, diffusion_steps=steps)
+    noise = seeded_noise((B, T_FRAMES, FEATS), dev, seed=8)
+    outs = []
+
+    def run():
+        gen = torch.Generator(device=dev).manual_seed(5)
+        outs.append(pipe.sample((B, T_FRAMES, FEATS), {"text_embed": text}, obs_x0=obs,
+                                obs_mask=mask, inpaint=inpaint, noise=noise, generator=gen))
+        return outs[-1]
+
+    kernel, per_step = ("fused_conv_gn_mish", 33) if float_mode else ("int8_conv1d", 41)
+    reset_counts()
+    err = kernel_vs_plain("recguidance", f"UNet-XL {precision_mode} f32 DDPM-{steps}, imputation "
+                          f"and reconstruction guidance (weight {GUIDANCE_WEIGHT}), B={B}", run,
+                          resblock_swapped_for_plain if float_mode else int8_swapped_for_plain)
+    launches = read_counts()[kernel]
+    kept = (outs[0][mask] - obs[mask]).abs().max().item()
+    print(f"[recguidance] UNet-XL {precision_mode}: {kernel} launches {launches} (expected "
+          f"{per_step} x {steps} in the kernel run); max|sample - keyframe| on the keyframes "
+          f"{kept:.3e}", flush=True)
+    if launches != per_step * steps:
+        raise SystemExit(f"UNet-XL recguidance {kernel} launches {launches} != {per_step * steps}")
+    if kept > 1e-6:
+        raise SystemExit("imputation did not keep the keyframes")
+    if not float_mode and err != 0.0:
+        raise SystemExit(f"UNet-XL {precision_mode} recguidance: kernel path and plain path differ "
+                         f"by {err:.3e}, where they take the same operations")
+    return err
 
 
 def serve_mixed(dev, card, model, float_served):
@@ -1277,6 +1380,10 @@ def main() -> int:
     int8_rows, dense_rows = phase("10 int8 kernel", check_int8, int8_shapes, dev)
     int8_out = phase("11 int8 paths", int8_paths, dev, int8_model)
     mixed = phase("12 mixed-step serving", serve_mixed, dev, card, int8_model, served)
+    del int8_model
+    unet_recg_err = phase("13 UNet-XL guidance", unet_recguidance_kernel_vs_plain, dev, "float")
+    int8_recg_err = phase("14 UNet-XL int8_static guidance", unet_recguidance_kernel_vs_plain,
+                          dev, "int8_static")
     print("[time] host seconds by phase: "
           + ", ".join(f"{k} {v:.1f}" for k, v in phase_seconds.items())
           + f"; {sum(phase_seconds.values()):.1f} in all", flush=True)
@@ -1299,6 +1406,7 @@ def main() -> int:
         "max_abs_err": max(r["max_abs_err_bf16"] for r in rows),
         "max_abs_err_f32": max(r["max_abs_err_f32"] for r in rows),
         "ddim_max_abs_err_f32": ddim_err,
+        "recguidance_max_abs_err_f32": unet_recg_err,
         # times: the 33 resblock halves of one UNet-XL forward at B=8, bf16
         "ms": per_forward("ms"),
         "plain_ms": per_forward("plain_ms"),
@@ -1338,6 +1446,7 @@ def main() -> int:
         "max_abs_err_f32": max(r["max_abs_err_f32"] for r in int8_rows + dense_rows),
         "bit_exact_at_every_conv_shape": all(r["bit_exact"] for r in int8_rows),
         "ddim_max_abs_err_f32": int8_out["ddim_max_abs_err_f32"],
+        "recguidance_max_abs_err_f32": int8_recg_err,
         # times: the 41 int8 convs of one UNet-XL int8_static forward at B=8, bf16
         "ms": per_forward("ms", int8_rows),
         "plain_ms": per_forward("plain_ms", int8_rows),
@@ -1352,8 +1461,9 @@ def main() -> int:
         "golden_mean_rel_unet_int8_static": int8_out["golden_unet_int8_static"],
         "golden_max_abs_unet_float": int8_out["golden_unet"],
     }]
-    previous = {"fused_conv_gn_mish": PREV_RESBLOCK_MS, "fused_self_attention": PREV_ATTENTION_MS}
-    for kern in kernels[:2]:
+    previous = {"fused_conv_gn_mish": PREV_RESBLOCK_MS, "fused_self_attention": PREV_ATTENTION_MS,
+                "int8_conv1d": PREV_INT8_MS}
+    for kern in kernels:
         print(f"[kernel] before: {kern['name']} took {previous[kern['name']]} ms in its first "
               f"version (PERF.md section 6, an earlier run on an NVIDIA H100 80GB HBM3 at 700 W); "
               f"this run {kern['ms']:.4f} ms", flush=True)

@@ -6,9 +6,10 @@ already closed over weights and conditioning, so this module is
 model-agnostic. Layout is [B, T, F]; observation masks are [B, T, F].
 
 Reconstruction guidance takes the gradient of the keyframe loss through the
-denoiser with `torch.autograd.grad`. On CUDA that needs the resblock
-kernel's backward, which comes with the training slice: the kernel's wrapper
-raises there rather than take its plain version.
+denoiser with `torch.autograd.grad`. On CUDA the kernels' autograd Functions
+carry it (ops/resblock.py `ConvGnMish`, ops/quant.py `Int8Conv1d`,
+ops/attention.py `fused_self_attention`): kernel forwards, backwards that
+recompute the plain versions.
 """
 
 from __future__ import annotations

@@ -47,7 +47,7 @@ from condmdi_tpu_torch.models.cfg import mask_cond
 from condmdi_tpu_torch.models.embeddings import EmbedAction, PositionalEncoding, TimestepEmbedder
 from condmdi_tpu_torch.models.layers import Dense, LayerNorm, init_params
 from condmdi_tpu_torch.ops.attention import mha, multihead_attention
-from condmdi_tpu_torch.ops.quant import QuantizedWeight, int8_matmul
+from condmdi_tpu_torch.ops.quant import QuantizedWeight, int8_matmul, live_scales
 
 
 def activate(x: torch.Tensor, activation: str) -> torch.Tensor:
@@ -75,7 +75,10 @@ class QDense(Dense):
         if self.precision_mode == "float":
             return super().forward(x)
         q = self.quantized.get(self.weight, self.bias)
-        return int8_matmul(x, self.weight, q.bias, packed=q.packed, quantized=(q.wq, q.w_scale))
+        w_scale, bias = q.w_scale, q.bias
+        if torch.is_grad_enabled() and (self.weight.requires_grad or self.bias.requires_grad):
+            w_scale, bias = live_scales(q, self.weight, self.bias)
+        return int8_matmul(x, self.weight, bias, packed=q.packed, quantized=(q.wq, w_scale))
 
 
 class TransformerEncoderLayer(nn.Module):

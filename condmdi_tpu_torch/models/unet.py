@@ -21,7 +21,9 @@ the JAX package left to XLA; here they stay F.conv1d / F.linear.
 Int8 modes: every QConv (the resblock convs, residual_conv, the downsample
 convs and final_conv) goes through ops.quant.int8_conv1d: the Hopper int8
 kernel on CUDA, its plain version on the CPU, with the weight quantized once
-per parameter (`QuantizedWeight`). The resblock halves run unfused, as in
+per parameter (`QuantizedWeight`); under autograd the weight's scale and the
+bias are handed over live (`live_scales`), so that they take the JAX
+package's gradients. The resblock halves run unfused, as in
 the JAX package: QConv → GroupNorm → (AdaGN) → Mish (→ +res). The static
 modes keep their calibrated amax as a float32 buffer per QConv; under
 `ops.quant.calibration(model)` (Flax's `mutable=["act_scale"]`) the QConvs
@@ -56,7 +58,7 @@ from condmdi_tpu_torch.models.layers import (
     _lecun_,
     init_params,
 )
-from condmdi_tpu_torch.ops.quant import QuantizedWeight, int8_conv1d
+from condmdi_tpu_torch.ops.quant import QuantizedWeight, int8_conv1d, live_scales
 from condmdi_tpu_torch.ops.resblock import PackedConvWeight, fused_conv_gn_mish, mish
 
 PRECISION_MODES = ("float", "int8", "int8_static", "int8_static_pc", "int8_prequant")
@@ -138,9 +140,13 @@ class QConv(ParamModule):
         elif amax is not None:
             per_channel = mode == "int8_static_pc"
             qmode = {"int8_static": "static", "int8_static_pc": "static_pc"}.get(mode, qmode)
-        q = self.quantized.get(weight, self.bias, amax, mode=qmode,
-                               weight_scale=getattr(self, "weight_scale", None))
-        return int8_conv1d(x, q.wq, q.w_scale, q.bias, self.stride, self.padding, q.a_scale,
+        stored_scale = getattr(self, "weight_scale", None)
+        q = self.quantized.get(weight, self.bias, amax, mode=qmode, weight_scale=stored_scale)
+        w_scale, bias = q.w_scale, q.bias
+        if torch.is_grad_enabled() and any(p is not None and p.requires_grad
+                                           for p in (weight, self.bias, stored_scale)):
+            w_scale, bias = live_scales(q, weight, self.bias, qmode, stored_scale)
+        return int8_conv1d(x, q.wq, w_scale, bias, self.stride, self.padding, q.a_scale,
                            per_channel=per_channel, packed=q.packed)
 
 
@@ -174,6 +180,8 @@ class _ResblockHalf(nn.Module):
         y = F.mish(y).transpose(1, 2)
         if res is None:
             return y.contiguous()
+        if y.requires_grad or res.requires_grad:  # under autograd, which takes no out=
+            return res + y
         return torch.add(res, y, out=torch.empty_like(res))
 
 

@@ -129,12 +129,14 @@ def _bind_quant(lib: ctypes.CDLL) -> None:
         p, i, ll, ll,   # x, dtype code, x's batch and row strides in elements
         p, i,           # a_scale ([1] or [Cin] float32), per-channel flag
         p, p, p,        # packed int8 weight, w_scale, bias (or null)
-        p, p,           # the codes' scratch [B, T, Cin padded to 64] int8, out
-        i, i, i, i, i,  # B, T, Cin, Cin padded to 64, Cout
+        p, p,           # the codes' scratch [B, T + 2 padding (even), Cin_pad] int8, out
+        i, i, i, i, i,  # B, T, Cin, Cin padded to 128, Cout
         i, i, i, i,     # k, stride, padding, T out
         p,              # stream
     ]
     lib.condmdi_int8_conv1d.restype = i
+    lib.condmdi_int8_conv1d_plan.argtypes = [i] * 8 + [ctypes.POINTER(ctypes.c_int)]
+    lib.condmdi_int8_conv1d_plan.restype = i
     lib.condmdi_error_string.argtypes = [i]
     lib.condmdi_error_string.restype = ctypes.c_char_p
 

@@ -14,6 +14,15 @@ reaches it:
 `int8_conv1d.launches` counts kernel launches and nothing else.
 `int8_matmul` is the same op at k=1 over the rows of x.
 
+Under autograd (grad enabled and x, a scale or the bias requiring grad) the
+call goes through `Int8Conv1d`: the same forward, and a backward that
+recomputes the plain version. That gives what JAX's autodiff gives through
+its XLA op: nothing through the rounded codes, so a static or folded scale
+passes no gradient to x and a dynamic one passes its amax term; the bias its
+sum; and the float weight, where it is quantized in-graph, the gradient of
+its per-channel scale (`QConv`/`QDense` hand the live scale over on that path,
+`live_scales`). Under `torch.no_grad()` there is no Function.
+
 The arithmetic is the JAX package's, operation by operation:
 
   * weights per output channel, symmetric: scale = max(amax, 1e-8) / 127.0
@@ -43,8 +52,11 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
-_CHUNK = 64  # input channels per K step of the kernel = the packed weight's chunk
-_BLOCK_N = 64  # output channels per CTA: the packed weight's rows are padded to it
+from condmdi_tpu_torch.ops.resblock import recompute_grads
+
+_CHUNK = 128  # input channels per K step of the kernel: Cin is padded to a multiple of it
+_TILE = 128  # output rows and output channels per CTA (csrc/quant.cu kBM, kBN)
+_MAX_SPLIT = 8  # parts of a split tile: the CTAs of one cluster (csrc/quant.cu kMaxSplit)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _TAPS = (1, 3, 5)  # the kernel widths the kernel is built for
 
@@ -52,12 +64,16 @@ _TAPS = (1, 3, 5)  # the kernel widths the kernel is built for
 # --------------------------------------------------------------------------- #
 # quantization
 # --------------------------------------------------------------------------- #
+def weight_scale(w: torch.Tensor) -> torch.Tensor:
+    """[Cout, ...] float → the per-output-channel scale [Cout], in w's dtype."""
+    return torch.clamp(w.abs().amax(dim=tuple(range(1, w.ndim))), min=1e-8) / 127.0
+
+
 def quantize_weight_per_channel(w: torch.Tensor):
     """[Cout, ...] float → (int8 codes of w's shape, scale [Cout] in w's dtype).
 
     Computed in w's dtype, as the JAX package computes it in its kernel's."""
-    amax = w.abs().amax(dim=tuple(range(1, w.ndim)))
-    scale = torch.clamp(amax, min=1e-8) / 127.0
+    scale = weight_scale(w)
     view = (-1,) + (1,) * (w.ndim - 1)
     wq = torch.clamp(torch.round(w / scale.view(view)), -127, 127).to(torch.int8)
     return wq, scale
@@ -134,14 +150,50 @@ def int8_conv1d(
     """Quantized conv: int8 x int8 → int32, dequant epilogue; x's dtype out."""
     if per_channel and (a_scale is None or a_scale.ndim != 1):
         raise ValueError("per_channel needs a [Cin] a_scale")
-    if x.device.type == "cpu":
-        return plain_int8_conv1d(x, wq, w_scale, bias, stride, padding, a_scale, per_channel)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"int8_conv1d: unsupported device {x.device}")
-    return _launch(x, wq, w_scale, bias, stride, padding, a_scale, per_channel, packed)
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in (x, w_scale, bias, a_scale)):
+        return Int8Conv1d.apply(x, wq, w_scale, bias, a_scale, stride, padding, per_channel,
+                                packed)
+    return _forward(x, wq, w_scale, bias, a_scale, stride, padding, per_channel, packed)
 
 
 int8_conv1d.launches = 0
+
+
+def _forward(x, wq, w_scale, bias, a_scale, stride, padding, per_channel, packed):
+    """The kernel for a CUDA tensor, the plain version for a CPU one."""
+    if x.device.type == "cpu":
+        return plain_int8_conv1d(x, wq, w_scale, bias, stride, padding, a_scale, per_channel)
+    return _launch(x, wq, w_scale, bias, stride, padding, a_scale, per_channel, packed)
+
+
+class Int8Conv1d(torch.autograd.Function):
+    """The int8 conv under autograd: `_forward` (the kernel on the card), and a
+    backward that recomputes `plain_int8_conv1d` and returns the gradients of
+    x, w_scale, bias and a_scale (none for the int8 codes).
+
+    Call as `Int8Conv1d.apply(x, wq, w_scale, bias, a_scale, stride, padding,
+    per_channel, packed)`; `int8_conv1d` does so only under autograd.
+    """
+
+    @staticmethod
+    def forward(ctx, x, wq, w_scale, bias, a_scale, stride, padding, per_channel, packed):
+        ctx.save_for_backward(x, wq, w_scale, bias, a_scale)
+        ctx.conv = (stride, padding, per_channel)
+        return _forward(x, wq, w_scale, bias, a_scale, stride, padding, per_channel, packed)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        stride, padding, per_channel = ctx.conv
+
+        def plain(x, wq, w_scale, bias, a_scale):
+            return plain_int8_conv1d(x, wq, w_scale, bias, stride, padding, a_scale, per_channel)
+
+        needs = (ctx.needs_input_grad[0], False, *ctx.needs_input_grad[2:5])
+        grads = recompute_grads(plain, ctx.saved_tensors, needs, grad_out)
+        return (*grads, None, None, None, None)
 
 
 def quant_conv1d_from_f32(x, kernel, bias=None, stride=1, padding=0, a_scale=None):
@@ -176,13 +228,35 @@ def int8_matmul(x: torch.Tensor, weight: torch.Tensor, bias=None, *, packed=None
 # the kernel's weight layout and the per-parameter cache
 # --------------------------------------------------------------------------- #
 def pack_int8_weight(wq: torch.Tensor) -> torch.Tensor:
-    """[Cout, Cin, k] int8 → [Cout_pad, Cin_pad/64, k, 64]: Cin zero-padded to a
-    multiple of 64 and Cout to one of 64, so that a CTA's weights for one
-    64-channel step are k·64 contiguous bytes per output channel."""
+    """[Cout, Cin, k] int8 → [Cout, k·Cin_pad]: row n holds tap 0's Cin_pad
+    channels, then tap 1's, …, with Cin zero-padded to a multiple of 128, so
+    that one K step of the kernel (a tap and 128 channels) of 128 output
+    channels is one TMA box of the matrix."""
     cout, cin, k = wq.shape
-    cin_pad, cout_pad = -(-cin // _CHUNK) * _CHUNK, -(-cout // _BLOCK_N) * _BLOCK_N
-    wp = F.pad(wq.permute(0, 2, 1), (0, cin_pad - cin, 0, 0, 0, cout_pad - cout))
-    return wp.reshape(cout_pad, k, cin_pad // _CHUNK, _CHUNK).permute(0, 2, 1, 3).contiguous()
+    cin_pad = -(-cin // _CHUNK) * _CHUNK
+    return F.pad(wq.permute(0, 2, 1), (0, cin_pad - cin)).reshape(cout, k * cin_pad).contiguous()
+
+
+def int8_plan(B: int, T: int, cin: int, cout: int, k: int, stride: int, padding: int,
+              sm_count: int) -> dict:
+    """How the kernel cuts a conv on a card with `sm_count` SMs (csrc/quant.cu
+    `make_plan`, exported as `condmdi_int8_conv1d_plan`; a card test holds the
+    two together): code rows per batch item with the zero halo (`t_pad`), tiles
+    of 128 rows of the batch-folded M and 128 output channels, K steps (a tap
+    and 128 input channels each), and the split of the K steps over the CTAs
+    of a cluster where the tiles are fewer than half the SMs: as many parts as
+    fill one wave, at most 8, and half a wave for clusters of 4 or more."""
+    t_pad = -(-(T + 2 * padding) // stride) * stride
+    m_tiles = -(-(B * t_pad // stride) // _TILE)
+    n_tiles = -(-cout // _TILE)
+    steps = k * -(-cin // _CHUNK)
+    tiles = m_tiles * n_tiles
+    split = 1
+    if 2 * tiles <= sm_count:
+        split = min(sm_count // tiles, steps, _MAX_SPLIT)
+        while split >= 4 and 2 * split * tiles > sm_count:  # clusters of 4+: half a wave
+            split -= 1
+    return dict(t_pad=t_pad, m_tiles=m_tiles, n_tiles=n_tiles, split=split, steps=steps)
 
 
 class Quantized(NamedTuple):
@@ -244,6 +318,21 @@ class QuantizedWeight:
         return self._value
 
 
+def live_scales(q: Quantized, weight, bias, mode="int8", weight_scale_param=None):
+    """(w_scale, bias) of `q` made again from the parameters, for a call under
+    autograd: the cached values bit for bit, with the gradients that the JAX
+    package's in-graph quantization gives the float weight (through its
+    per-channel scale; the rounded codes pass none), the stored scale of
+    "prequant" and the bias. `mode` as for `QuantizedWeight.get`."""
+    if mode == "prequant":
+        w_scale = weight_scale_param
+    elif mode == "static_pc":
+        w_scale = weight_scale(weight.float() * q.a_scale[None, :, None])
+    else:
+        w_scale = weight_scale(weight.float() if weight.ndim == 3 else weight)
+    return w_scale.float(), None if bias is None else bias.float()
+
+
 # --------------------------------------------------------------------------- #
 # the launch
 # --------------------------------------------------------------------------- #
@@ -259,14 +348,8 @@ def _launch(x, wq, w_scale, bias, stride, padding, a_scale, per_channel, packed)
     if code is None:
         raise TypeError(f"int8_conv1d: unsupported dtype {dtype}")
     for t in (x, wq, w_scale, bias, a_scale):
-        if t is None:
-            continue
-        if t.device != device:
+        if t is not None and t.device != device:
             raise TypeError("int8_conv1d: all inputs must lie on x's device")
-        if t.requires_grad and torch.is_grad_enabled():
-            raise NotImplementedError(
-                "int8_conv1d has no backward kernel; call it under torch.no_grad() on CUDA"
-            )
     if wq.dtype != torch.int8 or wq.ndim != 3:
         raise TypeError("int8_conv1d: wq must be [Cout, Cin, k] int8")
     B, T, xc = x.shape
@@ -278,7 +361,7 @@ def _launch(x, wq, w_scale, bias, stride, padding, a_scale, per_channel, packed)
     if stride not in (1, 2) or not 0 <= padding < k:
         raise NotImplementedError(f"stride {stride}, padding {padding} are not built")
     t_out = (T + 2 * padding - k) // stride + 1
-    if t_out <= 0 or B > 65535:
+    if t_out <= 0:
         raise ValueError(f"int8_conv1d: no output for B={B}, T={T}, k={k}, stride={stride}")
     if x.stride(2) != 1:
         x = x.contiguous()
@@ -296,11 +379,14 @@ def _launch(x, wq, w_scale, bias, stride, padding, a_scale, per_channel, packed)
         a_scale = a_scale.float().contiguous()
     if packed is None:
         packed = pack_int8_weight(wq)
-    cin_pad = packed.shape[1] * _CHUNK
-    if packed.shape != (-(-cout // _BLOCK_N) * _BLOCK_N, cin_pad // _CHUNK, k, _CHUNK):
+    cin_pad = -(-cin // _CHUNK) * _CHUNK
+    if packed.shape != (cout, k * cin_pad) or packed.dtype != torch.int8:
         raise ValueError(f"packed weight {tuple(packed.shape)} does not match wq {tuple(wq.shape)}")
     out = torch.empty((B, t_out, cout), device=device, dtype=dtype)
-    codes = torch.empty((B, T, cin_pad), device=device, dtype=torch.int8)  # the kernel's scratch
+    # the kernel's scratch: the codes with a zero halo of `padding` rows around each
+    # batch item, T + 2 padding rows made even for stride 2 (written whole by the kernel)
+    t_pad = -(-(T + 2 * padding) // stride) * stride
+    codes = torch.empty((B, t_pad, cin_pad), device=device, dtype=torch.int8)
 
     from condmdi_tpu_torch.ops import _build
 

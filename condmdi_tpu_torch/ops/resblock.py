@@ -12,6 +12,15 @@ every Conv1dBlock / Conv1dAdaGNBlock of the UNet calls:
 `fused_conv_gn_mish.launches` counts kernel launches, and nothing else, so a
 run can show that its resblock halves went through the kernel.
 
+Under autograd (grad enabled and an input that requires grad, as
+reconstruction guidance differentiates the UNet) the call goes through
+`ConvGnMish`, whose forward is the same launch (or, on the CPU, the plain
+version) and whose backward recomputes the half with the plain version. The
+JAX package has no backward kernel either: it differentiates the unfused
+layers (`_fusable` is false under training), which is what the recompute is.
+Under `torch.no_grad()` the call launches directly, with no Function, since a
+served step is bound by the host.
+
 Layouts follow the JAX package: x [B, T, Cin], res and the output
 [B, T, Cout]; the weight is in torch's Conv1d layout [Cout, Cin, k]. x may
 carry up to 7 trailing alignment channels beyond the weight's Cin (the UNet
@@ -135,16 +144,67 @@ def fused_conv_gn_mish(
     """One fused Conv1d(k, SAME) → GroupNorm → [AdaGN] → Mish [→ +res]."""
     if (scale is None) != (shift is None):
         raise ValueError("scale and shift come together")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"fused_conv_gn_mish: unsupported device {x.device}")
+    inputs = (x, w, b, gamma, beta, scale, shift, res)
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in inputs):
+        return ConvGnMish.apply(*inputs, n_groups, eps, packed)
+    return _forward(*inputs, n_groups, eps, packed)
+
+
+fused_conv_gn_mish.launches = 0
+
+
+def _forward(x, w, b, gamma, beta, scale, shift, res, n_groups, eps, packed):
+    """The kernel for a CUDA tensor, the plain version for a CPU one."""
     if x.device.type == "cpu":
         return reference_conv_gn_mish(
             x, w, b, gamma, beta, scale, shift, res, n_groups=n_groups, eps=eps
         )
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_conv_gn_mish: unsupported device {x.device}")
     return _launch(x, w, b, gamma, beta, scale, shift, res, n_groups, eps, packed)
 
 
-fused_conv_gn_mish.launches = 0
+def recompute_grads(plain, inputs, needs, grad_out):
+    """The gradients of `plain(*inputs)` wrt the inputs in `needs` (None for the
+    others): the inputs detached, the plain version run again under autograd,
+    and `grad_out` taken back through it. An input that reaches the output by
+    no differentiable path (x through the int8 codes) gets zeros."""
+    with torch.enable_grad():
+        live = [t.detach().requires_grad_(need) if t is not None else None
+                for t, need in zip(inputs, needs)]
+        wanted = [t for t, need in zip(live, needs) if need]
+        y = plain(*live)
+        grads = iter(torch.autograd.grad(y, wanted, grad_out, allow_unused=True)
+                     if y.requires_grad else [None] * len(wanted))
+    result = []
+    for t, need in zip(live, needs):
+        g = next(grads) if need else None
+        result.append(torch.zeros_like(t) if need and g is None else g)
+    return result
+
+
+class ConvGnMish(torch.autograd.Function):
+    """One resblock half under autograd: `_forward` (the kernel on the card),
+    and a backward that recomputes the half with `reference_conv_gn_mish`
+    and returns the gradients of x, w, b, gamma, beta, scale, shift and res.
+
+    Call as `ConvGnMish.apply(x, w, b, gamma, beta, scale, shift, res,
+    n_groups, eps, packed)`; `fused_conv_gn_mish` does so only under autograd.
+    """
+
+    @staticmethod
+    def forward(ctx, x, w, b, gamma, beta, scale, shift, res, n_groups, eps, packed):
+        ctx.save_for_backward(x, w, b, gamma, beta, scale, shift, res)
+        ctx.n_groups, ctx.eps = n_groups, eps
+        return _forward(x, w, b, gamma, beta, scale, shift, res, n_groups, eps, packed)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        def plain(*inputs):
+            return reference_conv_gn_mish(*inputs, n_groups=ctx.n_groups, eps=ctx.eps)
+
+        grads = recompute_grads(plain, ctx.saved_tensors, ctx.needs_input_grad[:8], grad_out)
+        return (*grads, None, None, None)
 
 
 def bf16_tiles(T: int) -> tuple[int, int, int]:
@@ -184,15 +244,8 @@ def _launch(x, w, b, gamma, beta, scale, shift, res, n_groups, eps, packed=None)
     if code is None:
         raise TypeError(f"fused_conv_gn_mish: unsupported dtype {dtype}")
     for t in (x, w, b, gamma, beta, scale, shift, res):
-        if t is None:
-            continue
-        if t.dtype != dtype or t.device != device:
+        if t is not None and (t.dtype != dtype or t.device != device):
             raise TypeError("fused_conv_gn_mish: all inputs must share x's dtype and device")
-        if t.requires_grad and torch.is_grad_enabled():
-            raise NotImplementedError(
-                "fused_conv_gn_mish has no backward kernel yet; call it under "
-                "torch.no_grad() on CUDA"
-            )
     B, T, xc = x.shape
     cout, cin, k = w.shape
     if not cin <= xc <= -(-cin // 8) * 8:

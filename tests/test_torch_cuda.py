@@ -151,12 +151,40 @@ def test_kernel_wrapper_refuses_what_the_kernel_does_not_take(cuda_device, bad):
     assert resblock.fused_conv_gn_mish.launches == before
 
 
+GRAD_TOL = 1e-5  # |kernel path - plain path| <= tol * (1 + |plain|) for a gradient
+
+
 @pytest.mark.cuda
-def test_kernel_refuses_autograd(cuda_device):
-    args, _ = make_inputs(2, 16, 24, 32, False, False, torch.float32, cuda_device)
-    args[0].requires_grad_(True)
-    with pytest.raises(NotImplementedError):
-        resblock.fused_conv_gn_mish(*args)
+@pytest.mark.parametrize("case", [
+    # (B, T, Cin, x channels, Cout, adagn, res): UNet-XL resblock halves at pad 200, f32
+    (2, 200, 526, 528, 1024, True, False),
+    (2, 100, 2048, 2048, 1024, True, False),
+    (2, 25, 1024, 1024, 1024, False, True),
+])
+def test_kernel_gradients_match_plain(cuda_device, case):
+    """Under autograd the half goes through ConvGnMish: the kernel forward, a
+    backward that recomputes the plain version. Every input's gradient equals
+    plain autograd's (the same recompute, so only cuDNN's choice of algorithms
+    between the two runs can move them)."""
+    B, T, cin, xc, cout, adagn, res = case
+    args, kw = make_inputs(B, T, cin, cout, adagn, res, torch.float32, cuda_device)
+    args[0] = torch.nn.functional.pad(args[0], (0, xc - cin))
+    leaves = [*args, *kw.values()]
+    probe = torch.randn((B, T, cout), device=cuda_device)
+
+    def grads(fn):
+        inputs = [t.detach().clone().requires_grad_(True) for t in leaves]
+        out = fn(*inputs[:5], **dict(zip(kw, inputs[5:])))
+        return out, torch.autograd.grad((out * probe).sum(), inputs)
+
+    before = resblock.fused_conv_gn_mish.launches
+    got_out, got = grads(resblock.fused_conv_gn_mish)
+    assert resblock.fused_conv_gn_mish.launches == before + 1
+    want_out, want = grads(resblock.reference_conv_gn_mish)
+    assert torch.all((got_out - want_out).abs() <= F32_TOL * (1 + want_out.abs()))
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all()
+        assert torch.all((g - w).abs() <= GRAD_TOL * (1 + w.abs()))
 
 
 def qkv_views(B, T, D, dtype, device, seed=5):
@@ -587,12 +615,194 @@ def test_int8_qconv_cache_follows_weight_and_recalibration(cuda_device):
 
 
 @pytest.mark.cuda
-def test_int8_kernel_refuses_autograd(cuda_device):
+@pytest.mark.parametrize("form", ["dynamic", "static", "per_channel"])
+@pytest.mark.parametrize("case", [
+    # (B, T, Cin, x channels, Cout, k, stride, padding)
+    (2, 200, 526, 528, 1024, 5, 1, 2),
+    (2, 50, 1024, 1024, 1024, 3, 2, 1),
+    (2, 200, 1024, 1024, 263, 1, 1, 0),
+])
+def test_int8_kernel_gradients_match_plain(cuda_device, form, case):
+    """Under autograd the int8 conv goes through Int8Conv1d: the kernel forward,
+    a backward that recomputes the plain version; the gradients of x, w_scale,
+    bias and a_scale equal plain autograd's: x gets none through the codes, so
+    zero for a static or folded scale and the amax term for a dynamic one, as
+    in JAX."""
     from condmdi_tpu_torch.ops import quant
 
-    x, wq, ws, bias, _, _ = int8_case(2, 20, 32, 16, 5, "dynamic", torch.float32, cuda_device)
-    with pytest.raises(NotImplementedError, match="backward"):
-        quant.int8_conv1d(x.requires_grad_(True), wq, ws, bias, 1, 2)
+    B, T, cin, xc, cout, k, stride, pad = case
+    x, wq, ws, bias, a_scale, pc = int8_case(B, T, cin, cout, k, form, torch.float32,
+                                             cuda_device, xc)
+    leaves = [x, ws, bias] + ([] if a_scale is None else [a_scale])
+    t_out = (T + 2 * pad - k) // stride + 1
+    probe = torch.randn((B, t_out, cout), device=cuda_device)
+
+    def grads(fn):
+        inputs = [t.detach().clone().requires_grad_(True) for t in leaves]
+        s = inputs[3] if a_scale is not None else None
+        out = fn(inputs[0], wq, inputs[1], inputs[2], stride, pad, s, per_channel=pc)
+        # x reaches the plain version's output through no differentiable path
+        # where the scale is static: autograd gives None there, the Function zeros
+        g = torch.autograd.grad((out * probe).sum(), inputs, allow_unused=True)
+        return out, [torch.zeros_like(t) if d is None else d for t, d in zip(inputs, g)]
+
+    before = quant.int8_conv1d.launches
+    got_out, got = grads(quant.int8_conv1d)
+    assert quant.int8_conv1d.launches == before + 1
+    want_out, want = grads(lambda *a, per_channel: quant.plain_int8_conv1d(*a, per_channel))
+    assert torch.equal(got_out, want_out)
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all()
+        assert torch.all((g - w).abs() <= GRAD_TOL * (1 + w.abs()))
+    assert int((got[0] != 0).sum()) == (1 if form == "dynamic" else 0)
+
+
+def assert_int8_bit_exact(x, wq, w_scale, bias, a_scale, per_channel, stride, padding):
+    from condmdi_tpu_torch.ops import quant
+
+    before = quant.int8_conv1d.launches
+    with torch.no_grad():
+        got = quant.int8_conv1d(x, wq, w_scale, bias, stride, padding, a_scale,
+                                per_channel=per_channel)
+        torch.cuda.synchronize()
+        want = quant.plain_int8_conv1d(x, wq, w_scale, bias, stride, padding, a_scale,
+                                       per_channel)
+    assert quant.int8_conv1d.launches == before + 1
+    assert got.shape == want.shape and got.dtype == want.dtype
+    assert torch.equal(got, want), (got.float() - want.float()).abs().max()
+    return got
+
+
+def sm_count(device):
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("form", ["dynamic", "static", "per_channel"])
+@pytest.mark.parametrize("case", [
+    # (B, T, Cin, x channels, Cout, k, stride, padding): the edges of the
+    # batch-folded design. B = 1 and 3; T' no multiple of the 128-row tile; tiles
+    # that span batch items at stride 1 (T + 4 halo rows = 54 a batch item) and at
+    # stride 2 (101 row pairs an item); Cin 526 inside a 528 buffer; Cout 263;
+    # every k
+    (1, 200, 1024, 1024, 1024, 5, 1, 2),
+    (3, 200, 1024, 1024, 1024, 5, 1, 2),
+    (3, 50, 1024, 1024, 1024, 5, 1, 2),
+    (3, 200, 1024, 1024, 1024, 3, 2, 1),
+    (5, 77, 256, 256, 192, 3, 2, 1),
+    (3, 130, 526, 528, 1024, 5, 1, 2),
+    (3, 130, 526, 528, 1024, 1, 1, 0),
+    (3, 199, 1024, 1024, 263, 1, 1, 0),
+    (2, 9, 40, 40, 24, 3, 1, 1),
+    (2, 9, 40, 40, 24, 5, 2, 2),
+])
+def test_int8_kernel_is_bit_exact_at_the_tile_edges(cuda_device, dtype, form, case):
+    B, T, cin, xc, cout, k, stride, pad = case
+    x, wq, ws, bias, a_scale, pc = int8_case(B, T, cin, cout, k, form, getattr(torch, dtype),
+                                             cuda_device, xc, seed=T + B)
+    assert_int8_bit_exact(x, wq, ws, bias, a_scale, pc, stride, pad)
+
+
+# shapes that take each split of the K steps on a 132-SM card: tiles, K steps, split
+SPLIT_CASES = [
+    (8, 200, 1024, 1024, 5, 1, 2),  # 104 tiles: no split
+    (8, 100, 1024, 1024, 5, 1, 2),  # 56 tiles: 2
+    (8, 200, 1024, 263, 1, 1, 0),   # 39 tiles: 3, Cout 263
+    (8, 50, 1024, 1024, 5, 1, 2),   # 32 tiles: 3
+    (8, 25, 1024, 1024, 5, 1, 2),   # 16 tiles: 4
+    (2, 30, 640, 640, 1, 1, 0),     # 5 tiles, 5 K steps: 5, one step each
+    (2, 25, 256, 640, 3, 1, 1),     # 5 tiles, 6 steps: 6, one step each
+    (2, 30, 896, 640, 1, 1, 0),     # 5 tiles, 7 steps: 7, one step each
+    (3, 50, 1024, 512, 1, 1, 0),    # 8 tiles, 8 steps: 8, one step each
+    (2, 60, 1408, 640, 1, 1, 0),    # 5 tiles, 11 steps: 8, parts of 1 and 2 steps
+    (2, 60, 384, 256, 3, 2, 1),     # 2 tiles, 9 steps: 8, stride 2
+    (1, 40, 1024, 128, 3, 1, 1),    # 1 tile, 24 steps: 8
+    (2, 9, 40, 30, 5, 2, 2),        # 1 tile, 5 steps: 5, Cout 30 (not a multiple of 4)
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("case", SPLIT_CASES)
+def test_int8_kernel_is_bit_exact_at_every_split(cuda_device, dtype, case):
+    """Each split of the K steps the plan takes, down to parts of a single K step:
+    the int32 sums of the parts, added up through the cluster's shared memory,
+    equal the plain version's bit for bit, in two calls in a row."""
+    from condmdi_tpu_torch.ops import quant
+
+    B, T, cin, cout, k, stride, pad = case
+    plan = quant.int8_plan(B, T, cin, cout, k, stride, pad, sm_count(cuda_device))
+    assert 1 <= plan["split"] <= 8
+    dt = getattr(torch, dtype)
+    for seed in (1, 2):
+        x, wq, ws, bias, a_scale, pc = int8_case(B, T, cin, cout, k, "static", dt, cuda_device,
+                                                 seed=seed)
+        assert_int8_bit_exact(x, wq, ws, bias, a_scale, pc, stride, pad)
+
+
+@pytest.mark.cuda
+def test_int8_split_cases_cover_every_split(cuda_device):
+    from condmdi_tpu_torch.ops import quant
+
+    if sm_count(cuda_device) != 132:
+        pytest.skip("the split cases are chosen for a 132-SM card")
+    plans = [quant.int8_plan(*c, 132) for c in SPLIT_CASES]
+    assert {p["split"] for p in plans} == set(range(1, 9))
+    assert any(p["split"] == p["steps"] for p in plans)  # every part a single K step
+    assert any(1 < p["split"] < p["steps"] < 2 * p["split"] for p in plans)  # parts of 1 and 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [
+    (8, 200, 528, 1024, 5, 1, 2), (8, 25, 2048, 1024, 5, 1, 2), (8, 200, 1024, 1024, 3, 2, 1),
+    (1, 25216, 512, 1536, 1, 1, 0), (3, 17, 40, 24, 3, 2, 1), (2, 9, 40, 24, 5, 2, 2),
+])
+def test_python_int8_plan_is_the_librarys(cuda_device, shape):
+    import ctypes
+
+    from condmdi_tpu_torch.ops import _build, quant
+
+    B, T, cin, cout, k, stride, pad = shape
+    lib = _build.load_quant()
+    out = (ctypes.c_int * 5)()
+    cin_pad = -(-cin // 128) * 128
+    for sms in (132, 114, 8):
+        assert lib.condmdi_int8_conv1d_plan(B, T, cin_pad, cout, k, stride, pad, sms, out) == 0
+        want = dict(zip(("t_pad", "m_tiles", "n_tiles", "split", "steps"), list(out)))
+        assert quant.int8_plan(B, T, cin, cout, k, stride, pad, sms) == want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [(8, 25, 1024, 1024, 5, 1, 2), (8, 200, 1024, 1024, 3, 2, 1)])
+def test_int8_kernel_replays_inside_a_cuda_graph(cuda_device, case):
+    """One int8 conv (a split one, and a stride-2 one) captured on a side stream and
+    replayed on new contents of its input, dynamic scale: no host sync and no
+    allocation outside torch; the two launches of a call (the quantize pass, then
+    the conv as its programmatic dependent, in clusters where split) replay."""
+    from condmdi_tpu_torch.ops import quant
+
+    B, T, cin, cout, k, stride, pad = case
+    x, wq, ws, bias, _, _ = int8_case(B, T, cin, cout, k, "dynamic", torch.bfloat16,
+                                      cuda_device)
+    packed = quant.pack_int8_weight(wq)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side), torch.no_grad():
+        quant.int8_conv1d(x, wq, ws, bias, stride, pad, packed=packed)  # the build
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.no_grad(), torch.cuda.graph(graph, stream=side):
+        out = quant.int8_conv1d(x, wq, ws, bias, stride, pad, packed=packed)
+    for seed in (5, 6):
+        fresh, *_ = int8_case(B, T, cin, cout, k, "dynamic", torch.bfloat16, cuda_device,
+                              seed=seed)
+        x.copy_(fresh)
+        graph.replay()
+        torch.cuda.synchronize()
+        want = quant.plain_int8_conv1d(x, wq, ws, bias, stride, pad)
+        assert torch.equal(out, want)
 
 
 @pytest.mark.cuda

@@ -26,7 +26,8 @@ def _imported_roots(path: Path):
             yield node.module.split(".")[0], node.lineno
 
 
-SOURCES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "attention_probe.py"]
+SOURCES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "attention_probe.py",
+                                        REPO / "int8_probe.py"]
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(REPO)))

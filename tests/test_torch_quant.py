@@ -177,14 +177,34 @@ def test_int8_matmul(dtype, with_bias):
 
 
 def test_pack_int8_weight_layout():
-    """The kernel's weight layout: [Cout_pad64, Cin_pad64/64, k, 64], zeros past
-    Cin and Cout."""
+    """The kernel's weight layout: [Cout, k * Cin_pad128], K index j * Cin_pad + c,
+    zeros past Cin."""
     wq = torch.randint(-127, 128, (70, 100, 3), dtype=torch.int8)
     packed = tq.pack_int8_weight(wq)
-    assert packed.shape == (128, 2, 3, 64) and packed.is_contiguous()
-    unpacked = packed.permute(0, 1, 3, 2).reshape(128, 128, 3)
-    assert torch.equal(unpacked[:70, :100], wq)
-    assert not unpacked[70:].any() and not unpacked[:, 100:].any()
+    assert packed.shape == (70, 3 * 128) and packed.is_contiguous()
+    unpacked = packed.reshape(70, 3, 128).permute(0, 2, 1)
+    assert torch.equal(unpacked[:, :100], wq)
+    assert not unpacked[:, 100:].any()
+
+
+@pytest.mark.parametrize("B,T,cin,cout,k,stride,pad,want", [
+    # UNet-XL at B=8 on 132 SMs: one wave of 128-row tiles, or the K steps split
+    (8, 200, 1024, 1024, 5, 1, 2, dict(t_pad=204, m_tiles=13, n_tiles=8, split=1, steps=40)),
+    (8, 25, 1024, 1024, 5, 1, 2, dict(t_pad=29, m_tiles=2, n_tiles=8, split=4, steps=40)),
+    (8, 50, 1024, 1024, 5, 1, 2, dict(t_pad=54, m_tiles=4, n_tiles=8, split=3, steps=40)),
+    (8, 200, 1024, 1024, 3, 2, 1, dict(t_pad=202, m_tiles=7, n_tiles=8, split=2, steps=24)),
+    (8, 200, 526, 1024, 1, 1, 0, dict(t_pad=200, m_tiles=13, n_tiles=8, split=1, steps=5)),
+    (8, 200, 1024, 263, 1, 1, 0, dict(t_pad=200, m_tiles=13, n_tiles=3, split=3, steps=8)),
+    (1, 128 * 197, 512, 1536, 1, 1, 0, dict(t_pad=25216, m_tiles=197, n_tiles=12, split=1,
+                                            steps=4)),
+    (3, 17, 40, 24, 3, 2, 1, dict(t_pad=20, m_tiles=1, n_tiles=1, split=3, steps=3)),
+    (1, 40, 1024, 128, 3, 1, 1, dict(t_pad=42, m_tiles=1, n_tiles=1, split=8, steps=24)),
+])
+def test_int8_plan_folds_the_batch_and_splits_small_grids(B, T, cin, cout, k, stride, pad, want):
+    """The halo rows, the tiles of the batch-folded M and the split of the K steps,
+    at most one cluster of 8 (csrc/quant.cu `make_plan`; the card test holds it to
+    the library's)."""
+    assert tq.int8_plan(B, T, cin, cout, k, stride, pad, 132) == want
 
 
 def test_quantized_weight_cache_follows_weight_and_amax():

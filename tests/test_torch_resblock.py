@@ -1,7 +1,8 @@
 """The port's fused resblock half (condmdi_tpu_torch/ops/resblock.py) against
 the JAX package's: its plain version against JAX's XLA reference and against
 the Pallas kernel in interpret mode, on the CPU; and the wrapper's refusal
-to fall back. The Hopper kernel itself is held to its plain version on the
+to fall back. Gradients through its autograd Function are held to JAX's in
+tests/test_torch_grad.py. The Hopper kernel itself is held to its plain version on the
 card by tests/test_torch_cuda.py and chip_smoke.py."""
 
 import numpy as np
@@ -113,14 +114,19 @@ def test_card_path_raises_when_the_kernel_cannot_be_built(monkeypatch, tmp_path)
     assert resblock.fused_conv_gn_mish.launches == before
 
 
-def test_card_path_refuses_autograd(monkeypatch):
-    """Reconstruction guidance needs the backward kernel: on the card path a
-    grad-requiring input raises NotImplementedError instead of going plain."""
+def test_card_path_refuses_autograd(monkeypatch, tmp_path):
+    """The card path refused a grad-requiring input until the autograd Function
+    (`ConvGnMish`) carried reconstruction guidance; it refuses it no more: such
+    an input goes on to the kernel (whose build fails here, without nvcc) and
+    never to the plain version."""
     monkeypatch.setattr(resblock, "reference_conv_gn_mish", _never_plain)
+    monkeypatch.setattr(_build, "find_nvcc", lambda: (_ for _ in ()).throw(RuntimeError("nvcc")))
+    monkeypatch.setattr(_build, "_libs", {})
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
     args, kw = make_inputs(2, 16, 24, 32, adagn=False, res=False)
     targs, _ = to_torch(args, kw)
     x = targs[0].clone().requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="backward"):
+    with pytest.raises(RuntimeError, match="nvcc"):
         resblock._launch(x, *targs[1:], None, None, None, 8, 1e-5)
 
 
