@@ -74,7 +74,28 @@ Phases, in order; any failure exits non-zero:
      launches in the kernel run);
  14. the same with the int8_static UNet-XL through the int8 kernel's autograd
      Function (exactly 41 x 50 launches);
- 15. a {"kernels": [...]} line (three kernels), the card line, and the final
+ 15. the conditional CLI through its `main` (f32, 1000-step DDPM, CFG 2.5, benchmark_sparse):
+     the committed gate checkpoint (save/synthetic_unet_m, 4 samples) plain, with
+     imputation and with reconstruction guidance at its default weight 5, then
+     UNet-XL at full width and depth with Flax's initialisation from --seed (pad 224,
+     2 samples) in float and in int8; each run's results.npy holds the JAX CLI's keys
+     and finite motions and joints, imputation keeps the observed features exactly,
+     and each kernel's launches equal halves (or convs) x steps; host seconds,
+     samples/s and the keyframe joint error printed;
+ 16. edit (benchmark_clip, imputation) and synthesize (9.8 s) through their `main` on
+     MDM at the default widths with Flax's initialisation, 1000-step DDPM, 8 x 1000
+     attention launches each;
+ 17. kernel against plain through the CLIs: UNet-XL conditional in float and in
+     int8 and MDM edit at DDIM-20, the same seed (so the same x_T), within 5e-3;
+     then the resblock kernel per call at every f32 shape of the gate UNet (B=8)
+     and of UNet-XL at pad 224 (B=4), and the f32 attention kernel at the edit and
+     synthesize shapes, each within F32_TOL of its plain version, with kernel,
+     plain, library and bound times; one f32 forward of each UNet on the host clock
+     against its device time, and its kernels by time; the int8 kernel per call at
+     every conv shape of the int8 XL CLI (f32, dynamic scale, B=4, pad 224) within
+     INT8_F32_TOL of its plain version, with the tiles and split each takes, and
+     that model's forward on the host clock against its device time;
+ 18. a {"kernels": [...]} line (three kernels), the card line, and the final
      {"ok": true, ...}.
 
 Per-shape results also go to chiprun_out/chip_smoke.json. Imports nothing of
@@ -100,6 +121,11 @@ T_FRAMES, FEATS, PAD = 196, 263, 200
 XL = dict(njoints=FEATS, latent_dim=512, dim_mults=(2, 2, 2, 2),
           keyframe_conditioned=True, pad_frames_to=PAD)
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
+# H100 SXM dense TF32 tensor-core rate: the card's fastest for float32 inputs, so the
+# least time of a float32 function (the f32 routes do three bf16 products on the tensor
+# cores, at most 989/3 TFLOP/s; float32 outside the tensor cores is 67)
+PEAK_F32_FLOPS = 495e12
+PEAK_FLOPS = {torch.bfloat16: PEAK_BF16_FLOPS, torch.float32: PEAK_F32_FLOPS}
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3 rate
 BF16_TOL = 2.0 ** -7      # |kernel - plain| <= tol * (1 + |plain|): ~2 bf16 ulps
 F32_TOL = 5e-4            # hi+lo bf16 split keeps ~16 mantissa bits
@@ -243,13 +269,13 @@ def make_case(B, T, cin, cout, ada, res, dtype, gen, dev, xc=None):
     return args, kw
 
 
-def bound_ms(B, T, cin, cout, ada, res, k=5, itemsize=2) -> tuple[float, str]:
-    """The conv's operations and the function's bytes (alignment channels are
-    no part of the function and are not counted)."""
+def bound_ms(B, T, cin, cout, ada, res, k=5, dtype=torch.bfloat16) -> tuple[float, str]:
+    """The conv's operations at the peak rate of `dtype` and the function's bytes
+    (alignment channels are no part of the function and are not counted)."""
     flops = 2.0 * B * T * cin * cout * k
     elems = B * T * cin + k * cin * cout + 3 * cout + B * T * cout
     elems += (2 * B * cout if ada else 0) + (B * T * cout if res else 0)
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, elems * itemsize / PEAK_BYTES
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], elems * dtype.itemsize / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -312,16 +338,17 @@ def module_follows_its_weight(T, cin, cout, xc, gen, dev, batch=8):
         raise SystemExit("the module's output did not follow its weight (stale packed copy)")
 
 
-def time_kernel(B, T, cin, cout, ada, res, xc, gen, dev, library=True):
-    """bf16 times of one shape: the kernel through a cached packed weight (as
-    the modules call it), its host enqueue, the plain version and the library
+def time_kernel(B, T, cin, cout, ada, res, xc, gen, dev, library=True, dtype=torch.bfloat16):
+    """Times of one shape (bf16 unless `dtype` says otherwise): the kernel
+    through a cached packed weight (as the modules call it; float32 takes the
+    weight as it is), its host enqueue, the plain version and the library
     composite; enough input sets to exceed L2."""
     from condmdi_tpu_torch.ops.resblock import (PackedConvWeight, fused_conv_gn_mish,
                                                 reference_conv_gn_mish)
 
-    one = 2 * (B * T * cin + cout * cin * 5)  # bytes of x and w in bf16
+    one = dtype.itemsize * (B * T * cin + cout * cin * 5)  # bytes of x and w
     n_sets = max(2, -(-64 * 2**20 // one))
-    cases = [make_case(B, T, cin, cout, ada, res, torch.bfloat16, gen, dev, xc)
+    cases = [make_case(B, T, cin, cout, ada, res, dtype, gen, dev, xc)
              for _ in range(n_sets)]
     out = {}
     with torch.no_grad():
@@ -661,9 +688,10 @@ def serve(dev, card):
 # --------------------------------------------------------------------------- #
 # phase 5: the attention kernel against plain at the transformer shapes
 # --------------------------------------------------------------------------- #
-def attn_bound_ms(B, T, D, H, itemsize=2) -> tuple[float, str]:
+def attn_bound_ms(B, T, D, H, dtype=torch.bfloat16) -> tuple[float, str]:
     flops = 4.0 * B * H * T * T * (D // H)  # Q.K^T and P.V
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, 4 * B * T * D * itemsize / PEAK_BYTES  # q, k, v, out
+    t_ops = flops / PEAK_FLOPS[dtype]
+    t_bytes = 4 * B * T * D * dtype.itemsize / PEAK_BYTES  # q, k, v, out
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -1304,6 +1332,319 @@ def serve_mixed(dev, card, model, float_served):
     return served
 
 
+# --------------------------------------------------------------------------- #
+# phases 15-17: the sampling and editing CLIs on the card, through their `main`
+# --------------------------------------------------------------------------- #
+CLI_OUT = ROOT / "chiprun_out" / "cli"
+GATE_CKPT = str(ROOT / "save" / "synthetic_unet_m" / "gate_ema_000100000.npz")
+GATE_HALVES = 25  # resblock halves of one forward of the gate UNet (latent 128, dim_mults 1 2 2)
+CLI_SAMPLES, CLI_STEPS = 4, 1000  # the gate and MDM runs; the full DDPM, CFG at the default 2.5
+XL_CLI_SAMPLES = 2
+# UNet-XL at full width and depth with Flax's initialisation from --seed; unet_zero off, or
+# the zero-initialised output convs would make every sample exactly 0
+XL_CLI = ["--arch", "unet", "--latent_dim", "512", "--dim_mults", "2", "2", "2", "2",
+          "--num_frames", "196", "--unet_pad_to", "224", "--unet_zero", "false",
+          "--edit_mode", "benchmark_sparse", "--num_samples", str(XL_CLI_SAMPLES),
+          "--num_repetitions", "1"]
+GATE_CLI = ["--model_path", GATE_CKPT, "--edit_mode", "benchmark_sparse",
+            "--num_samples", str(CLI_SAMPLES), "--num_repetitions", "1"]
+MDM_CLI = ["--num_samples", str(CLI_SAMPLES), "--num_repetitions", "1"]  # trans_enc defaults
+DDIM20 = ["--use_ddim", "true", "--timestep_respacing", "ddim20"]
+# the results.npy keys of the JAX CLIs (condmdi_tpu/sampling/conditional.py:143-156,
+# edit.py:113-126, synthesize.py:143-155)
+CLI_KEYS = {
+    "conditional": {"motion", "joints", "text", "lengths", "observed_motion", "observed_mask",
+                    "edit_mode", "text_encoder"},
+    "edit": {"motion", "joints", "text", "lengths", "inpainted_motion", "inpainting_mask",
+             "edit_mode", "text_encoder"},
+    "synthesize": {"motion", "joints", "text", "lengths", "num_samples", "num_repetitions",
+                   "text_encoder"},
+}
+
+
+def run_cli(cli, argv, label):
+    """One CLI `main` on the card, the counts set to 0 just before it and read just
+    after; np.random seeded first (the dataset draws its crops and captions from
+    it). Returns (results.npy, host seconds, launches)."""
+    import importlib
+
+    main = importlib.import_module(f"condmdi_tpu_torch.sampling.{cli}").main
+    out = CLI_OUT / label
+    np.random.seed(0)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    main(argv + ["--output_dir", str(out)])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_counts()
+    return np.load(out / "results.npy", allow_pickle=True).item(), seconds, launches
+
+
+def check_cli_result(cli, res, label, B, T=T_FRAMES):
+    if set(res) != CLI_KEYS[cli]:
+        raise SystemExit(f"{label}: results.npy keys {sorted(res)} are not the JAX CLI's "
+                         f"{sorted(CLI_KEYS[cli])}")
+    for key, shape in (("motion", (B, T, FEATS)), ("joints", (B, T, 22, 3))):
+        a = res[key]
+        if a.shape != shape or not np.isfinite(a).all() or float(a.std()) == 0.0:
+            raise SystemExit(f"{label}: {key} has shape {a.shape} (expected {shape}), finite "
+                             f"{bool(np.isfinite(a).all())}, std {float(a.std())}")
+
+
+def keyframe_joint_error(res, abs_3d):
+    """Mean distance (m) between the sample's joints and the observed motion's
+    joints over the observed frames, and max |motion - observed| on the observed
+    features."""
+    from condmdi_tpu_torch.data.dataset import DatasetConfig, SyntheticMotionDataset
+    from condmdi_tpu_torch.data.humanml_repr import recover_from_ric
+
+    obs, mask = res["observed_motion"], res["observed_mask"]
+    stats = SyntheticMotionDataset._population_stats(DatasetConfig(abs_3d=abs_3d))
+    obs_joints = recover_from_ric(torch.from_numpy(obs * stats.std + stats.mean), 22,
+                                  abs_3d=abs_3d).numpy()
+    frames = mask.any(axis=-1)
+    dist = np.linalg.norm(res["joints"] - obs_joints, axis=-1)[frames]
+    return float(dist.mean()), float(np.abs(res["motion"][mask] - obs[mask]).max())
+
+
+def cli_conditional(label, argv, B, abs_3d, expect, imputate=False):
+    res, seconds, launches = run_cli("conditional", argv, label)
+    check_cli_result("conditional", res, label, B)
+    if not res["observed_mask"].any():
+        raise SystemExit(f"{label}: the observation mask is empty")
+    kf_err, kept = keyframe_joint_error(res, abs_3d)
+    print(f"[cli] conditional {label}: {seconds:.2f} s on the host, {B / seconds:.4f} samples/s; "
+          f"keyframe joint error {kf_err:.4f} m, max|motion - observed| on the observed "
+          f"features {kept:.3e}; launches {launches} (expected {expect})", flush=True)
+    if imputate and kept != 0.0:
+        raise SystemExit(f"{label}: imputation did not keep the observed features exactly")
+    for kern, count in expect.items():
+        if launches[kern] != count:
+            raise SystemExit(f"{label}: {kern} launches {launches[kern]} != {count}")
+    return dict(seconds=seconds, samples_per_s=B / seconds, keyframe_joint_error_m=kf_err,
+                observed_max_abs_diff=kept, launches=launches)
+
+
+def cli_phase15(card):
+    """conditional through its main: the gate checkpoint plain, with imputation
+    and with reconstruction guidance (its default weight 5), then UNet-XL at
+    full width with no checkpoint, float and int8."""
+    runs = {}
+    gate = dict(fused_conv_gn_mish=GATE_HALVES * CLI_STEPS, fused_self_attention=0, int8_conv1d=0)
+    for name, extra, imp in (("gate", [], False), ("gate_imputate", ["--imputate", "true"], True),
+                             ("gate_recguidance", ["--reconstruction_guidance", "true"], False)):
+        runs[name] = cli_conditional(name, GATE_CLI + extra, CLI_SAMPLES, True, gate, imp)
+    xl = dict(fused_conv_gn_mish=33 * CLI_STEPS, fused_self_attention=0, int8_conv1d=0)
+    runs["xl_f32"] = cli_conditional("xl_f32", XL_CLI, XL_CLI_SAMPLES, False, xl)
+    xl8 = dict(fused_conv_gn_mish=0, fused_self_attention=0, int8_conv1d=41 * CLI_STEPS)
+    runs["xl_int8"] = cli_conditional("xl_int8", XL_CLI + ["--precision_mode", "int8"],
+                                      XL_CLI_SAMPLES, False, xl8)
+    print(f"[cli] {card}: conditional, {CLI_STEPS}-step DDPM, CFG 2.5, f32: "
+          + ", ".join(f"{k} {v['samples_per_s']:.4f} samples/s" for k, v in runs.items()),
+          flush=True)
+    return runs
+
+
+def cli_phase16(card):
+    """edit and synthesize through their main on MDM at the default widths."""
+    runs = {}
+    res, seconds, launches = run_cli(
+        "edit", MDM_CLI + ["--edit_mode", "benchmark_clip", "--imputate", "true"], "edit")
+    check_cli_result("edit", res, "edit", CLI_SAMPLES)
+    mask = res["inpainting_mask"]
+    kept = float(np.abs(res["motion"][mask] - res["inpainted_motion"][mask]).max())
+    runs["edit"] = dict(seconds=seconds, samples_per_s=CLI_SAMPLES / seconds, launches=launches,
+                        observed_max_abs_diff=kept)
+    res, seconds, launches_s = run_cli(
+        "synthesize", MDM_CLI + ["--text_prompt", "a person walks forward and waves",
+                                 "--motion_length", "9.8"], "synthesize")
+    check_cli_result("synthesize", res, "synthesize", CLI_SAMPLES)
+    runs["synthesize"] = dict(seconds=seconds, samples_per_s=CLI_SAMPLES / seconds,
+                              launches=launches_s)
+    for name, run in runs.items():
+        print(f"[cli] {card}: {name} MDM trans_enc f32, {CLI_STEPS}-step DDPM: "
+              f"{run['seconds']:.2f} s on the host, {run['samples_per_s']:.4f} samples/s; "
+              f"launches {run['launches']} (expected fused_self_attention {8 * CLI_STEPS})",
+              flush=True)
+        if run["launches"]["fused_self_attention"] != 8 * CLI_STEPS:
+            raise SystemExit(f"{name}: attention launches != {8 * CLI_STEPS}")
+    if not mask.any() or kept != 0.0:
+        raise SystemExit(f"edit: imputation did not keep the observed features ({kept:.3e})")
+    return runs
+
+
+def cli_kernel_vs_plain(cli, argv, label, kernel, per_step, swap):
+    """One CLI run through the kernel and one with `swap` in place, same seed, so
+    the same x_T; max |kernel - plain| of the motions within DDIM_TOL."""
+    got, t_kernel, launches = run_cli(cli, argv, label + "_kernel")
+    with swap():
+        want, t_plain, plain_launches = run_cli(cli, argv, label + "_plain")
+    err = float(np.abs(got["motion"] - want["motion"]).max())
+    print(f"[cli] {label}: max|kernel - plain| = {err:.3e} (tol {DDIM_TOL:.0e}), max|plain| = "
+          f"{float(np.abs(want['motion']).max()):.3f}; kernel run {t_kernel:.2f} s, plain run "
+          f"{t_plain:.2f} s; {kernel} launches {launches[kernel]} (expected {per_step} x 20), "
+          f"{plain_launches[kernel]} in the plain run", flush=True)
+    if not (np.isfinite(got["motion"]).all() and err <= DDIM_TOL
+            and np.abs(want["motion"]).max() > 0):
+        raise SystemExit(f"{label}: the kernel path disagrees with the plain path")
+    if launches[kernel] != per_step * 20 or plain_launches[kernel] != 0:
+        raise SystemExit(f"{label}: {kernel} launches {launches[kernel]} / {plain_launches[kernel]}")
+    return err
+
+
+def cli_model(argv, dev):
+    """conditional's model for `argv`, built as its main builds it."""
+    from condmdi_tpu_torch.sampling.conditional import parse_cli_args
+    from condmdi_tpu_torch.sampling.synthesize import load_model_for_sampling
+
+    return load_model_for_sampling(parse_cli_args(argv), dev)[0]
+
+
+def f32_resblock_shapes(name, argv, B, dev, card, step_wall_ms):
+    """Every f32 resblock shape of the CLI's UNet at its batch B: the kernel against
+    plain per call (F32_TOL), then kernel, plain, library and bound times; one
+    forward on the host clock against its device time, and its kernels by time."""
+    model = cli_model(argv, dev)
+    text, obs, mask = (a.to(dev) for a in keyframe_inputs(B, 21))
+    x = seeded_noise((B, T_FRAMES, FEATS), dev, seed=22)
+    t = torch.full((B,), 500, device=dev)
+    y = {"text_embed": text}
+    shapes = record_resblock_shapes(model, x, t, y, dict(obs_x0=obs, obs_mask=mask))
+    gen = torch.Generator().manual_seed(23)
+    rows = []
+    for (cin, cout, T, ada, res, xc), count in sorted(shapes.items()):
+        row = dict(model=name, cin=cin, cout=cout, T=T, B=B, adagn=ada, res=res, x_channels=xc,
+                   per_forward=count)
+        row["max_abs_err_f32"] = kernel_against_plain(B, T, cin, cout, ada, res, xc,
+                                                      torch.float32, F32_TOL, gen, dev)
+        row.update(time_kernel(B, T, cin, cout, ada, res, xc, gen, dev, dtype=torch.float32))
+        row["bound_ms"], row["bound_by"] = bound_ms(B, T, cin, cout, ada, res,
+                                                    dtype=torch.float32)
+        print(f"[cli f32] {name} B={B} {cin}->{cout} T={T} adagn={ada} res={res} x{count}: "
+              f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, library (cuDNN f32 "
+              f"composite) {row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']}), host enqueue {row['host_ms']:.4f} ms", flush=True)
+        rows.append(row)
+    halves = sum(r["per_forward"] for r in rows)
+    total = {k: sum(r[k] * r["per_forward"] for r in rows)
+             for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    print(f"[cli f32] {card}: {name}, the {halves} resblock halves of one f32 forward at B={B}: "
+          f"kernel {total['ms']:.4f} ms, plain {total['plain_ms']:.4f} ms, library "
+          f"{total['library_ms']:.4f} ms, bound {total['bound_ms']:.4f} ms", flush=True)
+
+    def call():
+        return model(x, t, y, obs_x0=obs, obs_mask=mask)
+
+    forward = forward_host_vs_device(f"{name} f32 forward at B={B}", call, step_wall_ms)
+    forward["profile"] = profile_forward(f"{name} f32 forward at B={B}", call)
+    return dict(rows=rows, halves=halves, forward=forward, **total)
+
+
+def f32_attention_shapes(dev, card):
+    """The f32 attention kernel against plain per call at the MDM CLIs' shapes
+    (edit: B = samples; synthesize: 2 x samples under CFG), with its times."""
+    from condmdi_tpu_torch.ops.attention import _launch, _xla_attention, attention_route
+
+    gen = torch.Generator(device=dev).manual_seed(31)
+    D, H, T = 512, 4, MDM_TOKENS
+
+    def views(B):  # q, k, v: column views of one [B, T, 3D] projection, as on the path
+        return torch.randn((B, T, 3 * D), generator=gen, device=dev).chunk(3, dim=-1)
+
+    rows = []
+    for name, B in (("edit", CLI_SAMPLES), ("synthesize", 2 * CLI_SAMPLES)):
+        q, k, v = views(B)
+        with torch.no_grad():
+            got = _launch(q, k, v, H)
+            torch.cuda.synchronize()
+            want = _xla_attention(q, k, v, H)
+        err = (got - want).abs()
+        bad = (err > F32_TOL * (1 + want.abs())).sum().item()
+        if bad or not torch.isfinite(got).all():
+            raise SystemExit(f"f32 attention at the {name} shape disagrees with its plain version")
+        sets = [views(B) for _ in range(max(2, -(-64 * 2**20 // (B * T * 3 * D * 4))))]
+        hd = D // H
+        row = dict(cli=name, B=B, T=T, D=D, H=H, route=attention_route(B, T, H, hd, torch.float32),
+                   max_abs_err_f32=err.max().item())
+        with torch.no_grad():
+            row["ms"], row["host_ms"] = timed_ms(lambda q, k, v: _launch(q, k, v, H), sets)
+            row["plain_ms"], _ = timed_ms(lambda q, k, v: _xla_attention(q, k, v, H), sets)
+            heads_first = [tuple(t.view(B, T, H, hd).transpose(1, 2) for t in s) for s in sets]
+            row["library_ms"], _ = timed_ms(F.scaled_dot_product_attention, heads_first)
+        row["bound_ms"], row["bound_by"] = attn_bound_ms(B, T, D, H, dtype=torch.float32)
+        print(f"[cli f32] {card}: attention at the {name} shape B={B} T={T} D={D} H={H} "
+              f"(route {row['route']}): max_abs_err {row['max_abs_err_f32']:.3e} (tol "
+              f"{F32_TOL:.0e}*(1+|plain|)); kernel {row['ms']:.4f} ms, plain "
+              f"{row['plain_ms']:.4f} ms, SDPA f32 {row['library_ms']:.4f} ms, bound "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']}), host enqueue {row['host_ms']:.4f} ms",
+              flush=True)
+        rows.append(row)
+    return rows
+
+
+def int8_cli_shapes(argv, B, dev, card, step_wall_ms):
+    """Every int8 conv shape of the int8 XL CLI's forward at its batch B (f32
+    activations, dynamic scale): the kernel against plain per call, with the
+    tiles and split of the K steps each launch takes; one forward on the host
+    clock against its device time, and its kernels by time."""
+    model = cli_model(argv, dev)
+    text, obs, mask = (a.to(dev) for a in keyframe_inputs(B, 21))
+    x = seeded_noise((B, T_FRAMES, FEATS), dev, seed=22)
+    t = torch.full((B,), 500, device=dev)
+    y = {"text_embed": text}
+    shapes = record_int8_shapes(model, x, t, y, dict(obs_x0=obs, obs_mask=mask))
+    if sum(shapes.values()) != 41:
+        raise SystemExit(f"expected 41 int8 convs per CLI forward, found {shapes}")
+    gen = torch.Generator(device=dev).manual_seed(24)
+    rows = []
+    for (cin, cout, k, stride, pad, T, xc), count in sorted(shapes.items()):
+        xq, q = int8_inputs(B, T, cin, cout, k, "dynamic", torch.float32, gen, dev, xc)
+        err, exact = int8_kernel_against_plain(
+            f"CLI f32 dynamic x[{B},{T},{xc}] Cin={cin} Cout={cout} k={k} s={stride}",
+            xq, q, stride, pad)
+        plan = int8_plan(B, T, cin, cout, k, stride, pad, dev)
+        print(f"[cli int8] B={B} Cin={cin} Cout={cout} k={k} s={stride} T={T} x{count}: "
+              f"{plan_text(plan)}", flush=True)
+        rows.append(dict(cin=cin, cout=cout, k=k, stride=stride, padding=pad, T=T, x_channels=xc,
+                         B=B, per_forward=count, max_abs_err_f32=err, bit_exact=exact, plan=plan))
+
+    def call():
+        return model(x, t, y, obs_x0=obs, obs_mask=mask)
+
+    forward = forward_host_vs_device(f"UNet-XL int8 f32 forward at B={B}", call, step_wall_ms)
+    forward["profile"] = profile_forward(f"UNet-XL int8 f32 forward at B={B}", call)
+    print(f"[cli int8] {card}: the 41 int8 conv shapes of the XL int8 CLI at B={B} within "
+          f"{max(r['max_abs_err_f32'] for r in rows):.3e} of plain, bit-exact "
+          f"{all(r['bit_exact'] for r in rows)}", flush=True)
+    return dict(rows=rows, forward=forward)
+
+
+def cli_phase17(dev, card, runs15):
+    """Kernel against plain through the CLIs (UNet-XL conditional in float and in
+    int8, MDM edit; DDIM-20), then every new f32 kernel shape per call, with
+    times, and every int8 conv shape of the XL int8 CLI per call."""
+    out = dict(
+        xl_ddim_err=cli_kernel_vs_plain("conditional", XL_CLI + DDIM20, "xl_ddim20",
+                                        "fused_conv_gn_mish", 33, resblock_swapped_for_plain),
+        edit_ddim_err=cli_kernel_vs_plain(
+            "edit", MDM_CLI + ["--edit_mode", "benchmark_clip", "--imputate", "true"] + DDIM20,
+            "edit_ddim20", "fused_self_attention", 8, attention_swapped_for_plain),
+        xl_int8_ddim_err=cli_kernel_vs_plain(
+            "conditional", XL_CLI + ["--precision_mode", "int8"] + DDIM20, "xl_int8_ddim20",
+            "int8_conv1d", 41, int8_swapped_for_plain))
+    out["gate"] = f32_resblock_shapes("gate UNet", GATE_CLI, 2 * CLI_SAMPLES, dev, card,
+                                      runs15["gate"]["seconds"] * 1e3 / CLI_STEPS)
+    out["xl"] = f32_resblock_shapes("UNet-XL pad 224", XL_CLI, 2 * XL_CLI_SAMPLES, dev, card,
+                                    runs15["xl_f32"]["seconds"] * 1e3 / CLI_STEPS)
+    if out["gate"]["halves"] != GATE_HALVES or out["xl"]["halves"] != 33:
+        raise SystemExit("unexpected resblock halves per forward in the CLI models")
+    out["attention"] = f32_attention_shapes(dev, card)
+    out["int8"] = int8_cli_shapes(XL_CLI + ["--precision_mode", "int8"], 2 * XL_CLI_SAMPLES, dev,
+                                  card, runs15["xl_int8"]["seconds"] * 1e3 / CLI_STEPS)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -1384,6 +1725,9 @@ def main() -> int:
     unet_recg_err = phase("13 UNet-XL guidance", unet_recguidance_kernel_vs_plain, dev, "float")
     int8_recg_err = phase("14 UNet-XL int8_static guidance", unet_recguidance_kernel_vs_plain,
                           dev, "int8_static")
+    cli15 = phase("15 CLI conditional", cli_phase15, card)
+    cli16 = phase("16 CLI edit and synthesize", cli_phase16, card)
+    cli17 = phase("17 CLI kernel against plain", cli_phase17, dev, card, cli15)
     print("[time] host seconds by phase: "
           + ", ".join(f"{k} {v:.1f}" for k, v in phase_seconds.items())
           + f"; {sum(phase_seconds.values()):.1f} in all", flush=True)
@@ -1416,6 +1760,15 @@ def main() -> int:
         "host_ms_per_call": per_forward("host_ms") / 33,
         "bf16_forward_max_abs_err": served["bf16_forward_max_abs_err"],
         "bf16_forward_rel_rms": served["bf16_forward_rel_rms"],
+        # the conditional CLI (phases 15, 17): f32, launches per run, per-call errors at
+        # its shapes, and the halves of one forward at its batch, kernel against the others
+        "cli_launches": {k: v["launches"]["fused_conv_gn_mish"] for k, v in cli15.items()},
+        "cli_max_abs_err_f32": max(r["max_abs_err_f32"]
+                                   for m in ("gate", "xl") for r in cli17[m]["rows"]),
+        "cli_ddim_max_abs_err_f32": cli17["xl_ddim_err"],
+        "f32_cli_forward_ms": {m: {k: cli17[m][k] for k in ("halves", "ms", "plain_ms",
+                                                            "library_ms", "bound_ms")}
+                               for m in ("gate", "xl")},
     }, {
         "name": "fused_self_attention",
         "route": "cuda",
@@ -1436,6 +1789,12 @@ def main() -> int:
         "host_ms_per_call": attn["host_ms"],
         "bf16_forward_max_abs_err": served_mdm["bf16_forward_max_abs_err"],
         "bf16_forward_rel_rms": served_mdm["bf16_forward_rel_rms"],
+        # the edit and synthesize CLIs (phases 16, 17): f32 per launch at their shapes
+        "cli_launches": {k: v["launches"]["fused_self_attention"] for k, v in cli16.items()},
+        "cli_ddim_max_abs_err_f32": cli17["edit_ddim_err"],
+        "f32_cli_per_launch": [{k: r[k] for k in ("cli", "B", "T", "route", "max_abs_err_f32",
+                                                  "ms", "plain_ms", "library_ms", "bound_ms")}
+                               for r in cli17["attention"]],
     }, {
         "name": "int8_conv1d",
         "route": "cuda",
@@ -1460,6 +1819,12 @@ def main() -> int:
         "mdm_bf16_forward_rel_rms": int8_out["mdm_bf16_forward_rel_rms"],
         "golden_mean_rel_unet_int8_static": int8_out["golden_unet_int8_static"],
         "golden_max_abs_unet_float": int8_out["golden_unet"],
+        # the conditional CLI with --precision_mode int8 (phases 15, 17): f32 activations,
+        # dynamic scale, B=4, pad 224
+        "cli_launches": {"xl_int8": cli15["xl_int8"]["launches"]["int8_conv1d"]},
+        "cli_max_abs_err_f32": max(r["max_abs_err_f32"] for r in cli17["int8"]["rows"]),
+        "cli_bit_exact_at_every_conv_shape": all(r["bit_exact"] for r in cli17["int8"]["rows"]),
+        "cli_ddim_max_abs_err_f32": cli17["xl_int8_ddim_err"],
     }]
     previous = {"fused_conv_gn_mish": PREV_RESBLOCK_MS, "fused_self_attention": PREV_ATTENTION_MS,
                 "int8_conv1d": PREV_INT8_MS}
@@ -1475,6 +1840,7 @@ def main() -> int:
          "serve_mdm": served_mdm, "mdm_forward_b128": bench_forward,
          "int8_shapes": int8_rows, "int8_qdense": dense_rows, "int8_paths": int8_out,
          "serve_mixed": mixed, "kernels": kernels,
+         "cli": {"conditional": cli15, "mdm": cli16, "kernel_vs_plain": cli17},
          "phase_seconds": phase_seconds,
          "previous_ms_from_perf_md": previous}, indent=1))
     print(json.dumps({"kernels": kernels}))

@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -18,3 +20,21 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
             "is False; pass device='cpu' to run on the CPU"
         )
     return dev
+
+
+@contextlib.contextmanager
+def float32_exact():
+    """Float32 convolutions and matrix products in full float32 while open.
+
+    PyTorch lets cuDNN's float32 convolutions run in TF32 by default
+    (`torch.backends.cudnn.allow_tf32`), which rounds their inputs to 10
+    mantissa bits. The sampling CLIs run under this (it also decorates a
+    function), so a CLI computes in float32 as its checks on the card assume;
+    the two flags are restored on exit.
+    """
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved

@@ -7,7 +7,8 @@ port imports nothing of the JAX package):
     SHA-256 of the caption (tests, benches, asset-free runs);
   * `CachedTextEncoder`: a lookup of precomputed CLIP embeddings (the
     production path: embeddings computed once offline per caption set);
-  * `make_text_encoder` in modes hash, cached and auto.
+  * `make_text_encoder` in modes hash, cached and auto, and `encoder_name`,
+    the tag a run records.
 
 The CLIP ViT-B/32 text tower is not ported yet: it needs a CLIP checkpoint
 and the BPE vocabulary in the repository (ROADMAP Queue A 1). Mode `clip`,
@@ -75,6 +76,15 @@ class CachedTextEncoder:
         for i, t in enumerate(texts):
             out[i] = self.table[t] if t in self.table else next(fallback)
         return out
+
+
+def encoder_name(enc: TextEncoder) -> str:
+    """Short self-describing tag recorded in output artifacts."""
+    return {
+        "HashTextEncoder": "hash",
+        "CachedTextEncoder": "cached",
+        "ClipTextEncoder": "clip",
+    }.get(type(enc).__name__, type(enc).__name__)
 
 
 def find_clip_checkpoint() -> Optional[str]:

@@ -1,7 +1,7 @@
 """End-to-end sampling pipeline: model + schedule + guidance → motions.
 
 Counterpart of condmdi_tpu/sampling/pipeline.py for the DDPM and DDIM
-samplers (PLMS and `sample_to_joints` wait for later slices).
+samplers (PLMS waits for a later slice, ROADMAP Queue A 7).
 """
 
 from __future__ import annotations
@@ -12,6 +12,7 @@ from typing import Any, Callable, Optional, Sequence
 import numpy as np
 import torch
 
+from condmdi_tpu_torch.data.humanml_repr import recover_from_ric
 from condmdi_tpu_torch.device import resolve_device
 from condmdi_tpu_torch.diffusion.gaussian import (
     DiffusionConfig,
@@ -118,3 +119,10 @@ class SamplePipeline:
             denoise, self.sched, self.dcfg, shape, generator=generator,
             noise=noise, inpaint=inpaint, sampler=self.sampler, step_noise=step_noise,
         )
+
+    def sample_to_joints(
+        self, features: torch.Tensor, denormalize: Callable[[torch.Tensor], torch.Tensor],
+        abs_3d: bool,
+    ) -> torch.Tensor:
+        """Denormalized features → [B, T, 22, 3] joints (recover_from_ric)."""
+        return recover_from_ric(denormalize(features), 22, abs_3d=abs_3d)

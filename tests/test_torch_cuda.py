@@ -827,3 +827,141 @@ def test_float_twin_shares_storage_on_the_card(cuda_device):
         model.unet.mid_block1.block1.conv.weight.mul_(-1.0)
         after = mixed(x, t, y, **kw)
     assert not torch.equal(before, after)
+
+
+# --------------------------------------------------------------------------- #
+# the sampling CLIs' float32 path
+# --------------------------------------------------------------------------- #
+# (B, T, Cin, Cout, adagn, res) of every f32 resblock half the conditional CLI runs:
+# the committed gate UNet (latent 128, dim_mults 1 2 2, pad 224) at 4 samples under
+# CFG, and UNet-XL at pad 224 at 2 samples under CFG (x carries 528 channels for 526)
+CLI_F32_SHAPES = [
+    (8, 224, 526, 128, True, False), (8, 224, 128, 128, False, True),
+    (8, 224, 128, 128, True, False), (8, 224, 128, 128, False, False),
+    (8, 112, 128, 128, False, True), (8, 112, 128, 128, True, False),
+    (8, 112, 128, 256, True, False), (8, 112, 256, 256, False, True),
+    (8, 112, 256, 256, True, False), (8, 112, 512, 128, True, False),
+    (8, 56, 256, 256, False, True), (8, 56, 256, 256, True, False),
+    (8, 56, 512, 256, True, False),
+    (4, 224, 526, 1024, True, False), (4, 224, 1024, 1024, False, True),
+    (4, 224, 1024, 1024, True, False), (4, 224, 1024, 1024, False, False),
+    (4, 112, 1024, 1024, False, True), (4, 112, 1024, 1024, True, False),
+    (4, 112, 2048, 1024, True, False), (4, 56, 1024, 1024, False, True),
+    (4, 56, 1024, 1024, True, False), (4, 56, 2048, 1024, True, False),
+    (4, 28, 1024, 1024, False, True), (4, 28, 1024, 1024, True, False),
+    (4, 28, 2048, 1024, True, False),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CLI_F32_SHAPES)
+def test_kernel_matches_plain_at_the_cli_f32_shapes(cuda_device, case):
+    B, T, cin, cout, adagn, res = case
+    args, kw = make_inputs(B, T, cin, cout, adagn, res, torch.float32, cuda_device)
+    if cin % 8:  # the UNet's first half: alignment channels past Cin, zero
+        args[0] = torch.nn.functional.pad(args[0], (0, -cin % 8))
+    before = resblock.fused_conv_gn_mish.launches
+    with torch.no_grad():
+        got = resblock.fused_conv_gn_mish(*args, **kw)
+        torch.cuda.synchronize()
+        want = resblock.reference_conv_gn_mish(*args, **kw)
+    assert resblock.fused_conv_gn_mish.launches == before + 1
+    assert torch.isfinite(got).all()
+    assert torch.all((got - want).abs() <= F32_TOL * (1 + want.abs()))
+
+
+@pytest.mark.cuda
+def test_conditional_cli_kernel_path_matches_plain(cuda_device, tmp_path):
+    """conditional's main on the committed gate checkpoint, DDIM-10, 2 samples,
+    through the kernel and with the resblock halves swapped for the plain
+    version: the same seed gives the same x_T, and the motions agree within
+    5e-3 (the f32 kernel's rounding over a whole sampler run)."""
+    from pathlib import Path
+
+    import condmdi_tpu_torch.models.unet as unet_mod
+    from condmdi_tpu_torch.sampling.conditional import main
+
+    ckpt = Path(__file__).resolve().parent.parent / "save" / "synthetic_unet_m" / \
+        "gate_ema_000100000.npz"
+    argv = ["--model_path", str(ckpt), "--num_samples", "2", "--num_repetitions", "1",
+            "--use_ddim", "true", "--timestep_respacing", "ddim10", "--imputate", "true"]
+
+    def run(tag):
+        np.random.seed(0)
+        out = main(argv + ["--output_dir", str(tmp_path / tag)])
+        return np.load(out / "results.npy", allow_pickle=True).item()
+
+    before = resblock.fused_conv_gn_mish.launches
+    got = run("kernel")
+    assert resblock.fused_conv_gn_mish.launches - before == 25 * 10  # halves x steps
+    kernel_fn = unet_mod.fused_conv_gn_mish
+    unet_mod.fused_conv_gn_mish = \
+        lambda *a, packed=None, **kw: resblock.reference_conv_gn_mish(*a, **kw)
+    try:
+        want = run("plain")
+    finally:
+        unet_mod.fused_conv_gn_mish = kernel_fn
+    assert np.isfinite(got["motion"]).all() and np.abs(want["motion"]).max() > 0
+    assert np.abs(got["motion"] - want["motion"]).max() <= 5e-3
+    m = got["observed_mask"]
+    assert m.any() and np.array_equal(got["motion"][m], got["observed_motion"][m])
+
+
+# (B, T, Cin, x channels, Cout, k, stride, padding) of every int8 conv the conditional
+# CLI runs with --precision_mode int8 on UNet-XL at pad 224 and 2 samples under CFG:
+# f32 activations, dynamic scale; the batch-folded plan's tiles and split follow B and T
+CLI_INT8_SHAPES = [
+    (4, 224, 526, 528, 1024, 5, 1, 2), (4, 224, 526, 528, 1024, 1, 1, 0),
+    (4, 224, 1024, 1024, 1024, 5, 1, 2), (4, 112, 1024, 1024, 1024, 5, 1, 2),
+    (4, 56, 1024, 1024, 1024, 5, 1, 2), (4, 28, 1024, 1024, 1024, 5, 1, 2),
+    (4, 112, 2048, 2048, 1024, 5, 1, 2), (4, 56, 2048, 2048, 1024, 5, 1, 2),
+    (4, 28, 2048, 2048, 1024, 5, 1, 2), (4, 112, 2048, 2048, 1024, 1, 1, 0),
+    (4, 56, 2048, 2048, 1024, 1, 1, 0), (4, 28, 2048, 2048, 1024, 1, 1, 0),
+    (4, 224, 1024, 1024, 1024, 3, 2, 1), (4, 112, 1024, 1024, 1024, 3, 2, 1),
+    (4, 56, 1024, 1024, 1024, 3, 2, 1), (4, 224, 1024, 1024, 263, 1, 1, 0),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CLI_INT8_SHAPES)
+def test_int8_kernel_is_bit_exact_at_the_cli_int8_shapes(cuda_device, case):
+    B, T, cin, xc, cout, k, stride, pad = case
+    x, wq, ws, bias, a_scale, pc = int8_case(B, T, cin, cout, k, "dynamic", torch.float32,
+                                             cuda_device, xc, seed=T + cin)
+    assert_int8_bit_exact(x, wq, ws, bias, a_scale, pc, stride, pad)
+
+
+@pytest.mark.cuda
+def test_conditional_cli_int8_kernel_path_matches_plain(cuda_device, tmp_path):
+    """conditional's main with --precision_mode int8 on the committed gate
+    checkpoint, DDIM-10, 2 samples, through the int8 kernel and with its launch
+    swapped for the plain version: the same seed gives the same x_T, and the
+    motions agree within 5e-3 (the per-call results are equal bit for bit)."""
+    from pathlib import Path
+
+    from condmdi_tpu_torch.ops import quant
+    from condmdi_tpu_torch.sampling.conditional import main
+
+    ckpt = Path(__file__).resolve().parent.parent / "save" / "synthetic_unet_m" / \
+        "gate_ema_000100000.npz"
+    argv = ["--model_path", str(ckpt), "--num_samples", "2", "--num_repetitions", "1",
+            "--use_ddim", "true", "--timestep_respacing", "ddim10", "--precision_mode", "int8"]
+
+    def run(tag):
+        np.random.seed(0)
+        out = main(argv + ["--output_dir", str(tmp_path / tag)])
+        return np.load(out / "results.npy", allow_pickle=True).item()
+
+    before = quant.int8_conv1d.launches
+    got = run("kernel")
+    launches = quant.int8_conv1d.launches - before
+    assert launches > 0 and launches % 10 == 0  # convs x steps
+    launch = quant._launch
+    quant._launch = lambda x, wq, ws, b, stride, pad, a_scale, pc, packed: \
+        quant.plain_int8_conv1d(x, wq, ws, b, stride, pad, a_scale, pc)
+    try:
+        want = run("plain")
+    finally:
+        quant._launch = launch
+    assert np.isfinite(got["motion"]).all() and np.abs(want["motion"]).max() > 0
+    assert np.abs(got["motion"] - want["motion"]).max() <= 5e-3

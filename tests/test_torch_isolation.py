@@ -44,8 +44,16 @@ def test_import_loads_neither_jax_nor_the_jax_package():
         "import condmdi_tpu_torch.ops.attention, condmdi_tpu_torch.models.mdm\n"
         "import condmdi_tpu_torch.models.dit, condmdi_tpu_torch.models.text\n"
         "import condmdi_tpu_torch.ops.quant, condmdi_tpu_torch.bench\n"
+        "import condmdi_tpu_torch.models.factory, condmdi_tpu_torch.models.flax_init\n"
+        "import condmdi_tpu_torch.utils.config, condmdi_tpu_torch.utils.checkpoint\n"
+        "import condmdi_tpu_torch.data.layout, condmdi_tpu_torch.data.humanml_repr\n"
+        "import condmdi_tpu_torch.data.dataset, condmdi_tpu_torch.data.fixed_dataset\n"
+        "import condmdi_tpu_torch.geometry.quaternion, condmdi_tpu_torch.geometry.skeleton\n"
+        "import condmdi_tpu_torch.training.keyframes, condmdi_tpu_torch.sampling.templates\n"
+        "import condmdi_tpu_torch.sampling.synthesize, condmdi_tpu_torch.sampling.conditional\n"
+        "import condmdi_tpu_torch.sampling.edit\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'flax', 'condmdi_tpu')]\n"
+        "('jax', 'flax', 'orbax', 'condmdi_tpu')]\n"
         "assert not bad, bad\n"
         "from condmdi_tpu_torch.ops import _build\n"
         "assert _build._libs == {}, 'a kernel was built at import'\n"

@@ -17,7 +17,7 @@ Tolerances:
     largest and 2e-3 at the median: there code moves compound over the steps,
     and on the port alone a 1e-6 relative change of x_T moves the amaxes by
     up to 2.5%.
-The port's Flax-initialisation replica (condmdi_tpu_torch/bench.py) is held
+The port's Flax-initialisation replica (condmdi_tpu_torch/models/flax_init.py) is held
 to Flax's `init` at 1e-6 relative.
 """
 
@@ -39,6 +39,7 @@ from condmdi_tpu.models.mdm import MDM as JaxMDM
 from condmdi_tpu.models.unet import MDM_UNET as JaxUNet
 from condmdi_tpu.ops import quant as jq
 from condmdi_tpu_torch import bench as tbench
+from condmdi_tpu_torch.models import flax_init
 from condmdi_tpu_torch.diffusion import DiffusionConfig, DiffusionSchedule
 from condmdi_tpu_torch.models.mdm import MDM as TorchMDM
 from condmdi_tpu_torch.models.unet import (
@@ -494,7 +495,7 @@ def _jax_params_flat(params):
 
 @pytest.mark.parametrize("model", ["unet", "unet_int8_static", "mdm_int8"])
 def test_flax_init_replica_matches_flax(model):
-    """condmdi_tpu_torch.bench.flax_params against `init(jax.random.key(0))`."""
+    """condmdi_tpu_torch.models.flax_init.flax_params against `init(jax.random.key(0))`."""
     x = jnp.zeros((B, T, F))
     t0 = jnp.zeros((B,), jnp.int32)
     y = {"text_embed": jnp.zeros((B, 512))}
@@ -509,7 +510,7 @@ def test_flax_init_replica_matches_flax(model):
             jax.random.key(0), x, t0, y, obs_x0=x, obs_mask=jnp.zeros((B, T, F), bool))["params"]
         tm = TorchUNet(**UNET_CFG, precision_mode=mode, device="cpu", seed=None)
     want = _jax_params_flat(params)
-    got = tbench.flax_params(tm, 0, "cpu")
+    got = flax_init.flax_params(tm, 0, "cpu")
     assert set(got) == set(want)
     for key, value in want.items():
         scale = np.abs(value).max() + 1e-12
@@ -520,9 +521,9 @@ def test_threefry_matches_jax_random_bits():
     key = jax.random.key(7)
     folded = jax.random.fold_in(key, 12345)
     want = np.asarray(jax.random.bits(folded, (1000,), jnp.uint32)).astype(np.int64)
-    k = tbench._fold_in((0, 7), 12345)
+    k = flax_init._fold_in((0, 7), 12345)
     assert k == tuple(int(v) for v in np.asarray(jax.random.key_data(folded)))
-    assert np.array_equal(tbench._random_bits(k, 1000, "cpu").numpy(), want)
+    assert np.array_equal(flax_init._random_bits(k, 1000, "cpu").numpy(), want)
 
 
 def test_golden_name_and_criteria(monkeypatch):
