@@ -2,8 +2,8 @@
 
     python3 attention_probe.py [MODE ...]
 
-MODE is any of timeline, variants, layouts, host, batches. With no argument it
-runs all five. It prints the card's name and power limit first. It stands
+MODE is any of timeline, variants, layouts, host, batches, edit. With no
+argument it runs all six. It prints the card's name and power limit first. It stands
 beside chip_smoke.py, whose timing method it uses; nothing in the package or in
 chip_smoke.py needs it.
 
@@ -18,8 +18,21 @@ chip_smoke.py needs it.
             column views of one projection, as contiguous tensors, and with one
             dense head a row: does the time depend on where the bytes lie;
   host      the host's cost of one wrapper call, by part, beside one
-            scaled_dot_product_attention call;
-  batches   kernel against scaled_dot_product_attention over batch sizes.
+            scaled_dot_product_attention call; and of one float32 call at MDM
+            edit's shape (B=4) beside SDPA in float32;
+  batches   kernel against scaled_dot_product_attention over batch sizes;
+  edit      does the float32 route's gain show end to end: MDM `edit` through
+            its main as chip_smoke.py's phase 16 runs it (float32, B=4, 1000-step
+            DDPM), with float32 attention on route 2 as the package builds it,
+            on route 2 with its kernel launched in stream order instead of as
+            the split pass's programmatic dependent (-DCONDMDI_PROBE_OFF=256,
+            `kOffPdl`), and on route 0, the first design (-DCONDMDI_PROBE_OFF=128,
+            `kOffF32Route`, with `attention_route` answering "mma_sync" for
+            float32), in the order 2, 2', 0, 0, 2', 2 twice: samples/s of each
+            run, and each route's median and best; beside each, one wrapper
+            call's host enqueue at edit's shape, one float32 MDM forward at B=4
+            on the host clock against its device time, and the host's time in
+            that forward by event (torch.profiler, self CPU time).
 
 The probe libraries are built into the package's build directory, all at once.
 """
@@ -28,6 +41,7 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import statistics
 import subprocess
 import sys
 import time
@@ -43,6 +57,7 @@ SERVED, BENCH = (8, 197, 512, 4), (128, 197, 512, 4)  # (B, T, D, H)
 SLOTS = 32  # 8-byte stamps a CTA
 # csrc/attention.cu `ProbeOff`
 SCORES, PV, SOFTMAX, STORES, Q_LOADS, SLACK, SECOND_CTA = 1, 2, 4, 8, 16, 32, 64
+F32_ROUTE0, NO_PDL = 128, 256  # float32 on route 0; route 2's kernel not the pass's dependent
 ARITHMETIC = SCORES | PV | SOFTMAX
 VARIANTS = {
     "as committed": 0,
@@ -191,6 +206,21 @@ def layouts(dev):
 # --------------------------------------------------------------------------- #
 # host, batches
 # --------------------------------------------------------------------------- #
+def per_call_us(fn, n=3000):
+    """The host's time for one call of `fn`, the best of five rounds of n calls."""
+    for _ in range(50):
+        fn()
+    best = float("inf")
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        best = min(best, (time.perf_counter() - t0) / n)
+    torch.cuda.synchronize()
+    return best * 1e6
+
+
 def host(dev):
     B, T, D, H = SERVED
     q, k, v = torch.randn(B, T, 3 * D, device=dev).bfloat16().chunk(3, dim=-1)
@@ -201,24 +231,18 @@ def host(dev):
 
     def c_entry():
         lib.condmdi_attention_forward(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                                      B, T, H, D // H, q.stride(0), q.stride(1), 1, 1, stream)
+                                      B, T, H, D // H, q.stride(0), q.stride(1), 1, 1, stream, None)
 
-    def per_call_us(fn, n=3000):
-        for _ in range(50):
-            fn()
-        best = float("inf")
-        for _ in range(5):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(n):
-                fn()
-            best = min(best, (time.perf_counter() - t0) / n)
-        torch.cuda.synchronize()
-        return best * 1e6
-
+    # float32 at MDM edit's shape (B=4): the route the package takes there
+    f32 = torch.randn(4, T, 3 * D, device=dev).chunk(3, dim=-1)
+    f32_heads_first = tuple(t.view(4, T, H, D // H).transpose(1, 2) for t in f32)
+    f32_route = attention.attention_route(4, T, H, D // H, torch.float32)
     with torch.no_grad():
         for name, fn in [
             ("the wrapper (_launch)", lambda: attention._launch(q, k, v, H)),
+            (f"the wrapper, float32 B=4 ({f32_route})", lambda: attention._launch(*f32, H)),
+            ("scaled_dot_product_attention, float32 B=4",
+             lambda: F.scaled_dot_product_attention(*f32_heads_first)),
             ("mha (through the autograd Function)", lambda: attention.mha(q, k, v, H)),
             ("the C entry alone, by ctypes", c_entry),
             ("torch.empty of the output", lambda: torch.empty((B, T, D), device=dev,
@@ -237,12 +261,96 @@ def batches(dev):
               f"scaled_dot_product_attention {sdpa_us(sets, shape):6.1f} us", flush=True)
 
 
+# --------------------------------------------------------------------------- #
+# edit
+# --------------------------------------------------------------------------- #
+def host_by_event(label, call, iters=20, top=14):
+    """The host's time in one forward by event: torch.profiler's self CPU time
+    (operators and the CUDA runtime calls it sees), per forward, the largest first."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.no_grad():
+        call()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                call()
+            torch.cuda.synchronize()
+    events = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
+    total = sum(e.self_cpu_time_total for e in events) / iters
+    print(f"[edit]   {label}: {total:.1f} us of self CPU time a forward by the profiler; "
+          f"the largest:", flush=True)
+    for e in events[:top]:
+        print(f"[edit]     {e.self_cpu_time_total / iters:8.1f} us  {e.count // iters:4d} x  "
+              f"{e.key[:80]}", flush=True)
+
+
+def edit(dev):
+    import numpy as np
+
+    from condmdi_tpu_torch.models.text import HashTextEncoder
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # as the CLI runs: device.float32_exact
+    torch.backends.cudnn.allow_tf32 = False
+    committed = attention.attention_route
+
+    def first_design(B, T, H, hd, dtype):
+        return "mma_sync" if dtype == torch.float32 else committed(B, T, H, hd, dtype)
+
+    routes = {"route 2": (None, committed), "route 2 in stream order": (off(NO_PDL), committed),
+              "route 0": (off(F32_ROUTE0), first_design)}
+    expect = {"route 2": "wgmma_f32", "route 2 in stream order": "wgmma_f32", "route 0": "mma_sync"}
+    argv = cs.MDM_CLI + ["--edit_mode", "benchmark_clip", "--imputate", "true"]
+    B, T, D, H = cs.CLI_SAMPLES, cs.MDM_TOKENS, 512, 4
+    q, k, v = torch.randn((B, T, 3 * D), device=dev).chunk(3, dim=-1)
+    model = cs.build_mdm(dev, torch.float32)
+    x = cs.seeded_noise((B, cs.T_FRAMES, cs.FEATS), dev, seed=13)
+    t = torch.full((B,), 500, device=dev)
+    y = {"text_embed": torch.from_numpy(HashTextEncoder().encode(cs.PROMPTS[:B])).to(dev)}
+    motions = {}
+    cs.run_cli("edit", argv + cs.DDIM20, "probe_edit_warm_up")  # first-call costs
+    order = 2 * ["route 2", "route 2 in stream order", "route 0", "route 0",
+                 "route 2 in stream order", "route 2"]
+    rates = {name: [] for name in routes}
+    for i, name in enumerate(order):
+        define, route = routes[name]
+        _build._libs.pop("attention.cu", None)
+        if define is not None:
+            load(define)
+        attention.attention_route = route
+        if attention.attention_route(B, T, H, D // H, torch.float32) != expect[name]:
+            raise SystemExit(f"attention_probe: {name} is not the route that runs")
+        res, seconds, launches = cs.run_cli("edit", argv, f"probe_edit_{i}")
+        if launches["fused_self_attention"] != 8 * cs.CLI_STEPS:
+            raise SystemExit(f"attention_probe: edit on {name}: {launches}")
+        motions.setdefault(name, res["motion"])
+        rates[name].append(cs.CLI_SAMPLES / seconds)
+        print(f"[edit] run {i + 1}, float32 attention on {name}: {seconds:.3f} s, "
+              f"{cs.CLI_SAMPLES / seconds:.4f} samples/s", flush=True)
+        if i < 3:
+            with torch.no_grad():
+                us = per_call_us(lambda: attention._launch(q, k, v, H))
+            print(f"[edit]   {name}: one wrapper call at B={B} T={T} D={D} H={H}: {us:.2f} us "
+                  f"of host enqueue", flush=True)
+            cs.forward_host_vs_device(f"{name}: MDM f32 forward at B={B}",
+                                      lambda: model(x, t, y), seconds * 1e3 / cs.CLI_STEPS)
+            host_by_event(f"{name}: MDM f32 forward at B={B}", lambda: model(x, t, y))
+    attention.attention_route = committed
+    for name, r in rates.items():
+        print(f"[edit] {name}: {len(r)} runs, median {statistics.median(r):.4f} samples/s, best "
+              f"{max(r):.4f}", flush=True)
+    for name in ("route 2 in stream order", "route 0"):
+        diff = float(np.abs(motions["route 2"] - motions[name]).max())
+        print(f"[edit] for information, max |motion(route 2) - motion({name})| over the "
+              f"{cs.CLI_STEPS}-step run: {diff:.3e}", flush=True)
+
+
 def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         print("attention_probe: torch.cuda.is_available() is False", file=sys.stderr)
         return 2
     modes = {"timeline": timeline, "variants": variants, "layouts": layouts, "host": host,
-             "batches": batches}
+             "batches": batches, "edit": edit}
     chosen = argv or list(modes)
     if any(m not in modes for m in chosen):
         print(__doc__, file=sys.stderr)
@@ -255,6 +363,9 @@ def main(argv: list[str]) -> int:
             if "variants" in chosen or name in ("as committed", "no arithmetic",
                                                 "K and V copies alone"):
                 start_build(off(mask))
+    if "edit" in chosen:
+        start_build(off(F32_ROUTE0))
+        start_build(off(NO_PDL))
     print(f"[probe] {cs.card_line()}; torch {torch.__version__}, CUDA {torch.version.cuda}",
           flush=True)
     for m in chosen:

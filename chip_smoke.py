@@ -15,7 +15,9 @@ Phases, in order; any failure exits non-zero:
      through more than the 50 MB L2 so weights arrive cold, as in a forward;
      the kernel is called with a packed weight made beforehand, as the
      modules call it) with the wrapper's host enqueue time, and two shapes
-     at B=64 for information;
+     at B=64 for information; then the float32 route at every shape at B=8,
+     per call and timed (kernel, plain, the cuDNN f32 composite, bound, host
+     enqueue), the 33 halves summed beside the first design's time;
   3. the UNet-XL path, kernel against plain: a 20-step DDIM (eta 0) in
      float32, B=2, run once through the kernel and once with the resblock
      halves swapped for the plain version;
@@ -27,11 +29,13 @@ Phases, in order; any failure exits non-zero:
   5. the fused self-attention kernels against their plain version in bf16 and
      float32 at the MDM served shape, the bench batch, DiT / trans_dec and a
      ragged shape, with the route each took (bf16: the resident wgmma kernel;
-     float32: the tiled mma.sync one) and times as in phase 2 beside one
+     float32: the same kernel on hi and lo planes) and times as in phase 2 beside one
      scaled_dot_product_attention call (q, k, v are the column views of one
      [B, T, 3D] projection, as on the path); then one `mha` call captured in a
      CUDA graph on a side stream and replayed twice on new contents, which
-     must equal the eager call bit for bit;
+     must equal the eager call bit for bit; the float32 route (route 2) at the
+     same four shapes, per call and timed beside SDPA in float32 and the first
+     design's time;
   6. the MDM path, kernel against plain: the full-width bench MDM (trans_enc,
      8 layers, latent 512) over a float32 DDIM-20, B=2;
   7. MDM keyframe editing under autograd, kernel against plain: no_cond MDM,
@@ -90,16 +94,19 @@ Phases, in order; any failure exits non-zero:
      then the resblock kernel per call at every f32 shape of the gate UNet (B=8)
      and of UNet-XL at pad 224 (B=4), and the f32 attention kernel at the edit and
      synthesize shapes, each within F32_TOL of its plain version, with kernel,
-     plain, library and bound times; one f32 forward of each UNet on the host clock
-     against its device time, and its kernels by time; the int8 kernel per call at
-     every conv shape of the int8 XL CLI (f32, dynamic scale, B=4, pad 224) within
-     INT8_F32_TOL of its plain version, with the tiles and split each takes, and
-     that model's forward on the host clock against its device time;
+     plain, library, bound and host enqueue times beside the first designs'; one
+     f32 forward of each UNet on the host clock against its device time, and its
+     kernels by time; the int8 kernel per call at every conv shape of the int8 XL
+     CLI (f32, dynamic scale, B=4, pad 224) within INT8_F32_TOL of its plain
+     version, with the tiles and split each takes and its kernel, plain, library,
+     bound and host times, and that model's forward on the host clock against its
+     device time;
  18. a {"kernels": [...]} line (three kernels), the card line, and the final
      {"ok": true, ...}.
 
-Per-shape results also go to chiprun_out/chip_smoke.json. Imports nothing of
-JAX or of the JAX package.
+Per-shape results also go to chiprun_out/chip_smoke.json (`python3 resblock_probe.py
+f32` times the float32 rows of phases 2, 5 and 17 alone). Imports nothing of JAX or
+of the JAX package.
 """
 
 from __future__ import annotations
@@ -166,6 +173,16 @@ PREV_QDENSE_MS = {
     (512, 1536, 128): 0.3636, (512, 512, 128): 0.1757, (512, 1024, 128): 0.2642,
     (1024, 512, 128): 0.2803,
 }
+# The float32 routes' first designs, for the "before" lines only: the first mma.sync
+# resblock route (the halves of one forward, summed, keyed by the forward) and the first
+# tiled attention route (one launch, keyed by shape). Measured with this script's
+# f32 rows (`python3 resblock_probe.py f32`) run on the tree before the redesign, in
+# the same call as the redesigned routes' first timing (PERF.md section 6;
+# NVIDIA H100 80GB HBM3, 700.00 W). Not measured by this run, so not part of the
+# kernels line.
+PREV_F32_RESBLOCK_MS = {"UNet-XL pad 200": 22.334, "gate UNet": 2.816, "UNet-XL pad 224": 22.504}
+PREV_F32_ATTENTION_MS = {"mdm_served": 0.0619, "mdm_bench_batch": 0.5225, "dit_trans_dec": 0.0619,
+                         "ragged": 0.0103, "edit": 0.0627, "synthesize": 0.0616}
 GUIDANCE_STEPS, GUIDANCE_WEIGHT = 50, 0.05  # phases 7, 13, 14
 SERVE_REQUESTS, SERVE_STEPS, GUIDANCE = 4, 1000, 2.5
 MDM = dict(njoints=FEATS, latent_dim=512, ff_size=1024, num_layers=8, num_heads=4)  # bench.py mdm
@@ -400,6 +417,38 @@ def check_kernel(shapes, dev, batch=8):
         print(f"[kernel] for information, B=64 1024->1024 T={T} adagn: kernel {t['ms']:.4f} ms, "
               f"bound {b:.4f} ms", flush=True)
     return rows, big
+
+
+def f32_resblock_rows(name, shapes, B, dev, seed=23):
+    """The float32 route at each resblock shape of one forward at batch B: the
+    kernel against plain per call (F32_TOL), then kernel, plain, library and bound
+    times and the host enqueue; the halves of the forward summed beside the first
+    design's time (PREV_F32_RESBLOCK_MS)."""
+    gen = torch.Generator().manual_seed(seed)
+    rows = []
+    for (cin, cout, T, ada, res, xc), count in sorted(shapes.items()):
+        row = dict(model=name, cin=cin, cout=cout, T=T, B=B, adagn=ada, res=res, x_channels=xc,
+                   per_forward=count)
+        row["max_abs_err_f32"] = kernel_against_plain(B, T, cin, cout, ada, res, xc,
+                                                      torch.float32, F32_TOL, gen, dev)
+        row.update(time_kernel(B, T, cin, cout, ada, res, xc, gen, dev, dtype=torch.float32))
+        row["bound_ms"], row["bound_by"] = bound_ms(B, T, cin, cout, ada, res,
+                                                    dtype=torch.float32)
+        print(f"[f32 resblock] {name} B={B} {cin}->{cout} T={T} adagn={ada} res={res} x{count}: "
+              f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, library (cuDNN f32 "
+              f"composite) {row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']}), host enqueue {row['host_ms']:.4f} ms", flush=True)
+        rows.append(row)
+    halves = sum(r["per_forward"] for r in rows)
+    total = {k: sum(r[k] * r["per_forward"] for r in rows)
+             for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    total["host_ms_per_call"] = sum(r["host_ms"] * r["per_forward"] for r in rows) / halves
+    print(f"[f32 resblock] {name}, the {halves} halves of one f32 forward at B={B}: kernel "
+          f"{total['ms']:.4f} ms (first design: {PREV_F32_RESBLOCK_MS.get(name)} ms), plain "
+          f"{total['plain_ms']:.4f} ms, library {total['library_ms']:.4f} ms, bound "
+          f"{total['bound_ms']:.4f} ms, host enqueue {total['host_ms_per_call']:.4f} ms a call",
+          flush=True)
+    return dict(rows=rows, halves=halves, **total)
 
 
 # --------------------------------------------------------------------------- #
@@ -742,11 +791,55 @@ def check_attention(dev):
     return rows
 
 
+def f32_attention_rows(dev, cases, seed=31):
+    """The float32 route at each (name, B, T, D, H): the kernel against plain per
+    call (F32_TOL), then kernel, plain, SDPA in float32 and bound times and the
+    host enqueue, beside the first design's time (PREV_F32_ATTENTION_MS)."""
+    from condmdi_tpu_torch.ops.attention import _launch, _xla_attention, attention_route
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rows = []
+    for name, B, T, D, H in cases:
+        def views():  # q, k, v: column views of one [B, T, 3D] projection, as on the path
+            return torch.randn((B, T, 3 * D), generator=gen, device=dev).chunk(3, dim=-1)
+
+        q, k, v = views()
+        with torch.no_grad():
+            got = _launch(q, k, v, H)
+            torch.cuda.synchronize()
+            want = _xla_attention(q, k, v, H)
+        err = (got - want).abs()
+        bad = (err > F32_TOL * (1 + want.abs())).sum().item()
+        if bad or not torch.isfinite(got).all():
+            raise SystemExit(f"f32 attention at the {name} shape disagrees with its plain version")
+        sets = [views() for _ in range(max(2, -(-64 * 2**20 // (B * T * 3 * D * 4))))]
+        hd = D // H
+        row = dict(shape=name, B=B, T=T, D=D, H=H,
+                   route=attention_route(B, T, H, hd, torch.float32),
+                   max_abs_err_f32=err.max().item())
+        with torch.no_grad():
+            row["ms"], row["host_ms"] = timed_ms(lambda q, k, v: _launch(q, k, v, H), sets)
+            row["plain_ms"], _ = timed_ms(lambda q, k, v: _xla_attention(q, k, v, H), sets)
+            heads_first = [tuple(t.view(B, T, H, hd).transpose(1, 2) for t in s) for s in sets]
+            row["library_ms"], row["library_host_ms"] = timed_ms(
+                F.scaled_dot_product_attention, heads_first)
+        row["bound_ms"], row["bound_by"] = attn_bound_ms(B, T, D, H, dtype=torch.float32)
+        print(f"[f32 attention] {name} B={B} T={T} D={D} H={H} (route {row['route']}): "
+              f"max_abs_err {row['max_abs_err_f32']:.3e} (tol {F32_TOL:.0e}*(1+|plain|)); kernel "
+              f"{row['ms']:.4f} ms (first design: {PREV_F32_ATTENTION_MS.get(name)} ms), plain "
+              f"{row['plain_ms']:.4f} ms, SDPA f32 {row['library_ms']:.4f} ms, bound "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']}); host enqueue: kernel wrapper "
+              f"{row['host_ms']:.4f} ms, SDPA {row['library_host_ms']:.4f} ms", flush=True)
+        rows.append(row)
+    return rows
+
+
 def attention_graph_replay(dev):
     """One `mha` call of the served shape captured into a CUDA graph on a side
     stream and replayed on new contents of the same buffers: each replay must
     equal the eager call on those contents bit for bit (the same kernel on the
-    same inputs), in bf16 (the resident kernel) and in float32 (the tiled one)."""
+    same inputs), in bf16 (the resident kernel) and in float32 (its split pass
+    and the resident kernel on hi and lo planes behind it)."""
     from condmdi_tpu_torch.ops.attention import _launch, mha
 
     _, B, T, D, H = ATTN_SHAPES[0]
@@ -1034,14 +1127,15 @@ def library_weight(q):
     return w.t()  # [K_pad, N_pad], column-major, as cuBLASLt's int8 product takes it
 
 
-def time_int8(B, T, cin, cout, k, stride, padding, xc, form, gen, dev, cudnn=True):
-    """bf16 times of one shape: the kernel (through a weight quantized and packed
-    beforehand, as the modules call it), its host enqueue, the plain version, the
-    library composite, and for information the bf16 cuDNN conv the float twin
-    pays; enough input sets to exceed L2."""
-    one = 2 * B * T * (xc or cin) + cout * cin * k
+def time_int8(B, T, cin, cout, k, stride, padding, xc, form, gen, dev, cudnn=True,
+              dtype=torch.bfloat16):
+    """Times of one shape, x in `dtype` (bf16 unless said): the kernel (through a
+    weight quantized and packed beforehand, as the modules call it), its host
+    enqueue, the plain version, the library composite, and for information the
+    bf16 cuDNN conv the float twin pays; enough input sets to exceed L2."""
+    one = dtype.itemsize * B * T * (xc or cin) + cout * cin * k
     n_sets = max(2, -(-64 * 2**20 // one))
-    sets = [int8_inputs(B, T, cin, cout, k, form, torch.bfloat16, gen, dev, xc)
+    sets = [int8_inputs(B, T, cin, cout, k, form, dtype, gen, dev, xc)
             for _ in range(n_sets)]
     out = {}
     with torch.no_grad():
@@ -1501,86 +1595,34 @@ def cli_model(argv, dev):
     return load_model_for_sampling(parse_cli_args(argv), dev)[0]
 
 
-def f32_resblock_shapes(name, argv, B, dev, card, step_wall_ms):
-    """Every f32 resblock shape of the CLI's UNet at its batch B: the kernel against
-    plain per call (F32_TOL), then kernel, plain, library and bound times; one
-    forward on the host clock against its device time, and its kernels by time."""
+def cli_resblock_shapes(argv, B, dev):
+    """(the CLI's UNet, its resblock shapes at batch B, one forward's inputs)."""
     model = cli_model(argv, dev)
     text, obs, mask = (a.to(dev) for a in keyframe_inputs(B, 21))
     x = seeded_noise((B, T_FRAMES, FEATS), dev, seed=22)
     t = torch.full((B,), 500, device=dev)
     y = {"text_embed": text}
-    shapes = record_resblock_shapes(model, x, t, y, dict(obs_x0=obs, obs_mask=mask))
-    gen = torch.Generator().manual_seed(23)
-    rows = []
-    for (cin, cout, T, ada, res, xc), count in sorted(shapes.items()):
-        row = dict(model=name, cin=cin, cout=cout, T=T, B=B, adagn=ada, res=res, x_channels=xc,
-                   per_forward=count)
-        row["max_abs_err_f32"] = kernel_against_plain(B, T, cin, cout, ada, res, xc,
-                                                      torch.float32, F32_TOL, gen, dev)
-        row.update(time_kernel(B, T, cin, cout, ada, res, xc, gen, dev, dtype=torch.float32))
-        row["bound_ms"], row["bound_by"] = bound_ms(B, T, cin, cout, ada, res,
-                                                    dtype=torch.float32)
-        print(f"[cli f32] {name} B={B} {cin}->{cout} T={T} adagn={ada} res={res} x{count}: "
-              f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, library (cuDNN f32 "
-              f"composite) {row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
-              f"({row['bound_by']}), host enqueue {row['host_ms']:.4f} ms", flush=True)
-        rows.append(row)
-    halves = sum(r["per_forward"] for r in rows)
-    total = {k: sum(r[k] * r["per_forward"] for r in rows)
-             for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
-    print(f"[cli f32] {card}: {name}, the {halves} resblock halves of one f32 forward at B={B}: "
-          f"kernel {total['ms']:.4f} ms, plain {total['plain_ms']:.4f} ms, library "
-          f"{total['library_ms']:.4f} ms, bound {total['bound_ms']:.4f} ms", flush=True)
+    kw = dict(obs_x0=obs, obs_mask=mask)
+    return model, record_resblock_shapes(model, x, t, y, kw), (x, t, y, kw)
+
+
+def f32_resblock_shapes(name, argv, B, dev, step_wall_ms):
+    """Every f32 resblock shape of the CLI's UNet at its batch B, per call and
+    timed (f32_resblock_rows); one forward on the host clock against its device
+    time, and its kernels by time."""
+    model, shapes, (x, t, y, kw) = cli_resblock_shapes(argv, B, dev)
+    out = f32_resblock_rows(name, shapes, B, dev)
 
     def call():
-        return model(x, t, y, obs_x0=obs, obs_mask=mask)
+        return model(x, t, y, **kw)
 
     forward = forward_host_vs_device(f"{name} f32 forward at B={B}", call, step_wall_ms)
     forward["profile"] = profile_forward(f"{name} f32 forward at B={B}", call)
-    return dict(rows=rows, halves=halves, forward=forward, **total)
+    return dict(out, forward=forward)
 
 
-def f32_attention_shapes(dev, card):
-    """The f32 attention kernel against plain per call at the MDM CLIs' shapes
-    (edit: B = samples; synthesize: 2 x samples under CFG), with its times."""
-    from condmdi_tpu_torch.ops.attention import _launch, _xla_attention, attention_route
-
-    gen = torch.Generator(device=dev).manual_seed(31)
-    D, H, T = 512, 4, MDM_TOKENS
-
-    def views(B):  # q, k, v: column views of one [B, T, 3D] projection, as on the path
-        return torch.randn((B, T, 3 * D), generator=gen, device=dev).chunk(3, dim=-1)
-
-    rows = []
-    for name, B in (("edit", CLI_SAMPLES), ("synthesize", 2 * CLI_SAMPLES)):
-        q, k, v = views(B)
-        with torch.no_grad():
-            got = _launch(q, k, v, H)
-            torch.cuda.synchronize()
-            want = _xla_attention(q, k, v, H)
-        err = (got - want).abs()
-        bad = (err > F32_TOL * (1 + want.abs())).sum().item()
-        if bad or not torch.isfinite(got).all():
-            raise SystemExit(f"f32 attention at the {name} shape disagrees with its plain version")
-        sets = [views(B) for _ in range(max(2, -(-64 * 2**20 // (B * T * 3 * D * 4))))]
-        hd = D // H
-        row = dict(cli=name, B=B, T=T, D=D, H=H, route=attention_route(B, T, H, hd, torch.float32),
-                   max_abs_err_f32=err.max().item())
-        with torch.no_grad():
-            row["ms"], row["host_ms"] = timed_ms(lambda q, k, v: _launch(q, k, v, H), sets)
-            row["plain_ms"], _ = timed_ms(lambda q, k, v: _xla_attention(q, k, v, H), sets)
-            heads_first = [tuple(t.view(B, T, H, hd).transpose(1, 2) for t in s) for s in sets]
-            row["library_ms"], _ = timed_ms(F.scaled_dot_product_attention, heads_first)
-        row["bound_ms"], row["bound_by"] = attn_bound_ms(B, T, D, H, dtype=torch.float32)
-        print(f"[cli f32] {card}: attention at the {name} shape B={B} T={T} D={D} H={H} "
-              f"(route {row['route']}): max_abs_err {row['max_abs_err_f32']:.3e} (tol "
-              f"{F32_TOL:.0e}*(1+|plain|)); kernel {row['ms']:.4f} ms, plain "
-              f"{row['plain_ms']:.4f} ms, SDPA f32 {row['library_ms']:.4f} ms, bound "
-              f"{row['bound_ms']:.4f} ms ({row['bound_by']}), host enqueue {row['host_ms']:.4f} ms",
-              flush=True)
-        rows.append(row)
-    return rows
+CLI_ATTENTION = [("edit", CLI_SAMPLES, MDM_TOKENS, 512, 4),  # B = samples
+                 ("synthesize", 2 * CLI_SAMPLES, MDM_TOKENS, 512, 4)]  # 2 x samples under CFG
 
 
 def int8_cli_shapes(argv, B, dev, card, step_wall_ms):
@@ -1604,20 +1646,32 @@ def int8_cli_shapes(argv, B, dev, card, step_wall_ms):
             f"CLI f32 dynamic x[{B},{T},{xc}] Cin={cin} Cout={cout} k={k} s={stride}",
             xq, q, stride, pad)
         plan = int8_plan(B, T, cin, cout, k, stride, pad, dev)
+        row = dict(cin=cin, cout=cout, k=k, stride=stride, padding=pad, T=T, x_channels=xc,
+                   B=B, per_forward=count, max_abs_err_f32=err, bit_exact=exact, plan=plan)
+        row.update(time_int8(B, T, cin, cout, k, stride, pad, xc, "dynamic", gen, dev,
+                             cudnn=False, dtype=torch.float32))
+        t_out = (T + 2 * pad - k) // stride + 1
+        row["bound_ms"], row["bound_by"] = int8_bound_ms(B, T, t_out, cin, cout, k, itemsize=4)
         print(f"[cli int8] B={B} Cin={cin} Cout={cout} k={k} s={stride} T={T} x{count}: "
-              f"{plan_text(plan)}", flush=True)
-        rows.append(dict(cin=cin, cout=cout, k=k, stride=stride, padding=pad, T=T, x_channels=xc,
-                         B=B, per_forward=count, max_abs_err_f32=err, bit_exact=exact, plan=plan))
+              f"{plan_text(plan)}; f32 dynamic: kernel {row['ms']:.4f} ms, plain "
+              f"{row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms, bound "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']}), host enqueue {row['host_ms']:.4f} ms",
+              flush=True)
+        rows.append(row)
 
     def call():
         return model(x, t, y, obs_x0=obs, obs_mask=mask)
 
     forward = forward_host_vs_device(f"UNet-XL int8 f32 forward at B={B}", call, step_wall_ms)
     forward["profile"] = profile_forward(f"UNet-XL int8 f32 forward at B={B}", call)
-    print(f"[cli int8] {card}: the 41 int8 conv shapes of the XL int8 CLI at B={B} within "
+    total = {k: sum(r[k] * r["per_forward"] for r in rows)
+             for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    print(f"[cli int8] {card}: the 41 int8 convs of the XL int8 CLI at B={B} within "
           f"{max(r['max_abs_err_f32'] for r in rows):.3e} of plain, bit-exact "
-          f"{all(r['bit_exact'] for r in rows)}", flush=True)
-    return dict(rows=rows, forward=forward)
+          f"{all(r['bit_exact'] for r in rows)}; kernel {total['ms']:.4f} ms, plain "
+          f"{total['plain_ms']:.4f} ms, library {total['library_ms']:.4f} ms, bound "
+          f"{total['bound_ms']:.4f} ms", flush=True)
+    return dict(rows=rows, forward=forward, **total)
 
 
 def cli_phase17(dev, card, runs15):
@@ -1633,31 +1687,23 @@ def cli_phase17(dev, card, runs15):
         xl_int8_ddim_err=cli_kernel_vs_plain(
             "conditional", XL_CLI + ["--precision_mode", "int8"] + DDIM20, "xl_int8_ddim20",
             "int8_conv1d", 41, int8_swapped_for_plain))
-    out["gate"] = f32_resblock_shapes("gate UNet", GATE_CLI, 2 * CLI_SAMPLES, dev, card,
+    out["gate"] = f32_resblock_shapes("gate UNet", GATE_CLI, 2 * CLI_SAMPLES, dev,
                                       runs15["gate"]["seconds"] * 1e3 / CLI_STEPS)
-    out["xl"] = f32_resblock_shapes("UNet-XL pad 224", XL_CLI, 2 * XL_CLI_SAMPLES, dev, card,
+    out["xl"] = f32_resblock_shapes("UNet-XL pad 224", XL_CLI, 2 * XL_CLI_SAMPLES, dev,
                                     runs15["xl_f32"]["seconds"] * 1e3 / CLI_STEPS)
     if out["gate"]["halves"] != GATE_HALVES or out["xl"]["halves"] != 33:
         raise SystemExit("unexpected resblock halves per forward in the CLI models")
-    out["attention"] = f32_attention_shapes(dev, card)
+    out["attention"] = f32_attention_rows(dev, CLI_ATTENTION)
     out["int8"] = int8_cli_shapes(XL_CLI + ["--precision_mode", "int8"], 2 * XL_CLI_SAMPLES, dev,
                                   card, runs15["xl_int8"]["seconds"] * 1e3 / CLI_STEPS)
     return out
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
-        return 2
-    sys.path.insert(0, str(ROOT))
+def build_kernels() -> list[str]:
+    """Build the three sources at once (one nvcc each) and print ptxas' register
+    and spill lines and any note that it serialised wgmma."""
     from condmdi_tpu_torch.ops import _build
 
-    dev = torch.device("cuda")
-    card = card_line()
-    print(f"[setup] {card}; python {sys.version.split()[0]}, torch {torch.__version__}, "
-          f"CUDA {torch.version.cuda}", flush=True)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
     sources = ["resblock.cu", "attention.cu", "quant.cu"]
     _build.build_all(sources)
@@ -1668,28 +1714,51 @@ def main() -> int:
           + ", ".join(f"{s} {_build.build_seconds.get(s, 0.0):.2f} s" for s in sources) + ")",
           flush=True)
     for source in sources:
-        seen = set()
+        seen, entry = set(), ""
         for line in _build.build_log.get(source, "").splitlines():
-            # ptxas -v: registers and spills, one pair per instantiation, and once each any
-            # note that it serialised wgmma (C7510 to C7518; C7519 only says where it put a
-            # warpgroup.arrive)
+            # ptxas -v: registers and spills, one pair per instantiation (named by its
+            # mangled entry), and once each any note that it serialised wgmma (C7510 to
+            # C7518; C7519 only says where it put a warpgroup.arrive)
             note = line.split("in the function")[0].split("in function")[0].strip()
-            if "Used " in line or "spill" in line:
-                print(f"[setup] ptxas {source}: {line.strip()}", flush=True)
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1] if "'" in line else ""
+            elif "Used " in line or "spill" in line:
+                print(f"[setup] ptxas {source}: {line.strip()} [{entry[-60:]}]", flush=True)
             elif "(C75" in line and "(C7519)" not in line and note not in seen:
                 seen.add(note)
                 print(f"[setup] ptxas {source}: {note}", flush=True)
+    return sources
 
-    # the main path's resblock shapes, from one bf16 UNet-XL forward at B=8
+
+def main_path_shapes(dev):
+    """The main path's resblock shapes, from one bf16 UNet-XL forward at B=8."""
     model = build_xl(dev, torch.bfloat16)
     text, obs, mask = keyframe_inputs(8, 2)
     shapes = record_resblock_shapes(
         model, torch.randn(8, T_FRAMES, FEATS, device=dev, dtype=torch.bfloat16),
         torch.full((8,), 500, device=dev), {"text_embed": text.to(dev)},
         dict(obs_x0=obs.to(dev), obs_mask=mask.to(dev)))
-    del model
     if sum(shapes.values()) != 33:
         raise SystemExit(f"expected 33 resblock halves per forward, found {shapes}")
+    return shapes
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+
+    dev = torch.device("cuda")
+    card = card_line()
+    print(f"[setup] {card}; python {sys.version.split()[0]}, torch {torch.__version__}, "
+          f"CUDA {torch.version.cuda}", flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    build_kernels()
+    shapes = main_path_shapes(dev)
+    text, obs, mask = keyframe_inputs(8, 2)
     phase_seconds = {"1 setup": time.perf_counter() - t0}
 
     def phase(name, fn, *args):
@@ -1701,9 +1770,12 @@ def main() -> int:
         return out
 
     rows, big_rows = phase("2 resblock kernel", check_kernel, shapes, dev)
+    f32_b8 = phase("2 resblock kernel f32 times", f32_resblock_rows, "UNet-XL pad 200", shapes, 8,
+                   dev)
     ddim_err = phase("3 UNet-XL DDIM", ddim_kernel_vs_plain, dev)
     served = phase("4 UNet-XL serving", serve, dev, card)
     attn_rows = phase("5 attention kernels", check_attention, dev)
+    attn_f32 = phase("5 attention kernels f32 times", f32_attention_rows, dev, ATTN_SHAPES)
     phase("5 attention CUDA graph", attention_graph_replay, dev)
     mdm_ddim_err = phase("6 MDM DDIM", mdm_ddim_kernel_vs_plain, dev)
     recg_err = phase("7 MDM guidance", mdm_recguidance_kernel_vs_plain, dev)
@@ -1766,9 +1838,13 @@ def main() -> int:
         "cli_max_abs_err_f32": max(r["max_abs_err_f32"]
                                    for m in ("gate", "xl") for r in cli17[m]["rows"]),
         "cli_ddim_max_abs_err_f32": cli17["xl_ddim_err"],
-        "f32_cli_forward_ms": {m: {k: cli17[m][k] for k in ("halves", "ms", "plain_ms",
-                                                            "library_ms", "bound_ms")}
-                               for m in ("gate", "xl")},
+        # the float32 route (redesigned on wgmma): the halves of one forward summed, at
+        # phase 2's B=8 pad 200 and at the CLIs' shapes
+        "f32_ms": {name: {k: f32[k] for k in ("halves", "ms", "plain_ms", "library_ms",
+                                              "bound_ms", "host_ms_per_call")}
+                   for name, f32 in (("UNet-XL pad 200, B=8", f32_b8),
+                                     ("gate UNet pad 224, B=8", cli17["gate"]),
+                                     ("UNet-XL pad 224, B=4", cli17["xl"]))},
     }, {
         "name": "fused_self_attention",
         "route": "cuda",
@@ -1792,9 +1868,10 @@ def main() -> int:
         # the edit and synthesize CLIs (phases 16, 17): f32 per launch at their shapes
         "cli_launches": {k: v["launches"]["fused_self_attention"] for k, v in cli16.items()},
         "cli_ddim_max_abs_err_f32": cli17["edit_ddim_err"],
-        "f32_cli_per_launch": [{k: r[k] for k in ("cli", "B", "T", "route", "max_abs_err_f32",
-                                                  "ms", "plain_ms", "library_ms", "bound_ms")}
-                               for r in cli17["attention"]],
+        # the float32 route (route 2) per launch at phase 5's and the CLIs' shapes
+        "f32_ms": [{k: r[k] for k in ("shape", "B", "T", "route", "max_abs_err_f32", "ms",
+                                      "plain_ms", "library_ms", "bound_ms", "host_ms")}
+                   for r in attn_f32 + cli17["attention"]],
     }, {
         "name": "int8_conv1d",
         "route": "cuda",
@@ -1825,6 +1902,8 @@ def main() -> int:
         "cli_max_abs_err_f32": max(r["max_abs_err_f32"] for r in cli17["int8"]["rows"]),
         "cli_bit_exact_at_every_conv_shape": all(r["bit_exact"] for r in cli17["int8"]["rows"]),
         "cli_ddim_max_abs_err_f32": cli17["xl_int8_ddim_err"],
+        # its 41 convs at the XL int8 CLI's shapes (f32, dynamic scale, B=4, pad 224), summed
+        "cli_ms": {k: cli17["int8"][k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
     }]
     previous = {"fused_conv_gn_mish": PREV_RESBLOCK_MS, "fused_self_attention": PREV_ATTENTION_MS,
                 "int8_conv1d": PREV_INT8_MS}
@@ -1836,13 +1915,15 @@ def main() -> int:
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
-         "shapes": rows, "shapes_b64": big_rows, "serve": served, "attention_shapes": attn_rows,
+         "shapes": rows, "shapes_b64": big_rows, "shapes_f32_b8": f32_b8, "serve": served,
+         "attention_shapes": attn_rows, "attention_shapes_f32": attn_f32,
          "serve_mdm": served_mdm, "mdm_forward_b128": bench_forward,
          "int8_shapes": int8_rows, "int8_qdense": dense_rows, "int8_paths": int8_out,
          "serve_mixed": mixed, "kernels": kernels,
          "cli": {"conditional": cli15, "mdm": cli16, "kernel_vs_plain": cli17},
          "phase_seconds": phase_seconds,
-         "previous_ms_from_perf_md": previous}, indent=1))
+         "previous_ms_from_perf_md": dict(previous, f32_resblock=PREV_F32_RESBLOCK_MS,
+                                          f32_attention=PREV_F32_ATTENTION_MS)}, indent=1))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -22,9 +22,14 @@
 //     head width of 32, 64 or 128 whose K and V fit one block's shared memory,
 //     4*hd*16*ceil(T/16) + 256 <= 231,424 bytes: T <= 448 at hd=128, 896 at
 //     hd=64, 1792 at hd=32. This is what the models serve (T <= 225).
-//   route 0, "mma_sync" -- `tiled::attention_tiled_kernel`: float32 always,
-//     and bfloat16 at every other head width (multiples of 8 up to 128) or
-//     longer T. It walks K and V in 64-key tiles, so any T works.
+//   route 2, "wgmma_f32" -- `resident::attention_resident_kernel<HD, true>`
+//     behind `resident::split_qkv_kernel`: float32 at a head width of 32, 64
+//     or 128 whose hi and lo planes of K and V fit one block,
+//     8*hd*16*ceil(T/16) + 256 <= 231,424 bytes: T <= 224 at hd=128, 448 at
+//     hd=64, 896 at hd=32. This is what the MDM CLIs run (f32, T = 197).
+//   route 0, "mma_sync" -- `tiled::attention_tiled_kernel`: every other head
+//     width (multiples of 8 up to 128) and longer T, in either type. It walks
+//     K and V in 64-key tiles, so any T works.
 //
 // route 1, the design. A CTA is one warpgroup (128 threads). A work item is one
 // 64-row query tile of one head of one batch item; a CTA takes a contiguous
@@ -59,6 +64,23 @@
 //     CTA's range most items find their head's K and V in place; where the
 //     head changes, each key tile's place is handed over as the last item's
 //     P.V frees it: the next head's copy of that tile goes out at once.
+//
+// route 2, the same kernel for float32. The tensor cores take no float32
+// operand short of TF32 (10 mantissa bits), so each value is split once into
+// hi = bf16(x) and lo = bf16(x - hi), and each product is three bf16 products,
+// hi.hi + hi.lo + lo.hi, accumulated in f32 in that order: about 16 mantissa
+// bits, the precision of route 0.
+//   * The split happens once per call, in `split_qkv_kernel`: q, k and v are
+//     read once and written as bf16 planes [q, k, v][hi, lo][B][T][D]. The
+//     attention kernel is launched as its programmatic dependent: it sets up
+//     its barriers while the pass runs and waits for it (griddepcontrol.wait)
+//     before its first copy. In the planes, lo is the batch item B further on,
+//     so one tensor map of 2B items serves hi and lo of K (and of V).
+//   * K and V stay resident as in route 1, hi and lo side by side: 4 planes,
+//     213 KB at T=197, hd=128, so one CTA an SM there (two at hd <= 64).
+//   * Q's hi and lo fragments and P's stay in registers; the online softmax,
+//     the masking and the hand-over between heads are route 1's. The output
+//     is float32.
 //
 // route 0 is the first version of this kernel, unchanged: one CTA per (tile of
 // 64 query rows, head, batch item), four warps of 16 query rows each, K
@@ -107,6 +129,8 @@ enum ProbeOff {
   kOffScores = 1, kOffPv = 2, kOffSoftmax = 4, kOffStores = 8, kOffQ = 16,
   kOffSlack = 32,      // a row's reference maximum moves on every tile
   kOffSecondCta = 64,  // one CTA an SM
+  kOffF32Route = 128,  // float32 takes route 0, the first design, at every shape
+  kOffPdl = 256,       // route 2's kernel launched in stream order, not as the pass's dependent
 };
 __host__ __device__ constexpr bool probe_off(int part) { return (CONDMDI_PROBE_OFF & part) != 0; }
 
@@ -139,11 +163,13 @@ constexpr float kMaxSlack = probe_off(kOffSlack) ? 0.f : 8.f;  // log2 of how fa
 // reads on into V, and V must reach that far
 constexpr int kOverread = (kBlockN - 16) * 128;
 
-// K and V of one head: rows of hd bf16, padded to a multiple of 16 rows; then the barriers
+// K and V of one head: rows of hd bf16, padded to a multiple of 16 rows, in
+// `planes` planes each (1, or hi and lo for float32); then the barriers
 __host__ __device__ constexpr int padded_rows(int t_len) { return (t_len + 15) & ~15; }
-__host__ __device__ constexpr long long smem_bytes(int t_len, int hd) {
-  const long long one = 2LL * hd * padded_rows(t_len);  // K, or V
-  return 2 * one + (one < kOverread ? kOverread - one : 0) + kBarrierBytes;
+__host__ __device__ constexpr long long smem_bytes(int t_len, int hd, int planes = 1) {
+  const long long one = 2LL * hd * padded_rows(t_len);  // one plane of K, or of V
+  const long long after_k = planes * one;               // what follows K's last plane: V
+  return 2 * planes * one + (after_k < kOverread ? kOverread - after_k : 0) + kBarrierBytes;
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -350,10 +376,46 @@ __device__ __forceinline__ void q_fragments(uint32_t (&qf)[HD / 16][4],
     }
 }
 
-template <int HD>
-__global__ void __launch_bounds__(kThreads, 2)
+// float32 -> its bf16 hi and lo parts: hi = bf16(x), lo = bf16(x - hi)
+__device__ __forceinline__ void split4(float4 x, uint2& hi, uint2& lo) {
+  const __nv_bfloat162 h0 = __floats2bfloat162_rn(x.x, x.y), h1 = __floats2bfloat162_rn(x.z, x.w);
+  hi = make_uint2(*reinterpret_cast<const uint32_t*>(&h0), *reinterpret_cast<const uint32_t*>(&h1));
+  lo = make_uint2(pack_bf16(x.x - __low2float(h0), x.y - __high2float(h0)),
+                  pack_bf16(x.z - __low2float(h1), x.w - __high2float(h1)));
+}
+
+// route 2's split pass: q, k, v [B, T, cols] (rows stride_t apart, 16-byte
+// aligned) -> planes [3 (q, k, v)][2 (hi, lo)][B][T][cols] bf16, four values a
+// thread. The attention kernel behind it is its programmatic dependent.
+constexpr int kSplitThreads = 256;
+__global__ void __launch_bounds__(kSplitThreads)
+split_qkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, long long stride_b, long long stride_t, int batch,
+                 int t_len, int cols, bf16* __restrict__ planes, int n4) {
+  // the attention kernel may set up its barriers now; it waits for the planes
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  const int i = blockIdx.x * kSplitThreads + threadIdx.x;  // the C entry keeps n4 < 2^31
+  if (i >= n4) return;
+  const int c4 = cols / 4;
+  const int row = i / c4, c = (i - row * c4) * 4;  // row = (which * B + b) * T + t
+  const int item = row / t_len, t = row - item * t_len;
+  const int which = item / batch, b = item - which * batch;
+  const float* src = (which == 0 ? q : which == 1 ? k : v) + (long long)b * stride_b +
+                     (long long)t * stride_t + c;
+  uint2 hi, lo;
+  split4(__ldcs(reinterpret_cast<const float4*>(src)), hi, lo);
+  const long long plane = (long long)batch * t_len * cols;
+  const long long at = ((long long)which * 2 * batch + b) * t_len * cols + (long long)t * cols + c;
+  *reinterpret_cast<uint2*>(planes + at) = hi;
+  *reinterpret_cast<uint2*>(planes + at + plane) = lo;
+}
+
+// SPLIT (route 2): q, K and V are hi and lo bf16 planes, lo `lo_batch` batch
+// items after hi; each product is three; the output is float32.
+template <int HD, bool SPLIT>
+__global__ void __launch_bounds__(kThreads, SPLIT ? 1 : 2)
 attention_resident_kernel(const bf16* __restrict__ q,  // [B, T, *], rows stride_t apart, head h at h*HD
-                          bf16* __restrict__ out,      // [B, T, H*HD] contiguous
+                          void* __restrict__ out_raw,  // [B, T, H*HD] contiguous, bf16 (float32 if SPLIT)
                           // k and v as 3-D views (H*HD columns; T rows; B) in boxes of
                           // min(HD, 64) columns x 64 rows, and x the last key tile's rows
                           const __grid_constant__ CUtensorMap k_full,
@@ -362,12 +424,13 @@ attention_resident_kernel(const bf16* __restrict__ q,  // [B, T, *], rows stride
                           const __grid_constant__ CUtensorMap v_last,
                           long long stride_b, long long stride_t,
                           int t_len, int heads, int items_per_cta, int ctas_with_one_more,
-                          float scale_log2) {
+                          float scale_log2, int lo_batch) {
   constexpr int kNK = HD / 16;                 // depth steps of Q.K^T
   constexpr int kCols = HD < 64 ? HD : 64;     // columns of one box: one swizzled row
   constexpr int kRowBytes = kCols * 2;
   constexpr int kGroups = HD / kCols;          // column groups of a key tile
   constexpr int kTileBytes = kBlockN * HD * 2; // one full key tile of K, or of V
+  constexpr int kPlanes = SPLIT ? 2 : 1;       // hi (and lo) of K, and of V
   extern __shared__ __align__(1024) unsigned char smem_resident[];
   CONDMDI_STAMP(0);
 
@@ -381,29 +444,37 @@ attention_resident_kernel(const bf16* __restrict__ q,  // [B, T, *], rows stride
   const int item1 = item0 + items_per_cta + ((int)blockIdx.x < ctas_with_one_more ? 1 : 0);
   const int last_rows = padded_rows(t_len) - (n_tiles - 1) * kBlockN;  // 16, 32, 48 or 64
   const uint32_t s_k = smem_u32(smem_resident);
-  const uint32_t s_v = s_k + 2 * HD * padded_rows(t_len);
+  const uint32_t plane = 2 * HD * padded_rows(t_len);  // bytes of one plane of K, or of V
+  const uint32_t s_v = s_k + kPlanes * plane;
   // one barrier per key tile, behind K, V and what S may read past them
-  const uint32_t bars = s_k + (uint32_t)smem_bytes(t_len, HD) - kBarrierBytes;
+  const uint32_t bars = s_k + (uint32_t)smem_bytes(t_len, HD, kPlanes) - kBarrierBytes;
   if ((s_k & 1023) != 0) __trap();  // the swizzle is a function of the address
 
   // All of K and V by TMA, one barrier per key tile, in the order of use. Tile
   // j lands as [column group][row][kCols columns] under the swizzle, full tiles
   // kTileBytes apart; the last tile has `last_rows` rows. Tile 0 goes first,
-  // then the loads of Q, straight to registers, then the other tiles.
+  // then the loads of Q, straight to registers, then the other tiles. A lo
+  // plane lies `plane` bytes after its hi plane.
   auto copy_tiles = [&](int j0, int j1, int h, int b) {
     for (int j = j0; j < j1; ++j) {
       const bool last = j == n_tiles - 1;
       const int rows = last ? last_rows : kBlockN;
       const uint32_t bar = bars + 8 * j;
-      mbarrier_arrive_expect_tx(bar, 2 * rows * HD * 2);
+      mbarrier_arrive_expect_tx(bar, kPlanes * 2 * rows * HD * 2);
 #pragma unroll
-      for (int g = 0; g < kGroups; ++g)
-        tma_load_3d(s_k + j * kTileBytes + g * rows * kRowBytes, last ? &k_last : &k_full, bar,
-                    h * HD + g * kCols, j * kBlockN, b);
+      for (int p = 0; p < kPlanes; ++p)
 #pragma unroll
-      for (int g = 0; g < kGroups; ++g)
-        tma_load_3d(s_v + j * kTileBytes + g * rows * kRowBytes, last ? &v_last : &v_full, bar,
-                    h * HD + g * kCols, j * kBlockN, b);
+        for (int g = 0; g < kGroups; ++g)
+          tma_load_3d(s_k + p * plane + j * kTileBytes + g * rows * kRowBytes,
+                      last ? &k_last : &k_full, bar, h * HD + g * kCols, j * kBlockN,
+                      b + p * lo_batch);
+#pragma unroll
+      for (int p = 0; p < kPlanes; ++p)
+#pragma unroll
+        for (int g = 0; g < kGroups; ++g)
+          tma_load_3d(s_v + p * plane + j * kTileBytes + g * rows * kRowBytes,
+                      last ? &v_last : &v_full, bar, h * HD + g * kCols, j * kBlockN,
+                      b + p * lo_batch);
     }
   };
   // the batch item, head and query tile of the item in hand, and of the one after it
@@ -411,14 +482,20 @@ attention_resident_kernel(const bf16* __restrict__ q,  // [B, T, *], rows stride
   int h = item0 / n_tiles - b * heads;
   int qt = item0 - (b * heads + h) * n_tiles;
   int next_b, next_h, next_qt;
-  uint4 q_rows[2][HD / 32];  // an item's Q rows on their way
+  uint4 q_rows[kPlanes][2][HD / 32];  // an item's Q rows on their way (hi, and lo if SPLIT)
   auto fetch_q = [&](int b, int h, int qt) {
-    load_q_rows<HD>(q_rows, q + (long long)b * stride_b + (long long)h * HD, stride_t,
-                    qt * kBlockM + warp * 16 + gq, t_len, cq);
+#pragma unroll
+    for (int p = 0; p < kPlanes; ++p)
+      load_q_rows<HD>(q_rows[p], q + (long long)(b + p * lo_batch) * stride_b + (long long)h * HD,
+                      stride_t, qt * kBlockM + warp * 16 + gq, t_len, cq);
   };
   if (tid == 0) {
     for (int j = 0; j < n_tiles; ++j) mbarrier_init(bars + 8 * j, 1);
     fence_barrier_init();
+  }
+  // route 2: the planes are written by the split pass this grid depends on
+  if constexpr (SPLIT) asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  if (tid == 0) {
     CONDMDI_STAMP(1);
     copy_tiles(0, 1, h, b);
   }
@@ -427,10 +504,10 @@ attention_resident_kernel(const bf16* __restrict__ q,  // [B, T, *], rows stride
   __syncthreads();  // the barriers exist before anyone waits on them
   CONDMDI_STAMP(2);
 
-  uint32_t qf[kNK][4];  // Q of one query tile as the A fragments of Q.K^T
+  uint32_t qf[kPlanes][kNK][4];  // Q of one query tile as the A fragments of Q.K^T (hi, lo)
   float o[HD / 2];  // n8 tile t of this warp's 16 rows: o[4t .. 4t+3]
   float s[32];      // scores of one key tile: s[4t + 2r + e] is row gq + 8r, key 8t + 2cq + e
-  uint32_t pa[kBlockN / 16][4];  // P of one key tile as the A fragments of P.V
+  uint32_t pa[kPlanes][kBlockN / 16][4];  // P of one key tile as the A fragments of P.V (hi, lo)
   // rows gq and gq + 8: running max of the raw scores, this thread's part of the row sum
   float row_max[2], row_sum[2], corr[2];
   const float max_slack = kMaxSlack / scale_log2;  // in units of the raw scores
@@ -447,12 +524,16 @@ attention_resident_kernel(const bf16* __restrict__ q,  // [B, T, *], rows stride
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kNK; ++kk)
-      if (!probe_off(kOffScores) || t_len < 0)
-        WgmmaRS<64, 0>::run(
-            s, qf[kk],
-            wgmma_desc<kRowBytes>(k_tile + (16 * kk / kCols) * group + (16 * kk % kCols) * 2, 16,
-                                  8 * kRowBytes),
-            kk > 0);
+      if (!probe_off(kOffScores) || t_len < 0) {
+        const uint32_t at = k_tile + (16 * kk / kCols) * group + (16 * kk % kCols) * 2;
+        const uint64_t k_hi = wgmma_desc<kRowBytes>(at, 16, 8 * kRowBytes);
+        WgmmaRS<64, 0>::run(s, qf[0][kk], k_hi, kk > 0);
+        if constexpr (SPLIT) {  // + q_hi . k_lo + q_lo . k_hi
+          WgmmaRS<64, 0>::run(s, qf[0][kk], wgmma_desc<kRowBytes>(at + plane, 16, 8 * kRowBytes),
+                              1);
+          WgmmaRS<64, 0>::run(s, qf[kPlanes - 1][kk], k_hi, 1);
+        }
+      }
     wgmma_commit();
   };
   // O += P . V of key tile j, left in flight; the last tile holds no rows past
@@ -462,11 +543,16 @@ attention_resident_kernel(const bf16* __restrict__ q,  // [B, T, *], rows stride
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kBlockN / 16; ++kk)
-      if (kk * 16 < rows && (!probe_off(kOffPv) || t_len < 0))
-        WgmmaRS<HD, 1>::run(
-            o, pa[kk],
-            wgmma_desc<kRowBytes>(v_tile + kk * 16 * kRowBytes, rows * kRowBytes, 8 * kRowBytes),
-            1);
+      if (kk * 16 < rows && (!probe_off(kOffPv) || t_len < 0)) {
+        const uint32_t at = v_tile + kk * 16 * kRowBytes;
+        const uint64_t v_hi = wgmma_desc<kRowBytes>(at, rows * kRowBytes, 8 * kRowBytes);
+        WgmmaRS<HD, 1>::run(o, pa[0][kk], v_hi, 1);
+        if constexpr (SPLIT) {  // + p_hi . v_lo + p_lo . v_hi
+          WgmmaRS<HD, 1>::run(
+              o, pa[0][kk], wgmma_desc<kRowBytes>(at + plane, rows * kRowBytes, 8 * kRowBytes), 1);
+          WgmmaRS<HD, 1>::run(o, pa[kPlanes - 1][kk], v_hi, 1);
+        }
+      }
     wgmma_commit();
   };
   // The online softmax of key tile j on the finished scores: s becomes P
@@ -527,10 +613,20 @@ attention_resident_kernel(const bf16* __restrict__ q,  // [B, T, *], rows stride
   auto pack_p = [&]() {
 #pragma unroll
     for (int kk = 0; kk < kBlockN / 16; ++kk) {
-      pa[kk][0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
-      pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
-      pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
-      pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+      if constexpr (SPLIT) {  // hi = bf16(p), lo = bf16(p - hi)
+#pragma unroll
+        for (int w = 0; w < 4; ++w) {
+          const float a = s[8 * kk + 2 * w], b = s[8 * kk + 2 * w + 1];
+          const __nv_bfloat162 hi = __floats2bfloat162_rn(a, b);
+          pa[0][kk][w] = *reinterpret_cast<const uint32_t*>(&hi);
+          pa[kPlanes - 1][kk][w] = pack_bf16(a - __low2float(hi), b - __high2float(hi));
+        }
+      } else {
+        pa[0][kk][0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
+        pa[0][kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+        pa[0][kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+        pa[0][kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+      }
     }
   };
 
@@ -548,7 +644,8 @@ attention_resident_kernel(const bf16* __restrict__ q,  // [B, T, *], rows stride
     };
     const int stamp = 3 * (item - item0 < 8 ? item - item0 : 8);  // slots 3..26: the first 8 items
     CONDMDI_STAMP(3 + stamp);
-    q_fragments<HD>(qf, q_rows, cq);
+#pragma unroll
+    for (int p = 0; p < kPlanes; ++p) q_fragments<HD>(qf[p], q_rows[p], cq);
 #pragma unroll
     for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
     row_max[0] = row_max[1] = -INFINITY;
@@ -600,18 +697,28 @@ attention_resident_kernel(const bf16* __restrict__ q,  // [B, T, *], rows stride
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       const int row = row_base + 8 * half;
-      uint4* dst = reinterpret_cast<uint4*>(
-                       out + ((long long)b * t_len + row) * d_model + h * HD) + cq;
+      const long long at = ((long long)b * t_len + row) * d_model + h * HD;
+      if constexpr (SPLIT) {  // float32: each thread's column pair of every 8-column block
+        float2* dst = reinterpret_cast<float2*>(static_cast<float*>(out_raw) + at) + cq;
+        if (row < t_len) {
 #pragma unroll
-      for (int i = 0; i < HD / 32; ++i) {  // 4 blocks of 8 columns: 16 contiguous bytes a lane
-        uint32_t w[4];
+          for (int t = 0; t < HD / 8; ++t)
+            dst[4 * t] = make_float2(o[4 * t + 2 * half] * inv[half],
+                                     o[4 * t + 2 * half + 1] * inv[half]);
+        }
+      } else {
+        uint4* dst = reinterpret_cast<uint4*>(static_cast<bf16*>(out_raw) + at) + cq;
 #pragma unroll
-        for (int d = 0; d < 4; ++d)
-          w[d] = pack_bf16(o[4 * (4 * i + d) + 2 * half] * inv[half],
-                           o[4 * (4 * i + d) + 2 * half + 1] * inv[half]);
-        quad_transpose(w, cq);
-        if (row < (probe_off(kOffStores) ? 0 : t_len))
-          dst[4 * i] = make_uint4(w[0], w[1], w[2], w[3]);
+        for (int i = 0; i < HD / 32; ++i) {  // 4 blocks of 8 columns: 16 contiguous bytes a lane
+          uint32_t w[4];
+#pragma unroll
+          for (int d = 0; d < 4; ++d)
+            w[d] = pack_bf16(o[4 * (4 * i + d) + 2 * half] * inv[half],
+                             o[4 * (4 * i + d) + 2 * half + 1] * inv[half]);
+          quad_transpose(w, cq);
+          if (row < (probe_off(kOffStores) ? 0 : t_len))
+            dst[4 * i] = make_uint4(w[0], w[1], w[2], w[3]);
+        }
       }
     }
     b = next_b;
@@ -666,7 +773,8 @@ bool encode_map(CUtensorMap* map, const void* x, int batch, int t_len, int cols,
 // fit where their sizes allow. Gives the current device's number of SMs.
 constexpr int kMaxDevices = 64;
 constexpr int kCtasPerSm = probe_off(kOffSecondCta) ? 1 : 2;  // what shared memory allows as served
-template <int HD>
+constexpr int kSmemPerSm = 233472;  // an SM's shared memory, 1 KB of it reserved per CTA
+template <int HD, bool SPLIT>
 cudaError_t prepare_device(int* sm_count) {
   static std::atomic<int> sms[kMaxDevices];  // 0 until the device is prepared
   int device = 0;
@@ -675,7 +783,7 @@ cudaError_t prepare_device(int* sm_count) {
   if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
   int n = sms[device].load(std::memory_order_acquire);
   if (n == 0) {
-    auto kernel = attention_resident_kernel<HD>;
+    auto kernel = attention_resident_kernel<HD, SPLIT>;
     e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBudget);
     if (e != cudaSuccess) return e;
     e = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
@@ -689,28 +797,39 @@ cudaError_t prepare_device(int* sm_count) {
   return cudaSuccess;
 }
 
+// The four maps of K and V (full and last key tiles) over k and v viewed as
+// (cols; T; batch) with these strides.
 template <int HD>
-int launch(const void* q, const void* k, const void* v, void* out, int batch, int t_len,
-           int heads, long long stride_b, long long stride_t, cudaStream_t stream) {
-  int sm_count = 0;
-  const cudaError_t ready = prepare_device<HD>(&sm_count);
-  if (ready != cudaSuccess) return (int)ready;
+bool encode_kv_maps(CUtensorMap (&maps)[4], const void* k, const void* v, int batch, int t_len,
+                    int cols, long long stride_b, long long stride_t) {
   const int n_tiles = (t_len + kBlockM - 1) / kBlockM;
   const int last_rows = padded_rows(t_len) - (n_tiles - 1) * kBlockN;
-  CUtensorMap k_full, k_last, v_full, v_last;
-  const int cols = heads * HD;
   constexpr int kCols = HD < 64 ? HD : 64;
+  CUtensorMap &k_full = maps[0], &k_last = maps[1], &v_full = maps[2], &v_last = maps[3];
   if (!encode_map(&k_last, k, batch, t_len, cols, stride_b, stride_t, last_rows, kCols) ||
       !encode_map(&v_last, v, batch, t_len, cols, stride_b, stride_t, last_rows, kCols))
-    return (int)cudaErrorInvalidValue;
+    return false;
   if (n_tiles > 1 && last_rows != kBlockN) {
     if (!encode_map(&k_full, k, batch, t_len, cols, stride_b, stride_t, kBlockN, kCols) ||
         !encode_map(&v_full, v, batch, t_len, cols, stride_b, stride_t, kBlockN, kCols))
-      return (int)cudaErrorInvalidValue;
+      return false;
   } else {  // the same boxes, or never used by the kernel
     k_full = k_last;
     v_full = v_last;
   }
+  return true;
+}
+
+template <int HD>
+int launch(const void* q, const void* k, const void* v, void* out, int batch, int t_len,
+           int heads, long long stride_b, long long stride_t, cudaStream_t stream) {
+  int sm_count = 0;
+  const cudaError_t ready = prepare_device<HD, false>(&sm_count);
+  if (ready != cudaSuccess) return (int)ready;
+  const int n_tiles = (t_len + kBlockM - 1) / kBlockM;
+  CUtensorMap maps[4];
+  if (!encode_kv_maps<HD>(maps, k, v, batch, t_len, heads * HD, stride_b, stride_t))
+    return (int)cudaErrorInvalidValue;
   // one CTA a query tile while the card holds them all at once, else kCtasPerSm
   // CTAs an SM with a contiguous range of query tiles each
   const long long items = (long long)batch * heads * n_tiles;
@@ -718,9 +837,60 @@ int launch(const void* q, const void* k, const void* v, void* out, int batch, in
   const int max_ctas = kCtasPerSm * sm_count;
   const int grid = (int)(items < max_ctas ? items : max_ctas);
   const float scale_log2 = kLog2e / sqrtf((float)HD);
-  attention_resident_kernel<HD><<<grid, kThreads, (size_t)smem_bytes(t_len, HD), stream>>>(
-      static_cast<const bf16*>(q), static_cast<bf16*>(out), k_full, k_last, v_full, v_last,
-      stride_b, stride_t, t_len, heads, (int)(items / grid), (int)(items % grid), scale_log2);
+  attention_resident_kernel<HD, false><<<grid, kThreads, (size_t)smem_bytes(t_len, HD), stream>>>(
+      static_cast<const bf16*>(q), out, maps[0], maps[1], maps[2], maps[3], stride_b, stride_t,
+      t_len, heads, (int)(items / grid), (int)(items % grid), scale_log2, 0);
+  return (int)cudaGetLastError();
+}
+
+// route 2: the split pass into `planes` ([3][2][B][T][H*HD] bf16, the caller's
+// scratch), then the kernel on the planes as the pass's programmatic dependent.
+template <int HD>
+int launch_split(const void* q, const void* k, const void* v, void* out, void* planes,
+                 int batch, int t_len, int heads, long long stride_b, long long stride_t,
+                 cudaStream_t stream) {
+  int sm_count = 0;
+  const cudaError_t ready = prepare_device<HD, true>(&sm_count);
+  if (ready != cudaSuccess) return (int)ready;
+  const int cols = heads * HD;
+  const long long plane = (long long)batch * t_len * cols;  // elements of one [B][T][cols] plane
+  const long long n4 = 3 * plane / 4;
+  const int n_tiles = (t_len + kBlockM - 1) / kBlockM;
+  const long long items = (long long)batch * heads * n_tiles;
+  if (n4 > 0x7fffffffLL || items > 0x7fffffffLL || 2LL * batch > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  bf16* p = static_cast<bf16*>(planes);
+  // K's hi plane, and its lo plane `batch` items further: one map of 2B items; so for V
+  CUtensorMap maps[4];
+  if (!encode_kv_maps<HD>(maps, p + 2 * plane, p + 4 * plane, 2 * batch, t_len, cols,
+                          (long long)t_len * cols, cols))
+    return (int)cudaErrorInvalidValue;
+  split_qkv_kernel<<<(unsigned)((n4 + kSplitThreads - 1) / kSplitThreads), kSplitThreads, 0,
+                     stream>>>(static_cast<const float*>(q), static_cast<const float*>(k),
+                               static_cast<const float*>(v), stride_b, stride_t, batch, t_len,
+                               cols, p, (int)n4);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const long long smem = smem_bytes(t_len, HD, 2);
+  int per_sm = (int)(kSmemPerSm / (smem + 1024));
+  per_sm = per_sm < 1 ? 1 : per_sm > 2 ? 2 : per_sm;
+  const int max_ctas = per_sm * sm_count;
+  const int grid = (int)(items < max_ctas ? items : max_ctas);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = (size_t)smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = probe_off(kOffPdl) ? 0 : 1;
+  err = cudaLaunchKernelEx(&cfg, attention_resident_kernel<HD, true>, static_cast<const bf16*>(p),
+                           out, maps[0], maps[1], maps[2], maps[3], (long long)t_len * cols,
+                           (long long)cols, t_len, heads, (int)(items / grid),
+                           (int)(items % grid), kLog2e / sqrtf((float)HD), batch);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
@@ -1039,14 +1209,17 @@ int launch(const void* q, const void* k, const void* v, void* out, int batch, in
 }  // namespace tiled
 
 // Which kernel a self-attention of T rows and this head width and type takes:
-// 1, the resident wgmma kernel, or 0, the tiled mma.sync one. The one place in
-// this file that decides it, from the shape and the type alone.
+// 1, the resident wgmma kernel (bfloat16); 2, the same kernel on hi and lo
+// planes (float32); or 0, the tiled mma.sync one. The one place in this file
+// that decides it, from the shape and the type alone.
 int route_of(int t_len, int head_dim, int dtype) {
+  const int planes = dtype == 0 ? 2 : 1;
   const bool resident_fits =
-      dtype == 1 && (head_dim == 32 || head_dim == 64 || head_dim == 128) &&
-      resident::smem_bytes(t_len, head_dim) <= resident::kSmemBudget &&
+      (head_dim == 32 || head_dim == 64 || head_dim == 128) &&
+      resident::smem_bytes(t_len, head_dim, planes) <= resident::kSmemBudget &&
       (t_len + resident::kBlockN - 1) / resident::kBlockN <= resident::kMaxTiles;
-  return resident_fits ? 1 : 0;
+  if (!resident_fits || (dtype == 0 && probe_off(kOffF32Route))) return 0;
+  return dtype == 1 ? 1 : 2;
 }
 
 }  // namespace
@@ -1059,13 +1232,15 @@ extern "C" int condmdi_attention_route(int t_len, int head_dim, int dtype) {
 // q, k, v: [B, T, H*hd] views sharing (stride_b, stride_t) in elements, unit
 // column stride, 16-byte aligned rows; out: [B, T, H*hd] contiguous.
 // dtype 0 = float32, 1 = bfloat16. `route` is the kernel the caller expects, as
-// `condmdi_attention_route` names it. Launches on the current device. Returns
-// the launch's cudaGetLastError(), or cudaErrorInvalidValue for a shape or a
-// type that the kernels do not take and for a route that is not this shape's.
+// `condmdi_attention_route` names it. `scratch`: route 2's hi and lo planes,
+// 3 * 2 * B * T * H*hd bf16 (16-byte aligned), null for the other routes.
+// Launches on the current device. Returns the launch's cudaGetLastError(), or
+// cudaErrorInvalidValue for a shape or a type that the kernels do not take and
+// for a route that is not this shape's.
 extern "C" int condmdi_attention_forward(const void* q, const void* k, const void* v, void* out,
                                          int batch, int t_len, int heads, int head_dim,
                                          long long stride_b, long long stride_t, int dtype,
-                                         int route, void* stream) {
+                                         int route, void* stream, void* scratch) {
   if (batch <= 0 || t_len <= 0 || heads <= 0 || head_dim <= 0 || head_dim > kMaxHd ||
       head_dim % 8 != 0 || (dtype != 0 && dtype != 1) || route != route_of(t_len, head_dim, dtype))
     return (int)cudaErrorInvalidValue;
@@ -1077,6 +1252,15 @@ extern "C" int condmdi_attention_forward(const void* q, const void* k, const voi
     if (head_dim == 64) return CONDMDI_RESIDENT(64);
     return CONDMDI_RESIDENT(32);
 #undef CONDMDI_RESIDENT
+  }
+  if (route == 2) {
+    if (scratch == nullptr) return (int)cudaErrorInvalidValue;
+#define CONDMDI_SPLIT(HD) \
+  resident::launch_split<HD>(q, k, v, out, scratch, batch, t_len, heads, stride_b, stride_t, s)
+    if (head_dim == 128) return CONDMDI_SPLIT(128);
+    if (head_dim == 64) return CONDMDI_SPLIT(64);
+    return CONDMDI_SPLIT(32);
+#undef CONDMDI_SPLIT
   }
   if (batch > 65535 || heads > 65535)  // the tiled kernel's grid puts them in y and z
     return (int)cudaErrorInvalidValue;

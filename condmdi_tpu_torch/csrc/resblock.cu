@@ -53,12 +53,38 @@
 //     the statistics; the epilogue runs on the registers, with Mish on the
 //     fast exponential, and writes the output once.
 //
-// float32 (tests and the f32 sampler checks, never the served type) --
-// `resblock_f32_kernel`: one CTA per (batch item, group) walks T in 128-row
-// blocks and Cin in 16-channel chunks with scalar loads from the unpacked
-// [Cout, Cin, 5] weight, runs the tensor cores (mma.sync) on a hi+lo bf16
-// split (three products per tile, about 16 mantissa bits) and keeps the f32
-// pre-norm tile in shared memory (T*132*4 B), which limits it to T <= 299.
+// float32 (the sampling CLIs and evaluation run the UNet in float32, as the JAX
+// CLIs do) -- `f32::resblock_f32_kernel`, the same structure on hi and lo bf16
+// planes: the tensor cores take no float32 operand short of TF32 (10 mantissa
+// bits), so x = x_hi + x_lo and w = w_hi + w_lo (each part bf16) and the conv
+// is x_hi.w_hi + x_hi.w_lo + x_lo.w_hi, accumulated in f32: about 16 mantissa
+// bits.
+//   * The weight is split once per parameter (ops/resblock.py
+//     `split_conv_weight`, cached by the module like the bf16 packing): hi and
+//     lo planes, each in the core-matrix layout above with 16-channel chunks.
+//   * x rows reach shared memory as they are, f32, through the cp.async ring
+//     (16-channel stages, three in the ring); the threads split each stage into
+//     hi and lo planes in the bf16 kernel's x-tile layout (taps are row offsets
+//     of one descriptor) while the tensor cores work on the stage before, and a
+//     second barrier makes the planes visible to wgmma. 15 wgmmas a stage.
+//   * Tiles of 64 rows x 64 channels up to T=256, two CTAs an SM, so that a
+//     group of 128 channels is a cluster of up to 4 x 2 CTAs and the sampling
+//     CLI's UNet-XL at B=4 gives 64 to 256 CTAs; 128 x 128 beyond (one CTA an
+//     SM), up to 8 CTAs along T: T <= 1024 for any group, as in bfloat16.
+//   * The pre-norm values never leave the accumulators. Where groups are
+//     narrower than the tile (the gate UNet's 16 and 32 channels) one CTA
+//     holds several whole groups, each with its own statistics: column sums
+//     per warp, then per group, then over the cluster's ranks through
+//     distributed shared memory, in a fixed order; the mean first, then the
+//     centred sum of squares. Mish is the exact one.
+//   * What bounds it (resblock_probe.py): the three products are three times
+//     the bf16 kernel's, and each m64n32k16 reads 3 KB of operands from shared
+//     memory for 32k MACs, about half the tensor cores' rate; the cp.async
+//     stream of a stage (20 KB of weights, 4 KB of x) adds to that more than it
+//     overlaps, and at T=224 the CTAs draw about 5.5 TB/s from L2 (every weight
+//     byte read by each row tile of each batch item). Deeper rings, three
+//     accumulator sets, 64 x 32 tiles, a split of Cin over a cluster and
+//     128 x 64 tiles were each tried and were no faster (PERF.md section 6).
 // Timings of both are in PERF.md.
 
 #include <cooperative_groups.h>
@@ -67,6 +93,15 @@
 #include <stdint.h>
 
 namespace cg = cooperative_groups;
+
+// Probe builds only. resblock_probe.py compiles copies of this file with
+// -DCONDMDI_PROBE_OFF=<mask of ProbeOff>, which switches parts of the float32
+// kernel off (the results are then wrong; the times tell what each part
+// costs). The package's build does not define it, and every line that names it
+// folds away.
+#ifndef CONDMDI_PROBE_OFF
+#define CONDMDI_PROBE_OFF 0
+#endif
 
 namespace {
 
@@ -78,6 +113,12 @@ constexpr int kHalo = kTaps / 2;
 constexpr int kMaxGroup = 128;   // widest group: one cluster holds one (batch item, group)
 constexpr int kMaxCluster = 8;   // portable cluster size
 constexpr int kMaxSmem = 232448; // dynamic + static shared memory of one block on sm_90
+
+enum ProbeOff {
+  kOffMma = 1, kOffCopies = 2, kOffSplit = 4, kOffWeights = 8,
+  kOffSmallTerms = 16,  // x_hi.w_hi alone: one product a tap instead of three
+};
+__host__ __device__ constexpr bool probe_off(int part) { return (CONDMDI_PROBE_OFF & part) != 0; }
 
 __device__ __forceinline__ float mish(float h) {
   const float sp = fmaxf(h, 0.f) + log1pf(expf(-fabsf(h)));  // softplus, no overflow
@@ -91,14 +132,6 @@ __device__ __forceinline__ float mish_fast(float h) {
   const float n = __expf(fminf(h, 20.f));
   const float t = n * (n + 2.f);
   return h * __fdividef(t, t + 2.f);
-}
-
-__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // ------------------------------------------------------------------------- //
@@ -508,53 +541,64 @@ int launch_bf16(const void* x, const void* wp, const void* bias, const void* gam
 }
 
 // ------------------------------------------------------------------------- //
-// float32: hi+lo bf16 split, one CTA per (batch item, group), unpacked weight
+// float32: hi+lo bf16 planes, the split weight, wgmma, cluster GroupNorm
 // ------------------------------------------------------------------------- //
 
 namespace f32 {
 
-constexpr int kBlockM = 128;   // output rows (time steps) per pass
-constexpr int kBlockN = 128;   // output channels per CTA: one group, zero-padded
-constexpr int kWarpM = 32;     // 8 warps: 4 along rows x 2 along channels
-constexpr int kWarpN = 64;
-constexpr int kRedSlots = 64;
-constexpr int kBK = 16;        // input channels per shared-memory chunk
-constexpr int kSK = kBK + 8;   // row pitch: conflict-free fragment loads
-constexpr int kXRows = kBlockM + kTaps - 1;
-constexpr int kAccLd = kBlockN + 4;
-constexpr int kXElems = kXRows * kSK;          // per plane (hi, lo)
-constexpr int kWElems = kTaps * kBlockN * kSK; // per plane
+constexpr int kBK = 16;  // input channels per stage = the split weight's chunk
 
-size_t smem_bytes(int t_len) {
-  return (size_t)t_len * kAccLd * 4 + (size_t)2 * (kXElems + kWElems) * 2 + kRedSlots * 4;
-}
+// BM x BN outputs per CTA, two warpgroups of 64 rows x kWGN columns each, as in
+// the bf16 kernel. A stage holds the x rows as copied (f32), their hi and lo
+// bf16 planes in the layout wgmma reads, and the hi and lo weights of 5 taps.
+template <int BM, int BN, int STAGES>
+struct Cfg {
+  static_assert(BM == 64 || BM == 128, "one or two 64-row warpgroup tiles");
+  static constexpr int kWGM = BM / 64;
+  static constexpr int kWGN = BN / (2 / kWGM);
+  static constexpr int kXRows = BM + kTaps - 1;
+  static constexpr int kXPlaneRows = (kXRows + 5) / 8 * 8 + 2;  // as the bf16 kernel's
+  static constexpr int kXPlaneBytes = kXPlaneRows * 16;
+  static constexpr int kXBytes = (kBK / 8) * kXPlaneBytes;      // hi, or lo
+  static constexpr int kRawBytes = kXRows * kBK * 4;            // the f32 rows, 64 B each
+  static constexpr int kWTapBytes = BN * kBK * 2;               // one tap of hi, or of lo
+  static constexpr int kWBytes = kTaps * kWTapBytes;
+  static constexpr int kStageBytes = 2 * kXBytes + kRawBytes + 2 * kWBytes;
+  static constexpr int kSmem = STAGES * kStageBytes;
+  static constexpr int kNT = kWGN / 8;
+  static constexpr int kWTapPieces = BN * kBK / 8;              // 16-byte pieces of one tap
+  static constexpr int kWPieces = 2 * kTaps * kWTapPieces / kThreads;  // a thread's, a stage
+  static constexpr int kRowWarps = BM / 16;                     // warps along the rows
+  static_assert((2 * kTaps * kWTapPieces) % kThreads == 0, "the weight pieces divide evenly");
+  static_assert((kWTapPieces & (kWTapPieces - 1)) == 0, "a power of two");
+  static_assert(kStageBytes % 16 == 0 && kRawBytes % 16 == 0 && kXBytes % 16 == 0,
+                "tiles stay 16-byte aligned");
+  static_assert(STAGES >= 3 && kSmem + 12288 <= kMaxSmem, "the ring and the static part fit");
+};
 
-// v as hi + lo bf16 planes `plane` elements apart
-__device__ __forceinline__ void split_store(bf16* dst, int plane, float v) {
-  const bf16 hi = __float2bfloat16_rn(v);
-  dst[0] = hi;
-  dst[plane] = __float2bfloat16_rn(v - __bfloat162float(hi));
-}
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// sum over the block, the same value in every thread; fixed order
-__device__ float block_sum(float v, float* red) {
-  v = warp_sum(v);
-  __syncthreads();  // earlier readers of red are done
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  float s = 0.f;
+// eight floats as their bf16 hi and lo parts, 16 bytes each
+__device__ __forceinline__ void split8(const float4 a, const float4 b, uint4& hi, uint4& lo) {
+  const float v[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+  uint32_t h[4], l[4];
 #pragma unroll
-  for (int i = 0; i < kThreads / 32; ++i) s += red[i];
-  return s;
+  for (int i = 0; i < 4; ++i) {
+    const __nv_bfloat162 p = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+    h[i] = *reinterpret_cast<const uint32_t*>(&p);
+    const __nv_bfloat162 r =
+        __floats2bfloat162_rn(v[2 * i] - __low2float(p), v[2 * i + 1] - __high2float(p));
+    l[i] = *reinterpret_cast<const uint32_t*>(&r);
+  }
+  hi = make_uint4(h[0], h[1], h[2], h[3]);
+  lo = make_uint4(l[0], l[1], l[2], l[3]);
 }
 
-__global__ void __launch_bounds__(kThreads)
-resblock_f32_kernel(const float* __restrict__ x,      // [B, T, x_pitch]
-                    const float* __restrict__ w,      // [Cout, Cin, 5]
+// One (batch item, channel tile, row tile). The channel tile is BN channels of
+// one group (a cluster spans the group's tiles and T) or, where groups are
+// narrower, `gpc` whole groups, each with its own statistics.
+template <int BM, int BN, int STAGES>
+__global__ void __launch_bounds__(kThreads, Cfg<BM, BN, STAGES>::kSmem <= 100000 ? 2 : 1)
+resblock_f32_kernel(const float* __restrict__ x,      // [B, T, x_pitch], x_pitch % 4 == 0
+                    const bf16* __restrict__ wp,      // [2][Cin_pad/16, 5, Cout_pad/8, 2, 8, 8]
                     const float* __restrict__ bias,   // [Cout]
                     const float* __restrict__ gamma,  // [Cout]
                     const float* __restrict__ beta,   // [Cout]
@@ -563,147 +607,313 @@ resblock_f32_kernel(const float* __restrict__ x,      // [B, T, x_pitch]
                     long long ss_stride,
                     const float* __restrict__ res,    // [B, T, Cout] or null
                     float* __restrict__ out,          // [B, T, Cout]
-                    int t_len, int x_pitch, int cin, int cout, int group, float eps) {
-  constexpr int K = kTaps;
+                    int t_len, int x_pitch, int n_chunks, int cout, int n_groups, int group,
+                    int gpc, int cn_tiles, float eps) {
+  using C = Cfg<BM, BN, STAGES>;
+  constexpr int kNT = C::kNT;
+
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* s_acc = reinterpret_cast<float*>(smem_raw);
-  bf16* s_x = reinterpret_cast<bf16*>(s_acc + (size_t)t_len * kAccLd);
-  bf16* s_w = s_x + 2 * kXElems;
-  float* s_red = reinterpret_cast<float*>(s_w + 2 * kWElems);
+  __shared__ float s_par[5][BN];  // bias, gamma, beta, 1 + scale, shift of this CTA's channels
+  __shared__ int s_lg[BN];        // each column's group within the CTA, -1 past its channels
+  __shared__ float s_col[C::kRowWarps][BN];  // column sums of each warp's 16 rows
+  __shared__ float s_part[2][BN];  // this CTA's sum per local group: mean, then squares
+  __shared__ float s_stat[2][BN];  // per local group: mean, 1/std
 
-  const int n0 = blockIdx.x * group;  // first output channel of this group
-  const int b = blockIdx.y;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = blockIdx.x;  // the cluster spans the grid's x dimension
+  const int ct = rank / cn_tiles, cn = rank - ct * cn_tiles;
+  const int m0 = ct * BM;
+  const int g0 = blockIdx.y * gpc;                 // first group of this CTA
+  const int n_first = g0 * group + cn * BN;        // first channel of this CTA
+  const int local_groups = gpc < n_groups - g0 ? gpc : n_groups - g0;
+  // channels of this CTA: part of one group, or `local_groups` whole ones
+  const int span = cn_tiles > 1 ? min(BN, group - cn * BN) : local_groups * group;
+  const int b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int wm = warp >> 1, wn = warp & 1;
-  const int gq = lane >> 2, cq = lane & 3;  // mma fragment row / column pair
+  const int wg = warp >> 2;
+  const int wg_m = C::kWGM == 2 ? wg : 0, wg_n = C::kWGM == 2 ? 0 : wg;
+  const int gq = lane >> 2, cq = lane & 3;
   const float* xb = x + (size_t)b * t_len * x_pitch;
-  const bool n_active = wn * kWarpN < group;
+  const int cout8 = (cout + 7) >> 3;
+  const int w_plane = n_chunks * kTaps * cout8 * 8 * kBK;  // elements of one plane (< 2^30)
+  const uint32_t smem_base = smem_u32(smem_raw);
 
-  for (int m0 = 0; m0 < t_len; m0 += kBlockM) {
-    float acc[2][8][4];
+  // This thread's 16-byte pieces of a stage's weights: piece q of (plane, tap)
+  // at byte 16 q of that tap's tile holds channel n_first + (q/16)*8 + q%8 and
+  // input channels 8*((q/8)%2) .. +7, the core-matrix layout of the weight.
+  uint32_t w_dst[C::kWPieces];
+  int w_src[C::kWPieces];  // in elements from the chunk's start in the hi plane
+  bool w_ok[C::kWPieces];
 #pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
-    const bool m_active = m0 + wm * kWarpM < t_len;
+  for (int i = 0; i < C::kWPieces; ++i) {
+    const int q = tid + i * kThreads;
+    const int pt = q / C::kWTapPieces, r = q % C::kWTapPieces;  // (plane, tap), piece
+    const int plane = pt / kTaps, tap = pt - plane * kTaps;
+    const int n = n_first + (r >> 4) * 8 + (r & 7), kb = (r >> 3) & 1;
+    w_ok[i] = n < cout8 * 8;
+    w_src[i] = plane * w_plane + tap * cout8 * 8 * kBK + (((n >> 3) * 2 + kb) * 8 + (n & 7)) * 8;
+    w_dst[i] = 2 * C::kXBytes + C::kRawBytes + plane * C::kWBytes + tap * C::kWTapBytes + r * 16;
+  }
 
-    for (int c0 = 0; c0 < cin; c0 += kBK) {
-      __syncthreads();  // the previous chunk's fragments are consumed
-      // x rows t = m0 - halo + r; rows outside [0, T) are the SAME padding
-#pragma unroll 4
-      for (int idx = tid; idx < kXRows * kBK; idx += kThreads) {
-        const int r = idx / kBK, kk = idx % kBK;
-        const int t = m0 - kHalo + r, ci = c0 + kk;
-        float v = 0.f;
-        if (t >= 0 && t < t_len && ci < cin) v = xb[(size_t)t * x_pitch + ci];
-        split_store(s_x + r * kSK + kk, kXElems, v);
-      }
-      // weights w[n0 + n, ci, tap]: contiguous over (ci, tap) for each channel
-#pragma unroll 4
-      for (int idx = tid; idx < kBlockN * kBK * K; idx += kThreads) {
-        const int n = idx / (kBK * K), e = idx % (kBK * K);
-        const int kk = e / K, tap = e % K, ci = c0 + kk;
-        float v = 0.f;
-        if (n < group && ci < cin) v = w[((size_t)(n0 + n) * cin + ci) * K + tap];
-        split_store(s_w + (tap * kBlockN + n) * kSK + kk, kWElems, v);
-      }
-      __syncthreads();
+  auto load_stage = [&](int stage, int chunk) {
+    const uint32_t st = smem_base + stage * C::kStageBytes;
+    const int c0 = chunk * kBK;
+    // x rows t = m0 - halo + r as they are (f32); rows outside [0, T) are the
+    // SAME padding, channels past the row zero
+    for (int idx = tid; idx < (probe_off(kOffCopies) ? 0 : C::kXRows * (kBK / 4));
+         idx += kThreads) {
+      const int r = idx / (kBK / 4), p = idx % (kBK / 4);
+      const int t = m0 - kHalo + r, ch = c0 + p * 4;
+      const bool ok = t >= 0 && t < t_len && ch < x_pitch;
+      const float* src = ok ? xb + (size_t)t * x_pitch + ch : xb;
+      cp_async16(st + 2 * C::kXBytes + r * (kBK * 4) + p * 16, src, ok);
+    }
+    const bf16* wc = wp + (size_t)chunk * kTaps * cout8 * 8 * kBK;
+#pragma unroll
+    for (int i = 0; i < C::kWPieces; ++i)
+      if (!probe_off(kOffCopies | kOffWeights))
+        cp_async16(st + w_dst[i], w_ok[i] ? wc + w_src[i] : wp, w_ok[i]);
+  };
+  // the f32 rows of a stage as hi and lo planes: per block of 8 input channels,
+  // rows 16 B apart, as the bf16 kernel's x tile
+  auto split_stage = [&](int stage) {
+    unsigned char* st = smem_raw + stage * C::kStageBytes;
+    for (int idx = tid; idx < (probe_off(kOffSplit) ? 0 : C::kXRows * (kBK / 8));
+         idx += kThreads) {
+      const int r = idx / (kBK / 8), p = idx % (kBK / 8);
+      const float4* src = reinterpret_cast<const float4*>(st + 2 * C::kXBytes + r * (kBK * 4) + p * 32);
+      uint4 hi, lo;
+      split8(src[0], src[1], hi, lo);
+      *reinterpret_cast<uint4*>(st + p * C::kXPlaneBytes + r * 16) = hi;
+      *reinterpret_cast<uint4*>(st + C::kXBytes + p * C::kXPlaneBytes + r * 16) = lo;
+    }
+  };
 
-      if (m_active && n_active) {
-        for (int tap = 0; tap < K; ++tap) {
-          uint32_t a[2][2][4];
+  // the per-channel vectors of the epilogue and each column's local group,
+  // fetched while the main loop runs (its barriers make them visible)
+  for (int i = tid; i < 6 * BN; i += kThreads) {
+    const int which = i / BN, col = i % BN;
+    const bool ok = col < span;
+    if (which == 5) {
+      s_lg[col] = !ok ? -1 : cn_tiles > 1 ? 0 : col / group;
+      continue;
+    }
+    const float* src = which == 0 ? bias : which == 1 ? gamma : which == 2 ? beta
+                       : which == 3 ? scale : shift;
+    float v = 0.f;
+    if (src != nullptr && ok) v = src[(which >= 3 ? b * ss_stride : 0) + n_first + col];
+    s_par[which][col] = which == 3 ? 1.f + v : v;
+  }
+
+  float acc[kNT * 4];
 #pragma unroll
-          for (int s = 0; s < 2; ++s)
+  for (int i = 0; i < kNT * 4; ++i) acc[i] = 0.f;
+
+  const uint32_t a_off = wg_m * 64 * 16;
+  const uint32_t b_off = 2 * C::kXBytes + C::kRawBytes + wg_n * (C::kWGN / 8) * 256;
+
+  // One stage: per tap, x_hi.w_hi + x_hi.w_lo + x_lo.w_hi, as one group of 15
+  // wgmmas left in flight while the threads go on to the next stage.
+  auto compute = [&](int c) {
+    const uint32_t st = smem_base + (c % STAGES) * C::kStageBytes;
+    wgmma_fence();
 #pragma unroll
-            for (int mt = 0; mt < 2; ++mt) {
-              // output row m0 + row reads input row m0 + row + tap - halo = s_x row + tap
-              const bf16* pa = s_x + s * kXElems +
-                               (wm * kWarpM + mt * 16 + gq + tap) * kSK + 2 * cq;
-              a[s][mt][0] = ld32(pa);
-              a[s][mt][1] = ld32(pa + 8 * kSK);
-              a[s][mt][2] = ld32(pa + 8);
-              a[s][mt][3] = ld32(pa + 8 * kSK + 8);
-            }
+    for (int tap = 0; tap < kTaps; ++tap) {
+      const uint64_t a_hi = wgmma_desc(st + a_off + tap * 16, C::kXPlaneBytes, 128);
+      const uint64_t a_lo = wgmma_desc(st + C::kXBytes + a_off + tap * 16, C::kXPlaneBytes, 128);
+      const uint64_t b_hi = wgmma_desc(st + b_off + tap * C::kWTapBytes, 128, 256);
+      const uint64_t b_lo = wgmma_desc(st + b_off + C::kWBytes + tap * C::kWTapBytes, 128, 256);
+      if (probe_off(kOffMma)) continue;
+      Wgmma<C::kWGN>::ss(acc, a_hi, b_hi);
+      if (probe_off(kOffSmallTerms)) continue;
+      Wgmma<C::kWGN>::ss(acc, a_hi, b_lo);
+      Wgmma<C::kWGN>::ss(acc, a_lo, b_hi);
+    }
+    wgmma_commit();
+  };
+  // Ring protocol, per stage c: this thread's wgmmas up to stage c-2 are done
+  // and its copies of stage c have landed; after the barrier that holds for
+  // every thread, so the buffer of stage c-2 takes stage c + STAGES - 2 and
+  // stage c's rows are split into their planes; after a second barrier the
+  // planes are readable.
+  auto advance = [&](int c) {
+    wgmma_wait<1>();
+    cp_async_wait<STAGES - 3>();
+    __syncthreads();
+    if (c + STAGES - 2 < n_chunks) load_stage((c + STAGES - 2) % STAGES, c + STAGES - 2);
+    cp_async_commit();
+    split_stage(c % STAGES);
+    fence_async_proxy();
+    __syncthreads();
+  };
+
 #pragma unroll
-          for (int nt = 0; nt < 8; ++nt) {
-            uint32_t b0[2], b1[2];
+  for (int s = 0; s < STAGES - 2; ++s) {
+    if (s < n_chunks) load_stage(s, s);
+    cp_async_commit();
+  }
+  for (int c = 0; c < n_chunks; ++c) {
+    advance(c);
+    compute(c);
+  }
+  wgmma_wait<0>();
+  cp_async_wait<0>();
+
+  const int row_warp = wg_m * 4 + (warp & 3);
+  const int row_base = m0 + row_warp * 16 + gq;
+  const int lcol_base = wg_n * C::kWGN + 2 * cq;  // within this CTA's BN columns
+  const bool pairs = ((cout | (gpc * group)) & 1) == 0;  // channel pairs 8-byte aligned
+  const bool row_ok[2] = {row_base < t_len, row_base + 8 < t_len};
+
+  // the residual, fetched before the statistics so that its latency hides behind them
+  float rv[kNT * 4];
 #pragma unroll
-            for (int s = 0; s < 2; ++s) {
-              const bf16* pb = s_w + s * kWElems +
-                               (tap * kBlockN + wn * kWarpN + nt * 8 + gq) * kSK + 2 * cq;
-              b0[s] = ld32(pb);
-              b1[s] = ld32(pb + 8);
-            }
+  for (int i = 0; i < kNT * 4; ++i) rv[i] = 0.f;
+  if (res != nullptr) {
 #pragma unroll
-            for (int mt = 0; mt < 2; ++mt) {
-              mma_bf16(acc[mt][nt], a[0][mt], b0[0], b1[0]);
-              mma_bf16(acc[mt][nt], a[0][mt], b0[1], b1[1]);
-              mma_bf16(acc[mt][nt], a[1][mt], b0[0], b1[0]);
-            }
-          }
+    for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int lcol = lcol_base + nt * 8;
+        const size_t o = ((size_t)b * t_len + row_base + half * 8) * cout + n_first + lcol;
+        if (!row_ok[half]) continue;
+        if (pairs && lcol + 1 < span) {
+          const float2 r2 = *reinterpret_cast<const float2*>(res + o);
+          rv[nt * 4 + 2 * half] = r2.x;
+          rv[nt * 4 + 2 * half + 1] = r2.y;
+        } else {
+          if (lcol < span) rv[nt * 4 + 2 * half] = res[o];
+          if (lcol + 1 < span) rv[nt * 4 + 2 * half + 1] = res[o + 1];
         }
       }
-    }
-
-    // this row block (+ conv bias) into the shared accumulator
-    if (m_active && n_active) {
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-          for (int half = 0; half < 2; ++half) {
-            const int row = m0 + wm * kWarpM + mt * 16 + gq + half * 8;
-            const int col = wn * kWarpN + nt * 8 + 2 * cq;
-            if (row < t_len) {
-              if (col < group) s_acc[row * kAccLd + col] = acc[mt][nt][2 * half] + bias[n0 + col];
-              if (col + 1 < group)
-                s_acc[row * kAccLd + col + 1] = acc[mt][nt][2 * half + 1] + bias[n0 + col + 1];
-            }
-          }
-    }
   }
+
+  // + conv bias; rows past T do not count
+#pragma unroll
+  for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[nt * 4 + i] += s_par[0][lcol_base + nt * 8 + (i & 1)];
+
+  // Per local group, the sum over the cluster of f(v) over valid entries, in a
+  // fixed order: rows of a warp (shuffles), warps along rows, the group's
+  // columns (one warp a group), then cluster ranks. `slot` is 0 or 1.
+  const int n_local = cn_tiles > 1 ? 1 : local_groups;
+  const int width = cn_tiles > 1 ? span : group;  // this CTA's columns of one local group
+  auto group_sums = [&](int slot, auto f) {
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int lcol = lcol_base + nt * 8 + e;
+        const int lg = s_lg[lcol];
+        float v = 0.f;
+#pragma unroll
+        for (int half = 0; half < 2; ++half)
+          if (row_ok[half] && lg >= 0) v += f(acc[nt * 4 + 2 * half + e], lg);
+        v += __shfl_xor_sync(0xffffffffu, v, 4);
+        v += __shfl_xor_sync(0xffffffffu, v, 8);
+        v += __shfl_xor_sync(0xffffffffu, v, 16);
+        if (gq == 0) s_col[row_warp][lcol] = v;
+      }
+    __syncthreads();
+    for (int g = warp; g < n_local; g += kThreads / 32) {
+      float v = 0.f;
+      for (int c = lane; c < width; c += 32)
+#pragma unroll
+        for (int r = 0; r < C::kRowWarps; ++r) v += s_col[r][g * width + c];
+      v = warp_sum(v);
+      if (lane == 0) s_part[slot][g] = v;
+    }
+    cluster.sync();
+    const unsigned n = cluster.num_blocks();
+    for (int g = tid; g < n_local; g += kThreads) {
+      float total = 0.f;
+      for (unsigned r = 0; r < n; ++r) total += cluster.map_shared_rank(&s_part[slot][0], r)[g];
+      s_stat[slot][g] = total;
+    }
+    __syncthreads();
+  };
+  const float count = (float)t_len * (float)group;
+  group_sums(0, [](float v, int) { return v; });
+  for (int g = tid; g < n_local; g += kThreads) s_stat[0][g] /= count;
+  __syncthreads();
+  group_sums(1, [&](float v, int lg) {
+    const float d = v - s_stat[0][lg];
+    return d * d;
+  });
+  for (int g = tid; g < n_local; g += kThreads) s_stat[1][g] = rsqrtf(s_stat[1][g] / count + eps);
   __syncthreads();
 
-  // GroupNorm statistics over T x group: the mean, then the centred variance
-  const int count = t_len * group;
-  float s = 0.f;
-  for (int idx = tid; idx < count; idx += kThreads) s += s_acc[(idx / group) * kAccLd + idx % group];
-  const float mean = block_sum(s, s_red) / count;
-  float q = 0.f;
-  for (int idx = tid; idx < count; idx += kThreads) {
-    const float d = s_acc[(idx / group) * kAccLd + idx % group] - mean;
-    q += d * d;
+  // epilogue: affine, AdaGN (1 + scale is 1 and shift 0 without it), Mish,
+  // residual; each output written once
+#pragma unroll
+  for (int nt = 0; nt < kNT; ++nt) {
+    const int lcol = lcol_base + nt * 8;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      if (!row_ok[half] || lcol >= span) continue;
+      float h[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int lg = s_lg[lcol + e] < 0 ? 0 : s_lg[lcol + e];
+        h[e] = (acc[nt * 4 + 2 * half + e] - s_stat[0][lg]) * s_stat[1][lg] * s_par[1][lcol + e] +
+               s_par[2][lcol + e];
+        h[e] = h[e] * s_par[3][lcol + e] + s_par[4][lcol + e];
+        h[e] = mish(h[e]) + rv[nt * 4 + 2 * half + e];
+      }
+      const size_t o = ((size_t)b * t_len + row_base + half * 8) * cout + n_first + lcol;
+      if (pairs && lcol + 1 < span) {
+        *reinterpret_cast<float2*>(out + o) = make_float2(h[0], h[1]);
+      } else {
+        out[o] = h[0];
+        if (lcol + 1 < span) out[o + 1] = h[1];
+      }
+    }
   }
-  const float rstd = rsqrtf(block_sum(q, s_red) / count + eps);
-
-  // epilogue: affine, AdaGN, Mish, residual; each output written once
-  for (int idx = tid; idx < count; idx += kThreads) {
-    const int r = idx / group, col = idx % group, c = n0 + col;
-    float h = (s_acc[r * kAccLd + col] - mean) * rstd * gamma[c] + beta[c];
-    if (scale != nullptr) h = h * (1.f + scale[b * ss_stride + c]) + shift[b * ss_stride + c];
-    h = mish(h);
-    const size_t o = ((size_t)b * t_len + r) * cout + c;
-    if (res != nullptr) h += res[o];
-    out[o] = h;
-  }
+  cluster.sync();  // no CTA leaves while another may still read its partial sums
 }
 
-int launch(const void* x, const void* w, const void* bias, const void* gamma, const void* beta,
+// (rows, channels) of one CTA at length T: 64 x 64 up to T=256, where a
+// cluster of up to 4 x 2 CTAs holds a group of 128 (two CTAs an SM); 128 x 128
+// beyond, up to 8 CTAs along T (T <= 1024). Mirrored by ops/resblock.py
+// `f32_tiles`.
+__host__ __device__ constexpr int tile_rows(int t_len) { return t_len <= 256 ? 64 : 128; }
+
+template <int BM, int BN, int STAGES>
+int launch(const void* x, const void* wp, const void* bias, const void* gamma, const void* beta,
            const void* scale, const void* shift, long long ss_stride, const void* res, void* out,
-           int batch, int t_len, int x_pitch, int cin, int cout, int n_groups, float eps,
+           int batch, int t_len, int x_pitch, int cin_pad, int cout, int n_groups, float eps,
            cudaStream_t stream) {
-  const size_t smem = smem_bytes(t_len);
-  if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
-  static cudaError_t attr_err = cudaFuncSetAttribute(
-      resblock_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+  using C = Cfg<BM, BN, STAGES>;
+  auto kernel = resblock_f32_kernel<BM, BN, STAGES>;
+  static cudaError_t attr_err =  // once per instantiation
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
   if (attr_err != cudaSuccess) return (int)attr_err;
+  const int group = cout / n_groups;
+  const int gpc = group >= BN ? 1 : BN / group;
+  const int cn_tiles = group > BN ? (group + BN - 1) / BN : 1;
+  const int ct_tiles = (t_len + BM - 1) / BM;
+  const int cluster_size = ct_tiles * cn_tiles;
+  if (cluster_size > kMaxCluster) return (int)cudaErrorInvalidValue;
+
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster_size, (n_groups + gpc - 1) / gpc, batch);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = C::kSmem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster_size;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
   auto f = [](const void* p) { return static_cast<const float*>(p); };
-  resblock_f32_kernel<<<dim3(n_groups, batch), kThreads, smem, stream>>>(
-      f(x), f(w), f(bias), f(gamma), f(beta), f(scale), f(shift), ss_stride, f(res),
-      static_cast<float*>(out), t_len, x_pitch, cin, cout, cout / n_groups, eps);
+  cudaError_t err = cudaLaunchKernelEx(
+      &cfg, kernel, f(x), static_cast<const bf16*>(wp), f(bias), f(gamma), f(beta), f(scale),
+      f(shift), ss_stride, f(res), static_cast<float*>(out), t_len, x_pitch, cin_pad / kBK, cout,
+      n_groups, group, gpc, cn_tiles, eps);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
@@ -712,11 +922,14 @@ int launch(const void* x, const void* w, const void* bias, const void* gamma, co
 }  // namespace
 
 // x: [B, T, x_pitch] contiguous, channels [cin, x_pitch) ignored. dtype 0 =
-// float32: w is [Cout, cin, 5]. dtype 1 = bfloat16: w is the packed
-// [cin/32, 5, Cout/8, 4, 8, 8] of ops/resblock.py `pack_conv_weight` (chunk of
-// 32 input channels, tap, block of 8 output channels, block of 8 input
-// channels, output channel, input channel; cin the padded width, a multiple of
-// 32) and x_pitch % 8 == 0. Returns the launch's error code, 0 on success.
+// float32: w is the split weight of ops/resblock.py `split_conv_weight`, its hi
+// and lo bf16 planes each packed as `pack_conv_weight` packs with chunks of 16
+// ([2][cin/16, 5, Cout/8, 2, 8, 8]; cin the padded width, a multiple of 16),
+// and x_pitch % 4 == 0. dtype 1 = bfloat16: w is the packed
+// [cin/32, 5, Cout/8, 4, 8, 8] of `pack_conv_weight` (chunk of 32 input
+// channels, tap, block of 8 output channels, block of 8 input channels, output
+// channel, input channel; cin the padded width, a multiple of 32) and
+// x_pitch % 8 == 0. Returns the launch's error code, 0 on success.
 extern "C" int condmdi_resblock_forward(const void* x, const void* w, const void* bias,
                                         const void* gamma, const void* beta, const void* scale,
                                         const void* shift, long long ss_stride, const void* res,
@@ -728,9 +941,17 @@ extern "C" int condmdi_resblock_forward(const void* x, const void* w, const void
       (scale == nullptr) != (shift == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return f32::launch(x, w, bias, gamma, beta, scale, shift, ss_stride, res, out, batch, t_len,
-                       x_pitch, cin, cout, n_groups, eps, s);
+  if (dtype == 0) {
+    if (cin % f32::kBK != 0 || x_pitch % 4 != 0 || x_pitch > cin ||
+        (long long)cin * kTaps * ((cout + 7) / 8 * 8) >= (1LL << 30))
+      return (int)cudaErrorInvalidValue;
+#define CONDMDI_F32(BM, BN, STAGES)                                                            \
+  f32::launch<BM, BN, STAGES>(x, w, bias, gamma, beta, scale, shift, ss_stride, res, out,      \
+                              batch, t_len, x_pitch, cin, cout, n_groups, eps, s)
+    if (f32::tile_rows(t_len) == 64) return CONDMDI_F32(64, 64, 3);
+    return CONDMDI_F32(128, 128, 3);
+#undef CONDMDI_F32
+  }
   if (dtype != 1 || cin % kBK != 0 || x_pitch % 8 != 0 || x_pitch > cin)
     return (int)cudaErrorInvalidValue;
 #define CONDMDI_BF16(BM, BN, STAGES)                                                          \

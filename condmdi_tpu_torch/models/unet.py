@@ -11,8 +11,9 @@ state_dict by layout transforms alone. The layout is [B, T, C].
 
 Float mode: every resblock half (Conv1dBlock, Conv1dAdaGNBlock) calls
 ops.resblock.fused_conv_gn_mish: the Hopper kernel on CUDA, its plain
-version on the CPU. The bf16 kernel reads a packed copy of the conv weight,
-which each half keeps and remakes when its weight changes; MDM_UNET pads its
+version on the CPU. The kernel reads a packed copy of the conv weight (in
+float32 its hi and lo bf16 parts), which each half keeps and remakes when its
+weight changes; MDM_UNET pads its
 input's channels to a multiple of 8 (526 → 528) so that the kernel's rows
 are 16-byte aligned, and the first resblock ignores the padding. Downsample
 (k3 s2 p1), residual_conv (1×1) and final_conv (1×1) are plain convolutions
@@ -152,8 +153,9 @@ class QConv(ParamModule):
 
 class _ResblockHalf(nn.Module):
     """What both resblock halves hold: the conv (a QConv) and norm parameters,
-    and the bf16 fused kernel's packed copy of the conv weight (a plain
-    attribute, not in the state_dict, remade when the weight changes)."""
+    and the fused kernel's packed copy of the conv weight (split into hi and lo
+    bf16 parts in float32; a plain attribute, not in the state_dict, remade when
+    the weight changes)."""
 
     def __init__(self, in_channels, out_channels, kernel_size, n_groups, zero, precision_mode,
                  device, dtype):

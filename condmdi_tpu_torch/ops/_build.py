@@ -110,6 +110,7 @@ def _bind_attention(lib: ctypes.CDLL) -> None:
         ll, ll,       # batch and row strides of q/k/v, in elements
         i, i,         # dtype code, the route the caller expects
         p,            # stream
+        p,            # the float32 route's hi/lo planes (scratch), or null
     ]
     lib.condmdi_attention_forward.restype = i
     lib.condmdi_attention_route.argtypes = [i, i, i]  # T, head_dim, dtype code

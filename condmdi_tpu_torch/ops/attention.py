@@ -7,7 +7,9 @@ Counterpart of condmdi_tpu/ops/attention.py, with the same names:
     csrc/attention.cu (built and bound by ops/_build.py) or raises; it never
     falls back to the plain version. A CPU tensor takes `_xla_attention`, the
     plain PyTorch version. Which kernel runs is `attention_route`, a function
-    of the shape and the type alone.
+    of the shape and the type alone: the resident `wgmma` kernel in bf16
+    ("wgmma"), the same kernel on hi and lo bf16 planes in float32
+    ("wgmma_f32"), the first tiled kernel for the rest ("mma_sync").
     Its backward recomputes the softmax in plain torch, formula for formula
     as the JAX package's `_fused_bwd` does in XLA: that backward was never a
     Pallas kernel.
@@ -33,7 +35,7 @@ from condmdi_tpu_torch.ops import _build
 _MAX_HEAD_DIM = 128  # the widest head the kernel takes (multiples of 8)
 _MAX_GRID = 65535  # CUDA's limit on grid y and z, where the tiled kernel puts H and B
 _DTYPES = {torch.float32: (0, 4), torch.bfloat16: (1, 2)}  # the C entry's code, bytes a value
-_ROUTE_CODES = {"mma_sync": 0, "wgmma": 1}  # as csrc/attention.cu `route_of` numbers them
+_ROUTE_CODES = {"mma_sync": 0, "wgmma": 1, "wgmma_f32": 2}  # as csrc/attention.cu `route_of`
 _WGMMA_HEAD_DIMS = (32, 64, 128)  # head widths the resident kernel is instantiated for
 _WGMMA_SMEM_BUDGET = 232448 - 1024  # a block's shared memory on sm_90, less a reserve
 
@@ -112,13 +114,14 @@ def multihead_attention(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
     return mha(q, k, v, num_heads)
 
 
-def resident_smem_bytes(T: int, hd: int) -> int:
+def resident_smem_bytes(T: int, hd: int, planes: int = 1) -> int:
     """Shared memory of the resident kernel (csrc/attention.cu `resident::smem_bytes`,
-    which `attention_route` mirrors with it):
-    K and V of one head, rows padded to a multiple of 16; V at least as long as
-    the 64-row product over a short K tile reads; 32 barriers."""
+    which `attention_route` mirrors with it): K and V of one head in `planes`
+    planes (1 in bf16; hi and lo in float32), rows padded to a multiple of 16;
+    V at least as long as the 64-row product over a short K tile reads past K's
+    last plane; 32 barriers."""
     one = 2 * hd * 16 * -(-T // 16)
-    return 2 * one + max(0, (64 - 16) * 128 - one) + 32 * 8
+    return 2 * planes * one + max(0, (64 - 16) * 128 - planes * one) + 32 * 8
 
 
 def attention_route(B: int, T: int, H: int, hd: int, dtype: torch.dtype) -> str:
@@ -126,18 +129,21 @@ def attention_route(B: int, T: int, H: int, hd: int, dtype: torch.dtype) -> str:
 
     "wgmma": bfloat16, a head width of 32, 64 or 128, and K and V of one head
     within a block's shared memory (T <= 448 at hd=128): all of K and V resident,
-    both products on wgmma. "mma_sync": everything else the kernels take
-    (float32; other head widths; longer T): 64-key tiles, mma.sync. The answer
-    depends on the shape and the type only, never on a build or a launch.
+    both products on wgmma. "wgmma_f32": float32 at those head widths with the
+    hi and lo bf16 planes of K and V within a block (T <= 224 at hd=128, 448 at
+    64, 896 at 32): q, k, v split once by a pass before the same kernel, three
+    bf16 products for each. "mma_sync": everything else the kernels take (other
+    head widths; longer T): 64-key tiles, mma.sync. The answer depends on the
+    shape and the type only, never on a build or a launch.
 
     This is csrc/attention.cu `route_of` (exported as `condmdi_attention_route`)
     once more in Python, so that the route can be asked where there is no card.
     The C entry refuses a launch whose route is not its own answer, and
     tests/test_torch_cuda.py holds the two together on the card.
     """
-    if (dtype == torch.bfloat16 and hd in _WGMMA_HEAD_DIMS
-            and resident_smem_bytes(T, hd) <= _WGMMA_SMEM_BUDGET):
-        return "wgmma"
+    planes = 2 if dtype == torch.float32 else 1
+    if hd in _WGMMA_HEAD_DIMS and resident_smem_bytes(T, hd, planes) <= _WGMMA_SMEM_BUDGET:
+        return "wgmma_f32" if planes == 2 else "wgmma"
     return "mma_sync"
 
 
@@ -181,11 +187,15 @@ def _launch(q, k, v, num_heads: int) -> torch.Tensor:
         # both kernels read rows in 16-byte pieces
         raise ValueError("fused_self_attention: q/k/v rows must be 16-byte aligned")
     out = torch.empty(shape, device=q.device, dtype=dtype)
+    # the float32 route's hi and lo bf16 planes of q, k and v, written by its split pass
+    scratch = (torch.empty((3, 2, B, T, D), device=q.device, dtype=torch.bfloat16)
+               if route == "wgmma_f32" else None)
 
     lib = _build.load_attention()
     err = lib.condmdi_attention_forward(
         q_ptr, k_ptr, v_ptr, out.data_ptr(), B, T, num_heads, hd, strides[0], strides[1],
         code, _ROUTE_CODES[route], torch._C._cuda_getCurrentRawStream(index),
+        None if scratch is None else scratch.data_ptr(),
     )
     if err != 0:
         raise RuntimeError(

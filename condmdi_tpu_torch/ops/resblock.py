@@ -27,10 +27,12 @@ carry up to 7 trailing alignment channels beyond the weight's Cin (the UNet
 pads its 526-channel input to 528 so that rows are 16-byte aligned); they
 are ignored.
 
-The bfloat16 kernel reads the weight in a packed layout
-(`pack_conv_weight`). A module packs once per parameter and hands the call a
-`PackedConvWeight`, which repacks when the parameter changes; a call without
-one packs on the fly.
+The kernel reads the weight in a packed layout: `pack_conv_weight` in
+bfloat16, and in float32 `split_conv_weight`, the weight's hi and lo bf16
+parts packed the same way (the float32 kernel computes x·w as
+x_hi·w_hi + x_hi·w_lo + x_lo·w_hi on the tensor cores). A module packs once
+per parameter and hands the call a `PackedConvWeight`, which repacks when the
+parameter changes; a call without one packs on the fly.
 """
 
 from __future__ import annotations
@@ -45,14 +47,16 @@ _MAX_SMEM = 232448
 _BLOCK_N = 128  # the group width's upper bound: one cluster holds one group
 _TAPS = 5  # the conv width the kernel is built for (every resblock half)
 _CHUNK = 32  # input channels per stage of the bf16 kernel = the packed weight's chunk
+_F32_CHUNK = 16  # the same for the float32 kernel and its split weight
 _MAX_CLUSTER = 8  # thread blocks of one cluster (the portable limit)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def pack_conv_weight(w: torch.Tensor) -> torch.Tensor:
-    """[Cout, Cin, k] → [Cin_pad/32, k, Cout_pad/8, 4, 8, 8]: (chunk of 32 input
-    channels, tap, block of 8 output channels, block of 8 input channels, output
-    channel, input channel), Cin zero-padded to a multiple of 32 and Cout to one of 8.
+def pack_conv_weight(w: torch.Tensor, chunk: int = _CHUNK) -> torch.Tensor:
+    """[Cout, Cin, k] → [Cin_pad/chunk, k, Cout_pad/8, chunk/8, 8, 8]: (chunk of
+    input channels, tap, block of 8 output channels, block of 8 input channels,
+    output channel, input channel), Cin zero-padded to a multiple of `chunk` (32
+    for the bf16 kernel) and Cout to one of 8.
 
     The innermost 8 x 8 block (128 contiguous bytes in bf16) is one core matrix
     of the tensor cores' shared-memory operand, so the kernel copies a stage's
@@ -60,21 +64,34 @@ def pack_conv_weight(w: torch.Tensor) -> torch.Tensor:
     reads; the stage of one CTA is k contiguous runs.
     """
     cout, cin, k = w.shape
-    cin_pad, cout_pad = -(-cin // _CHUNK) * _CHUNK, -(-cout // 8) * 8
+    cin_pad, cout_pad = -(-cin // chunk) * chunk, -(-cout // 8) * 8
     wp = F.pad(w, (0, 0, 0, cin_pad - cin, 0, cout_pad - cout))
-    wp = wp.reshape(cout_pad // 8, 8, cin_pad // _CHUNK, _CHUNK // 8, 8, k)
+    wp = wp.reshape(cout_pad // 8, 8, cin_pad // chunk, chunk // 8, 8, k)
     return wp.permute(2, 5, 0, 3, 1, 4).contiguous()
 
 
 def unpack_conv_weight(wp: torch.Tensor, cout: int, cin: int) -> torch.Tensor:
-    """The inverse of `pack_conv_weight`: back to [cout, cin, k]."""
-    chunks, k, blocks = wp.shape[:3]
-    w = wp.permute(2, 4, 0, 3, 5, 1).reshape(blocks * 8, chunks * _CHUNK, k)
+    """The inverse of `pack_conv_weight` (at either chunk): back to [cout, cin, k]."""
+    chunks, k, blocks, blocks_in = wp.shape[:4]
+    w = wp.permute(2, 4, 0, 3, 5, 1).reshape(blocks * 8, chunks * blocks_in * 8, k)
     return w[:cout, :cin].contiguous()
 
 
+def split_conv_weight(w: torch.Tensor) -> torch.Tensor:
+    """A float32 [Cout, Cin, k] weight as the float32 kernel reads it: its hi and lo
+    bf16 parts, hi = bf16(w) and lo = bf16(w - hi), each packed by
+    `pack_conv_weight` in 16-channel chunks: [2, Cin_pad/16, k, Cout_pad/8, 2, 8, 8].
+    hi + lo is w to within 2^-16 of |w| (each rounding keeps 8 significant bits)."""
+    w = w.float()
+    hi = w.to(torch.bfloat16)
+    lo = (w - hi.float()).to(torch.bfloat16)
+    return torch.stack([pack_conv_weight(hi, _F32_CHUNK), pack_conv_weight(lo, _F32_CHUNK)])
+
+
 class PackedConvWeight:
-    """The packed copy of one conv weight, remade when the weight changes.
+    """The packed copy of one conv weight as the kernel reads it in the weight's
+    dtype (`split_conv_weight` in float32, `pack_conv_weight` otherwise),
+    remade when the weight changes.
 
     Held by the calling module as a plain attribute: not a parameter, not a
     buffer, not in the state_dict. The key is the weight's version counter,
@@ -90,9 +107,14 @@ class PackedConvWeight:
     def get(self, w: torch.Tensor) -> torch.Tensor:
         key = (w._version, w.data_ptr(), w.dtype, w.device, tuple(w.shape))
         if key != self._key:
-            self._packed = pack_conv_weight(w.detach())
+            self._packed = packed_for_kernel(w.detach())
             self._key = key
         return self._packed
+
+
+def packed_for_kernel(w: torch.Tensor) -> torch.Tensor:
+    """The weight as the kernel of its dtype reads it."""
+    return split_conv_weight(w) if w.dtype == torch.float32 else pack_conv_weight(w)
 
 
 def mish(x: torch.Tensor) -> torch.Tensor:
@@ -215,19 +237,34 @@ def bf16_tiles(T: int) -> tuple[int, int, int]:
     return 128, 128, 4
 
 
-def cluster_size(T: int, group: int) -> int:
-    """Thread blocks that share one (batch item, group) in the bf16 kernel."""
-    bm, bn, _ = bf16_tiles(T)
+def f32_tiles(T: int) -> tuple[int, int, int]:
+    """(rows, channels, ring stages) of one CTA of the float32 kernel at length T
+    (csrc/resblock.cu `f32::tile_rows` and the dispatch beside it)."""
+    if T <= 256:
+        return 64, 64, 3
+    return 128, 128, 3
+
+
+def cluster_size(T: int, group: int, dtype: torch.dtype = torch.bfloat16) -> int:
+    """Thread blocks that share one (batch item, group): the row tiles along T
+    times the channel tiles of a group wider than the tile (a narrower group
+    shares its CTA with its neighbours)."""
+    bm, bn, _ = f32_tiles(T) if dtype == torch.float32 else bf16_tiles(T)
     return -(-T // bm) * -(-group // bn)
 
 
 def smem_bytes(T: int, k: int, dtype: torch.dtype) -> int:
-    """Dynamic shared memory of one CTA (mirrors csrc/resblock.cu: `Cfg::kSmem`
-    for bfloat16, `f32::smem_bytes` for float32)."""
+    """Dynamic shared memory of one CTA (mirrors csrc/resblock.cu `Cfg::kSmem` for
+    bfloat16, `f32::Cfg::kSmem` for float32): the ring's stages, each the x tile
+    and the weights of k taps (in float32 also the rows as copied, and hi and lo
+    planes of both)."""
     if dtype == torch.float32:
-        sk = 16 + 8
-        acc = T * (_BLOCK_N + 4) * 4
-        return acc + 2 * ((128 + k - 1) * sk + k * _BLOCK_N * sk) * 2 + 64 * 4
+        bm, bn, stages = f32_tiles(T)
+        x_rows = bm + k - 1
+        x_plane_rows = (x_rows + 5) // 8 * 8 + 2
+        x_bytes = (_F32_CHUNK // 8) * x_plane_rows * 16
+        stage = 2 * x_bytes + x_rows * _F32_CHUNK * 4 + 2 * k * bn * _F32_CHUNK * 2
+        return stages * stage
     bm, bn, stages = bf16_tiles(T)
     x_plane_rows = (bm + k - 1 + 5) // 8 * 8 + 2  # Cfg::kXPlaneRows
     return stages * ((_CHUNK // 8) * x_plane_rows * 16 + k * bn * _CHUNK * 2)
@@ -260,12 +297,11 @@ def _launch(x, w, b, gamma, beta, scale, shift, res, n_groups, eps, packed=None)
             f"group width {group} > {_BLOCK_N}: one cluster holds one group"
         )
     bf16 = dtype == torch.bfloat16
-    if bf16 and cluster_size(T, group) > _MAX_CLUSTER:
+    if cluster_size(T, group, dtype) > _MAX_CLUSTER:
         raise NotImplementedError(
-            f"T={T} needs a cluster of {cluster_size(T, group)} blocks, more than {_MAX_CLUSTER}"
+            f"T={T} needs a cluster of {cluster_size(T, group, dtype)} blocks, more than "
+            f"{_MAX_CLUSTER}"
         )
-    if not bf16 and smem_bytes(T, k, dtype) > _MAX_SMEM:
-        raise NotImplementedError(f"T={T} does not fit one CTA's shared memory in float32")
     if not (b.shape == gamma.shape == beta.shape == (cout,)):
         raise ValueError(f"b, gamma and beta must have shape ({cout},)")
     if res is not None and res.shape != (B, T, cout):
@@ -282,14 +318,11 @@ def _launch(x, w, b, gamma, beta, scale, shift, res, n_groups, eps, packed=None)
     x, b, gamma, beta, res = (
         t if t is None or t.is_contiguous() else t.contiguous() for t in (x, b, gamma, beta, res)
     )
-    if bf16:
-        if xc % 8:  # a one-off call with unaligned rows; the UNet pads once, at its input
-            x = F.pad(x, (0, -xc % 8))
-        w = packed.get(w) if packed is not None else pack_conv_weight(w)
-        w_cin = w.shape[0] * _CHUNK
-    else:
-        w = w if w.is_contiguous() else w.contiguous()
-        w_cin = cin
+    align = 8 if bf16 else 4  # x rows are copied 16 bytes at a time
+    if xc % align:  # a one-off call with unaligned rows; the UNet pads once, at its input
+        x = F.pad(x, (0, -xc % align))
+    w = packed.get(w) if packed is not None else packed_for_kernel(w)
+    w_cin = w.shape[0] * _CHUNK if bf16 else w.shape[1] * _F32_CHUNK
     out = torch.empty((B, T, cout), device=device, dtype=dtype)
 
     from condmdi_tpu_torch.ops import _build

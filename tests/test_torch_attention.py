@@ -163,8 +163,18 @@ def test_other_devices_raise():
     (2, 70, 4, 24, torch.bfloat16, "mma_sync"),    # a width the resident kernel is not built for
     (2, 70, 4, 16, torch.bfloat16, "mma_sync"),
     (2, 70, 1, 96, torch.bfloat16, "mma_sync"),
-    (8, 197, 4, 128, torch.float32, "mma_sync"),   # float32 stays on the first kernel
-    (3, 25, 2, 64, torch.float32, "mma_sync"),
+    (8, 197, 4, 128, torch.float32, "wgmma_f32"),  # float32: hi and lo planes resident
+    (4, 197, 4, 128, torch.float32, "wgmma_f32"),  # MDM edit (B=4) as the CLI runs it
+    (3, 25, 2, 64, torch.float32, "wgmma_f32"),
+    (2, 7, 2, 32, torch.float32, "wgmma_f32"),
+    (1, 224, 1, 128, torch.float32, "wgmma_f32"),  # the longest hi+lo K and V at hd 128 ...
+    (1, 225, 1, 128, torch.float32, "mma_sync"),   # ... and one row more
+    (1, 448, 1, 64, torch.float32, "wgmma_f32"),
+    (1, 449, 1, 64, torch.float32, "mma_sync"),
+    (1, 896, 1, 32, torch.float32, "wgmma_f32"),
+    (1, 897, 1, 32, torch.float32, "mma_sync"),
+    (2, 70, 4, 24, torch.float32, "mma_sync"),     # a width the resident kernel is not built for
+    (2, 70, 1, 96, torch.float32, "mma_sync"),
 ])
 def test_route_is_a_function_of_shape_and_dtype(case):
     B, T, H, hd, dtype, route = case
@@ -232,7 +242,48 @@ def test_card_path_names_the_route_when_a_launch_fails(monkeypatch):
     args = Refusing.args
     assert args[1] - args[0] == args[2] - args[1] == 2 * 256
     assert args[4:10] == (2, 70, 2, 128, 70 * 768, 768)
-    assert args[10:] == (1, 1, 0)  # bfloat16, the wgmma route, the stream
+    assert args[10:] == (1, 1, 0, None)  # bfloat16, the wgmma route, the stream, no scratch
+
+
+def test_float32_route_hands_the_entry_point_its_planes(monkeypatch):
+    """The float32 route ("wgmma_f32") allocates the hi and lo bf16 planes of q, k
+    and v ([3, 2, B, T, D]) and passes them to the C entry as its scratch; a
+    refused launch raises with the route's name, counts nothing and never takes
+    the plain version."""
+    class Refusing:
+        @staticmethod
+        def condmdi_attention_forward(*args):
+            Refusing.args = args
+            return 1
+
+        @staticmethod
+        def condmdi_error_string(err):
+            return b"invalid argument"
+
+    def never_plain(*_a, **_k):
+        raise AssertionError("the card path fell back to the plain version")
+
+    allocated = []
+    empty = torch.empty
+
+    def recording_empty(*shape, **kw):
+        t = empty(*shape, **kw)
+        allocated.append(t)
+        return t
+
+    monkeypatch.setattr(_build, "load_attention", lambda: Refusing)
+    monkeypatch.setattr(attention, "_xla_attention", never_plain)
+    monkeypatch.setattr(attention.torch, "empty", recording_empty)
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream", lambda index: 0, raising=False)
+    q, k, v = torch.zeros(4, 197, 3 * 512).chunk(3, dim=-1)
+    before = attention.fused_self_attention.launches
+    with pytest.raises(RuntimeError, match="route wgmma_f32"):
+        attention._launch(q, k, v, 4)
+    assert attention.fused_self_attention.launches == before
+    args = Refusing.args
+    assert args[4:13] == (4, 197, 4, 128, 197 * 1536, 1536, 0, 2, 0)  # float32, route 2
+    planes = next(t for t in allocated if t.dtype == torch.bfloat16)
+    assert planes.shape == (3, 2, 4, 197, 512) and args[13] == planes.data_ptr()
 
 
 def test_probe_switches_are_the_sources_and_the_package_builds_without_them(monkeypatch):
@@ -249,8 +300,9 @@ def test_probe_switches_are_the_sources_and_the_package_builds_without_them(monk
     bits = {name: int(value) for name, value in re.findall(r"(kOff\w+) = (\d+)", body)}
     assert bits == {"kOffScores": probe.SCORES, "kOffPv": probe.PV, "kOffSoftmax": probe.SOFTMAX,
                     "kOffStores": probe.STORES, "kOffQ": probe.Q_LOADS, "kOffSlack": probe.SLACK,
-                    "kOffSecondCta": probe.SECOND_CTA}
-    assert sorted(bits.values()) == [1, 2, 4, 8, 16, 32, 64]
+                    "kOffSecondCta": probe.SECOND_CTA, "kOffF32Route": probe.F32_ROUTE0,
+                    "kOffPdl": probe.NO_PDL}
+    assert sorted(bits.values()) == [1, 2, 4, 8, 16, 32, 64, 128, 256]
     assert probe.VARIANTS["as committed"] == 0
     assert all(0 <= mask < 128 for mask in probe.VARIANTS.values())
     assert not any("CONDMDI_PROBE" in flag for flag in _build.NVCC_FLAGS)
@@ -272,5 +324,5 @@ def test_entry_point_has_one_route_function():
         condmdi_attention_forward, condmdi_attention_route, condmdi_error_string = _Fn(), _Fn(), _Fn()
 
     _build._bind_attention(Lib)
-    assert len(Lib.condmdi_attention_forward.argtypes) == 13
+    assert len(Lib.condmdi_attention_forward.argtypes) == 14
     assert len(Lib.condmdi_attention_route.argtypes) == 3

@@ -139,7 +139,7 @@ def test_kernel_wrapper_refuses_what_the_kernel_does_not_take(cuda_device, bad):
     if bad == "long_T_bf16":
         T = 1025  # nine 128-row tiles: more than one cluster holds
     elif bad == "long_T_f32":
-        T, dt = 420, torch.float32  # the f32 pre-norm tile outgrows shared memory
+        T, dt = 1025, torch.float32  # nine 128-row tiles: more than one cluster holds
     elif bad == "group_width":
         cout = 8 * 136
     args, kw = make_inputs(B, T, cin, cout, False, False, dt, cuda_device)
@@ -160,6 +160,9 @@ GRAD_TOL = 1e-5  # |kernel path - plain path| <= tol * (1 + |plain|) for a gradi
     (2, 200, 526, 528, 1024, True, False),
     (2, 100, 2048, 2048, 1024, True, False),
     (2, 25, 1024, 1024, 1024, False, True),
+    # the conditional CLI's UNet-XL at pad 224, B=4 (two channel tiles a group, 64-row tiles)
+    (4, 224, 526, 528, 1024, True, False),
+    (4, 28, 2048, 2048, 1024, True, False),
 ])
 def test_kernel_gradients_match_plain(cuda_device, case):
     """Under autograd the half goes through ConvGnMish: the kernel forward, a
@@ -401,8 +404,8 @@ def test_python_route_is_the_librarys_route(cuda_device):
     from condmdi_tpu_torch.ops import _build
 
     lib = _build.load_attention()
-    lengths = sorted({t + d for t in (1, 16, 64, 197, 448, 896, 1792, 2048) for d in (-1, 0, 1)
-                      if t + d >= 1})
+    lengths = sorted({t + d for t in (1, 16, 64, 197, 224, 448, 896, 1792, 2048)
+                      for d in (-1, 0, 1) if t + d >= 1})
     for dtype, (code, _) in attention._DTYPES.items():
         for hd in range(8, 129, 8):
             for T in lengths:
@@ -423,10 +426,12 @@ def test_entry_point_refuses_a_route_that_is_not_the_shapes(cuda_device, dtype):
     q, k, v = qkv_views(B, T, D, dt, cuda_device)
     out = torch.zeros(B, T, D, device=cuda_device, dtype=dt)
     code = attention._DTYPES[dt][0]
-    wrong = 1 - lib.condmdi_attention_route(T, D // H, code)
+    wrong = (lib.condmdi_attention_route(T, D // H, code) + 1) % 3  # another of the three
+    scratch = torch.empty((3, 2, B, T, D), device=cuda_device, dtype=torch.bfloat16)
     err = lib.condmdi_attention_forward(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, T, H, D // H,
-        q.stride(0), q.stride(1), code, wrong, torch.cuda.current_stream().cuda_stream)
+        q.stride(0), q.stride(1), code, wrong, torch.cuda.current_stream().cuda_stream,
+        scratch.data_ptr())
     torch.cuda.synchronize()
     assert err != 0 and "invalid" in _build.error_string(lib, err)
     assert out.abs().max().item() == 0
@@ -436,9 +441,11 @@ def test_entry_point_refuses_a_route_that_is_not_the_shapes(cuda_device, dtype):
 @pytest.mark.parametrize("dtype,raises", [("bfloat16", False), ("float32", True)])
 def test_attention_batch_past_the_grid_limit(cuda_device, dtype, raises):
     """70,000 batch items: the resident kernel numbers its work along grid x and
-    takes them; the tiled kernel puts the batch in grid z and the wrapper says
-    so before anything is launched."""
-    B, T, D, H = 70_000, 3, 32, 1
+    takes them (bf16 at hd 32); the tiled kernel (here float32 at hd 24) puts the
+    batch in grid z and the wrapper says so before anything is launched. The
+    float32 route at hd 32 is held to the same batch in
+    test_f32_attention_route_past_the_grid_limit."""
+    B, T, D, H = 70_000, 3, 32 if dtype == "bfloat16" else 24, 1
     dt = getattr(torch, dtype)
     q, k, v = (torch.randn(B, T, D, device=cuda_device).to(dt) for _ in range(3))
     if raises:
@@ -965,3 +972,216 @@ def test_conditional_cli_int8_kernel_path_matches_plain(cuda_device, tmp_path):
         quant._launch = launch
     assert np.isfinite(got["motion"]).all() and np.abs(want["motion"]).max() > 0
     assert np.abs(got["motion"] - want["motion"]).max() <= 5e-3
+
+
+# --------------------------------------------------------------------------- #
+# the float32 routes: the resblock half on hi and lo planes, attention's route 2
+# --------------------------------------------------------------------------- #
+def assert_f32_resblock_matches_plain(args, kw, groups=8):
+    before = resblock.fused_conv_gn_mish.launches
+    with torch.no_grad():
+        got = resblock.fused_conv_gn_mish(*args, **kw, n_groups=groups)
+        torch.cuda.synchronize()
+        want = resblock.reference_conv_gn_mish(*args, **kw, n_groups=groups)
+    assert resblock.fused_conv_gn_mish.launches == before + 1
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+    assert torch.all((got - want).abs() <= F32_TOL * (1 + want.abs()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [1, 5, 28, 63, 64, 65, 129, 200, 224, 256, 257, 304, 420, 1000, 1024])
+@pytest.mark.parametrize("group", [16, 32, 128])
+@pytest.mark.parametrize("adagn,res", [(True, False), (False, True)])
+def test_f32_kernel_over_lengths_and_group_widths(cuda_device, T, group, adagn, res):
+    """The float32 kernel at T=1 and at T on each side of its tiles (64 rows up to
+    T=256, 128 beyond), T=304 and 420 (past the first float32 design's limit of
+    299), up to 1024, eight groups of 16 or 32 channels (several groups share a
+    CTA) or of 128 (a cluster along T and the group's two 64-channel tiles); a Cin that is no
+    multiple of the 16-channel stage; strided scale/shift views."""
+    args, kw = make_inputs(3, T, 72, 8 * group, adagn, res, torch.float32, cuda_device, seed=T)
+    assert_f32_resblock_matches_plain(args, kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [304, 420])
+def test_f32_kernel_past_the_first_designs_limit_at_the_xl_widths(cuda_device, T):
+    """A float32 UNet-XL half at T=304 and T=420, which the first float32 kernel refused
+    (its pre-norm tile in shared memory): Cin 526 in a 528-channel row."""
+    args, kw = make_inputs(2, T, 526, 1024, True, False, torch.float32, cuda_device)
+    args[0] = torch.nn.functional.pad(args[0], (0, 2))
+    assert_f32_resblock_matches_plain(args, kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cout,groups", [(64, 8), (24, 3), (56, 8), (160, 8), (96, 1)])
+def test_f32_kernel_at_odd_group_widths(cuda_device, cout, groups):
+    """Groups of 8, 8, 7, 20 and 96 channels: a tile of several whole groups with
+    columns left over, odd channel offsets, and a group of two ragged tiles."""
+    args, kw = make_inputs(2, 37, 40, cout, True, True, torch.float32, cuda_device)
+    assert_f32_resblock_matches_plain(args, kw, groups=groups)
+
+
+@pytest.mark.cuda
+def test_f32_module_output_follows_its_weight(cuda_device):
+    """The block's cached hi/lo split is remade when the weight changes in place
+    or through load_state_dict."""
+    from condmdi_tpu_torch.models.layers import init_params
+    from condmdi_tpu_torch.models.unet import Conv1dAdaGNBlock
+
+    block = init_params(Conv1dAdaGNBlock(128, 256, device=cuda_device), 0)
+    args, kw = make_inputs(2, 224, 128, 256, True, False, torch.float32, cuda_device)
+
+    def both():
+        with torch.no_grad():
+            got = block(args[0], kw["scale"], kw["shift"])
+            want = resblock.reference_conv_gn_mish(
+                args[0], block.conv.weight, block.conv.bias, block.norm.weight,
+                block.norm.bias, **kw)
+        assert torch.all((got - want).abs() <= F32_TOL * (1 + want.abs()))
+        return got
+
+    first = both()
+    packed = block.packed.get(block.conv.weight)
+    assert packed.dtype == torch.bfloat16 and packed.shape[0] == 2
+    with torch.no_grad():
+        block.conv.weight.mul_(-1.5)
+    second = both()
+    assert (first - second).abs().max() > 0.1
+    block.load_state_dict({k: torch.randn_like(v) * 0.05 for k, v in block.state_dict().items()})
+    both()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [(4, 224, 1024, 1024, True, False), (8, 112, 128, 256, True, True)])
+def test_f32_kernel_replays_inside_a_cuda_graph(cuda_device, case):
+    """One float32 half (cached split weight, as the modules call it) captured on a
+    side stream and replayed on new contents of x: equal to the eager call bit
+    for bit."""
+    B, T, cin, cout, adagn, res = case
+    args, kw = make_inputs(B, T, cin, cout, adagn, res, torch.float32, cuda_device)
+    cache = resblock.PackedConvWeight()
+    cache.get(args[1])
+
+    def call():
+        return resblock.fused_conv_gn_mish(*args, **kw, packed=cache)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side), torch.no_grad():
+        call()  # the build and the first launch stay outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.no_grad(), torch.cuda.graph(graph, stream=side):
+        out = call()
+    rng = np.random.default_rng(41)
+    for _ in range(2):
+        args[0].copy_(torch.from_numpy(rng.standard_normal(args[0].shape).astype(np.float32)))
+        graph.replay()
+        torch.cuda.synchronize()
+        with torch.no_grad():
+            eager = call()
+        assert torch.equal(out, eager)
+
+
+@pytest.mark.cuda
+def test_f32_unet_forward_past_the_first_designs_limit(cuda_device):
+    """A float32 forward of a small keyframe UNet at T=304 (every half past the
+    first float32 kernel's limit of 299 at its top level) through the kernel
+    equals the plain path."""
+    import condmdi_tpu_torch.models.unet as unet_mod
+    from condmdi_tpu_torch.models.unet import MDM_UNET
+
+    model = MDM_UNET(njoints=263, latent_dim=32, dim_mults=(1, 2), keyframe_conditioned=True,
+                     pad_frames_to=304, zero=False, device=cuda_device).requires_grad_(False)
+    rng = np.random.default_rng(5)
+
+    def arr(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(cuda_device)
+
+    x, obs = arr(2, 304, 263), arr(2, 304, 263)
+    mask = torch.zeros((2, 304, 263), dtype=torch.bool, device=cuda_device)
+    mask[:, ::10] = True
+    y = {"text_embed": arr(2, 512)}
+    t = torch.tensor([10, 700], device=cuda_device)
+    before = resblock.fused_conv_gn_mish.launches
+    with torch.no_grad():
+        got = model(x, t, y, obs_x0=obs, obs_mask=mask)
+    launched = resblock.fused_conv_gn_mish.launches - before
+    kernel_fn = unet_mod.fused_conv_gn_mish
+    unet_mod.fused_conv_gn_mish = \
+        lambda *a, packed=None, **kw: resblock.reference_conv_gn_mish(*a, **kw)
+    try:
+        with torch.no_grad():
+            want = model(x, t, y, obs_x0=obs, obs_mask=mask)
+    finally:
+        unet_mod.fused_conv_gn_mish = kernel_fn
+    assert launched > 0 and torch.isfinite(got).all() and want.abs().max() > 0
+    assert (got - want).abs().max() <= 5e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    # (B, T, D, H): MDM edit (B = 4 samples), synthesize (B = 8 under CFG), T = 1,
+    # ragged T at hd 64 and 32, the longest T at hd 128
+    (4, 197, 512, 4), (8, 197, 512, 4), (3, 1, 512, 4), (3, 25, 128, 2), (2, 70, 64, 2),
+    (2, 224, 256, 2), (40, 100, 256, 2),
+])
+def test_f32_attention_route_matches_plain(cuda_device, case):
+    B, T, D, H = case
+    assert attention.attention_route(B, T, H, D // H, torch.float32) == "wgmma_f32"
+    q, k, v = qkv_views(B, T, D, torch.float32, cuda_device, seed=T + B)
+    before = attention.fused_self_attention.launches
+    with torch.no_grad():
+        got = attention.mha(q, k, v, H)
+        torch.cuda.synchronize()
+        want = attention._xla_attention(q, k, v, H)
+    assert attention.fused_self_attention.launches == before + 1
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+    assert torch.all((got - want).abs() <= F32_TOL * (1 + want.abs()))
+
+
+@pytest.mark.cuda
+def test_f32_attention_route_past_the_grid_limit(cuda_device):
+    """70,000 batch items at hd 32 in float32: the resident kernel numbers its work
+    along grid x, and its planes of 2 x 70,000 items along the maps' batch."""
+    B, T, D, H = 70_000, 3, 32, 1
+    q, k, v = (torch.randn(B, T, D, device=cuda_device) for _ in range(3))
+    assert attention.attention_route(B, T, H, D, torch.float32) == "wgmma_f32"
+    with torch.no_grad():
+        got = attention.mha(q, k, v, H)
+        torch.cuda.synchronize()
+        want = attention._xla_attention(q, k, v, H)
+    assert torch.all((got - want).abs() <= F32_TOL * (1 + want.abs()))
+
+
+@pytest.mark.cuda
+def test_f32_attention_route_replays_inside_a_cuda_graph_bit_for_bit(cuda_device):
+    """The split pass and the kernel behind it as its programmatic dependent,
+    captured once and replayed on new contents: equal to the eager call bit for
+    bit."""
+    B, T, D, H = 4, 197, 512, 4
+    rng = np.random.default_rng(23)
+
+    def fresh():
+        return torch.from_numpy(rng.standard_normal((B, T, 3 * D)).astype(np.float32)).to(
+            cuda_device)
+
+    qkv = fresh()
+    q, k, v = qkv.chunk(3, dim=-1)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side), torch.no_grad():
+        attention.mha(q, k, v, H)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.no_grad(), torch.cuda.graph(graph, stream=side):
+        out = attention.mha(q, k, v, H)
+    for _ in range(2):
+        qkv.copy_(fresh())
+        graph.replay()
+        torch.cuda.synchronize()
+        with torch.no_grad():
+            eager = attention.mha(q, k, v, H)
+        assert torch.equal(out, eager)

@@ -27,7 +27,7 @@ def _imported_roots(path: Path):
 
 
 SOURCES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "attention_probe.py",
-                                        REPO / "int8_probe.py"]
+                                        REPO / "int8_probe.py", REPO / "resblock_probe.py"]
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(REPO)))

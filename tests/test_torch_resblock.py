@@ -203,8 +203,8 @@ def test_card_path_refuses_a_length_no_cluster_holds():
     targs = [t.to(torch.bfloat16) for t in targs]
     with pytest.raises(NotImplementedError, match="cluster"):
         resblock._launch(*targs, None, None, None, 8, 1e-5)
-    f32 = to_torch(*make_inputs(1, 420, 8, 16, adagn=False, res=False))[0]
-    with pytest.raises(NotImplementedError, match="shared memory"):
+    f32 = to_torch(*make_inputs(1, 1025, 8, 16, adagn=False, res=False))[0]
+    with pytest.raises(NotImplementedError, match="cluster"):
         resblock._launch(*f32, None, None, None, 8, 1e-5)
 
 
@@ -216,8 +216,155 @@ def test_packed_weight_cache_follows_the_weight():
     with torch.no_grad():
         w.mul_(2.0)
     second = cache.get(w)
-    assert second is not first and torch.equal(second, resblock.pack_conv_weight(w.detach()))
+    # float32: the hi and lo parts the float32 kernel reads
+    assert second is not first and torch.equal(second, resblock.split_conv_weight(w.detach()))
     w.data = w.data.to(torch.bfloat16)
     third = cache.get(w)
     assert third.dtype == torch.bfloat16
     assert torch.equal(third, resblock.pack_conv_weight(w.detach()))
+
+
+@pytest.mark.parametrize("cin,cout", [(526, 1024), (2048, 1024), (128, 256), (7, 20)])
+def test_split_weight_round_trips_within_two_to_the_minus_16(cin, cout):
+    """The float32 kernel's weight: hi = bf16(w) and lo = bf16(w - hi), each packed
+    in 16-channel chunks; unpacking gives them back, hi + lo is w within 2^-16 of
+    |w|, and the channels past Cin and Cout are zero."""
+    rng = np.random.default_rng(cin + cout)
+    w = torch.from_numpy((rng.standard_normal((cout, cin, 5)) * 0.05).astype(np.float32))
+    wp = resblock.split_conv_weight(w)
+    cin_pad, cout8 = -(-cin // 16) * 16, -(-cout // 8)
+    assert wp.shape == (2, cin_pad // 16, 5, cout8, 2, 8, 8) and wp.dtype == torch.bfloat16
+    assert wp.is_contiguous()
+    hi = resblock.unpack_conv_weight(wp[0], cout, cin)
+    lo = resblock.unpack_conv_weight(wp[1], cout, cin)
+    assert torch.equal(hi, w.to(torch.bfloat16))
+    assert torch.equal(lo, (w - hi.float()).to(torch.bfloat16))
+    assert torch.all((hi.float() + lo.float() - w).abs() <= 2.0 ** -16 * w.abs())
+    for plane in wp:
+        full = resblock.unpack_conv_weight(plane, cout8 * 8, cin_pad)
+        assert not full[:, cin:].any() and not full[cout:].any()
+    # the layout the kernel indexes: [plane, chunk, tap, channel block, input block, channel, input]
+    assert wp[0, (cin - 1) // 16, 2, (cout - 1) // 8, ((cin - 1) % 16) // 8, (cout - 1) % 8,
+              (cin - 1) % 8] == hi[cout - 1, cin - 1, 2]
+
+
+# (B, T, Cin, Cout, adagn, res) of every f32 resblock half the conditional CLI runs:
+# the gate UNet (latent 128, dim_mults 1 2 2, pad 224) at B=8, UNet-XL at pad 224, B=4
+CLI_F32_SHAPES = [
+    (8, 224, 526, 128), (8, 224, 128, 128), (8, 112, 128, 128), (8, 112, 128, 256),
+    (8, 112, 256, 256), (8, 112, 512, 128), (8, 56, 256, 256), (8, 56, 512, 256),
+    (4, 224, 526, 1024), (4, 224, 1024, 1024), (4, 112, 1024, 1024), (4, 112, 2048, 1024),
+    (4, 56, 1024, 1024), (4, 56, 2048, 1024), (4, 28, 1024, 1024), (4, 28, 2048, 1024),
+]
+
+
+@pytest.mark.parametrize("shape", CLI_F32_SHAPES, ids=lambda s: "B{}T{}cin{}cout{}".format(*s))
+def test_f32_tiles_take_every_cli_shape(shape):
+    """The mirrors of the float32 kernel's tiles, cluster and shared memory take
+    every f32 shape of both CLIs: a cluster of at most 8 and a ring within a
+    block's shared memory, with room for the static part."""
+    B, T, cin, cout = shape
+    group = cout // 8
+    bm, bn, stages = resblock.f32_tiles(T)
+    assert (bm, bn, stages) == ((64, 64, 3) if T <= 256 else (128, 128, 3))
+    assert resblock.cluster_size(T, group, torch.float32) <= resblock._MAX_CLUSTER
+    assert resblock.smem_bytes(T, 5, torch.float32) + 12288 <= resblock._MAX_SMEM
+
+
+@pytest.mark.parametrize("T", [1, 64, 65, 255, 256, 257, 304, 420, 512, 1000, 1024])
+@pytest.mark.parametrize("group", [16, 32, 64, 128])
+def test_f32_route_takes_every_length_the_bf16_route_takes(T, group):
+    """Up to T=1024 for every group width, as in bfloat16; the ring of 64-row tiles
+    (two CTAs an SM) up to T=256, 128-row tiles beyond."""
+    for dtype in (torch.float32, torch.bfloat16):
+        assert resblock.cluster_size(T, group, dtype) <= resblock._MAX_CLUSTER
+        assert resblock.smem_bytes(T, 5, dtype) <= resblock._MAX_SMEM
+    assert resblock.cluster_size(1025, group, torch.float32) > resblock._MAX_CLUSTER
+    if T <= 256:  # two CTAs and their static shared memory fit one SM's 228 KB
+        assert 2 * (resblock.smem_bytes(T, 5, torch.float32) + 4096 + 1024) <= 228 * 1024
+
+
+def test_card_path_hands_the_kernel_the_split_weight(monkeypatch):
+    """A float32 call gives the C entry the split weight (from the caller's cache),
+    its padded Cin, x padded to whole 16-byte pieces, and dtype code 0; it counts
+    the launch once, and never takes the plain version."""
+    class Lib:
+        @staticmethod
+        def condmdi_resblock_forward(*args):
+            Lib.args = args
+            return 0
+
+    monkeypatch.setattr(resblock, "reference_conv_gn_mish", _never_plain)
+    monkeypatch.setattr(_build, "load_resblock", lambda: Lib)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: type(
+        "S", (), {"cuda_stream": 0})())
+    args, kw = make_inputs(2, 30, 26, 32, adagn=True, res=True)
+    (x, w, b, g, be), tkw = to_torch(args, kw)
+    cache = resblock.PackedConvWeight()
+    before = resblock.fused_conv_gn_mish.launches
+    resblock._launch(x, w, b, g, be, tkw["scale"], tkw["shift"], tkw["res"], 8, 1e-5, cache)
+    assert resblock.fused_conv_gn_mish.launches == before + 1
+    split = cache.get(w)
+    assert Lib.args[1] == split.data_ptr() and split.shape[0] == 2
+    # B, T, x's row pitch (26 -> 28), Cin padded to the 16-channel stage, Cout, k, groups
+    assert Lib.args[10:17] == (2, 30, 28, 32, 32, 5, 8)
+    assert Lib.args[18] == 0  # float32
+
+
+def test_probe_switches_are_the_sources_and_the_package_builds_without_them(monkeypatch):
+    """resblock_probe.py names the parts of the float32 kernel it switches off by
+    the bits of csrc/resblock.cu `ProbeOff`; the package's own build passes no
+    probe macro, so its library is the kernel as written."""
+    import re
+
+    monkeypatch.syspath_prepend(str(_build.PKG_DIR.parent))
+    import resblock_probe as probe
+
+    source = (_build.CSRC_DIR / "resblock.cu").read_text()
+    body = re.search(r"enum ProbeOff \{(.*?)\};", source, re.S).group(1)
+    bits = {name: int(value) for name, value in re.findall(r"(kOff\w+) = (\d+)", body)}
+    assert bits == {"kOffMma": probe.MMA, "kOffCopies": probe.COPIES, "kOffSplit": probe.SPLIT,
+                    "kOffWeights": probe.WEIGHTS, "kOffSmallTerms": probe.SMALL_TERMS}
+    assert probe.VARIANTS["as committed"] == 0
+    assert all(0 <= mask < 32 for mask in probe.VARIANTS.values())
+    assert not any("CONDMDI_PROBE" in flag for flag in _build.NVCC_FLAGS)
+    assert "#define CONDMDI_PROBE_OFF 0" in source
+
+
+def test_probe_f32_mode_times_the_float32_rows_of_chip_smoke(monkeypatch, tmp_path):
+    """`resblock_probe.py f32` runs chip_smoke.py's float32 rows alone: the resblock
+    halves of phase 2's forward and of both CLI models, then attention at phase 5's
+    and the CLIs' shapes, and writes their sums to chiprun_out/resblock_probe_f32.json.
+    Here with stand-ins for the card's timings."""
+    import json
+
+    monkeypatch.syspath_prepend(str(_build.PKG_DIR.parent))
+    import chip_smoke as cs
+    import resblock_probe as probe
+
+    seen = []
+
+    def rows(name, shapes, B, dev):
+        seen.append((name, B, shapes))
+        return dict(rows=[{"model": name}], halves=33, ms=1.0, plain_ms=2.0, library_ms=3.0,
+                    bound_ms=0.1, host_ms_per_call=0.03)
+
+    def attention_rows(dev, cases):
+        return [dict(shape=c[0], route="wgmma_f32", ms=0.01, plain_ms=0.05, library_ms=0.03,
+                     bound_ms=0.002, host_ms=0.03) for c in cases]
+
+    monkeypatch.setattr(cs, "ROOT", tmp_path)
+    monkeypatch.setattr(cs, "f32_resblock_rows", rows)
+    monkeypatch.setattr(cs, "f32_attention_rows", attention_rows)
+    monkeypatch.setattr(cs, "main_path_shapes", lambda dev: "phase 2's shapes")
+    monkeypatch.setattr(cs, "cli_resblock_shapes", lambda argv, B, dev: (None, f"{B}", None))
+    monkeypatch.setattr(cs, "card_line", lambda: "a card, 700.00 W")
+    probe.f32("cpu")
+    assert seen == [("UNet-XL pad 200", 8, "phase 2's shapes"),
+                    ("gate UNet", 2 * cs.CLI_SAMPLES, str(2 * cs.CLI_SAMPLES)),
+                    ("UNet-XL pad 224", 2 * cs.XL_CLI_SAMPLES, str(2 * cs.XL_CLI_SAMPLES))]
+    out = json.loads((tmp_path / "chiprun_out" / "resblock_probe_f32.json").read_text())
+    assert out["card"] == "a card, 700.00 W"
+    assert set(out["f32_resblock_ms"]) == {"UNet-XL pad 200", "gate UNet", "UNet-XL pad 224"}
+    assert list(out["f32_attention_ms"]) == [c[0] for c in cs.ATTN_SHAPES + cs.CLI_ATTENTION]
+    assert "edit" in out["f32_attention_ms"] and "synthesize" in out["f32_attention_ms"]

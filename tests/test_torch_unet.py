@@ -91,6 +91,25 @@ def test_small_unet_matches_jax(T, adagn, uncond):
     np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
 
 
+def test_small_unet_matches_jax_past_the_first_f32_kernels_limit():
+    """T=304 frames (padded to 304): the top level's resblock halves run at a
+    length that the first float32 kernel refused on the card (T <= 299) and the
+    redesigned one takes (a cluster of 5 x 1 tiles); the port's float32 forward
+    equals JAX's UNet, which runs unfused where its kernel does not fit."""
+    from condmdi_tpu_torch.ops import resblock
+
+    B, T = 2, 304
+    config = dict(small_config(), pad_frames_to=T)
+    jm, params, tm = jax_pair(config, B, T)
+    x, obs, mask, text, t = inputs(B, T, seed=2)
+    got, want = run_both(jm, params, tm, x, t, {"text_embed": text}, obs, mask)
+    assert got.shape == (B, T, F)
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
+    widths = {m.conv.weight.shape[0] // m.n_groups for m in tm.modules()
+              if hasattr(m, "packed")}
+    assert all(resblock.cluster_size(T, g, torch.float32) <= 8 for g in widths)
+
+
 def test_bridge_covers_every_parameter_and_layout():
     jm, params, tm = jax_pair(small_config(zero=True), 2, 24, perturb=False)
     sd = load_flax_params(params)
@@ -196,9 +215,10 @@ def _fresh_block(seed, cin=24, cout=32):
 
 @pytest.mark.parametrize("change", ["load_state_dict", "in_place", "to_bfloat16"])
 def test_block_follows_new_weights_after_a_first_forward(change):
-    """The packed copy the card path would read is current with the weight after
+    """The packed copy the card path would read (in float32 the weight's hi and lo
+    bf16 parts, in bfloat16 the weight itself) is current with the weight after
     every way the weights change once a forward has run, and so is the output."""
-    from condmdi_tpu_torch.ops.resblock import pack_conv_weight, reference_conv_gn_mish
+    from condmdi_tpu_torch.ops.resblock import packed_for_kernel, reference_conv_gn_mish
 
     block = _fresh_block(0)
     x, scale, shift = _block_inputs()
@@ -214,9 +234,9 @@ def test_block_follows_new_weights_after_a_first_forward(change):
         block.to(torch.bfloat16)
         x, scale, shift = (t.to(torch.bfloat16) for t in (x, scale, shift))
     packed = block.packed.get(block.conv.weight)
-    assert packed.dtype == block.conv.weight.dtype
-    assert torch.equal(packed, pack_conv_weight(block.conv.weight.detach()))
-    assert not torch.equal(packed.float(), stale)
+    assert packed.dtype == torch.bfloat16
+    assert torch.equal(packed, packed_for_kernel(block.conv.weight.detach()))
+    assert not torch.equal(packed.float(), stale.float())
     with torch.no_grad():
         after = block(x, scale, shift)
         want = reference_conv_gn_mish(x, block.conv.weight, block.conv.bias, block.norm.weight,
