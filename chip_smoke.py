@@ -101,7 +101,28 @@ Phases, in order; any failure exits non-zero:
      version, with the tiles and split each takes and its kernel, plain, library,
      bound and host times, and that model's forward on the host clock against its
      device time;
- 18. a {"kernels": [...]} line (three kernels), the card line, and the final
+ 18. evals.run (the CondMDI keyframe protocol) through its `main` on the gate
+     checkpoint: benchmark_sparse at transition length 10, guidance 1.0, seed 10, hash
+     text encoder, debug mode cut to one replication of two batches of 32, the 1000-step
+     DDPM, f32; the report has the JAX report's keys, finite, the gate's
+     params_fingerprint 0d69067e95b7d9da and the run's mask settings; exactly
+     25 x 1000 x 2 resblock launches; wall seconds and samples/s; one B=32 forward on
+     the host clock against its device time and its kernels by time; then the same
+     with --precision_mode int8_static --int8_float_last_k 250: the calibration
+     trajectory (timed, its int8 launches counted apart), then exactly
+     750 x (int8 convs a forward) x 2 int8 and 250 x 25 x 2 resblock launches;
+ 19. evals.run_t2m (the legacy text-only protocol) through its `main` on MDM at the
+     default widths with Flax's initialisation: one batch of 32, CFG 2.5 (B=64
+     forwards), 1000-step DDPM, f32; a finite report with no keyframe metrics and
+     exactly 8 x 1000 attention launches; one B=64 forward's host and device time;
+ 20. kernel against plain through evals.run at DDIM-20 (same seed, so the same x_T
+     per batch): the gate in float and in int8_static, the generated motions and
+     their joints within 5e-3 (the evaluator-space motions_rel, inverse kinematics of
+     the joints, by mean-relative difference), the metrics side by side; then each kernel
+     per call at the new evaluation shapes: the gate's f32 resblock halves at B=32 and
+     its int8 convs (f32, static scale) at B=32, f32 attention at B=64, T=197, with
+     kernel, plain, library, bound and host times (reports under chiprun_out/eval/);
+ 21. a {"kernels": [...]} line (three kernels), the card line, and the final
      {"ok": true, ...}.
 
 Per-shape results also go to chiprun_out/chip_smoke.json (`python3 resblock_probe.py
@@ -137,6 +158,9 @@ PEAK_BYTES = 3.35e12      # H100 SXM HBM3 rate
 BF16_TOL = 2.0 ** -7      # |kernel - plain| <= tol * (1 + |plain|): ~2 bf16 ulps
 F32_TOL = 5e-4            # hi+lo bf16 split keeps ~16 mantissa bits
 DDIM_TOL = 5e-3           # max |kernel path - plain path| over a whole f32 sampler run
+# phase 20: the evaluator-space motions (inverse kinematics of the joints), kernel path
+# against plain, as tests/test_torch_eval_cli.py holds them against JAX
+REL_MEAN_TOL, REL_SHARE_TOL = 1e-4, 1e-3
 # One bf16 forward, kernel path against plain path. Each layer's output is
 # rounded to bf16 on both paths, an ulp (2^-8 relative) apart at most per layer,
 # and the differences add up like a random walk over the 33 resblock halves of
@@ -1625,53 +1649,54 @@ CLI_ATTENTION = [("edit", CLI_SAMPLES, MDM_TOKENS, 512, 4),  # B = samples
                  ("synthesize", 2 * CLI_SAMPLES, MDM_TOKENS, 512, 4)]  # 2 x samples under CFG
 
 
-def int8_cli_shapes(argv, B, dev, card, step_wall_ms):
-    """Every int8 conv shape of the int8 XL CLI's forward at its batch B (f32
-    activations, dynamic scale): the kernel against plain per call, with the
-    tiles and split of the K steps each launch takes; one forward on the host
-    clock against its device time, and its kernels by time."""
-    model = cli_model(argv, dev)
+def int8_model_rows(model, B, dev, card, label, form, expect=None, step_wall_ms=None):
+    """Every int8 conv shape of `model`'s forward at batch B (f32 activations, the
+    activation scale in `form`): the kernel against plain per call, with the tiles
+    and split of the K steps each launch takes and its times; with `step_wall_ms`,
+    one forward on the host clock against its device time, and its kernels by time."""
     text, obs, mask = (a.to(dev) for a in keyframe_inputs(B, 21))
     x = seeded_noise((B, T_FRAMES, FEATS), dev, seed=22)
     t = torch.full((B,), 500, device=dev)
     y = {"text_embed": text}
     shapes = record_int8_shapes(model, x, t, y, dict(obs_x0=obs, obs_mask=mask))
-    if sum(shapes.values()) != 41:
-        raise SystemExit(f"expected 41 int8 convs per CLI forward, found {shapes}")
+    if expect is not None and sum(shapes.values()) != expect:
+        raise SystemExit(f"expected {expect} int8 convs per {label} forward, found {shapes}")
     gen = torch.Generator(device=dev).manual_seed(24)
     rows = []
     for (cin, cout, k, stride, pad, T, xc), count in sorted(shapes.items()):
-        xq, q = int8_inputs(B, T, cin, cout, k, "dynamic", torch.float32, gen, dev, xc)
+        xq, q = int8_inputs(B, T, cin, cout, k, form, torch.float32, gen, dev, xc)
         err, exact = int8_kernel_against_plain(
-            f"CLI f32 dynamic x[{B},{T},{xc}] Cin={cin} Cout={cout} k={k} s={stride}",
+            f"{label} f32 {form} x[{B},{T},{xc}] Cin={cin} Cout={cout} k={k} s={stride}",
             xq, q, stride, pad)
         plan = int8_plan(B, T, cin, cout, k, stride, pad, dev)
         row = dict(cin=cin, cout=cout, k=k, stride=stride, padding=pad, T=T, x_channels=xc,
                    B=B, per_forward=count, max_abs_err_f32=err, bit_exact=exact, plan=plan)
-        row.update(time_int8(B, T, cin, cout, k, stride, pad, xc, "dynamic", gen, dev,
+        row.update(time_int8(B, T, cin, cout, k, stride, pad, xc, form, gen, dev,
                              cudnn=False, dtype=torch.float32))
         t_out = (T + 2 * pad - k) // stride + 1
         row["bound_ms"], row["bound_by"] = int8_bound_ms(B, T, t_out, cin, cout, k, itemsize=4)
-        print(f"[cli int8] B={B} Cin={cin} Cout={cout} k={k} s={stride} T={T} x{count}: "
-              f"{plan_text(plan)}; f32 dynamic: kernel {row['ms']:.4f} ms, plain "
+        print(f"[{label} int8] B={B} Cin={cin} Cout={cout} k={k} s={stride} T={T} x{count}: "
+              f"{plan_text(plan)}; f32 {form}: kernel {row['ms']:.4f} ms, plain "
               f"{row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms, bound "
               f"{row['bound_ms']:.4f} ms ({row['bound_by']}), host enqueue {row['host_ms']:.4f} ms",
               flush=True)
         rows.append(row)
+    out = dict(rows=rows, convs=sum(shapes.values()))
+    if step_wall_ms is not None:
+        def call():
+            return model(x, t, y, obs_x0=obs, obs_mask=mask)
 
-    def call():
-        return model(x, t, y, obs_x0=obs, obs_mask=mask)
-
-    forward = forward_host_vs_device(f"UNet-XL int8 f32 forward at B={B}", call, step_wall_ms)
-    forward["profile"] = profile_forward(f"UNet-XL int8 f32 forward at B={B}", call)
-    total = {k: sum(r[k] * r["per_forward"] for r in rows)
-             for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
-    print(f"[cli int8] {card}: the 41 int8 convs of the XL int8 CLI at B={B} within "
+        out["forward"] = forward_host_vs_device(f"{label} int8 f32 forward at B={B}", call,
+                                                step_wall_ms)
+        out["forward"]["profile"] = profile_forward(f"{label} int8 f32 forward at B={B}", call)
+    out.update({k: sum(r[k] * r["per_forward"] for r in rows)
+                for k in ("ms", "plain_ms", "library_ms", "bound_ms")})
+    print(f"[{label} int8] {card}: the {out['convs']} int8 convs of one forward at B={B} within "
           f"{max(r['max_abs_err_f32'] for r in rows):.3e} of plain, bit-exact "
-          f"{all(r['bit_exact'] for r in rows)}; kernel {total['ms']:.4f} ms, plain "
-          f"{total['plain_ms']:.4f} ms, library {total['library_ms']:.4f} ms, bound "
-          f"{total['bound_ms']:.4f} ms", flush=True)
-    return dict(rows=rows, forward=forward, **total)
+          f"{all(r['bit_exact'] for r in rows)}; kernel {out['ms']:.4f} ms, plain "
+          f"{out['plain_ms']:.4f} ms, library {out['library_ms']:.4f} ms, bound "
+          f"{out['bound_ms']:.4f} ms", flush=True)
+    return out
 
 
 def cli_phase17(dev, card, runs15):
@@ -1694,8 +1719,279 @@ def cli_phase17(dev, card, runs15):
     if out["gate"]["halves"] != GATE_HALVES or out["xl"]["halves"] != 33:
         raise SystemExit("unexpected resblock halves per forward in the CLI models")
     out["attention"] = f32_attention_rows(dev, CLI_ATTENTION)
-    out["int8"] = int8_cli_shapes(XL_CLI + ["--precision_mode", "int8"], 2 * XL_CLI_SAMPLES, dev,
-                                  card, runs15["xl_int8"]["seconds"] * 1e3 / CLI_STEPS)
+    out["int8"] = int8_model_rows(
+        cli_model(XL_CLI + ["--precision_mode", "int8"], dev), 2 * XL_CLI_SAMPLES, dev, card,
+        "cli", "dynamic", expect=41, step_wall_ms=runs15["xl_int8"]["seconds"] * 1e3 / CLI_STEPS)
+    return out
+
+
+# --------------------------------------------------------------------------- #
+# phases 18-20: the evaluation protocols on the card, through their `main`
+# --------------------------------------------------------------------------- #
+EVAL_OUT = ROOT / "chiprun_out" / "eval"  # never the default: it holds committed JAX reports
+EVAL_BATCH, EVAL_BATCHES = 32, 2
+GATE_FINGERPRINT = "0d69067e95b7d9da"  # the gate npz's __params_fingerprint__
+EVAL_GATE = ["--model_path", GATE_CKPT, "--edit_mode", "benchmark_sparse",
+             "--transition_length", "10", "--guidance_param", "1.0", "--seed", "10",
+             "--text_encoder", "hash", "--eval_mode", "debug", "--max_replications", "1",
+             "--num_samples", str(EVAL_BATCH * EVAL_BATCHES)]
+# the keyframe mask's settings, as the report's meta must record them
+EVAL_MASK = dict(transition_length=10, n_keyframes=5, editable_features="pos_rot_vel")
+EVAL_INT8 = ["--precision_mode", "int8_static", "--int8_float_last_k", str(K_FLOAT)]
+# MDM at the default widths with Flax's initialisation from --seed, text only, CFG 2.5
+EVAL_T2M = ["--eval_mode", "debug", "--max_replications", "1", "--num_samples", str(EVAL_BATCH),
+            "--guidance_param", "2.5", "--text_encoder", "hash", "--seed", "10"]
+# the report keys of the JAX CLIs (condmdi_tpu/evals/harness.py evaluation, run.py meta)
+EVAL_METRICS = {"matching_score", "r_precision", "fid", "diversity", "skating_ratio"}
+KEYFRAME_METRICS = {"traj_error", "keyframe_error"}
+
+
+def run_eval(module, argv, label):
+    """One evaluation CLI `main` on the card (condmdi_tpu_torch.evals.<module>), from
+    the repository root (the committed evaluator is found relative to it), the
+    counts set to 0 just before it and read just after. A trajectory calibration
+    inside it is timed and counted apart, the counts set to 0 again after it. Returns
+    the summary, the report, host seconds, launches, the calibration's seconds and
+    launches, every GeneratedBatch, and each batch's sampler output and its joints
+    (`outputs`: what the harness hands sample_to_motion first, and gets back)."""
+    import importlib
+
+    import condmdi_tpu_torch.evals.harness as harness
+    import condmdi_tpu_torch.evals.run as run_mod
+
+    main = importlib.import_module(f"condmdi_tpu_torch.evals.{module}").main
+    out = EVAL_OUT / label
+    batches, outputs, converted, calib = [], [], [], {}
+    real_generate, real_calibrate = harness.generate_eval_batch, run_mod.calibrate
+    real_to_motion = harness.sample_to_motion
+
+    def to_motion(sample, stats):
+        converted.append((sample, real_to_motion(sample, stats)))
+        return converted[-1][1]
+
+    def generate(*a, **kw):
+        converted.clear()
+        batches.append(real_generate(*a, **kw))
+        (sample, joints), _ground_truth = converted  # the generated motions come first
+        outputs.append(dict(sample=sample.cpu().numpy(), joints=joints.cpu().numpy()))
+        return batches[-1]
+
+    def calibrate(*a, **kw):
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        real_calibrate(*a, **kw)
+        torch.cuda.synchronize()
+        calib.update(seconds=time.perf_counter() - t0, launches=read_counts())
+        reset_counts()
+
+    harness.generate_eval_batch, run_mod.calibrate = generate, calibrate
+    harness.sample_to_motion = to_motion
+    try:
+        with contextlib.chdir(ROOT):
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            summary = main(argv + ["--output_dir", str(out)])
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches = read_counts()
+    finally:
+        harness.generate_eval_batch, run_mod.calibrate = real_generate, real_calibrate
+        harness.sample_to_motion = real_to_motion
+    (path,) = out.glob("eval_*.json")
+    return dict(summary=summary, report=json.loads(path.read_text()), report_name=path.name,
+                seconds=seconds, launches=launches, calibration=calib or None, batches=batches,
+                outputs=outputs)
+
+
+def check_eval_report(run, label, keyframes=True):
+    """The report holds the JAX report's keys (the metrics, per_replication, meta), every
+    number finite; the generated motions finite, [32, 196, 263]."""
+    rep = run["report"]
+    metrics = EVAL_METRICS | (KEYFRAME_METRICS if keyframes else set())
+    if set(rep) != metrics | {"per_replication", "meta"} or set(rep["per_replication"]) != metrics:
+        raise SystemExit(f"{label}: report keys {sorted(rep)} are not the JAX report's")
+    values = [np.asarray(rep[k]["mean"]) for k in metrics] + \
+        [np.asarray(rep["per_replication"][k]) for k in metrics]
+    if not all(np.isfinite(v).all() for v in values):
+        raise SystemExit(f"{label}: non-finite metrics in the report")
+    for gb in run["batches"]:
+        if gb.motions_rel.shape != (EVAL_BATCH, T_FRAMES, FEATS) or \
+                not np.isfinite(gb.motions_rel).all():
+            raise SystemExit(f"{label}: generated motions {gb.motions_rel.shape} not finite "
+                             f"[{EVAL_BATCH}, {T_FRAMES}, {FEATS}]")
+    return {k: rep[k]["mean"] for k in sorted(metrics)}
+
+
+def eval_line(label, run, card, expect):
+    n = EVAL_BATCH * len(run["batches"])
+    metrics = {k: v for k, v in run["summary"].items() if isinstance(v, dict)}
+    print(f"[eval] {card}: {label}: {run['seconds']:.2f} s on the host for {n} samples, "
+          f"{n / run['seconds']:.4f} samples/s; launches {run['launches']} (expected {expect})"
+          + (f"; calibration {run['calibration']['seconds']:.2f} s, launches "
+             f"{run['calibration']['launches']}" if run["calibration"] else "")
+          + "; " + ", ".join(f"{k} {np.round(v['mean'], 4).tolist()}" for k, v in metrics.items()),
+          flush=True)
+    for kern, count in expect.items():
+        if run["launches"][kern] != count:
+            raise SystemExit(f"{label}: {kern} launches {run['launches'][kern]} != {count}")
+
+
+def eval_phase18(dev, card):
+    """evals.run through its main on the gate checkpoint: float, then int8_static with
+    the float tail (k_float 250); one B=32 forward's host time against device time."""
+    out = {}
+    float_run = run_eval("run", EVAL_GATE, "gate_float")
+    out["float_metrics"] = check_eval_report(float_run, "gate float")
+    fingerprint = float_run["report"]["meta"]["params_fingerprint"]
+    if fingerprint != GATE_FINGERPRINT or float_run["summary"]["params_fingerprint"] != fingerprint:
+        raise SystemExit(f"gate report fingerprint {fingerprint} != {GATE_FINGERPRINT}")
+    eval_line("evals.run gate float, 1000-step DDPM, f32", float_run, card,
+              dict(fused_conv_gn_mish=GATE_HALVES * CLI_STEPS * EVAL_BATCHES,
+                   fused_self_attention=0, int8_conv1d=0))
+    out["float"] = {k: float_run[k] for k in ("seconds", "launches", "report_name")}
+    out["float"]["samples_per_s"] = EVAL_BATCH * EVAL_BATCHES / float_run["seconds"]
+    out["fingerprint"] = fingerprint
+    mask = {k: float_run["report"]["meta"][k] for k in EVAL_MASK}
+    if mask != EVAL_MASK:
+        raise SystemExit(f"gate report's mask settings {mask} are not the run's {EVAL_MASK}")
+
+    model, shapes, (x, t, y, kw) = cli_resblock_shapes(GATE_CLI, EVAL_BATCH, dev)
+    if sum(shapes.values()) != GATE_HALVES:
+        raise SystemExit(f"expected {GATE_HALVES} resblock halves per gate forward, found {shapes}")
+
+    def call():
+        return model(x, t, y, **kw)
+
+    step_ms = float_run["seconds"] * 1e3 / (CLI_STEPS * EVAL_BATCHES)
+    out["forward"] = forward_host_vs_device(f"gate UNet f32 forward at B={EVAL_BATCH}", call,
+                                            step_ms)
+    out["forward"]["profile"] = profile_forward(f"gate UNet f32 forward at B={EVAL_BATCH}", call)
+    del model
+
+    int8_model = cli_model(GATE_CLI + ["--precision_mode", "int8_static"], dev)
+    text, obs, mask = (a.to(dev) for a in keyframe_inputs(EVAL_BATCH, 21))
+    convs = sum(record_int8_shapes(
+        int8_model, seeded_noise((EVAL_BATCH, T_FRAMES, FEATS), dev, seed=22),
+        torch.full((EVAL_BATCH,), 500, device=dev), {"text_embed": text},
+        dict(obs_x0=obs, obs_mask=mask)).values())
+    del int8_model
+    int8_run = run_eval("run", EVAL_GATE + EVAL_INT8, "gate_int8_f250")
+    out["int8_metrics"] = check_eval_report(int8_run, "gate int8_static f250")
+    n_float = int((schedule(CLI_STEPS).timestep_map < K_FLOAT).sum())
+    calib_expect = dict(fused_conv_gn_mish=0, fused_self_attention=0, int8_conv1d=convs * CLI_STEPS)
+    if int8_run["calibration"]["launches"] != calib_expect:
+        raise SystemExit(f"calibration launches {int8_run['calibration']['launches']} != "
+                         f"{calib_expect}")
+    eval_line(f"evals.run gate int8_static + float tail (k_float={K_FLOAT}), 1000-step DDPM, f32 "
+              f"({convs} int8 convs a forward)", int8_run, card,
+              dict(fused_conv_gn_mish=GATE_HALVES * n_float * EVAL_BATCHES, fused_self_attention=0,
+                   int8_conv1d=convs * (CLI_STEPS - n_float) * EVAL_BATCHES))
+    out["int8"] = {k: int8_run[k] for k in ("seconds", "launches", "report_name", "calibration")}
+    out["int8"]["samples_per_s"] = EVAL_BATCH * EVAL_BATCHES / int8_run["seconds"]
+    out["int8"]["convs_per_forward"] = convs
+    print(f"[eval] {card}: gate float against int8_static f{K_FLOAT} on the same seeds: "
+          + ", ".join(f"{k} {np.round(out['float_metrics'][k], 4).tolist()} / "
+                      f"{np.round(out['int8_metrics'][k], 4).tolist()}"
+                      for k in out["float_metrics"]), flush=True)
+    return out
+
+
+def eval_phase19(dev, card):
+    """evals.run_t2m through its main on MDM at the default widths (Flax's
+    initialisation), CFG 2.5: B=64 forwards, 8 attention launches each."""
+    run = run_eval("run_t2m", EVAL_T2M, "t2m")
+    metrics = check_eval_report(run, "t2m", keyframes=False)
+    if KEYFRAME_METRICS & set(run["summary"]):
+        raise SystemExit("evals.run_t2m reported keyframe metrics")
+    eval_line("evals.run_t2m MDM trans_enc, 1000-step DDPM, CFG 2.5, f32", run, card,
+              dict(fused_conv_gn_mish=0, fused_self_attention=8 * CLI_STEPS, int8_conv1d=0))
+    out = {k: run[k] for k in ("seconds", "launches", "report_name")}
+    out.update(metrics=metrics, samples_per_s=EVAL_BATCH / run["seconds"])
+    model = build_mdm(dev, torch.float32)
+    x = seeded_noise((2 * EVAL_BATCH, T_FRAMES, FEATS), dev, seed=25)
+    t = torch.full((2 * EVAL_BATCH,), 500, device=dev)
+    y = {"text_embed": torch.randn((2 * EVAL_BATCH, 512), device=dev),
+         "uncond": torch.arange(2 * EVAL_BATCH, device=dev) >= EVAL_BATCH}
+
+    def call():
+        return model(x, t, y)
+
+    out["forward"] = forward_host_vs_device(f"MDM f32 forward at B={2 * EVAL_BATCH}", call,
+                                            run["seconds"] * 1e3 / CLI_STEPS)
+    out["forward"]["profile"] = profile_forward(f"MDM f32 forward at B={2 * EVAL_BATCH}", call)
+    return out
+
+
+def eval_kernel_vs_plain(argv, label, kernel, per_step, swap, card):
+    """evals.run at DDIM-20 through the kernel and with `swap` in place, the same
+    seed (so the same x_T per batch): the generated motions (the sampler's output)
+    and their joints within DDIM_TOL. motions_rel, the same motions converted to
+    the evaluator's relative features by inverse kinematics, magnifies those
+    differences unevenly (ill-conditioned joint rotations; foot contacts that
+    are thresholds, one flip moving a normalized value by ~2), so it is held as
+    the CPU test holds it against JAX: mean |diff| / mean |plain| within
+    REL_MEAN_TOL and at most REL_SHARE_TOL of the entries beyond
+    1e-3·(1 + |plain|). The metrics of both paths printed side by side."""
+    got = run_eval("run", argv + DDIM20, label + "_kernel")
+    with swap():
+        want = run_eval("run", argv + DDIM20, label + "_plain")
+    stack = {key: (np.stack([o[key] for o in got["outputs"]]).astype(np.float64),
+                   np.stack([o[key] for o in want["outputs"]]).astype(np.float64))
+             for key in ("sample", "joints")}
+    stack["motions_rel"] = tuple(np.stack([gb.motions_rel for gb in run["batches"]]).astype(
+        np.float64) for run in (got, want))
+    errs = {key: float(np.abs(a - b).max()) for key, (a, b) in stack.items()}
+    for key in ("sample", "joints"):
+        a, b = stack[key]
+        if not (np.isfinite(a).all() and errs[key] <= DDIM_TOL and np.abs(b).max() > 0):
+            raise SystemExit(f"{label}: {key} of the kernel path disagree with the plain path "
+                             f"({errs[key]:.3e})")
+    a, b = stack["motions_rel"]
+    d = np.abs(a - b)
+    rel_mean = float(d.mean() / np.abs(b).mean())
+    share = float(np.mean(d > 1e-3 * (1 + np.abs(b))))
+    if not (np.isfinite(a).all() and rel_mean <= REL_MEAN_TOL and share <= REL_SHARE_TOL):
+        raise SystemExit(f"{label}: motions_rel of the kernel path disagree with the plain path "
+                         f"(mean-relative {rel_mean:.2e}, share beyond 1e-3 {share:.2e})")
+    n = per_step * 20 * EVAL_BATCHES
+    if got["launches"][kernel] != n or want["launches"][kernel] != 0:
+        raise SystemExit(f"{label}: {kernel} launches {got['launches'][kernel]} / "
+                         f"{want['launches'][kernel]} (expected {n} / 0)")
+    side = {k: (np.asarray(got["summary"][k]["mean"]).tolist(),
+                np.asarray(want["summary"][k]["mean"]).tolist())
+            for k in got["summary"] if isinstance(got["summary"][k], dict)}
+    equal = all(np.array_equal(x, y) for x, y in side.values())
+    print(f"[eval] {card}: {label} DDIM-20 kernel against plain: max|Δ| motions "
+          f"{errs['sample']:.3e}, joints {errs['joints']:.3e} (tol {DDIM_TOL:.0e}); motions_rel "
+          f"max|Δ| {errs['motions_rel']:.3e}, mean-relative {rel_mean:.2e} (tol "
+          f"{REL_MEAN_TOL:.0e}), share beyond 1e-3·(1+|plain|) {share:.2e} (tol "
+          f"{REL_SHARE_TOL:.0e}); {kernel} launches {got['launches'][kernel]} / 0; metrics equal "
+          f"{equal}; kernel / plain: "
+          + ", ".join(f"{k} {np.round(x, 5).tolist()} / {np.round(y, 5).tolist()}"
+                      for k, (x, y) in side.items()), flush=True)
+    return dict(max_abs_err=errs, motions_rel_mean_rel=rel_mean, motions_rel_share=share,
+                metrics=side, metrics_equal=equal, seconds=(got["seconds"], want["seconds"]))
+
+
+def eval_phase20(dev, card):
+    """Kernel against plain through evals.run (float and int8_static at DDIM-20), then
+    each kernel per call at every new evaluation shape: the gate's f32 resblock halves
+    at B=32, f32 attention at B=64 (CFG-doubled t2m), the gate's int8 convs (f32
+    activations, static scale) at B=32."""
+    out = dict(
+        float=eval_kernel_vs_plain(EVAL_GATE, "gate_float", "fused_conv_gn_mish", GATE_HALVES,
+                                   resblock_swapped_for_plain, card))
+    out["int8_rows"] = int8_model_rows(cli_model(GATE_CLI + ["--precision_mode", "int8_static"],
+                                                 dev), EVAL_BATCH, dev, card, "eval", "static")
+    out["int8"] = eval_kernel_vs_plain(EVAL_GATE + ["--precision_mode", "int8_static"],
+                                       "gate_int8_static", "int8_conv1d", out["int8_rows"]["convs"],
+                                       int8_swapped_for_plain, card)
+    _, shapes, _ = cli_resblock_shapes(GATE_CLI, EVAL_BATCH, dev)
+    out["resblock_rows"] = f32_resblock_rows("gate UNet B=32", shapes, EVAL_BATCH, dev)
+    out["attention_rows"] = f32_attention_rows(
+        dev, [("t2m_eval", 2 * EVAL_BATCH, MDM_TOKENS, 512, 4)])
     return out
 
 
@@ -1800,6 +2096,9 @@ def main() -> int:
     cli15 = phase("15 CLI conditional", cli_phase15, card)
     cli16 = phase("16 CLI edit and synthesize", cli_phase16, card)
     cli17 = phase("17 CLI kernel against plain", cli_phase17, dev, card, cli15)
+    eval18 = phase("18 evals.run on the gate checkpoint", eval_phase18, dev, card)
+    eval19 = phase("19 evals.run_t2m on MDM", eval_phase19, dev, card)
+    eval20 = phase("20 evaluation kernel against plain", eval_phase20, dev, card)
     print("[time] host seconds by phase: "
           + ", ".join(f"{k} {v:.1f}" for k, v in phase_seconds.items())
           + f"; {sum(phase_seconds.values()):.1f} in all", flush=True)
@@ -1844,7 +2143,15 @@ def main() -> int:
                                               "bound_ms", "host_ms_per_call")}
                    for name, f32 in (("UNet-XL pad 200, B=8", f32_b8),
                                      ("gate UNet pad 224, B=8", cli17["gate"]),
-                                     ("UNet-XL pad 224, B=4", cli17["xl"]))},
+                                     ("UNet-XL pad 224, B=4", cli17["xl"]),
+                                     ("gate UNet pad 224, B=32 (evals.run)",
+                                      eval20["resblock_rows"]))},
+        # the evaluation protocol (phases 18, 20): f32, the gate UNet at B=32
+        "eval_launches": {"gate_float": eval18["float"]["launches"]["fused_conv_gn_mish"],
+                          "gate_int8_f250": eval18["int8"]["launches"]["fused_conv_gn_mish"]},
+        "eval_max_abs_err_f32": max(r["max_abs_err_f32"] for r in eval20["resblock_rows"]["rows"]),
+        "eval_ddim_max_abs_err_f32": eval20["float"]["max_abs_err"],
+        "eval_ddim_motions_rel_mean_rel": eval20["float"]["motions_rel_mean_rel"],
     }, {
         "name": "fused_self_attention",
         "route": "cuda",
@@ -1871,7 +2178,9 @@ def main() -> int:
         # the float32 route (route 2) per launch at phase 5's and the CLIs' shapes
         "f32_ms": [{k: r[k] for k in ("shape", "B", "T", "route", "max_abs_err_f32", "ms",
                                       "plain_ms", "library_ms", "bound_ms", "host_ms")}
-                   for r in attn_f32 + cli17["attention"]],
+                   for r in attn_f32 + cli17["attention"] + eval20["attention_rows"]],
+        # evals.run_t2m (phase 19): MDM f32 at B=64 under CFG
+        "eval_launches": {"t2m": eval19["launches"]["fused_self_attention"]},
     }, {
         "name": "int8_conv1d",
         "route": "cuda",
@@ -1904,6 +2213,16 @@ def main() -> int:
         "cli_ddim_max_abs_err_f32": cli17["xl_int8_ddim_err"],
         # its 41 convs at the XL int8 CLI's shapes (f32, dynamic scale, B=4, pad 224), summed
         "cli_ms": {k: cli17["int8"][k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
+        # evals.run --precision_mode int8_static (phases 18, 20): the gate UNet, f32
+        # activations, static scale, B=32; its convs summed
+        "eval_launches": {"gate_int8_f250": eval18["int8"]["launches"]["int8_conv1d"],
+                          "gate_int8_f250_calibration":
+                              eval18["int8"]["calibration"]["launches"]["int8_conv1d"]},
+        "eval_max_abs_err_f32": max(r["max_abs_err_f32"] for r in eval20["int8_rows"]["rows"]),
+        "eval_bit_exact_at_every_conv_shape": all(r["bit_exact"]
+                                                  for r in eval20["int8_rows"]["rows"]),
+        "eval_ddim_max_abs_err_f32": eval20["int8"]["max_abs_err"],
+        "eval_ms": {k: eval20["int8_rows"][k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
     }]
     previous = {"fused_conv_gn_mish": PREV_RESBLOCK_MS, "fused_self_attention": PREV_ATTENTION_MS,
                 "int8_conv1d": PREV_INT8_MS}
@@ -1921,6 +2240,7 @@ def main() -> int:
          "int8_shapes": int8_rows, "int8_qdense": dense_rows, "int8_paths": int8_out,
          "serve_mixed": mixed, "kernels": kernels,
          "cli": {"conditional": cli15, "mdm": cli16, "kernel_vs_plain": cli17},
+         "eval": {"gate": eval18, "t2m": eval19, "kernel_vs_plain": eval20},
          "phase_seconds": phase_seconds,
          "previous_ms_from_perf_md": dict(previous, f32_resblock=PREV_F32_RESBLOCK_MS,
                                           f32_attention=PREV_F32_ATTENTION_MS)}, indent=1))

@@ -20,11 +20,14 @@ Module names mirror the JAX package so each counterpart is easy to find:
               CLIs: conditional (keyframe in-betweening), edit, synthesize
               (text to motion), templates (GMD presets)
   data/       the HumanML3D layout and feature codec, the synthetic dataset,
-              collation, fixed-dataset fixtures
+              collation, fixed-dataset fixtures, abs<->rel converters, the
+              evaluator's word vectorizer
+  evals/      the evaluation protocols: metrics, the T2M evaluator, the
+              harness, and the CLIs run (CondMDI keyframes) and run_t2m
   geometry/   quaternions, skeleton FK/IK
   training/   keyframe observation masks for the 12 edit modes
   utils/      option dataclasses, argv parsing and args.json; checkpoint
-              converters
+              converters and the parameter fingerprint; global seeding
   weights.py  Flax parameter tree → this package's state_dict
   serving.py  micro-batching MotionServer
   bench.py    the JAX bench's models without JAX, checked against its goldens
@@ -32,7 +35,8 @@ Module names mirror the JAX package so each counterpart is easy to find:
 Importing the package builds nothing and touches no device. The entry points
 that run a model (the denoisers, `SamplePipeline`, `MotionServer`, the CLIs'
 `main`, the synthetic dataset's codec) run on CUDA unless the caller passes
-`device="cpu"`. `DiffusionSchedule.create` only builds
+`device="cpu"`; so do the evaluation CLIs and the evaluator.
+`DiffusionSchedule.create` only builds
 constant tables: it makes them on the host by default and the pipeline moves
 them to its own device.
 """
@@ -43,6 +47,7 @@ __all__ = [
     "data",
     "device",
     "diffusion",
+    "evals",
     "geometry",
     "models",
     "ops",

@@ -27,10 +27,12 @@ FID_L = (7, 10)
 FID_R = (8, 11)
 
 
-def recover_root_rot_pos(data: torch.Tensor, abs_3d: bool = False):
+def recover_root_rot_pos(data: torch.Tensor, abs_3d: bool = False,
+                         return_rot_ang: bool = False):
     """Root y-rotation quaternion and root position from feature channels 0:4.
 
-    data: (..., T, C>=4). Returns (r_rot_quat (..., T, 4), r_pos (..., T, 3)).
+    data: (..., T, C>=4). Returns (r_rot_quat (..., T, 4), r_pos (..., T, 3)),
+    and the yaw angle (..., T) third when `return_rot_ang`.
     Relative mode integrates the per-frame rotation velocity (channel 0) and
     the local xz velocities (1:3), shifted by one frame, as the reference does;
     absolute mode reads the angle and xz as they are.
@@ -53,6 +55,8 @@ def recover_root_rot_pos(data: torch.Tensor, abs_3d: bool = False):
         r_pos = torch.cumsum(qrot(qinv(r_rot_quat), v3), dim=-2)
         r_pos = torch.stack([r_pos[..., 0], data[..., 3], r_pos[..., 2]], dim=-1)
 
+    if return_rot_ang:
+        return r_rot_quat, r_pos, r_rot_ang
     return r_rot_quat, r_pos
 
 

@@ -2,7 +2,7 @@
 the reference's PyTorch checkpoints converted to a Flax parameter tree.
 
 Counterpart of condmdi_tpu/utils/checkpoint.py for `select_eval_params`,
-`convert_mdm_state_dict`, `convert_unet_state_dict` and
+`params_fingerprint`, `convert_mdm_state_dict`, `convert_unet_state_dict` and
 `load_torch_checkpoint` (plain numpy, copied here so that the port imports
 nothing of the JAX package). The tree they give goes through
 `weights.load_flax_params` into the port's modules. Orbax checkpoints need the
@@ -33,6 +33,50 @@ def select_eval_params(restored: dict, use_ema: bool = True) -> dict:
     return loaded if isinstance(loaded, dict) and "params" in loaded else {
         "params": loaded
     }
+
+
+def _flat_leaves(tree, prefix=()):
+    """{path tuple: leaf} of a nested mapping, or of a mapping already keyed by
+    path tuples."""
+    out = {}
+    for k, v in tree.items():
+        path = prefix + (tuple(k) if isinstance(k, tuple) else (k,))
+        if isinstance(v, dict):
+            out.update(_flat_leaves(v, path))
+        else:
+            out[path] = v
+    return out
+
+
+def params_fingerprint(params: Any) -> str:
+    """Stable content hash of a Flax parameter tree, the JAX package's hex for
+    the same parameters.
+
+    `params` is a nested dict (or a dict keyed by path tuples) of numpy arrays
+    or tensors in Flax's layout, e.g. the `{"params": ...}` tree of a flat npz
+    (`weights.read_params`). sha256 over the leaves in the order of their
+    `jax.tree_util.keystr` paths ("['params']['unet']…"), each adding its path,
+    str(shape) and raw bytes, floats cast to float32 first; the first 16 hex
+    digits. Eval reports record it so that a report names the weights that
+    made it.
+    """
+    import hashlib
+
+    def keystr(path):
+        return "".join(f"[{k!r}]" for k in path)
+
+    h = hashlib.sha256()
+    for path, leaf in sorted(_flat_leaves(params).items(), key=lambda kv: keystr(kv[0])):
+        if isinstance(leaf, torch.Tensor):
+            leaf = leaf.detach().float() if leaf.is_floating_point() else leaf.detach()
+            leaf = leaf.cpu().numpy()
+        arr = np.asarray(leaf)
+        if np.issubdtype(arr.dtype, np.floating):
+            arr = arr.astype(np.float32)
+        h.update(keystr(path).encode())
+        h.update(str(arr.shape).encode())
+        h.update(arr.tobytes())
+    return h.hexdigest()[:16]
 
 
 # --------------------------------------------------------------------------- #

@@ -42,8 +42,9 @@ def _flatten(tree: Mapping[str, Any], prefix=()) -> dict[tuple[str, ...], np.nda
     return out
 
 
-def _read(source) -> dict[tuple[str, ...], np.ndarray]:
-    """Flat {path tuple: array} from a nested tree or a flat '//'-keyed npz."""
+def read_params(source) -> dict[tuple[str, ...], np.ndarray]:
+    """Flat {path tuple: array} from a nested tree or a flat '//'-keyed npz
+    (without the npz's `__…__` entries)."""
     if isinstance(source, (str, os.PathLike)):
         with np.load(source, allow_pickle=False) as z:
             return {tuple(k.split(_SEP)): z[k] for k in z.files if not k.startswith("__")}
@@ -81,7 +82,7 @@ def load_flax_params(source) -> dict[str, torch.Tensor]:
     `weight_scale`.
     """
     flat = {}
-    for path, arr in _read(source).items():
+    for path, arr in read_params(source).items():
         if path[0] == "act_scale":
             flat[path[1:-1] + ("amax",)] = arr
         else:

@@ -1185,3 +1185,121 @@ def test_f32_attention_route_replays_inside_a_cuda_graph_bit_for_bit(cuda_device
         with torch.no_grad():
             eager = attention.mha(q, k, v, H)
         assert torch.equal(out, eager)
+
+
+# --------------------------------------------------------------------------- #
+# the evaluation protocols' shapes: evals.run on the gate checkpoint (B=32, f32,
+# float and int8_static) and evals.run_t2m on MDM (B=64 under CFG, f32)
+# --------------------------------------------------------------------------- #
+# (Cin, Cout, T, adagn, res, x channels) of every resblock half of one gate forward
+# (latent 128, dim_mults 1 2 2, pad 224; groups of 16 and 32 channels)
+GATE_RESBLOCK_SHAPES = [
+    (128, 128, 112, False, True, 128), (128, 128, 112, True, False, 128),
+    (128, 128, 224, False, False, 128), (128, 128, 224, False, True, 128),
+    (128, 128, 224, True, False, 128), (128, 256, 112, True, False, 128),
+    (256, 256, 56, False, True, 256), (256, 256, 56, True, False, 256),
+    (256, 256, 112, False, True, 256), (256, 256, 112, True, False, 256),
+    (512, 128, 112, True, False, 512), (512, 256, 56, True, False, 512),
+    (526, 128, 224, True, False, 528),
+]
+# (Cin, x channels, Cout, k, stride, padding, T) of every int8 conv of one gate forward
+# in int8_static (32 a forward)
+GATE_INT8_SHAPES = [
+    (128, 128, 128, 3, 2, 1, 224), (128, 128, 128, 5, 1, 2, 112), (128, 128, 128, 5, 1, 2, 224),
+    (128, 128, 256, 1, 1, 0, 112), (128, 128, 256, 5, 1, 2, 112), (128, 128, 263, 1, 1, 0, 224),
+    (256, 256, 256, 3, 2, 1, 112), (256, 256, 256, 5, 1, 2, 56), (256, 256, 256, 5, 1, 2, 112),
+    (512, 512, 128, 1, 1, 0, 112), (512, 512, 128, 5, 1, 2, 112), (512, 512, 256, 1, 1, 0, 56),
+    (512, 512, 256, 5, 1, 2, 56), (526, 528, 128, 1, 1, 0, 224), (526, 528, 128, 5, 1, 2, 224),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", GATE_RESBLOCK_SHAPES)
+def test_f32_kernel_at_the_gate_evaluation_shapes(cuda_device, case):
+    cin, cout, T, adagn, res, xc = case
+    args, kw = make_inputs(32, T, cin, cout, adagn, res, torch.float32, cuda_device, seed=T + cin)
+    args[0] = torch.nn.functional.pad(args[0], (0, xc - cin))  # the UNet's alignment channels
+    assert_f32_resblock_matches_plain(args, kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", GATE_INT8_SHAPES)
+def test_int8_kernel_is_bit_exact_at_the_gate_evaluation_shapes(cuda_device, case):
+    cin, xc, cout, k, stride, pad, T = case
+    x, wq, ws, bias, a_scale, pc = int8_case(32, T, cin, cout, k, "static", torch.float32,
+                                             cuda_device, xc, seed=T + cin + k)
+    assert_int8_bit_exact(x, wq, ws, bias, a_scale, pc, stride, pad)
+
+
+@pytest.mark.cuda
+def test_f32_attention_route_at_the_t2m_evaluation_shape(cuda_device):
+    B, T, D, H = 64, 197, 512, 4  # one batch of 32, doubled by CFG
+    assert attention.attention_route(B, T, H, D // H, torch.float32) == "wgmma_f32"
+    q, k, v = qkv_views(B, T, D, torch.float32, cuda_device, seed=64)
+    with torch.no_grad():
+        got = attention.mha(q, k, v, H)
+        torch.cuda.synchronize()
+        want = attention._xla_attention(q, k, v, H)
+    assert torch.isfinite(got).all()
+    assert torch.all((got - want).abs() <= F32_TOL * (1 + want.abs()))
+
+
+@pytest.mark.cuda
+def test_eval_run_kernel_path_matches_plain(cuda_device, tmp_path, monkeypatch):
+    """evals.run's main on the committed gate checkpoint, one batch of 32, DDIM-10,
+    through the kernel and with the resblock halves swapped for the plain version:
+    the same seed gives the same x_T, the generated motions and their joints agree
+    within 5e-3, and the report carries the gate's fingerprint."""
+    import json
+    from pathlib import Path
+
+    import condmdi_tpu_torch.evals.harness as harness
+    import condmdi_tpu_torch.models.unet as unet_mod
+    from condmdi_tpu_torch.evals.run import main
+
+    repo = Path(__file__).resolve().parent.parent
+    monkeypatch.chdir(repo)  # the committed evaluator is found relative to the root
+    argv = ["--model_path", str(repo / "save" / "synthetic_unet_m" / "gate_ema_000100000.npz"),
+            "--edit_mode", "benchmark_sparse", "--guidance_param", "1.0", "--eval_mode", "debug",
+            "--max_replications", "1", "--num_samples", "32", "--text_encoder", "hash",
+            "--use_ddim", "true", "--timestep_respacing", "ddim10"]
+    seen, converted = [], []
+    real, real_to_motion = harness.generate_eval_batch, harness.sample_to_motion
+
+    def to_motion(sample, stats):
+        converted.append((sample, real_to_motion(sample, stats)))
+        return converted[-1][1]
+
+    def generate(*a, **kw):
+        converted.clear()
+        gb = real(*a, **kw)
+        (sample, joints), _ground_truth = converted  # the generated motions come first
+        seen.append(dict(sample=sample.cpu().numpy(), joints=joints.cpu().numpy(),
+                         motions_rel=gb.motions_rel))
+        return gb
+
+    monkeypatch.setattr(harness, "sample_to_motion", to_motion)
+    monkeypatch.setattr(harness, "generate_eval_batch", generate)
+
+    before = resblock.fused_conv_gn_mish.launches
+    main(argv + ["--output_dir", str(tmp_path / "kernel")])
+    launches = resblock.fused_conv_gn_mish.launches - before
+    assert launches == 25 * 10, launches  # halves x steps
+    with monkeypatch.context() as m:
+        m.setattr(unet_mod, "fused_conv_gn_mish",
+                  lambda *a, packed=None, **kw: resblock.reference_conv_gn_mish(*a, **kw))
+        main(argv + ["--output_dir", str(tmp_path / "plain")])
+    got, want = seen
+    errs = {key: float(np.abs(got[key] - want[key]).max()) for key in ("sample", "joints")}
+    for key in errs:
+        assert np.isfinite(got[key]).all() and np.abs(want[key]).max() > 0
+    assert max(errs.values()) <= 5e-3, errs
+    # motions_rel (inverse kinematics of the joints, foot contacts that are thresholds)
+    # magnifies the differences unevenly: held as the CPU test holds it against JAX
+    d = np.abs(got["motions_rel"].astype(np.float64) - want["motions_rel"])
+    a = np.abs(want["motions_rel"].astype(np.float64))
+    assert d.mean() / a.mean() <= 1e-4 and np.mean(d > 1e-3 * (1 + a)) <= 1e-3
+    report = json.loads((tmp_path / "kernel" / "eval_benchmark_sparse_debug.json").read_text())
+    assert report["meta"]["params_fingerprint"] == "0d69067e95b7d9da"
+    assert report["meta"]["platform"] == "cuda"
+    assert report["meta"]["transition_length"] == 30  # EvalArgs' default, the protocol's mask

@@ -27,7 +27,8 @@ def _imported_roots(path: Path):
 
 
 SOURCES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "attention_probe.py",
-                                        REPO / "int8_probe.py", REPO / "resblock_probe.py"]
+                                        REPO / "int8_probe.py", REPO / "resblock_probe.py",
+                                        REPO / "eval_protocol.py"]
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(REPO)))
@@ -51,7 +52,12 @@ def test_import_loads_neither_jax_nor_the_jax_package():
         "import condmdi_tpu_torch.geometry.quaternion, condmdi_tpu_torch.geometry.skeleton\n"
         "import condmdi_tpu_torch.training.keyframes, condmdi_tpu_torch.sampling.templates\n"
         "import condmdi_tpu_torch.sampling.synthesize, condmdi_tpu_torch.sampling.conditional\n"
-        "import condmdi_tpu_torch.sampling.edit\n"
+        "import condmdi_tpu_torch.sampling.edit, condmdi_tpu_torch.evals\n"
+        "import condmdi_tpu_torch.evals.metrics, condmdi_tpu_torch.evals.evaluator\n"
+        "import condmdi_tpu_torch.evals.train_evaluator, condmdi_tpu_torch.evals.common\n"
+        "import condmdi_tpu_torch.evals.harness, condmdi_tpu_torch.evals.run\n"
+        "import condmdi_tpu_torch.evals.run_t2m, condmdi_tpu_torch.data.convert\n"
+        "import condmdi_tpu_torch.data.word_vectorizer, condmdi_tpu_torch.utils.seed\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'flax', 'orbax', 'condmdi_tpu')]\n"
         "assert not bad, bad\n"

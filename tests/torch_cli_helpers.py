@@ -24,8 +24,9 @@ def inject_xt(monkeypatch):
 
     jax_sample, port_sample = jpipe.SamplePipeline.sample, tpipe.SamplePipeline.sample
 
-    def jax_wrapped(self, rng, shape, y, **kw):
-        return jax_sample(self, rng, shape, y, **{**kw, "noise": jax.numpy.asarray(xt(shape))})
+    def jax_wrapped(self, rng, shape, y, *args, **kw):  # args: guidance, as dp_sample passes it
+        return jax_sample(self, rng, shape, y, *args,
+                          **{**kw, "noise": jax.numpy.asarray(xt(shape))})
 
     def port_wrapped(self, shape, y, **kw):
         return port_sample(self, shape, y, **{**kw, "noise": torch.from_numpy(xt(shape))})
