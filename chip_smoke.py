@@ -122,7 +122,31 @@ Phases, in order; any failure exits non-zero:
      per call at the new evaluation shapes: the gate's f32 resblock halves at B=32 and
      its int8 convs (f32, static scale) at B=32, f32 attention at B=64, T=197, with
      kernel, plain, library, bound and host times (reports under chiprun_out/eval/);
- 21. a {"kernels": [...]} line (three kernels), the card line, and the final
+ 21. UNet-XL training through training.train.main (the motion_abs_unet_adagn_xl card,
+     keyframe-conditioned, B=64, pad 224, use_fp16 as the card sets it, the synthetic set
+     cached on the card): 30 steps saved at 20 and 30 under cuDNN's deterministic
+     algorithms, exactly 33 resblock launches a step; a second main resumed from the
+     step-20 checkpoint to step 30, whose step-30 parameters and EMA must equal the first
+     run's bit for bit; the step-30 EMA npz sampled by the conditional CLI at DDIM-20
+     (finite, its fingerprint the one training wrote); a third main of 30 steps under
+     cuDNN's defaults, as the CLI runs, for steps/s (steps 5-29 over their host time) and
+     peak memory; the mean loss over the first and last 10 steps; one step of that run
+     on the host clock against its device time, split by CUDA events into the
+     kernel's forwards, the rest of the forward, the halves' plain recompute and
+     gradient, the rest of the backward and the optimizer, and by kernel
+     (torch.profiler); the f32 resblock kernel per call at the 13 training shapes (B=64)
+     with its kernel, plain, library and bound times;
+ 22. MDM training through main (the motion_mdm card, B=64, dropout and condition dropout
+     at 0.1): 20 steps, exactly 8 attention launches a step, finite losses, steps/s
+     (steps 5-19 over their host time) and one step's split;
+ 23. one train step of each model through the kernel and through the plain version (the
+     swap helpers), from the same weights, generator states and the training run's warmed
+     AdamW state (its moments and count, so that the update is a smooth function of the
+     gradient): the loss, each parameter's gradient and each parameter's update within
+     stated tolerances (TRAIN_*_TOL); between the two, every kernel call of
+     a forward on the weights the kernel step's optimizer just updated against its plain
+     version (F32_TOL) and that forward's output against the plain path's (DDIM_TOL);
+ 24. a {"kernels": [...]} line (three kernels), the card line, and the final
      {"ok": true, ...}.
 
 Per-shape results also go to chiprun_out/chip_smoke.json (`python3 resblock_probe.py
@@ -593,13 +617,14 @@ def forward_host_vs_device(label, call, step_wall_ms):
     return dict(forward_wall_ms=wall_ms, forward_device_ms=device_ms, step_wall_ms=step_wall_ms)
 
 
-def profile_forward(label, call, top=8, iters=3):
-    """Device time of one forward by kernel name (torch.profiler over `iters`
-    forwards): which launches the step's device time is made of. Returns the
-    forward's device ms, its launches and the `top` kernels by time."""
+def profile_forward(label, call, top=8, iters=3, grad=False):
+    """Device time of one forward (or, with `grad`, one train step) by kernel name
+    (torch.profiler over `iters` calls): which launches the step's device time is
+    made of. Returns the call's device ms, its launches and the `top` kernels by
+    time."""
     from torch.profiler import ProfilerActivity, profile
 
-    with torch.no_grad():
+    with torch.enable_grad() if grad else torch.no_grad():
         call()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1995,6 +2020,478 @@ def eval_phase20(dev, card):
     return out
 
 
+# --------------------------------------------------------------------------- #
+# phases 21-23: training through training.train.main
+# --------------------------------------------------------------------------- #
+TRAIN_OUT = ROOT / "chiprun_out" / "train"
+TRAIN_DATA = ["--data_dir", str(ROOT / "chiprun_out" / "no_humanml3d"), "--text_encoder", "hash",
+              "--device_data_cache", "true", "--device_cache_refresh", "0", "--seed", "10",
+              "--log_interval", "1"]
+XL_TRAIN = ["--config", "motion_abs_unet_adagn_xl", "--keyframe_conditioned", "true",
+            "--batch_size", "64", "--num_steps", "30", "--save_interval", "20"] + TRAIN_DATA
+MDM_TRAIN = ["--config", "motion_mdm", "--batch_size", "64", "--num_steps", "20",
+             "--save_interval", "20"] + TRAIN_DATA
+XL_TRAIN_HALVES, MDM_TRAIN_ATTENTIONS = 33, 8  # kernel launches per step
+TRAIN_SAMPLE_STEPS = 20  # the DDIM-20 sample of the step-30 EMA (one CFG forward a step)
+TRAIN_LOSS_TOL = 1e-4  # |kernel - plain| <= tol * (1 + |plain|) for one step's loss
+# Phase 23 holds each parameter tensor on its own: its gradient by |g_kernel - g_plain| /
+# |g_plain| and its update by |p_kernel - p_plain| / |p_plain - p_start| (norms over the
+# tensor), the update taken from the training run's warmed AdamW state. Two classes:
+# the float32 leaves; and with use_fp16 the leaves whose gradient passes a bfloat16 cast
+# (BF16_GRAD_LEAVES: QConv rounds the first block's residual-conv and first-half kernel and
+# bias to bfloat16, and the cast's backward rounds their gradient), where one float32
+# difference can move a gradient element by a bfloat16 ulp. The limits come from readings
+# on an NVIDIA H100 80GB HBM3 at 700 W. Gradients: float32 tensors at most 2.2e-05
+# (UNet-XL) and 3.7e-06 (MDM), limit 1e-4; the bfloat16 ones 8.0e-04, limit 4e-3, about
+# one bfloat16 ulp. Updates: float32 tensors at most 3.0e-04, limit 1e-3, since the float32
+# rounding of p - u for |p| near 1 (a norm scale) is 6e-8, 6e-4 of an lr-sized update; the
+# bfloat16 ones 6.1e-04, limit 4e-3. MDM's attention key biases, whose gradient is rounding
+# noise, by their largest |p_kernel - p_plain|: 9.1e-09, limit 1e-2 lr.
+TRAIN_GRAD_TOL, TRAIN_GRAD_BF16_TOL = 1e-4, 4e-3
+TRAIN_UPDATE_TOL, TRAIN_UPDATE_BF16_TOL = 1e-3, 4e-3
+TRAIN_KEY_BIAS_TOL = 1e-2  # x lr
+BF16_GRAD_LEAVES = ("unet.down0_res1.residual_conv.", "unet.down0_res1.block1.conv.")
+
+
+def run_train(argv, save_dir, label, expect):
+    """training.train.main on the card, counts set to 0 just before and read just
+    after; the kernel's launches must be `expect`. Returns (loop, host s, launches)."""
+    from condmdi_tpu_torch.training import train
+
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    loop = train.main(argv + ["--save_dir", str(save_dir)])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_counts()
+    kernel, count = expect
+    print(f"[train] {label}: {seconds:.2f} s on the host clock, {kernel} launches "
+          f"{launches[kernel]} (expected {count})", flush=True)
+    if launches[kernel] != count:
+        raise SystemExit(f"{label}: {kernel} launched {launches[kernel]} times, not {count}")
+    return loop, seconds, launches
+
+
+def progress_rows(save_dir):
+    import csv
+
+    with open(Path(save_dir) / "progress.csv") as f:
+        return [{k: float(v) for k, v in r.items() if k and v != ""} for r in csv.DictReader(f)]
+
+
+def steps_per_second(rows, first, end=None):
+    """Steps `first` to `end` (exclusive; all from `first` on by default) over
+    their host wall time. Each row is one step (log_interval 1) and its rate is
+    1 / the host time since the previous row, so the wall time is the sum of
+    1 / rate, stalls included."""
+    rates = [r["steps_per_sec"] for r in rows
+             if r["step"] >= first and (end is None or r["step"] < end)]
+    return len(rates) / sum(1.0 / r for r in rates)
+
+
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """cuDNN's deterministic algorithms while open: with its defaults a conv's
+    backward may sum in a different order from run to run (a resume then lands
+    1.7e-6 from the straight run on an NVIDIA H100 80GB HBM3)."""
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = saved
+
+
+def drop_checkpoints(save_dir):
+    """Delete a training run's checkpoints (UNet-XL's resume file is 3.2 GB),
+    keeping args.json, log.txt and progress.csv."""
+    for f in list(Path(save_dir).glob("ckpt_*.pth")) + list(Path(save_dir).glob("ema_*.npz")):
+        f.unlink()
+
+
+def same_checkpoint(a, b):
+    """(bit for bit, max |a - b| over params and EMA) of two resume files."""
+    from condmdi_tpu_torch.utils import checkpoint as ckpt
+
+    sa, sb = ckpt.load_checkpoint(a), ckpt.load_checkpoint(b)
+    pairs = [(sa["model"][k], sb["model"][k]) for k in sa["model"]]
+    pairs += [(sa["train_state"]["ema"][k], sb["train_state"]["ema"][k])
+              for k in sa["train_state"]["ema"]]
+    exact = all(torch.equal(x, y) for x, y in pairs)
+    return exact, max(float((x.float() - y.float()).abs().max()) for x, y in pairs)
+
+
+def step_split(loop, label, card):
+    """One train step of `loop`'s model on a batch from its device cache: the host
+    clock against the device time, the device time split into the resblock
+    kernel's forwards, the rest of the forward, the resblock halves' backward (the
+    plain recompute and the gradient through it), the rest of the backward and the
+    optimizer (clip, AdamW, EMA), by CUDA events; and the step's kernels by time
+    (torch.profiler). Launches made here are not the main path's."""
+    import condmdi_tpu_torch.ops.resblock as rb
+    from condmdi_tpu_torch.training.loop import make_train_step
+
+    data, n = loop.device_data
+    batch = loop._gather(data, np.arange(loop.args.batch_size) % n)
+    events = {}
+
+    def mark(part):
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        events[part] = e
+
+    spans = {"kernel": [], "recompute": []}
+
+    def timed(fn, key):
+        def wrapper(*a, **kw):
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = fn(*a, **kw)
+            e1.record()
+            spans[key].append((e0, e1))
+            return out
+        return wrapper
+
+    step = make_train_step(loop.model, loop.sched, loop.dcfg, loop.tcfg,
+                           marks=mark)
+    for _ in range(2):  # warm
+        step(loop.state, batch, loop.draws)
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        step(loop.state, batch, loop.draws)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    launch, recompute = rb._launch, rb.recompute_grads
+    rb._launch, rb.recompute_grads = timed(launch, "kernel"), timed(recompute, "recompute")
+    try:
+        step(loop.state, batch, loop.draws)
+        torch.cuda.synchronize()
+    finally:
+        rb._launch, rb.recompute_grads = launch, recompute
+
+    def span(a, b):
+        return events[a].elapsed_time(events[b])
+
+    split = {"forward_ms": span("forward", "backward"), "backward_ms": span("backward", "optimizer"),
+             "optimizer_ms": span("optimizer", "end")}
+    split["kernel_forward_ms"] = sum(a.elapsed_time(b) for a, b in spans["kernel"])
+    split["recompute_backward_ms"] = sum(a.elapsed_time(b) for a, b in spans["recompute"])
+    split["host_ms"] = statistics.median(walls)
+    split["kernel_launches"] = len(spans["kernel"])
+    prof = profile_forward(f"{label} train step", lambda: step(loop.state, batch, loop.draws),
+                           top=10, iters=1, grad=True)
+    split["device_ms"] = prof["total_ms"]
+    split["profile"] = prof
+    dev_ms = split["device_ms"]
+    print(f"[train] {label} one step: {split['host_ms']:.2f} ms on the host clock, "
+          + (f"{dev_ms:.2f} ms of device time (idle {1 - dev_ms / split['host_ms']:.1%})"
+             if dev_ms else "device time not measured")
+          + f"; forward {split['forward_ms']:.2f} ms (resblock kernel {split['kernel_forward_ms']:.2f}"
+          f" ms in {split['kernel_launches']} launches), backward {split['backward_ms']:.2f} ms "
+          f"(resblock halves' plain recompute and gradient {split['recompute_backward_ms']:.2f} ms),"
+          f" optimizer {split['optimizer_ms']:.2f} ms [{card}]", flush=True)
+    return split
+
+
+def train_phase21(dev, card):
+    """UNet-XL training through main: 30 steps, a resume from step 20 to 30 that
+    must give the same step-30 parameters and EMA, the step-30 EMA sampled by
+    conditional at DDIM-20, a run under cuDNN's defaults for steps/s and peak
+    memory, one step's time split, and the kernel at the training shapes."""
+    import shutil
+
+    from condmdi_tpu_torch.sampling.conditional import parse_cli_args
+    from condmdi_tpu_torch.sampling.synthesize import load_model_for_sampling
+    from condmdi_tpu_torch.utils.checkpoint import params_fingerprint
+    from condmdi_tpu_torch.weights import to_flax_params
+
+    run_a, run_b, run_t = TRAIN_OUT / "xl", TRAIN_OUT / "xl_resumed", TRAIN_OUT / "xl_timed"
+    for d in (run_a, run_b, run_t):
+        shutil.rmtree(d, ignore_errors=True)
+    with deterministic_cudnn():  # so that the resume below can be compared bit for bit
+        loop, seconds, launches = run_train(XL_TRAIN, run_a, "UNet-XL 30 steps",
+                                            ("fused_conv_gn_mish", 30 * XL_TRAIN_HALVES))
+    rows = progress_rows(run_a)
+    losses = [r["loss"] for r in rows]
+    sps_deterministic = steps_per_second(rows, 5, 20)  # the step-20 save falls after 19
+    first10, last10 = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+    print(f"[train] UNet-XL B=64 pad 224 under cuDNN's deterministic algorithms: "
+          f"{sps_deterministic:.3f} steps/s (steps 5-19 over their host time), mean loss "
+          f"{first10:.4f} over the first 10 steps and {last10:.4f} over the last 10 [{card}]",
+          flush=True)
+    if not (np.isfinite(losses).all() and len(losses) == 30):
+        raise SystemExit(f"UNet-XL training: losses {losses}")
+    ema_fp = params_fingerprint(to_flax_params(loop.state.ema))
+    del loop
+
+    run_b.mkdir(parents=True)
+    for name in ("ckpt_000000020.pth", "args.json"):
+        shutil.copy(run_a / name, run_b / name)
+    with deterministic_cudnn():
+        loop_b, seconds_b, launches_b = run_train(XL_TRAIN, run_b, "UNet-XL resumed 20 -> 30",
+                                                  ("fused_conv_gn_mish", 10 * XL_TRAIN_HALVES))
+    exact, diff = same_checkpoint(run_a / "ckpt_000000030.pth", run_b / "ckpt_000000030.pth")
+    print(f"[train] resume from step 20: step-30 params and EMA bit for bit {exact} "
+          f"(max |diff| {diff:.3e})", flush=True)
+    if loop_b.resume_step != 20 or not exact:
+        raise SystemExit("UNet-XL: the resumed run's step 30 differs from the straight run's")
+    del loop_b
+
+    npz = run_a / "ema_000000030.npz"
+    with np.load(npz) as z:
+        written = str(z["__params_fingerprint__"])
+    argv = ["--model_path", str(npz), "--edit_mode", "benchmark_sparse", "--num_samples", "2",
+            "--num_repetitions", "1"] + DDIM20
+    res, cli_s, cli_launches = run_cli("conditional", argv, "train_xl_ema30")
+    model = load_model_for_sampling(parse_cli_args(argv), dev)[0]
+    loaded = params_fingerprint(to_flax_params(model.state_dict()))
+    print(f"[train] conditional on the step-30 EMA (DDIM-20, CFG 2.5, 2 samples): {cli_s:.2f} s, "
+          f"motion {res['motion'].shape} finite {bool(np.isfinite(res['motion']).all())}; "
+          f"fingerprint {loaded}, training wrote {written}, training's EMA {ema_fp}", flush=True)
+    if not (np.isfinite(res["motion"]).all() and loaded == written == ema_fp
+            and cli_launches["fused_conv_gn_mish"] == TRAIN_SAMPLE_STEPS * XL_TRAIN_HALVES):
+        raise SystemExit("the step-30 EMA checkpoint does not sample as training wrote it")
+    del model
+    for d in (run_a, run_b):
+        drop_checkpoints(d)
+
+    # the CLI's settings: cuDNN's default algorithms, one save at the end (after step 29)
+    torch.cuda.reset_peak_memory_stats()
+    loop_t, seconds_t, launches_t = run_train(XL_TRAIN + ["--save_interval", "30"], run_t,
+                                              "UNet-XL 30 steps, cuDNN's defaults",
+                                              ("fused_conv_gn_mish", 30 * XL_TRAIN_HALVES))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    sps = steps_per_second(progress_rows(run_t), 5)
+    drop_checkpoints(run_t)
+    print(f"[train] UNet-XL B=64 pad 224 under cuDNN's defaults, as training.train runs: "
+          f"{sps:.3f} steps/s (steps 5-29 over their host time), peak memory {peak_gb:.2f} GB "
+          f"of the card's {torch.cuda.get_device_properties(0).total_memory / 1e9:.1f} GB "
+          f"[{card}]", flush=True)
+
+    split = step_split(loop_t, "UNet-XL B=64 pad 224 (cuDNN's default algorithms)", card)
+    shapes = record_resblock_shapes(
+        loop_t.model, *train_forward_inputs(loop_t))
+    if sum(shapes.values()) != XL_TRAIN_HALVES:
+        raise SystemExit(f"expected {XL_TRAIN_HALVES} halves in a training forward: {shapes}")
+    rows_b64 = f32_resblock_rows("UNet-XL training pad 224", shapes, 64, dev)
+    return dict(loop=loop_t, launches=launches["fused_conv_gn_mish"],
+                resume_launches=launches_b["fused_conv_gn_mish"],
+                timed_launches=launches_t["fused_conv_gn_mish"],
+                sample_launches=cli_launches["fused_conv_gn_mish"], seconds=seconds,
+                seconds_timed=seconds_t, steps_per_sec=sps,
+                steps_per_sec_deterministic=sps_deterministic, peak_memory_gb=peak_gb,
+                loss_first10=first10, loss_last10=last10, resume_bit_exact=exact,
+                fingerprint=written, split=split, resblock_rows=rows_b64)
+
+
+def train_forward_inputs(loop):
+    """One training forward's inputs as the step gives them to the model (the
+    keyframes of a fixed mask, bf16 with use_fp16), for shape recording."""
+    data, n = loop.device_data
+    batch = loop._gather(data, np.arange(loop.args.batch_size) % n)
+    dt = torch.bfloat16 if loop.tcfg.use_bf16 else torch.float32
+    x = batch["motion"].to(dt)
+    t = torch.full((x.shape[0],), 500, device=x.device)
+    mask = torch.zeros(x.shape, dtype=torch.bool, device=x.device)
+    mask[:, ::10] = True
+    return x, t, {"text_embed": batch["text_embed"]}, dict(obs_x0=x, obs_mask=mask)
+
+
+def train_phase22(dev, card):
+    """MDM training through main: 20 steps with dropout and condition dropout."""
+    import shutil
+
+    out = TRAIN_OUT / "mdm"
+    shutil.rmtree(out, ignore_errors=True)
+    loop, seconds, launches = run_train(MDM_TRAIN, out, "MDM 20 steps",
+                                        ("fused_self_attention", 20 * MDM_TRAIN_ATTENTIONS))
+    rows = progress_rows(out)
+    losses = [r["loss"] for r in rows]
+    sps = steps_per_second(rows, 5)
+    if not (np.isfinite(losses).all() and len(losses) == 20):
+        raise SystemExit(f"MDM training: losses {losses}")
+    if not (loop.model.dropout == 0.1 and loop.model.cond_mask_prob == 0.1):
+        raise SystemExit("MDM trained without its dropout or condition dropout")
+    drop_checkpoints(out)
+    print(f"[train] MDM B=64 T=196: {sps:.3f} steps/s (steps 5-19 over their host time), loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f} [{card}]", flush=True)
+    split = step_split(loop, "MDM B=64", card)
+    return dict(loop=loop, launches=launches["fused_self_attention"], seconds=seconds,
+                steps_per_sec=sps, loss_first=losses[0], loss_last=losses[-1], split=split)
+
+
+def parameter_leaves(named, kind):
+    """{name: tensor} of a model's parameters for phase 23, MDM's qkv biases split
+    into their query and value thirds and their key third: the key bias's gradient
+    is zero up to rounding (softmax ignores a constant added to every key), so
+    its update is Adam's normalised rounding noise and is held apart."""
+    out = {}
+    for n, t in named.items():
+        if kind == "mdm" and n.endswith("qkv.bias"):
+            d = t.shape[0] // 3
+            out[n + "[q,v]"] = torch.cat([t[:d], t[2 * d:]])
+            out[n + "[k]"] = t[d:2 * d]
+        else:
+            out[n] = t
+    return out
+
+
+def train_step_pair(loop, swap, kind, label):
+    """One train step through the kernel and one with `swap` in place, from the
+    same weights, the same generator states and the training run's warmed AdamW
+    state (moments and count): the loss, each parameter's gradient and each
+    parameter's update compared; between the two, the kernel's forward on the
+    weights the kernel step's optimizer just updated (forward_after_step)."""
+    import copy
+
+    from condmdi_tpu_torch.training.loop import StepDraws, create_train_state, make_train_step
+
+    model, tcfg = loop.model, loop.tcfg
+    gen = torch.Generator().manual_seed(31)
+    with torch.no_grad():  # perturbed, so that no zero-initialised layer hides a difference
+        for _, p in sorted(model.named_parameters()):
+            p.add_((0.02 * torch.randn(p.shape, generator=gen)).to(p.device))
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    warm, warm_step = loop.state.optimizer.state_dict(), loop.state.step
+    data, n_items = loop.device_data
+    batch = loop._gather(data, np.arange(loop.args.batch_size) % n_items)
+    results, after = [], None
+    for plain in (False, True):
+        model.load_state_dict(start)
+        state = create_train_state(model, tcfg, loop.sched)
+        state.optimizer.load_state_dict(copy.deepcopy(warm))  # its tensors, not the run's
+        state.step = warm_step
+        step = make_train_step(model, loop.sched, loop.dcfg, tcfg)
+        draws = StepDraws(torch.Generator(batch["motion"].device).manual_seed(5),
+                          torch.Generator().manual_seed(6))
+        with swap() if plain else contextlib.nullcontext():
+            metrics = step(state, batch, draws)
+        named = dict(model.named_parameters())
+        results.append(dict(
+            loss=float(metrics["loss"]),
+            grads=parameter_leaves({k: p.grad.detach().clone() for k, p in named.items()}, kind),
+            params=parameter_leaves({k: p.detach().clone() for k, p in named.items()}, kind)))
+        del state
+        if not plain:
+            after = forward_after_step(loop, kind)
+    k, p = results
+    first = parameter_leaves({name: start[name] for name in named}, kind)
+    del start, warm
+    loss_err = abs(k["loss"] - p["loss"])
+
+    def rel(a, b):
+        return float((a - b).norm() / b.norm().clamp(min=1e-30))
+
+    grad_err = rel(torch.cat([g.flatten() for g in k["grads"].values()]),
+                   torch.cat([g.flatten() for g in p["grads"].values()]))
+    key_bias = [n for n in p["grads"] if n.endswith("[k]")]
+    leaves = [n for n in p["grads"] if n not in key_bias]
+    bf16 = [n for n in leaves if n.startswith(BF16_GRAD_LEAVES)]
+    if len(bf16) != (4 if kind == "xl" and tcfg.use_bf16 else 0):
+        raise SystemExit(f"{label}: bfloat16-gradient leaves {bf16} with use_bf16 "
+                         f"{tcfg.use_bf16}")
+    g_errs = {n: rel(k["grads"][n], p["grads"][n]) for n in leaves}
+    u_errs = {n: float((k["params"][n] - p["params"][n]).norm()
+                       / (p["params"][n] - first[n]).norm().clamp(min=1e-30)) for n in leaves}
+    lr = tcfg.lr
+    key_err = max((float((k["params"][n] - p["params"][n]).abs().max()) for n in key_bias),
+                  default=0.0)
+
+    def worst(errs, names):
+        return sorted(((errs[n], n) for n in names), reverse=True)
+
+    f32 = [n for n in leaves if n not in bf16]
+    readings = {"grad_f32": worst(g_errs, f32), "grad_bf16": worst(g_errs, bf16),
+                "update_f32": worst(u_errs, f32), "update_bf16": worst(u_errs, bf16)}
+    limits = {"grad_f32": TRAIN_GRAD_TOL, "grad_bf16": TRAIN_GRAD_BF16_TOL,
+              "update_f32": TRAIN_UPDATE_TOL, "update_bf16": TRAIN_UPDATE_BF16_TOL}
+
+    def show(key):
+        top = readings[key][:3]
+        return (f"{key} at most " + ", ".join(f"{e:.2e} {n}" for e, n in top)
+                + f" (tol {limits[key]:.0e}, {len(readings[key])} tensors)") if top else ""
+
+    print(f"[train] {label} one step from the run's warmed AdamW state (step {warm_step}), "
+          f"kernel against plain: loss {k['loss']:.6f} vs {p['loss']:.6f} (|diff| "
+          f"{loss_err:.2e}, tol {TRAIN_LOSS_TOL:.0e} x (1+|plain|)); the whole gradient "
+          f"|diff| / |plain| {grad_err:.2e}; per parameter tensor |diff| / |plain| of the "
+          f"gradient and |diff| / |plain update| of the update: "
+          + "; ".join(show(key) for key in readings if readings[key])
+          + (f"; attention key biases max |diff| {key_err:.2e} (tol "
+             f"{TRAIN_KEY_BIAS_TOL:.0e} lr = {TRAIN_KEY_BIAS_TOL * lr:.0e})"
+             if key_bias else ""), flush=True)
+    ok = loss_err <= TRAIN_LOSS_TOL * (1 + abs(p["loss"])) and key_err <= TRAIN_KEY_BIAS_TOL * lr
+    ok = ok and all(e <= limits[key] for key in readings for e, _ in readings[key])
+    if not ok:
+        raise SystemExit(f"{label}: the kernel path's train step disagrees with the plain path")
+    return dict(loss_kernel=k["loss"], loss_plain=p["loss"], loss_abs_err=loss_err,
+                grad_rel_err=grad_err, warm_step=warm_step, key_bias_max_abs_err=key_err,
+                **{f"{key}_max_rel_err": (readings[key][0][0] if readings[key] else None)
+                   for key in readings},
+                **{f"{key}_worst": (readings[key][0][1] if readings[key] else None)
+                   for key in readings},
+                after_step=after)
+
+
+def forward_after_step(loop, kind):
+    """The stale-packed-weight check: after optimizer.step(), each kernel call of
+    one forward against its plain version on the same (updated) weights within
+    F32_TOL x (1 + |plain|), and the whole output against the swapped forward
+    within DDIM_TOL."""
+    import condmdi_tpu_torch.models.unet as unet_mod
+    import condmdi_tpu_torch.ops.attention as attn
+    from condmdi_tpu_torch.ops.resblock import reference_conv_gn_mish
+
+    x, t, y, kw = train_forward_inputs(loop)
+    model = loop.model
+    if kind == "mdm":
+        x, kw = x.float(), {}
+    errs = []
+    if kind == "xl":
+        real, owner, name = unet_mod.fused_conv_gn_mish, unet_mod, "fused_conv_gn_mish"
+
+        def check(*a, packed=None, **k):
+            got = real(*a, packed=packed, **k)
+            want = reference_conv_gn_mish(*a, **k)
+            errs.append(float(((got - want).abs() / (1 + want.abs())).max()))
+            return got
+        swap = resblock_swapped_for_plain
+    else:
+        real, owner, name = attn._launch, attn, "_launch"
+
+        def check(q, k, v, heads):
+            got = real(q, k, v, heads)
+            want = attn._xla_attention(q, k, v, heads)
+            errs.append(float(((got - want).abs() / (1 + want.abs())).max()))
+            return got
+        swap = attention_swapped_for_plain
+    with torch.no_grad():
+        setattr(owner, name, check)
+        try:
+            out = model(x, t, y, **kw)
+        finally:
+            setattr(owner, name, real)
+        with swap():
+            plain = model(x, t, y, **kw)
+    out_err = float((out - plain).abs().max())
+    calls = XL_TRAIN_HALVES if kind == "xl" else MDM_TRAIN_ATTENTIONS
+    print(f"[train] {kind} forward after the optimizer step: {len(errs)} kernel calls "
+          f"(expected {calls}), max |kernel - plain| / (1 + |plain|) "
+          f"{max(errs, default=0.0):.2e} (tol {F32_TOL:.0e}); output max |kernel - plain| "
+          f"{out_err:.2e} (tol {DDIM_TOL:.0e})", flush=True)
+    if not (len(errs) == calls and max(errs, default=0.0) <= F32_TOL and out_err <= DDIM_TOL):
+        raise SystemExit(f"{kind}: the kernel reads stale weights after the optimizer step")
+    return dict(calls=len(errs), max_rel_err=max(errs, default=0.0), output_max_abs_err=out_err)
+
+
+def train_phase23(xl_loop, mdm_loop):
+    return {"xl": train_step_pair(xl_loop, resblock_swapped_for_plain, "xl", "UNet-XL"),
+            "mdm": train_step_pair(mdm_loop, attention_swapped_for_plain, "mdm", "MDM")}
+
+
 def build_kernels() -> list[str]:
     """Build the three sources at once (one nvcc each) and print ptxas' register
     and spill lines and any note that it serialised wgmma."""
@@ -2099,6 +2596,10 @@ def main() -> int:
     eval18 = phase("18 evals.run on the gate checkpoint", eval_phase18, dev, card)
     eval19 = phase("19 evals.run_t2m on MDM", eval_phase19, dev, card)
     eval20 = phase("20 evaluation kernel against plain", eval_phase20, dev, card)
+    train21 = phase("21 UNet-XL training", train_phase21, dev, card)
+    train22 = phase("22 MDM training", train_phase22, dev, card)
+    train23 = phase("23 training step kernel against plain", train_phase23,
+                    train21.pop("loop"), train22.pop("loop"))
     print("[time] host seconds by phase: "
           + ", ".join(f"{k} {v:.1f}" for k, v in phase_seconds.items())
           + f"; {sum(phase_seconds.values()):.1f} in all", flush=True)
@@ -2152,6 +2653,16 @@ def main() -> int:
         "eval_max_abs_err_f32": max(r["max_abs_err_f32"] for r in eval20["resblock_rows"]["rows"]),
         "eval_ddim_max_abs_err_f32": eval20["float"]["max_abs_err"],
         "eval_ddim_motions_rel_mean_rel": eval20["float"]["motions_rel_mean_rel"],
+        # training (phases 21, 23): UNet-XL through main at B=64, pad 224
+        "train_launches": {"xl_30_steps": train21["launches"],
+                           "xl_resumed_10_steps": train21["resume_launches"],
+                           "xl_timed_30_steps": train21["timed_launches"],
+                           "xl_ema_ddim20_sample": train21["sample_launches"]},
+        "train_ms": {k: train21["resblock_rows"][k]
+                     for k in ("halves", "ms", "plain_ms", "library_ms", "bound_ms",
+                               "host_ms_per_call")},
+        "train_step_loss_abs_err": train23["xl"]["loss_abs_err"],
+        "train_after_step_max_rel_err": train23["xl"]["after_step"]["max_rel_err"],
     }, {
         "name": "fused_self_attention",
         "route": "cuda",
@@ -2181,6 +2692,10 @@ def main() -> int:
                    for r in attn_f32 + cli17["attention"] + eval20["attention_rows"]],
         # evals.run_t2m (phase 19): MDM f32 at B=64 under CFG
         "eval_launches": {"t2m": eval19["launches"]["fused_self_attention"]},
+        # training (phases 22, 23): MDM through main at B=64
+        "train_launches": {"mdm_20_steps": train22["launches"]},
+        "train_step_loss_abs_err": train23["mdm"]["loss_abs_err"],
+        "train_after_step_max_rel_err": train23["mdm"]["after_step"]["max_rel_err"],
     }, {
         "name": "int8_conv1d",
         "route": "cuda",
@@ -2241,6 +2756,7 @@ def main() -> int:
          "serve_mixed": mixed, "kernels": kernels,
          "cli": {"conditional": cli15, "mdm": cli16, "kernel_vs_plain": cli17},
          "eval": {"gate": eval18, "t2m": eval19, "kernel_vs_plain": eval20},
+         "train": {"xl": train21, "mdm": train22, "step_pairs": train23},
          "phase_seconds": phase_seconds,
          "previous_ms_from_perf_md": dict(previous, f32_resblock=PREV_F32_RESBLOCK_MS,
                                           f32_attention=PREV_F32_ATTENTION_MS)}, indent=1))

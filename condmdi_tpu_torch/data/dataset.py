@@ -1,7 +1,8 @@
-"""The synthetic text-to-motion dataset, its collation, and the HumanML3D guard.
+"""The synthetic text-to-motion dataset, its collation and loader, and the HumanML3D guard.
 
 Counterpart of condmdi_tpu/data/dataset.py for `DatasetConfig`,
-`synthetic_captions`, `SyntheticMotionDataset` and `collate` (with
+`synthetic_captions`, `SyntheticMotionDataset`, `apply_augmentation`,
+`collate`, `DataLoader`, `PrefetchIterator` and `get_dataset_loader` (with
 `NormStats` from condmdi_tpu/utils/assets.py). The same seeds give the same
 items: each item draws from `default_rng((seed, i))`, its captions from
 `default_rng((seed, i, 7))`, and `__getitem__` draws its crop and its caption
@@ -12,16 +13,20 @@ The file-backed HumanML3D dataset is not ported (ROADMAP Queue A 8).
 `Text2MotionDataset` keeps the JAX package's existence test, so a caller that
 falls back to the synthetic set on FileNotFoundError behaves as JAX's does
 where the files are absent, and raises NotImplementedError where they are
-present instead of quietly serving synthetic data. The disk cache that JAX
-keeps for training-size synthetic sets (>= 512 items) waits for the training
-slice.
+present instead of quietly serving synthetic data.
+
+Synthetic sets of 512 items or more are cached on disk, as the JAX package
+does, under $CONDMDI_SYNTH_CACHE (default ~/.cache/condmdi_synth) in a
+`torch` subdirectory of their own, keyed by (abs_3d, length, seed, size) and
+the device type the features were computed on.
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Sequence
+from typing import Iterator, Sequence
 
 import numpy as np
 import torch
@@ -39,8 +44,9 @@ class NormStats:
 
 @dataclass
 class DatasetConfig:
-    """The fields of the JAX package's DatasetConfig that the synthetic set and
-    the HumanML3D guard read."""
+    """The fields of the JAX package's DatasetConfig that the synthetic set, the
+    loader and the HumanML3D guard read (the others configure the file-backed
+    dataset, which is not ported)."""
 
     name: str = "humanml"
     data_dir: str = ""
@@ -49,6 +55,9 @@ class DatasetConfig:
     unit_length: int = 4
     abs_3d: bool = False
     traject_only: bool = False
+    # the synthetic set's size; 0 = $CONDMDI_SYNTHETIC_SIZE, else batch_size*4
+    # (get_dataset_loader)
+    synthetic_size: int = 0
 
 
 class Text2MotionDataset:
@@ -71,6 +80,26 @@ class Text2MotionDataset:
             f"HumanML3D files found at {root}, but the file-backed Text2MotionDataset is not "
             "ported yet (ROADMAP Queue A 8); move them away to sample on the synthetic set"
         )
+
+
+def apply_augmentation(motion: np.ndarray, augment_type: str) -> np.ndarray:
+    """Random yaw ('rot') and also a random xz translation ('full') of abs-root
+    features, drawn from the global np.random as in the JAX package."""
+    if augment_type not in ("rot", "full"):
+        return motion
+    motion = motion.copy()
+    rand_rot = (np.random.rand() * 2.0 - 1.0) * np.pi / 4.0
+    motion[:, 0] = motion[:, 0] + rand_rot
+    c, s = np.cos(-rand_rot), np.sin(-rand_rot)
+    x, z = motion[:, 1].copy(), motion[:, 2].copy()
+    # rotate xz by -rand_rot about y (qrot with the inverse yaw quaternion)
+    motion[:, 1] = c * x + s * z
+    motion[:, 2] = -s * x + c * z
+    if augment_type == "full":
+        rand_trans = (np.random.rand(2) * 2.0 - 1.0) * 3.0
+        motion[:, 1] += rand_trans[0]
+        motion[:, 2] += rand_trans[1]
+    return motion
 
 
 # --------------------------------------------------------------------------- #
@@ -148,6 +177,9 @@ class SyntheticMotionDataset:
 
     _POP_STATS: dict = {}
     _CHUNK = 256  # items per FK + codec call
+    # __getitem__ draws a crop start and a caption: a cache of collated batches
+    # freezes them (training re-collates it every device_cache_refresh steps)
+    has_random_item_transforms = True
 
     def __init__(self, cfg: DatasetConfig, size: int = 64, seed: int = 0,
                  device: str | torch.device = "cuda"):
@@ -163,9 +195,24 @@ class SyntheticMotionDataset:
     @staticmethod
     def _make_items(cfg: DatasetConfig, seed: int, size: int, T: int, device):
         """(size, T-1, 263) float32 motions and each item's generative
-        properties (xz drift, mean body scale), in JAX's draw order."""
+        properties (xz drift, mean body scale), in JAX's draw order; sets of
+        512 items or more from the disk cache when it holds them."""
         from condmdi_tpu_torch.data.humanml_repr import extract_features
         from condmdi_tpu_torch.geometry.skeleton import T2M_RAW_OFFSETS, t2m_skeleton
+
+        cache_path = None
+        if size >= 512:
+            cdir = Path(os.environ.get("CONDMDI_SYNTH_CACHE", "~/.cache/condmdi_synth"))
+            cache_path = (cdir.expanduser() / "torch"
+                          / f"synth_{int(cfg.abs_3d)}_{T}_{seed}_{size}_{device.type}.npz")
+            if cache_path.exists():
+                try:
+                    with np.load(cache_path) as z:
+                        feats, drift, scale = z["feats"], z["drift"], z["scale"]
+                    return feats, [dict(drift=drift[i], scale=float(scale[i]))
+                                   for i in range(size)]
+                except Exception:  # a corrupt or partial file: make the set again
+                    pass
 
         qs, roots, offs, props = [], [], [], []
         for i in range(size):
@@ -194,7 +241,20 @@ class SyntheticMotionDataset:
                 joints = t2m_skeleton.forward_kinematics(q, root, off[:, None])
                 feats = extract_features(joints, 0.002, abs_3d=cfg.abs_3d)
                 out.append(feats.float().cpu().numpy())
-        return np.concatenate(out, axis=0), props
+        feats = np.concatenate(out, axis=0)
+        if cache_path is not None:
+            try:  # best effort: a read-only home keeps the set in memory only
+                import tempfile
+
+                cache_path.parent.mkdir(parents=True, exist_ok=True)
+                fd, tmp = tempfile.mkstemp(dir=str(cache_path.parent), suffix=".npz.tmp")
+                with os.fdopen(fd, "wb") as f:
+                    np.savez(f, feats=feats, drift=np.stack([p["drift"] for p in props]),
+                             scale=np.asarray([p["scale"] for p in props]))
+                os.replace(tmp, cache_path)  # atomic against concurrent writers
+            except OSError:
+                pass
+        return feats, props
 
     @classmethod
     def _population_stats(cls, cfg: DatasetConfig) -> NormStats:
@@ -260,3 +320,134 @@ def collate(samples: Sequence[dict], max_motion_length: int, text_encoder=None) 
     if text_encoder is not None:
         batch["text_embed"] = text_encoder.encode(captions)
     return batch
+
+
+class DataLoader:
+    """Shuffling epoch iterator with per-process sharding, single-threaded.
+
+    Epoch e shuffles with `default_rng(seed + e)`, the shard is every
+    `process_count`-th index from `process_index`, and each batch is collated
+    from the dataset's items, as the JAX package's loader does: the same
+    seed gives the same batches. `batches(epoch, start)` yields (batch,
+    (epoch, index of the next batch)) from any position, which is how
+    training resumes its data stream.
+    """
+
+    def __init__(self, dataset, batch_size: int, max_motion_length: int, shuffle: bool = True,
+                 seed: int = 0, text_encoder=None, process_index: int = 0,
+                 process_count: int = 1, drop_last: bool = True):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.max_motion_length = max_motion_length
+        self.shuffle = shuffle
+        self.seed = seed
+        self.text_encoder = text_encoder
+        self.process_index = process_index
+        self.process_count = process_count
+        self.drop_last = drop_last
+        self.epoch = 0
+
+    def __len__(self):
+        n = len(self.dataset) // self.process_count
+        return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
+
+    def _order(self, epoch: int) -> np.ndarray:
+        idx = np.arange(len(self.dataset))
+        if self.shuffle:
+            np.random.default_rng(self.seed + epoch).shuffle(idx)
+        return idx[self.process_index:: self.process_count]
+
+    def _epoch(self, epoch: int, start: int = 0) -> Iterator[tuple[dict, tuple[int, int]]]:
+        idx = self._order(epoch)
+        stop = len(idx) - (self.batch_size - 1 if self.drop_last else 0)
+        for b, i in enumerate(range(0, max(stop, 0), self.batch_size)):
+            if b < start:
+                continue
+            chunk = idx[i: i + self.batch_size]
+            if self.drop_last and len(chunk) < self.batch_size:
+                break
+            samples = [self.dataset[int(j)] for j in chunk]
+            yield collate(samples, self.max_motion_length, self.text_encoder), (epoch, b + 1)
+
+    def batches(self, epoch: int = 0, start: int = 0) -> Iterator[tuple[dict, tuple[int, int]]]:
+        """Endless (batch, position) from batch `start` of `epoch` on."""
+        if len(self) == 0:
+            raise ValueError(f"{len(self.dataset)} items make no batch of {self.batch_size}")
+        while True:
+            yield from self._epoch(epoch, start)
+            epoch, start = epoch + 1, 0
+
+    def __iter__(self) -> Iterator[dict]:
+        epoch = self.epoch
+        self.epoch += 1
+        for batch, _ in self._epoch(epoch):
+            yield batch
+
+
+class PrefetchIterator:
+    """Background-thread prefetch: keeps `depth` items ready so that collation
+    on the host does not stall the card. `close()` stops the thread and
+    returns once it has ended."""
+
+    def __init__(self, iterable, depth: int = 2):
+        import queue
+        import threading
+
+        self._q: "queue.Queue" = queue.Queue(maxsize=depth)
+        self._sentinel = object()
+        self._err = None
+        self._stop = threading.Event()
+
+        def feed():
+            try:
+                for item in iterable:
+                    while not self._stop.is_set():
+                        try:
+                            self._q.put(item, timeout=0.05)
+                            break
+                        except queue.Full:
+                            continue
+                    if self._stop.is_set():
+                        return
+            except BaseException as e:  # surface the feeder's error to the consumer
+                self._err = e
+            finally:
+                while not self._stop.is_set():
+                    try:
+                        self._q.put(self._sentinel, timeout=0.05)
+                        break
+                    except queue.Full:
+                        continue
+
+        self._thread = threading.Thread(target=feed, daemon=True)
+        self._thread.start()
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        item = self._q.get()
+        if item is self._sentinel:
+            if self._err is not None:
+                raise self._err
+            raise StopIteration
+        return item
+
+    def close(self) -> None:
+        self._stop.set()
+        self._thread.join()
+
+
+def get_dataset_loader(cfg: DatasetConfig, batch_size: int, text_encoder=None,
+                       device: str | torch.device = "cuda", **kw) -> DataLoader:
+    """The HumanML3D loader where its files are, else the synthetic set, whose
+    size is cfg.synthetic_size, else $CONDMDI_SYNTHETIC_SIZE, else
+    max(batch_size * 4, 64), as in the JAX package. The synthetic features are
+    computed on `device`."""
+    try:
+        ds = Text2MotionDataset(cfg)
+    except FileNotFoundError:
+        size = (cfg.synthetic_size or int(os.environ.get("CONDMDI_SYNTHETIC_SIZE", 0))
+                or max(batch_size * 4, 64))
+        ds = SyntheticMotionDataset(cfg, size=size, device=device)
+    return DataLoader(ds, batch_size, cfg.max_motion_length, text_encoder=text_encoder, **kw)

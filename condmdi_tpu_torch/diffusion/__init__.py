@@ -7,8 +7,10 @@ from condmdi_tpu_torch.diffusion.schedule import (
 from condmdi_tpu_torch.diffusion.gaussian import (
     DiffusionConfig,
     InpaintingState,
+    LossType,
     ModelMeanType,
     ModelVarType,
+    training_losses,
 )
 from condmdi_tpu_torch.diffusion.sampling import (
     SamplerConfig,

@@ -1,9 +1,10 @@
 """Gaussian diffusion core: q/posterior math and p_mean_variance.
 
-Counterpart of condmdi_tpu/diffusion/gaussian.py (training losses wait for
-the training slice). The denoiser enters as `denoise_fn(x, t_model)`,
-already closed over weights and conditioning, so this module is
-model-agnostic. Layout is [B, T, F]; observation masks are [B, T, F].
+Counterpart of condmdi_tpu/diffusion/gaussian.py, training losses
+included (`vb_terms_bpd`, `training_losses`, `calc_bpd_loop`). The denoiser
+enters as `denoise_fn(x, t_model)`, already closed over weights and
+conditioning, so this module is model-agnostic. Layout is [B, T, F]; time
+masks are [B, T]; observation masks are [B, T, F].
 
 Reconstruction guidance takes the gradient of the keyframe loss through the
 denoiser with `torch.autograd.grad`. On CUDA the kernels' autograd Functions
@@ -21,6 +22,13 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from condmdi_tpu_torch.diffusion.losses import (
+    discretized_gaussian_log_likelihood,
+    masked_l2,
+    masked_l2_weighted,
+    mean_flat,
+    normal_kl,
+)
 from condmdi_tpu_torch.diffusion.schedule import DiffusionSchedule
 
 DenoiseFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
@@ -39,18 +47,49 @@ class ModelVarType(enum.Enum):
     LEARNED_RANGE = "learned_range"
 
 
+class LossType(enum.Enum):
+    MSE = "mse"
+    RESCALED_MSE = "rescaled_mse"
+    KL = "kl"
+    RESCALED_KL = "rescaled_kl"
+
+    def is_vb(self):
+        return self in (LossType.KL, LossType.RESCALED_KL)
+
+
 @dataclass(frozen=True)
 class DiffusionConfig:
-    """The sampling-side fields of the JAX package's DiffusionConfig."""
+    """The JAX package's DiffusionConfig, field for field."""
 
     model_mean_type: ModelMeanType = ModelMeanType.START_X
     model_var_type: ModelVarType = ModelVarType.FIXED_SMALL
+    loss_type: LossType = LossType.MSE
+    lambda_rcxyz: float = 0.0
+    lambda_vel: float = 0.0
+    lambda_root_vel: float = 0.0
+    lambda_vel_rcxyz: float = 0.0
+    lambda_fc: float = 0.0
+    data_rep: str = "hml_vec"
     clip_range: Optional[float] = None
+    abs_3d: bool = True
+    traj_only: bool = False
+    apply_zero_mask: bool = False
+    traj_extra_weight: float = 1.0
+    time_weighted_loss: bool = False
+    train_x0_as_eps: bool = False
 
 
 # --------------------------------------------------------------------------- #
 # Closed-form q distributions
 # --------------------------------------------------------------------------- #
+def q_mean_variance(sched: DiffusionSchedule, x_start, t):
+    nd = x_start.ndim
+    mean = sched.extract(sched.sqrt_alphas_cumprod, t, nd) * x_start
+    variance = sched.extract(1.0 - sched.alphas_cumprod, t, nd)
+    log_variance = sched.extract(sched.log_one_minus_alphas_cumprod, t, nd)
+    return mean, variance, log_variance
+
+
 def q_sample(sched: DiffusionSchedule, x_start, t, noise):
     nd = x_start.ndim
     return (
@@ -246,3 +285,175 @@ def p_mean_variance(
         "model_output": model_output,
         "model_var_values": model_var_values,
     }
+
+
+# --------------------------------------------------------------------------- #
+# VLB terms
+# --------------------------------------------------------------------------- #
+def vb_terms_bpd(denoise_fn, sched, cfg, x_start, x_t, t, inpaint=None) -> dict:
+    """The variational-bound term in bits per dim [B]: the decoder NLL at t = 0,
+    KL(q(x_{t-1} | x_t, x_0) || p(x_{t-1} | x_t)) elsewhere."""
+    true_mean, _, true_log_var = q_posterior_mean_variance(sched, x_start, x_t, t)
+    out = p_mean_variance(denoise_fn, sched, cfg, x_t, t, inpaint=inpaint)
+    kl = normal_kl(true_mean, true_log_var, out["mean"], out["log_variance"])
+    kl = mean_flat(kl) / np.log(2.0)
+    decoder_nll = -discretized_gaussian_log_likelihood(
+        x_start, means=out["mean"], log_scales=0.5 * out["log_variance"]
+    )
+    decoder_nll = mean_flat(decoder_nll) / np.log(2.0)
+    return {"output": torch.where(t == 0, decoder_nll, kl), "pred_xstart": out["pred_xstart"]}
+
+
+# --------------------------------------------------------------------------- #
+# Training losses
+# --------------------------------------------------------------------------- #
+def training_losses(
+    denoise_fn: DenoiseFn,
+    sched: DiffusionSchedule,
+    cfg: DiffusionConfig,
+    x_start: torch.Tensor,
+    t: torch.Tensor,
+    noise: torch.Tensor,
+    time_mask: torch.Tensor,
+    obs_mask: Optional[torch.Tensor] = None,
+    zero_keyframe_loss: bool = False,
+    keyframe_conditioned: bool = False,
+    get_xyz: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+) -> dict[str, torch.Tensor]:
+    """The MSE-family training loss, per-sample [B] terms.
+
+    Trajectory over-weighting, keyframe-loss zeroing, keyframe-MSE logging,
+    the velocity loss and the time-weighted / x0-as-eps reweighting, as in
+    the JAX package. The SMPL losses (rcxyz, fc) run only when `get_xyz`
+    (forward kinematics to joints) is given and their lambda is non-zero.
+    """
+    x_t = q_sample(sched, x_start, t, noise)
+    if cfg.apply_zero_mask:
+        x_t = x_t * time_mask[..., None].to(x_t.dtype)
+
+    terms: dict[str, torch.Tensor] = {}
+
+    if cfg.loss_type in (LossType.KL, LossType.RESCALED_KL):
+        terms["loss"] = vb_terms_bpd(denoise_fn, sched, cfg, x_start, x_t, t)["output"]
+        if cfg.loss_type == LossType.RESCALED_KL:
+            terms["loss"] = terms["loss"] * sched.num_timesteps
+        return terms
+
+    model_output = denoise_fn(x_t, sched.model_t(t))
+
+    if cfg.model_var_type in (ModelVarType.LEARNED, ModelVarType.LEARNED_RANGE):
+        C = x_t.shape[-1]
+        model_output, model_var_values = model_output[..., :C], model_output[..., C:]
+        # the vb term trains the variance only: the mean enters it detached
+        frozen = torch.cat([model_output.detach(), model_var_values], dim=-1)
+        terms["vb"] = vb_terms_bpd(lambda *_args: frozen, sched, cfg, x_start, x_t, t)["output"]
+        if cfg.loss_type == LossType.RESCALED_MSE:
+            terms["vb"] = terms["vb"] * (sched.num_timesteps / 1000.0)
+
+    if cfg.model_mean_type == ModelMeanType.PREVIOUS_X:
+        target = q_posterior_mean_variance(sched, x_start, x_t, t)[0]
+    elif cfg.model_mean_type == ModelMeanType.START_X:
+        target = x_start
+    else:
+        target = noise
+
+    B, T, F = target.shape
+    weights = torch.ones((B, 1, F), dtype=target.dtype, device=target.device)
+    if cfg.traj_extra_weight != 1.0:
+        # squared: the reference applies it outside the squared error
+        weights[..., :4] *= cfg.traj_extra_weight**2
+
+    if zero_keyframe_loss:
+        if obs_mask is None:
+            raise ValueError("zero_keyframe_loss needs obs_mask")
+        full = time_mask[..., None] & ~obs_mask.bool()
+        terms["rot_mse"] = masked_l2_weighted(target, model_output, full, weights,
+                                              over_keyframes=True)
+    else:
+        terms["rot_mse"] = masked_l2_weighted(target, model_output, time_mask, weights)
+
+    if keyframe_conditioned and obs_mask is not None:
+        kf_mask = time_mask[..., None] & obs_mask.bool()
+        terms["keyframes_mse"] = masked_l2_weighted(target, model_output, kf_mask, weights,
+                                                    over_keyframes=True)
+
+    target_xyz = output_xyz = None
+    if cfg.lambda_rcxyz > 0.0 and get_xyz is not None:
+        target_xyz, output_xyz = get_xyz(target), get_xyz(model_output)
+        terms["rcxyz_mse"] = masked_l2(target_xyz.reshape(B, T, -1),
+                                       output_xyz.reshape(B, T, -1), time_mask)
+
+    if cfg.lambda_fc > 0.0 and get_xyz is not None:
+        if target_xyz is None:
+            target_xyz, output_xyz = get_xyz(target), get_xyz(model_output)
+        feet = [7, 10, 8, 11]  # L_Ankle, L_Foot, R_Ankle, R_Foot
+        gt_feet = target_xyz[:, :, feet, :]
+        gt_vel = torch.linalg.norm(gt_feet[:, 1:] - gt_feet[:, :-1], dim=-1)
+        fc_mask = (gt_vel <= 0.01)[..., None]
+        pred_feet = output_xyz[:, :, feet, :]
+        pred_vel = (pred_feet[:, 1:] - pred_feet[:, :-1]) * fc_mask
+        terms["fc"] = masked_l2(pred_vel.reshape(B, T - 1, -1),
+                                torch.zeros_like(pred_vel).reshape(B, T - 1, -1),
+                                time_mask[:, 1:])
+
+    if cfg.lambda_vel > 0.0:
+        target_vel = target[:, 1:] - target[:, :-1]
+        out_vel = model_output[:, 1:] - model_output[:, :-1]
+        # the reference drops the last feature ("root location")
+        terms["vel_mse"] = masked_l2(target_vel[..., :-1], out_vel[..., :-1], time_mask[:, 1:])
+
+    loss = terms["rot_mse"]
+    if "vb" in terms:
+        loss = loss + terms["vb"]
+    for key, lam in (("vel_mse", cfg.lambda_vel), ("rcxyz_mse", cfg.lambda_rcxyz),
+                     ("fc", cfg.lambda_fc)):
+        loss = loss + lam * terms[key] if key in terms else loss
+    terms["loss"] = loss
+
+    if cfg.time_weighted_loss:
+        tw = sched.ratio_eps[t]
+        terms["loss"] = terms["loss"] * (tw / tw.mean())
+    if cfg.train_x0_as_eps:
+        tw = sched.snr_weight[t]
+        terms["loss"] = terms["loss"] * (tw / tw.mean())
+    return terms
+
+
+def calc_bpd_loop(
+    denoise_fn: DenoiseFn,
+    sched: DiffusionSchedule,
+    cfg: DiffusionConfig,
+    x_start: torch.Tensor,
+    generator: Optional[torch.Generator] = None,
+    step_noise=None,
+) -> dict[str, torch.Tensor]:
+    """The full variational bound: per-timestep VLB terms and x0 / eps MSEs
+    ([B, S], column i for t = S-1-i, as the JAX scan stacks them), the prior
+    KL and the total bits per dim.
+
+    Noise for each step, from t = S-1 down to 0, comes from `generator`, or
+    from `step_noise[i]` (the i-th step of that descending order) when given.
+    """
+    B = x_start.shape[0]
+    S = sched.num_timesteps
+    vb, xstart_mse, mse = [], [], []
+    with torch.no_grad():
+        for i, ti in enumerate(range(S - 1, -1, -1)):
+            t = torch.full((B,), ti, dtype=torch.long, device=x_start.device)
+            if step_noise is not None:
+                noise = torch.as_tensor(step_noise[i], device=x_start.device, dtype=x_start.dtype)
+            else:
+                noise = torch.randn(x_start.shape, generator=generator, device=x_start.device,
+                                    dtype=x_start.dtype)
+            x_t = q_sample(sched, x_start, t, noise)
+            out = vb_terms_bpd(denoise_fn, sched, cfg, x_start, x_t, t)
+            xstart_mse.append(mean_flat((out["pred_xstart"] - x_start) ** 2))
+            eps = predict_eps_from_xstart(sched, x_t, t, out["pred_xstart"])
+            mse.append(mean_flat((eps - noise) ** 2))
+            vb.append(out["output"])
+        qt_mean, _, qt_log_var = q_mean_variance(
+            sched, x_start, torch.full((B,), S - 1, dtype=torch.long, device=x_start.device))
+        prior_kl = mean_flat(normal_kl(qt_mean, qt_log_var, 0.0, 0.0)) / np.log(2.0)
+    vb, xstart_mse, mse = (torch.stack(v, dim=1) for v in (vb, xstart_mse, mse))
+    return {"total_bpd": vb.sum(dim=1) + prior_kl, "prior_bpd": prior_kl, "vb": vb,
+            "xstart_mse": xstart_mse, "mse": mse}

@@ -5,7 +5,7 @@ Counterpart of condmdi_tpu/models/cfg.py:
 with the cond and uncond branches concatenated into one forward of twice
 the batch (`y["uncond"]` masks the text of the second half), and
 obs_x0/obs_mask passed through both. `mask_cond` is that masking, shared by
-the denoisers.
+the denoisers, with the training-time condition dropout.
 """
 
 from __future__ import annotations
@@ -15,11 +15,20 @@ from typing import Any, Callable, Optional
 import torch
 
 
-def mask_cond(cond: torch.Tensor, force_mask) -> torch.Tensor:
-    """Zero the condition: everywhere for `force_mask=True`, on the rows of a [B] bool mask."""
+def mask_cond(cond: torch.Tensor, force_mask, cond_mask_prob: float = 0.0,
+              draws=None) -> torch.Tensor:
+    """Zero the condition: everywhere for `force_mask=True`, on the rows of a [B]
+    bool mask; then, in training (`draws` given, a `layers.TrainDraws`), on each
+    row with probability `cond_mask_prob` (one Bernoulli keep draw per row)."""
     if isinstance(force_mask, bool):
-        return torch.zeros_like(cond) if force_mask else cond
-    return torch.where(force_mask[:, None], torch.zeros_like(cond), cond)
+        if force_mask:
+            return torch.zeros_like(cond)
+    else:
+        cond = torch.where(force_mask[:, None], torch.zeros_like(cond), cond)
+    if draws is not None and cond_mask_prob > 0.0:
+        keep = draws.keep((cond.shape[0], 1), 1.0 - cond_mask_prob, cond.device)
+        cond = cond * keep.to(cond.dtype)
+    return cond
 
 
 def make_cfg_denoiser(

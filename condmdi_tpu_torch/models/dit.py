@@ -15,6 +15,10 @@ names (`block{i}.adaln.mod`, `attn.qkv`, `mlp.fc1`, …); a parameter-free
 LayerNorm (Flax `use_bias=False, use_scale=False`) is a function call here
 and has no state-dict entry. Every block's self-attention goes through
 ops.attention.mha: the Hopper kernel on CUDA, its plain version on the CPU.
+
+A forward given `draws` (a layers.TrainDraws) is the training forward:
+condition dropout at `cond_mask_prob`, and dropout at `dropout` after the
+positional encoding and after each MLP's activation, as in the Flax module.
 """
 
 from __future__ import annotations
@@ -28,7 +32,7 @@ from torch import nn
 from condmdi_tpu_torch.device import resolve_device
 from condmdi_tpu_torch.models.cfg import mask_cond
 from condmdi_tpu_torch.models.embeddings import EmbedAction, PositionalEncoding, TimestepEmbedder
-from condmdi_tpu_torch.models.layers import Dense, LayerNorm, init_params
+from condmdi_tpu_torch.models.layers import Dense, LayerNorm, dropout, init_params
 from condmdi_tpu_torch.ops.attention import mha
 
 
@@ -67,49 +71,50 @@ class _Attn(nn.Module):
 
 
 class _MLP(nn.Module):
-    def __init__(self, d_model, ff_size, *, device=None, dtype=None):
+    def __init__(self, d_model, ff_size, dropout=0.1, *, device=None, dtype=None):
         super().__init__()
+        self.dropout = dropout
         self.fc1 = Dense(d_model, ff_size, device=device, dtype=dtype)
         self.fc2 = Dense(ff_size, d_model, device=device, dtype=dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(F.gelu(self.fc1(x)))
+    def forward(self, x: torch.Tensor, draws=None) -> torch.Tensor:
+        return self.fc2(dropout(F.gelu(self.fc1(x)), self.dropout, draws))
 
 
 class DiTBlockPreNorm(nn.Module):
-    def __init__(self, d_model, num_heads, ff_size, *, device=None, dtype=None):
+    def __init__(self, d_model, num_heads, ff_size, dropout=0.1, *, device=None, dtype=None):
         super().__init__()
         dd = dict(device=device, dtype=dtype)
         self.adaln = AdaLN(d_model, d_model, 6, **dd)
         self.attn = _Attn(d_model, num_heads, **dd)
-        self.mlp = _MLP(d_model, ff_size, **dd)
+        self.mlp = _MLP(d_model, ff_size, dropout, **dd)
 
-    def forward(self, x, c, skip=None):
+    def forward(self, x, c, skip=None, draws=None):
         sh_a, sc_a, g_a, sh_m, sc_m, g_m = self.adaln(c)
         x = x + g_a * self.attn(modulate(_plain_layer_norm(x), sh_a, sc_a))
-        return x + g_m * self.mlp(modulate(_plain_layer_norm(x), sh_m, sc_m))
+        return x + g_m * self.mlp(modulate(_plain_layer_norm(x), sh_m, sc_m), draws)
 
 
 class DiTBlockPostNorm(nn.Module):
-    def __init__(self, d_model, num_heads, ff_size, *, device=None, dtype=None):
+    def __init__(self, d_model, num_heads, ff_size, dropout=0.1, *, device=None, dtype=None):
         super().__init__()
         dd = dict(device=device, dtype=dtype)
         self.adaln = AdaLN(d_model, d_model, 6, **dd)
         self.attn = _Attn(d_model, num_heads, **dd)
         self.norm1 = LayerNorm(d_model, **dd)
-        self.mlp = _MLP(d_model, ff_size, **dd)
+        self.mlp = _MLP(d_model, ff_size, dropout, **dd)
         self.norm2 = LayerNorm(d_model, **dd)
 
-    def forward(self, x, c, skip=None):
+    def forward(self, x, c, skip=None, draws=None):
         sh_a, sc_a, g_a, sh_m, sc_m, g_m = self.adaln(c)
         x = modulate(self.norm1(x + g_a * self.attn(x)), sh_a, sc_a)
-        return modulate(self.norm2(x + g_m * self.mlp(x)), sh_m, sc_m)
+        return modulate(self.norm2(x + g_m * self.mlp(x, draws)), sh_m, sc_m)
 
 
 class DiTBlockConcat(nn.Module):
     """Skip-concat input modulation."""
 
-    def __init__(self, d_model, num_heads, ff_size, *, device=None, dtype=None):
+    def __init__(self, d_model, num_heads, ff_size, dropout=0.1, *, device=None, dtype=None):
         super().__init__()
         dd = dict(device=device, dtype=dtype)
         self.adaln = AdaLN(d_model, d_model, 6, **dd)
@@ -117,25 +122,26 @@ class DiTBlockConcat(nn.Module):
         self.linear0 = Dense(2 * d_model, d_model, **dd)
         self.attn = _Attn(d_model, num_heads, **dd)
         self.norm1 = LayerNorm(d_model, **dd)
-        self.mlp = _MLP(d_model, ff_size, **dd)
+        self.mlp = _MLP(d_model, ff_size, dropout, **dd)
 
-    def forward(self, x, c, skip):
+    def forward(self, x, c, skip, draws=None):
         sc0, sc1, sh_a, sc_a, g_a, g_m = self.adaln(c)
         h = self.norm0(torch.cat([x, skip], dim=-1))
         h = self.linear0(modulate(h, None, torch.cat([sc0, sc1], dim=-1)))
         h = h + g_a * self.attn(h)
         h = modulate(self.norm1(h), sh_a, sc_a)
-        return h + g_m * self.mlp(h)
+        return h + g_m * self.mlp(h, draws)
 
 
 class DiTBlockConcatV2(nn.Module):
     """Skip concat inside the MLP."""
 
-    def __init__(self, d_model, num_heads, ff_size, scale_only=False, *, device=None,
-                 dtype=None):
+    def __init__(self, d_model, num_heads, ff_size, scale_only=False, dropout=0.1, *,
+                 device=None, dtype=None):
         super().__init__()
         dd = dict(device=device, dtype=dtype)
         self.scale_only = scale_only
+        self.dropout = dropout
         self.adaln = AdaLN(d_model, d_model, 4 if scale_only else 6, **dd)
         self.attn = _Attn(d_model, num_heads, **dd)
         self.norm1 = LayerNorm(d_model, **dd)
@@ -143,14 +149,15 @@ class DiTBlockConcatV2(nn.Module):
         self.fc2 = Dense(ff_size, d_model, **dd)
         self.norm2 = LayerNorm(d_model, **dd)
 
-    def forward(self, x, c, skip):
+    def forward(self, x, c, skip, draws=None):
         if self.scale_only:
             sc_a, g_a, sc_m, g_m = self.adaln(c)
             sh_a = sh_m = None
         else:
             sh_a, sc_a, g_a, sh_m, sc_m, g_m = self.adaln(c)
         x = modulate(self.norm1(x + g_a * self.attn(x)), sh_a, sc_a)
-        h = self.fc2(F.gelu(self.fc1(torch.cat([x, skip], dim=-1))))
+        h = F.gelu(self.fc1(torch.cat([x, skip], dim=-1)))
+        h = self.fc2(dropout(h, self.dropout, draws))
         return modulate(self.norm2(x + g_m * h), sh_m, sc_m)
 
 
@@ -203,7 +210,8 @@ class MDM_DiT(nn.Module):
 
     def __init__(self, njoints=263, nfeats=1, latent_dim=512, ff_size=1024, num_layers=8,
                  num_heads=4, clip_dim=512, arch="dit_prenorm", cond_mode="text", num_actions=1,
-                 two_head=False, *, device: str | torch.device = "cuda",
+                 two_head=False, dropout=0.1, cond_mask_prob=0.1, *,
+                 device: str | torch.device = "cuda",
                  dtype: torch.dtype = torch.float32, seed: Optional[int] = 0):
         super().__init__()
         device = resolve_device(device)
@@ -213,6 +221,8 @@ class MDM_DiT(nn.Module):
         self.cond_mode = cond_mode
         self.num_layers = num_layers
         self.two_head = two_head
+        self.dropout = dropout
+        self.cond_mask_prob = cond_mask_prob
         self.input_feats = njoints * nfeats
         self.embed_timestep = TimestepEmbedder(latent_dim, **dd)
         if "text" in cond_mode:
@@ -223,9 +233,10 @@ class MDM_DiT(nn.Module):
         self.pos_enc = PositionalEncoding(latent_dim, device=device)
         for i in range(num_layers):
             if block_cls is DiTBlockConcatV2:
-                blk = block_cls(latent_dim, num_heads, ff_size, scale_only=scale_only, **dd)
+                blk = block_cls(latent_dim, num_heads, ff_size, scale_only=scale_only,
+                                dropout=dropout, **dd)
             else:
-                blk = block_cls(latent_dim, num_heads, ff_size, **dd)
+                blk = block_cls(latent_dim, num_heads, ff_size, dropout, **dd)
             self.add_module(f"block{i}", blk)
         head = dict(norm=wiring["final_norm"], skip=wiring["use_skip"], scale_only=scale_only)
         self.output_process = DiTOutput(self.input_feats, latent_dim, **head, **dd)
@@ -235,19 +246,21 @@ class MDM_DiT(nn.Module):
             init_params(self, seed)
 
     def forward(self, x: torch.Tensor, timesteps: torch.Tensor,
-                y: Optional[dict[str, Any]] = None):
+                y: Optional[dict[str, Any]] = None, draws=None):
         y = y or {}
+        p = self.cond_mask_prob
         emb = self.embed_timestep(timesteps)
         force_mask = y.get("uncond", False)
         if "text" in self.cond_mode and "text_embed" in y:
-            emb = emb + self.embed_text(mask_cond(y["text_embed"].to(x.dtype), force_mask))
+            text = mask_cond(y["text_embed"].to(x.dtype), force_mask, p, draws)
+            emb = emb + self.embed_text(text)
         if "action" in self.cond_mode and "action" in y:
-            emb = emb + mask_cond(self.embed_action(y["action"]), force_mask)
+            emb = emb + mask_cond(self.embed_action(y["action"]), force_mask, p, draws)
 
-        h = self.pos_enc(self.input_process(x))
+        h = dropout(self.pos_enc(self.input_process(x)), self.dropout, draws)
         skip = h
         for i in range(self.num_layers):
-            h = getattr(self, f"block{i}")(h, emb, skip)
+            h = getattr(self, f"block{i}")(h, emb, skip, draws)
         out = self.output_process(h, emb, skip)
         if self.two_head:
             return out, self.output_process2(h, emb, skip)

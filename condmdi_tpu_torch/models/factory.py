@@ -8,9 +8,9 @@ MDM_UNET, else MDM. Dataset table: humanml → 263×1 text-conditioned; kit →
 `create_model` builds the module on `device` with its parameters allocated
 and not filled, as the JAX factory returns a module without parameters: the
 caller loads a checkpoint, or Flax's initialisation from a seed
-(`models.flax_init.load_flax_init`). Options that only training reads
-(cond_mask_prob, zero_keyframe_loss, the loss weights) are not part of the
-port's modules or of its DiffusionConfig.
+(`models.flax_init.load_flax_init`). The modules take `cond_mask_prob` (and
+the transformers their default dropout of 0.1, as the Flax modules), and
+the DiffusionConfig the loss options, as in the JAX factory.
 """
 
 from __future__ import annotations
@@ -19,7 +19,12 @@ from typing import Any, Tuple
 
 import torch
 
-from condmdi_tpu_torch.diffusion.gaussian import DiffusionConfig, ModelMeanType, ModelVarType
+from condmdi_tpu_torch.diffusion.gaussian import (
+    DiffusionConfig,
+    LossType,
+    ModelMeanType,
+    ModelVarType,
+)
 from condmdi_tpu_torch.diffusion.schedule import (
     DiffusionSchedule,
     get_named_beta_schedule,
@@ -60,7 +65,7 @@ def create_model(args, device: str | torch.device = "cuda") -> torch.nn.Module:
             njoints=dims["njoints"], nfeats=dims["nfeats"], latent_dim=args.latent_dim,
             ff_size=args.ff_size, num_layers=args.layers,
             num_heads=getattr(args, "num_heads", 4), cond_mode=dims["cond_mode"], arch=arch,
-            device=device, seed=None,
+            cond_mask_prob=args.cond_mask_prob, device=device, seed=None,
         )
     if arch.startswith("unet"):
         if getattr(args, "unet_attention", False):
@@ -75,7 +80,7 @@ def create_model(args, device: str | torch.device = "cuda") -> torch.nn.Module:
             keyframe_conditioned=getattr(args, "keyframe_conditioned", False),
             pad_frames_to=int(getattr(args, "unet_pad_to", 224) or 224),
             precision_mode=getattr(args, "precision_mode", "float"),
-            device=device, seed=None,
+            cond_mask_prob=args.cond_mask_prob, device=device, seed=None,
         )
     return MDM(
         njoints=dims["njoints"], nfeats=dims["nfeats"], latent_dim=args.latent_dim,
@@ -83,7 +88,7 @@ def create_model(args, device: str | torch.device = "cuda") -> torch.nn.Module:
         cond_mode=dims["cond_mode"], arch=arch,
         emb_trans_dec=getattr(args, "emb_trans_dec", False),
         precision_mode=getattr(args, "precision_mode", "float"),
-        device=device, seed=None,
+        cond_mask_prob=args.cond_mask_prob, device=device, seed=None,
     )
 
 
@@ -106,7 +111,17 @@ def create_gaussian_diffusion(args) -> Tuple[DiffusionSchedule, DiffusionConfig]
         model_var_type=(
             ModelVarType.FIXED_SMALL if args.sigma_small else ModelVarType.FIXED_LARGE
         ),
+        loss_type=LossType.MSE,
+        lambda_rcxyz=getattr(args, "lambda_rcxyz", 0.0),
+        lambda_vel=getattr(args, "lambda_vel", 0.0),
+        lambda_fc=getattr(args, "lambda_fc", 0.0),
         clip_range=getattr(args, "clip_range", None),
+        abs_3d=getattr(args, "abs_3d", False),
+        traj_only=getattr(args, "traj_only", False),
+        apply_zero_mask=getattr(args, "apply_zero_mask", False),
+        traj_extra_weight=getattr(args, "traj_extra_weight", 1.0),
+        time_weighted_loss=getattr(args, "time_weighted_loss", False),
+        train_x0_as_eps=getattr(args, "train_x0_as_eps", False),
     )
     return sched, cfg
 

@@ -5,6 +5,11 @@ one explicit CPU `torch.Generator`, so construction never reads the global
 RNG and a seed gives the same weights on every device. Kernels use Flax's
 lecun-normal scale (std = 1/sqrt(fan_in)) or zeros; biases are zero; norm
 scales are one. Every module that holds parameters is a `ParamModule`.
+
+`TrainDraws` and `dropout` are the random parts of a training forward:
+Flax's `cond_mask` and `dropout` rng streams become one explicit
+`torch.Generator` (or anything with the same `keep` method, as a test that
+replays another framework's draws).
 """
 
 from __future__ import annotations
@@ -41,7 +46,31 @@ class Dense(ParamModule):
         _const_(self.bias, 0.0)
 
     def forward(self, x):
+        if x.dtype != self.weight.dtype:  # Flax's promotion: bf16 input, f32 params -> f32
+            dt = torch.promote_types(x.dtype, self.weight.dtype)
+            return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
         return F.linear(x, self.weight, self.bias)
+
+
+class TrainDraws:
+    """The random draws of a training forward, from one generator on the
+    model's device: condition dropout and every dropout mask."""
+
+    def __init__(self, generator: torch.Generator):
+        self.generator = generator
+
+    def keep(self, shape, keep_prob: float, device) -> torch.Tensor:
+        """A bool mask of `shape`, each entry True with probability `keep_prob`."""
+        return torch.rand(shape, generator=self.generator, device=device) < keep_prob
+
+
+def dropout(x: torch.Tensor, rate: float, draws) -> torch.Tensor:
+    """Flax's Dropout: kept entries scaled by 1/(1-rate), the rest zero; the
+    identity outside training (`draws` None) or at rate 0."""
+    if draws is None or rate == 0.0:
+        return x
+    keep = draws.keep(x.shape, 1.0 - rate, x.device)
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 class ConvTransposeParams(ParamModule):

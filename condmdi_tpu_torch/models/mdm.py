@@ -29,9 +29,14 @@ through the sampler's InpaintingState.
 `attn_out`, `ff1`, `ff2`) as int8 QDense, as the JAX package does; attention
 and every other Dense stay float.
 
+Training: a forward given `draws` (a layers.TrainDraws) is the Flax
+module's `train=True` call: the condition dropout at `cond_mask_prob` and
+dropout at `dropout` where the Flax layers have it (after the positional
+encoding, the attention output, the activation and the feed-forward output;
+the decoder also after its cross-attention), all drawn from `draws`.
+
 Not ported here (ROADMAP Queue A 1): arch `gru` and the `*_large` output
-head. Dropout and the classifier-free condition dropout act only in
-training, which waits for its own slice.
+head.
 """
 
 from __future__ import annotations
@@ -45,7 +50,7 @@ from torch import nn
 from condmdi_tpu_torch.device import resolve_device
 from condmdi_tpu_torch.models.cfg import mask_cond
 from condmdi_tpu_torch.models.embeddings import EmbedAction, PositionalEncoding, TimestepEmbedder
-from condmdi_tpu_torch.models.layers import Dense, LayerNorm, init_params
+from condmdi_tpu_torch.models.layers import Dense, LayerNorm, dropout, init_params
 from condmdi_tpu_torch.ops.attention import mha, multihead_attention
 from condmdi_tpu_torch.ops.quant import QuantizedWeight, int8_matmul, live_scales
 
@@ -72,8 +77,8 @@ class QDense(Dense):
         self.quantized = QuantizedWeight()
 
     def forward(self, x):
-        if self.precision_mode == "float":
-            return super().forward(x)
+        if self.precision_mode == "float":  # the kernel in x's dtype, as the JAX QDense
+            return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
         q = self.quantized.get(self.weight, self.bias)
         w_scale, bias = q.w_scale, q.bias
         if torch.is_grad_enabled() and (self.weight.requires_grad or self.bias.requires_grad):
@@ -85,11 +90,12 @@ class TransformerEncoderLayer(nn.Module):
     """Post-LN encoder layer: x = LN(x + Attn(x)); x = LN(x + FFN(x))."""
 
     def __init__(self, d_model, num_heads, ff_size, activation="gelu", precision_mode="float",
-                 *, device=None, dtype=None):
+                 dropout=0.1, *, device=None, dtype=None):
         super().__init__()
         dd = dict(device=device, dtype=dtype)
         self.num_heads = num_heads
         self.activation = activation
+        self.dropout = dropout
         self.qkv = QDense(d_model, 3 * d_model, precision_mode, **dd)
         self.attn_out = QDense(d_model, d_model, precision_mode, **dd)
         self.norm1 = LayerNorm(d_model, **dd)
@@ -97,20 +103,24 @@ class TransformerEncoderLayer(nn.Module):
         self.ff2 = QDense(ff_size, d_model, precision_mode, **dd)
         self.norm2 = LayerNorm(d_model, **dd)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.norm1(x + self.attn_out(multihead_attention(self.qkv(x), self.num_heads)))
-        return self.norm2(x + self.ff2(activate(self.ff1(x), self.activation)))
+    def forward(self, x: torch.Tensor, draws=None) -> torch.Tensor:
+        p = self.dropout
+        a = self.attn_out(multihead_attention(self.qkv(x), self.num_heads))
+        x = self.norm1(x + dropout(a, p, draws))
+        h = dropout(activate(self.ff1(x), self.activation), p, draws)
+        return self.norm2(x + dropout(self.ff2(h), p, draws))
 
 
 class TransformerDecoderLayer(nn.Module):
     """Post-LN decoder layer: self-attention, cross-attention to memory, FFN."""
 
-    def __init__(self, d_model, num_heads, ff_size, activation="gelu", *, device=None,
-                 dtype=None):
+    def __init__(self, d_model, num_heads, ff_size, activation="gelu", dropout=0.1, *,
+                 device=None, dtype=None):
         super().__init__()
         dd = dict(device=device, dtype=dtype)
         self.num_heads = num_heads
         self.activation = activation
+        self.dropout = dropout
         self.qkv = Dense(d_model, 3 * d_model, **dd)
         self.attn_out = Dense(d_model, d_model, **dd)
         self.norm1 = LayerNorm(d_model, **dd)
@@ -122,11 +132,15 @@ class TransformerDecoderLayer(nn.Module):
         self.ff2 = Dense(ff_size, d_model, **dd)
         self.norm3 = LayerNorm(d_model, **dd)
 
-    def forward(self, x: torch.Tensor, memory: torch.Tensor) -> torch.Tensor:
-        x = self.norm1(x + self.attn_out(multihead_attention(self.qkv(x), self.num_heads)))
+    def forward(self, x: torch.Tensor, memory: torch.Tensor, draws=None) -> torch.Tensor:
+        p = self.dropout
+        sa = self.attn_out(multihead_attention(self.qkv(x), self.num_heads))
+        x = self.norm1(x + dropout(sa, p, draws))
         k, v = self.kv_proj(memory).chunk(2, dim=-1)
-        x = self.norm2(x + self.cross_out(mha(self.q_proj(x), k, v, self.num_heads)))
-        return self.norm3(x + self.ff2(activate(self.ff1(x), self.activation)))
+        ca = self.cross_out(mha(self.q_proj(x), k, v, self.num_heads))
+        x = self.norm2(x + dropout(ca, p, draws))
+        h = dropout(activate(self.ff1(x), self.activation), p, draws)
+        return self.norm3(x + dropout(self.ff2(h), p, draws))
 
 
 def cal_multiple(n: int, multiple: int) -> int:
@@ -145,8 +159,8 @@ class MDM(nn.Module):
     def __init__(self, njoints=263, nfeats=1, latent_dim=512, ff_size=1024, num_layers=8,
                  num_heads=4, activation="gelu", clip_dim=512, arch="trans_enc",
                  emb_trans_dec=False, cond_mode="text", num_actions=1, precision_mode="float",
-                 *, device: str | torch.device = "cuda", dtype: torch.dtype = torch.float32,
-                 seed: Optional[int] = 0):
+                 dropout=0.1, cond_mask_prob=0.1, *, device: str | torch.device = "cuda",
+                 dtype: torch.dtype = torch.float32, seed: Optional[int] = 0):
         super().__init__()
         if arch.endswith("_large"):
             raise NotImplementedError(
@@ -164,6 +178,8 @@ class MDM(nn.Module):
         self.emb_trans_dec = emb_trans_dec
         self.cond_mode = cond_mode
         self.num_layers = num_layers
+        self.dropout = dropout
+        self.cond_mask_prob = cond_mask_prob
         self.input_feats = njoints * nfeats
         self.embed_timestep = TimestepEmbedder(latent_dim, **dd)
         if "text" in cond_mode:
@@ -175,9 +191,10 @@ class MDM(nn.Module):
         for i in range(num_layers):
             if self.encoder:
                 layer = TransformerEncoderLayer(latent_dim, num_heads, ff_size, activation,
-                                                precision_mode, **dd)
+                                                precision_mode, dropout, **dd)
             else:
-                layer = TransformerDecoderLayer(latent_dim, num_heads, ff_size, activation, **dd)
+                layer = TransformerDecoderLayer(latent_dim, num_heads, ff_size, activation,
+                                                dropout, **dd)
             self.add_module(f"layer{i}", layer)
         self.output_process = Dense(latent_dim, self.input_feats, **dd)
         if seed is not None:
@@ -188,27 +205,31 @@ class MDM(nn.Module):
         x: torch.Tensor,  # [B, T, F]
         timesteps: torch.Tensor,  # [B]
         y: Optional[dict[str, Any]] = None,
+        draws=None,  # a layers.TrainDraws: the training forward
     ) -> torch.Tensor:
         y = y or {}
+        p = self.cond_mask_prob
         emb = self.embed_timestep(timesteps)
         force_mask = y.get("uncond", False)
         if "text" in self.cond_mode and "text_embed" in y:
-            emb = emb + self.embed_text(mask_cond(y["text_embed"].to(x.dtype), force_mask))
+            text = mask_cond(y["text_embed"].to(x.dtype), force_mask, p, draws)
+            emb = emb + self.embed_text(text)
         if "action" in self.cond_mode and "action" in y:
-            emb = emb + mask_cond(self.embed_action(y["action"]), force_mask)
+            emb = emb + mask_cond(self.embed_action(y["action"]), force_mask, p, draws)
 
         h = self.input_process(x)  # [B, T, D]
         layers = [getattr(self, f"layer{i}") for i in range(self.num_layers)]
         if self.encoder:
             xseq = self.pos_enc(torch.cat([emb[:, None, :], h], dim=1))  # [B, T+1, D]
+            xseq = dropout(xseq, self.dropout, draws)
             for layer in layers:
-                xseq = layer(xseq)
+                xseq = layer(xseq, draws)
             out = xseq[:, 1:, :]
         else:
             memory = emb[:, None, :]
             xseq = torch.cat([memory, h], dim=1) if self.emb_trans_dec else h
-            xseq = self.pos_enc(xseq)
+            xseq = dropout(self.pos_enc(xseq), self.dropout, draws)
             for layer in layers:
-                xseq = layer(xseq, memory)
+                xseq = layer(xseq, memory, draws)
             out = xseq[:, 1:, :] if self.emb_trans_dec else xseq
         return self.output_process(out)  # [B, T, F]

@@ -36,6 +36,19 @@ The upsample ConvTranspose (k4 s2, Flax 'SAME' ≡ torch padding 1) stays
 float in every mode. `MixedStepDenoiser` is the float-tail mixed-step
 sampler's denoiser: the int8 model for the early steps, its float twin,
 which shares the same Parameter objects, for the last `k_float`.
+
+Training: a forward given `draws` (a layers.TrainDraws) drops the text
+condition per row at `cond_mask_prob`, as the Flax module's `train=True`
+call (the UNet has no dropout layer). Float mode trains through the same
+kernel calls: under autograd each half goes through ops.resblock's
+`ConvGnMish`, the kernel forward with a plain-recompute backward, where the
+JAX package trains its UNet unfused; the gradients are the same. A bfloat16
+input with float32 parameters (training with `use_fp16`) follows JAX's
+dtype promotion: QConv rounds its kernel and bias to the input's dtype and
+computes in it, while GroupNorm and Dense, whose parameters are float32,
+promote; so only the first block's residual conv computes in bfloat16, its
+first half computes from bfloat16-rounded operands in float32, and the rest
+of the network is float32.
 """
 
 from __future__ import annotations
@@ -66,10 +79,12 @@ PRECISION_MODES = ("float", "int8", "int8_static", "int8_static_pc", "int8_prequ
 
 
 def _conv1d(x: torch.Tensor, p, stride: int = 1, padding: int = 0) -> torch.Tensor:
-    """A plain conv on [B, T, C]: 1×1 as a matmul, wider kernels via F.conv1d."""
-    if p.weight.shape[-1] == 1 and stride == 1 and padding == 0:
-        return F.linear(x, p.weight[:, :, 0], p.bias)
-    y = F.conv1d(x.transpose(1, 2), p.weight, p.bias, stride=stride, padding=padding)
+    """A plain conv on [B, T, C] with the kernel and bias in x's dtype (the JAX
+    QConv's astype): 1×1 as a matmul, wider kernels via F.conv1d."""
+    w, b = p.weight.to(x.dtype), p.bias.to(x.dtype)
+    if w.shape[-1] == 1 and stride == 1 and padding == 0:
+        return F.linear(x, w[:, :, 0], b)
+    y = F.conv1d(x.transpose(1, 2), w, b, stride=stride, padding=padding)
     return y.transpose(1, 2).contiguous()
 
 
@@ -168,6 +183,22 @@ class _ResblockHalf(nn.Module):
         self.norm = GroupNormParams(out_channels, device=device, dtype=dtype)
         self.packed = PackedConvWeight()
 
+    def _fused(self, x, scale=None, shift=None, res=None):
+        """Float mode: one fused_conv_gn_mish call. A bfloat16 x meeting float32
+        parameters computes as the JAX package's unfused half does: the conv
+        from x and the kernel and bias rounded to bfloat16 (QConv's astype),
+        the norm and everything after in float32, a float32 output."""
+        w, b, packed = self.conv.weight, self.conv.bias, self.packed
+        if x.dtype != w.dtype:
+            w, b, packed = w.to(x.dtype).to(w.dtype), b.to(x.dtype).to(b.dtype), None
+            x = x.to(w.dtype)
+        if res is not None and res.dtype != x.dtype:
+            res = res.to(x.dtype)
+        if scale is not None:
+            scale, shift = scale.to(x.dtype), shift.to(x.dtype)
+        return fused_conv_gn_mish(x, w, b, self.norm.weight, self.norm.bias, scale=scale,
+                                  shift=shift, res=res, n_groups=self.n_groups, packed=packed)
+
     def _unfused(self, x, scale=None, shift=None, res=None):
         """The int8 modes: QConv → GroupNorm → [AdaGN] → Mish [→ +res], unfused as
         in the JAX package, in x's dtype. The conv's output is copied once into
@@ -198,10 +229,7 @@ class Conv1dBlock(_ResblockHalf):
     def forward(self, x, res=None):
         if self.precision_mode != "float":
             return self._unfused(x, res=res)
-        return fused_conv_gn_mish(
-            x, self.conv.weight, self.conv.bias, self.norm.weight, self.norm.bias,
-            res=res, n_groups=self.n_groups, packed=self.packed,
-        )
+        return self._fused(x, res=res)
 
 
 class Conv1dAdaGNBlock(_ResblockHalf):
@@ -215,11 +243,7 @@ class Conv1dAdaGNBlock(_ResblockHalf):
     def forward(self, x, scale, shift):
         if self.precision_mode != "float":
             return self._unfused(x, scale, shift)
-        return fused_conv_gn_mish(
-            x, self.conv.weight, self.conv.bias, self.norm.weight, self.norm.bias,
-            scale=scale.to(x.dtype), shift=shift.to(x.dtype), n_groups=self.n_groups,
-            packed=self.packed,
-        )
+        return self._fused(x, scale, shift)
 
 
 class ResidualTemporalBlock(nn.Module):
@@ -255,7 +279,8 @@ class ResidualTemporalBlock(nn.Module):
             scale, shift = cond.chunk(2, dim=-1)
             h = self.block1(x, scale, shift)
         else:
-            h = self.block1(x) + cond[:, None, :].to(x.dtype)
+            h = self.block1(x)
+            h = h + cond[:, None, :].to(h.dtype)
         return self.block2(h, res=res)
 
 
@@ -328,7 +353,7 @@ class MDM_UNET(nn.Module):
     def __init__(self, njoints=263, nfeats=1, latent_dim=512,
                  dim_mults: Sequence[float] = (2, 2, 2, 2), adagn=True, zero=True,
                  clip_dim=512, cond_mode="text", keyframe_conditioned=False,
-                 pad_frames_to=224, precision_mode="float", *,
+                 pad_frames_to=224, precision_mode="float", cond_mask_prob=0.1, *,
                  device: str | torch.device = "cuda", dtype: torch.dtype = torch.float32,
                  seed: Optional[int] = 0):
         super().__init__()
@@ -341,8 +366,10 @@ class MDM_UNET(nn.Module):
                            dim_mults=tuple(dim_mults), adagn=adagn, zero=zero,
                            clip_dim=clip_dim, cond_mode=cond_mode,
                            keyframe_conditioned=keyframe_conditioned,
-                           pad_frames_to=pad_frames_to, precision_mode=precision_mode)
+                           pad_frames_to=pad_frames_to, precision_mode=precision_mode,
+                           cond_mask_prob=cond_mask_prob)
         self.precision_mode = precision_mode
+        self.cond_mask_prob = cond_mask_prob
         device = resolve_device(device)
         dd = dict(device=device, dtype=dtype)
         self.input_feats = njoints * nfeats
@@ -367,6 +394,7 @@ class MDM_UNET(nn.Module):
         y: Optional[dict[str, Any]] = None,
         obs_x0: Optional[torch.Tensor] = None,
         obs_mask: Optional[torch.Tensor] = None,
+        draws=None,  # a layers.TrainDraws: the training forward
     ) -> torch.Tensor:
         y = y or {}
         B, T, Fdim = x.shape
@@ -390,8 +418,9 @@ class MDM_UNET(nn.Module):
 
         emb = self.embed_timestep(timesteps)
         if "text_embed" in y:
-            enc_text = y["text_embed"].to(emb.dtype)
-            emb = emb + self.embed_text(mask_cond(enc_text, y.get("uncond", False)))
+            enc_text = mask_cond(y["text_embed"].to(x.dtype), y.get("uncond", False),
+                                 self.cond_mask_prob, draws)
+            emb = emb + self.embed_text(enc_text)
 
         x = self.unet(buf, emb)
         x = x[:, :T, :]

@@ -53,6 +53,7 @@ import torch
 import torch.nn.functional as F
 
 from condmdi_tpu_torch.ops.resblock import recompute_grads
+from condmdi_tpu_torch.ops.weight_cache import weight_key
 
 _CHUNK = 128  # input channels per K step of the kernel: Cin is padded to a multiple of it
 _TILE = 128  # output rows and output channels per CTA (csrc/quant.cu kBM, kBN)
@@ -267,20 +268,15 @@ class Quantized(NamedTuple):
     packed: Optional[torch.Tensor]    # the kernel's layout of wq (CUDA only)
 
 
-def _key(t: Optional[torch.Tensor]):
-    if t is None:
-        return None
-    return (t._version, t.data_ptr(), t.dtype, t.device, tuple(t.shape))
-
-
 class QuantizedWeight:
     """The quantized copy of one QConv/QDense weight, remade when it is stale.
 
     Held by the module as a plain attribute (not in the state_dict). The key
     holds the version counter, data pointer, dtype, device and shape of the
     weight, the bias and, where the weight's codes or the static activation
-    scale depend on it, the recorded amax; so `load_state_dict`, an in-place
-    update, `.to()` and a recalibration all invalidate it. (A write through
+    scale depend on it, the recorded amax, and the optimizer steps taken
+    (ops/weight_cache.py); so `load_state_dict`, an in-place update, `.to()`,
+    a recalibration and an optimizer step all invalidate it. (A write through
     `.data` bypasses the version counter and is not seen.)
     """
 
@@ -294,7 +290,8 @@ class QuantizedWeight:
         activation scale of `amax`), 'static_pc' (amax [Cin] folded into the
         weight), 'prequant' (`weight` is already int8 and `weight_scale` its
         scale)."""
-        key = (mode, _key(weight), _key(bias), _key(amax), _key(weight_scale))
+        key = (mode, weight_key(weight), weight_key(bias), weight_key(amax),
+               weight_key(weight_scale))
         if key == self._key:
             return self._value
         with torch.no_grad():

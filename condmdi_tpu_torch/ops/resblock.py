@@ -42,6 +42,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from condmdi_tpu_torch.ops.weight_cache import weight_key
+
 # dynamic shared memory a block may use on sm_90 (227 KB)
 _MAX_SMEM = 232448
 _BLOCK_N = 128  # the group width's upper bound: one cluster holds one group
@@ -95,8 +97,10 @@ class PackedConvWeight:
 
     Held by the calling module as a plain attribute: not a parameter, not a
     buffer, not in the state_dict. The key is the weight's version counter,
-    data pointer, dtype, device and shape, so `load_state_dict`, an in-place
-    update, `.to(dtype)` and `.to(device)` all invalidate it. (A write
+    data pointer, dtype, device and shape and the optimizer steps taken
+    (ops/weight_cache.py), so `load_state_dict`, an in-place update,
+    `.to(dtype)`, `.to(device)` and an optimizer's step (fused AdamW's too,
+    which leaves the version counter as it was) all invalidate it. (A write
     through `weight.data` bypasses the version counter and is not seen.)
     """
 
@@ -105,7 +109,7 @@ class PackedConvWeight:
         self._packed = None
 
     def get(self, w: torch.Tensor) -> torch.Tensor:
-        key = (w._version, w.data_ptr(), w.dtype, w.device, tuple(w.shape))
+        key = weight_key(w)
         if key != self._key:
             self._packed = packed_for_kernel(w.detach())
             self._key = key

@@ -1,0 +1,303 @@
+"""The train step: keyframe injection, t sampling, loss, backward, clip, AdamW, EMA.
+
+Counterpart of condmdi_tpu/training/loop.py (`TrainConfig`, the train state,
+`make_optimizer`, `make_train_step`). One step, in the JAX step's order:
+
+  1. keyframe-mask injection (CondMDI): a random observation mask
+     (training/keyframes.py, the `keyframe_selection_scheme`), dropped for a
+     whole sample with probability `keyframe_mask_prob`, and kept inside the
+     sample's valid frames;
+  2. t, uniform or from the loss-aware sampler;
+  3. diffusion.gaussian.training_losses with the model in training mode
+     (condition dropout, dropout), its per-sample loss times the sampler's
+     importance weights, averaged;
+  4. backward;
+  5. optax's global-norm clip (g * max_norm / |g| once |g| >= max_norm), then
+     AdamW (b1 0.9, eps 1e-8, weight decay on every parameter, GroupNorm and
+     LayerNorm scales and biases included) at the learning rate of the update
+     count before this one, linearly annealed to 0 over `lr_anneal_steps`
+     when set;
+  6. the EMA: ema * beta + params * (1 - beta);
+  7. the loss-aware sampler's history;
+  8. the metrics: loss, grad_norm (before the clip), param_norm (after the
+     update), the terms' means and the loss by quartile of t.
+
+The model's parameters are the master float32 copy and are updated in
+place; with `use_bf16` the noisy input and the keyframes reach the model in
+bfloat16 and the model promotes as the Flax modules do (models/unet.py).
+Every random draw of a step comes from one `StepDraws`, which a test can
+replace by one that replays another framework's draws. `remat` runs the
+denoiser under torch.utils.checkpoint, with its dropout draws recorded on
+the forward and replayed in the recompute.
+
+Metrics stay on the device; reading them is the caller's sync. `marks`, when
+given, is called with "forward", "backward", "optimizer" and "end" as the
+step reaches each part (a profiler records CUDA events there); it costs
+nothing when absent.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Callable, Optional
+
+import torch
+from torch import nn
+
+from condmdi_tpu_torch.diffusion.gaussian import DiffusionConfig, training_losses
+from condmdi_tpu_torch.diffusion.resample import LossAwareState, uniform_sample_t
+from condmdi_tpu_torch.diffusion.schedule import DiffusionSchedule
+from condmdi_tpu_torch.models.layers import TrainDraws
+from condmdi_tpu_torch.training.keyframes import get_keyframes_mask
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    lr: float = 1e-4
+    weight_decay: float = 0.01
+    adam_beta2: float = 0.999
+    grad_clip: float = 1.0
+    avg_model_beta: float = 0.9999
+    lr_anneal_steps: int = 0
+    num_steps: int = 1_200_000
+    batch_size: int = 64
+    log_interval: int = 1_000
+    save_interval: int = 100_000
+    schedule_sampler: str = "uniform"
+    # keyframe conditioning (CondMDI)
+    keyframe_conditioned: bool = False
+    keyframe_selection_scheme: str = "random_frames"
+    keyframe_mask_prob: float = 0.1
+    zero_keyframe_loss: bool = False
+    use_bf16: bool = False
+    # recompute the denoiser's forward in the backward instead of keeping its activations
+    remat: bool = False
+
+
+@dataclass
+class TrainState:
+    """What a step changes besides the model's parameters."""
+
+    step: int
+    ema: dict[str, torch.Tensor]  # parameter name -> EMA (float32)
+    optimizer: torch.optim.Optimizer
+    loss_aware: Optional[LossAwareState] = None
+    params: dict[str, nn.Parameter] = field(default_factory=dict)
+
+    def state_dict(self) -> dict:
+        return {"step": self.step, "ema": {k: v.detach().cpu() for k, v in self.ema.items()},
+                "optimizer": self.optimizer.state_dict(),
+                "loss_aware": None if self.loss_aware is None else self.loss_aware.state_dict()}
+
+    def load_state_dict(self, d: dict) -> None:
+        self.step = int(d["step"])
+        for k, v in d["ema"].items():
+            self.ema[k].copy_(v)
+        self.optimizer.load_state_dict(d["optimizer"])
+        if self.loss_aware is not None:
+            self.loss_aware.load_state_dict(d["loss_aware"])
+
+
+def learning_rate(cfg: TrainConfig, count: int) -> float:
+    """optax.linear_schedule(lr, 0, lr_anneal_steps) at the update count before
+    this update (the first update uses lr), or the constant lr."""
+    if not cfg.lr_anneal_steps:
+        return cfg.lr
+    frac = 1.0 - min(max(count, 0), cfg.lr_anneal_steps) / cfg.lr_anneal_steps
+    return cfg.lr * frac
+
+
+def make_optimizer(params, cfg: TrainConfig) -> torch.optim.AdamW:
+    """AdamW as optax.adamw configures it: b1 0.9, b2 adam_beta2, eps 1e-8, the
+    decay on every parameter."""
+    return torch.optim.AdamW(list(params), lr=cfg.lr, betas=(0.9, cfg.adam_beta2), eps=1e-8,
+                             weight_decay=cfg.weight_decay)
+
+
+def global_norm(tensors) -> torch.Tensor:
+    """sqrt of the sum of squares over all tensors (optax.global_norm)."""
+    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(list(tensors))))
+
+
+def clip_by_global_norm_(grads: list[torch.Tensor], max_norm: float, g_norm: torch.Tensor):
+    """optax.clip_by_global_norm in place: g / |g| * max_norm once |g| >= max_norm,
+    g untouched below; no host sync."""
+    trigger = g_norm < max_norm
+    one = torch.ones((), dtype=g_norm.dtype, device=g_norm.device)
+    torch._foreach_div_(grads, torch.where(trigger, one, g_norm))
+    torch._foreach_mul_(grads, torch.where(trigger, one, one * max_norm))
+
+
+def create_train_state(model: nn.Module, cfg: TrainConfig,
+                       sched: DiffusionSchedule) -> TrainState:
+    params = {n: p for n, p in model.named_parameters() if p.requires_grad}
+    return TrainState(
+        step=0,
+        ema={n: p.detach().clone() for n, p in params.items()},
+        optimizer=make_optimizer(params.values(), cfg),
+        loss_aware=(LossAwareState.create(sched.num_timesteps)
+                    if cfg.schedule_sampler == "loss-second-moment" else None),
+        params=params,
+    )
+
+
+class StepDraws:
+    """Every random draw of a train step. `generator` lives on the model's
+    device (t, the keyframe drop, the noise, the model's dropout draws);
+    `keyframe_generator` is a CPU generator for the host's draws: the keyframe
+    masks (training/keyframes.py) and the loss-aware sampler's t."""
+
+    def __init__(self, generator: torch.Generator, keyframe_generator: torch.Generator):
+        self.generator = generator
+        self.keyframe_generator = keyframe_generator
+
+    def keyframe_mask(self, lengths, T: int, scheme: str) -> torch.Tensor:
+        return get_keyframes_mask(lengths, T, edit_mode=scheme,
+                                  generator=self.keyframe_generator)
+
+    def keyframe_drop(self, B: int, prob: float, device) -> torch.Tensor:
+        """[B, 1, 1] bool: True drops a sample's keyframes."""
+        return torch.rand((B, 1, 1), generator=self.generator, device=device) < prob
+
+    def timesteps(self, loss_aware: Optional[LossAwareState], B: int, num_timesteps: int,
+                  device):
+        if loss_aware is not None:
+            # the sampler's state lives on the host, and so its draw
+            t, w = loss_aware.sample(B, self.keyframe_generator)
+            return t.to(device), w.to(device)
+        return uniform_sample_t(B, num_timesteps, self.generator, device)
+
+    def noise(self, shape, dtype, device) -> torch.Tensor:
+        return torch.randn(shape, generator=self.generator, dtype=dtype, device=device)
+
+    def model(self) -> TrainDraws:
+        return TrainDraws(self.generator)
+
+    def state(self) -> dict:
+        return {"generator": self.generator.get_state(),
+                "keyframe_generator": self.keyframe_generator.get_state()}
+
+    def load_state(self, d: dict) -> None:
+        self.generator.set_state(d["generator"])
+        self.keyframe_generator.set_state(d["keyframe_generator"])
+
+
+class _RecordedDraws:
+    """A model's draws recorded on the first forward and replayed, in order, by
+    the recompute torch.utils.checkpoint makes in the backward."""
+
+    def __init__(self, draws):
+        self.draws, self.saved, self.i = draws, [], 0
+
+    def keep(self, shape, keep_prob, device):
+        if self.i < len(self.saved):
+            out = self.saved[self.i]
+        else:
+            out = self.draws.keep(shape, keep_prob, device)
+            self.saved.append(out)
+        self.i += 1
+        return out
+
+
+def make_train_step(model: nn.Module, sched: DiffusionSchedule, dcfg: DiffusionConfig,
+                    tcfg: TrainConfig, marks: Optional[Callable[[str], None]] = None,
+                    ) -> Callable[[TrainState, dict, StepDraws], dict]:
+    """`train_step(state, batch, draws) -> metrics`, updating the model and state.
+
+    batch: motion [B, T, F], time_mask [B, T], lengths [B], and text_embed
+    [B, 512] / action [B] where the model takes them, on the model's device.
+    """
+    mark = marks or (lambda _part: None)
+
+    def train_step(state: TrainState, batch: dict, draws: StepDraws) -> dict:
+        motion = batch["motion"]
+        B, T = motion.shape[:2]
+        device = motion.device
+        time_mask = batch["time_mask"]
+
+        mark("forward")
+        obs_mask = None
+        if tcfg.keyframe_conditioned:
+            obs_mask = draws.keyframe_mask(batch["lengths"], T, tcfg.keyframe_selection_scheme)
+            obs_mask = obs_mask.to(device)
+            if tcfg.keyframe_mask_prob > 0.0:
+                obs_mask = obs_mask & ~draws.keyframe_drop(B, tcfg.keyframe_mask_prob, device)
+            obs_mask = obs_mask & time_mask[..., None]  # a subset of the valid frames
+
+        t, weights = draws.timesteps(state.loss_aware, B, sched.num_timesteps, device)
+        noise = draws.noise(motion.shape, motion.dtype, device)
+        model_draws = draws.model()
+        y = {k: batch[k] for k in ("text_embed", "action") if k in batch}
+
+        def denoise_with(md, x_t, t_model):
+            if tcfg.use_bf16:
+                x_t = x_t.to(torch.bfloat16)
+            kw = {}
+            if tcfg.keyframe_conditioned:
+                kw = dict(obs_x0=motion.to(x_t.dtype), obs_mask=obs_mask)
+            return model(x_t, t_model, y, draws=md, **kw).float()
+
+        if tcfg.remat:
+            recorded = _RecordedDraws(model_draws)
+
+            def run(x_t, t_model):
+                recorded.i = 0
+                return denoise_with(recorded, x_t, t_model)
+
+            def denoise(x_t, t_model):
+                return torch.utils.checkpoint.checkpoint(run, x_t, t_model, use_reentrant=False)
+        else:
+            def denoise(x_t, t_model):
+                return denoise_with(model_draws, x_t, t_model)
+
+        terms = training_losses(denoise, sched, dcfg, motion, t, noise, time_mask,
+                                obs_mask=obs_mask, zero_keyframe_loss=tcfg.zero_keyframe_loss,
+                                keyframe_conditioned=tcfg.keyframe_conditioned)
+        loss = torch.mean(terms["loss"] * weights)
+
+        opt = state.optimizer
+        opt.zero_grad()
+        mark("backward")
+        loss.backward()
+        params = list(state.params.values())
+        for p in params:  # optax updates every leaf: an unreached one has a zero gradient
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        grads = [p.grad for p in params]
+        mark("optimizer")
+        with torch.no_grad():
+            grad_norm = global_norm(grads)
+            if tcfg.grad_clip > 0:
+                clip_by_global_norm_(grads, tcfg.grad_clip, grad_norm)
+            lr = learning_rate(tcfg, state.step)
+            for group in opt.param_groups:
+                group["lr"] = lr
+            opt.step()
+
+            beta = tcfg.avg_model_beta
+            ema = list(state.ema.values())
+            if beta > 0:
+                torch._foreach_mul_(ema, beta)
+                torch._foreach_add_(ema, [p.detach() for p in params], alpha=1.0 - beta)
+            else:
+                torch._foreach_copy_(ema, [p.detach() for p in params])
+
+            if state.loss_aware is not None:
+                state.loss_aware = state.loss_aware.update(t.cpu(), terms["loss"].cpu())
+
+            metrics = {"loss": loss.detach(), "grad_norm": grad_norm,
+                       "param_norm": global_norm([p.detach() for p in params])}
+            for k in ("rot_mse", "keyframes_mse", "vel_mse", "vb"):
+                if k in terms:
+                    metrics[k] = terms[k].detach().mean()
+            quartile = (4 * t / sched.num_timesteps).to(torch.int32)
+            per_sample = terms["loss"].detach()
+            for q in range(4):
+                sel = quartile == q
+                metrics[f"loss_q{q}"] = (torch.where(sel, per_sample, 0.0).sum()
+                                         / sel.sum().clamp(min=1))
+        state.step += 1
+        mark("end")
+        return metrics
+
+    return train_step

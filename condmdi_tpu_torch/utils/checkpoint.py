@@ -1,5 +1,17 @@
-"""Checkpoint helpers that need no JAX: EMA-preferred parameter selection and
+"""Checkpoints of the port's training, EMA-preferred parameter selection, and
 the reference's PyTorch checkpoints converted to a Flax parameter tree.
+
+Training writes two files per save into its save_dir:
+  * `ckpt_{step:09d}.pth` (torch.save): the step, the model's parameters,
+    the EMA, the optimizer's state (moments and count), the loss-aware
+    sampler, the random generators' states and the data stream's position,
+    everything a run needs to resume exactly; the suffix is not `.pt`, which
+    the samplers read as a reference checkpoint;
+  * `ema_{step:09d}.npz`: the EMA parameters as a flat "//"-keyed Flax tree
+    (weights.to_flax_params) tagged with `__params_fingerprint__` and
+    `__step__`, the format of the committed
+    save/synthetic_unet_m/gate_ema_000100000.npz, which the port's CLIs and
+    evals.run take as --model_path (args.json sits beside it).
 
 Counterpart of condmdi_tpu/utils/checkpoint.py for `select_eval_params`,
 `params_fingerprint`, `convert_mdm_state_dict`, `convert_unet_state_dict` and
@@ -12,11 +24,69 @@ with the port.
 
 from __future__ import annotations
 
+import os
+import re
+import tempfile
 from pathlib import Path
-from typing import Any
+from typing import Any, Optional
 
 import numpy as np
 import torch
+
+
+# --------------------------------------------------------------------------- #
+# The port's training checkpoints
+# --------------------------------------------------------------------------- #
+def _atomic_write(path: Path, write) -> None:
+    fd, tmp = tempfile.mkstemp(dir=str(path.parent), suffix=path.suffix + ".tmp")
+    try:
+        with os.fdopen(fd, "wb") as f:
+            write(f)
+        os.replace(tmp, path)
+    except BaseException:
+        Path(tmp).unlink(missing_ok=True)
+        raise
+
+
+def save_checkpoint(save_dir: str | Path, step: int, state: dict,
+                    ema_params: Optional[dict] = None) -> Path:
+    """Write `ckpt_{step:09d}.pth` (the whole `state`) and, when `ema_params`
+    (a {"params": Flax tree}) is given, `ema_{step:09d}.npz` beside it.
+    Returns the resume file's path."""
+    from condmdi_tpu_torch.weights import flatten_flax_params
+
+    save_dir = Path(save_dir).absolute()
+    save_dir.mkdir(parents=True, exist_ok=True)
+    path = save_dir / f"ckpt_{step:09d}.pth"
+    _atomic_write(path, lambda f: torch.save(state, f))
+    if ema_params is not None:
+        flat = flatten_flax_params(ema_params)
+        # uncompressed: float weights barely compress, and zlib over UNet-XL's 0.8 GB
+        # took most of a save
+        _atomic_write(save_dir / f"ema_{step:09d}.npz", lambda f: np.savez(
+            f, __params_fingerprint__=np.array(params_fingerprint(ema_params)),
+            __step__=np.array(step, np.int64), **flat))
+    return path
+
+
+def load_checkpoint(path: str | Path, map_location="cpu") -> dict:
+    """The state a `save_checkpoint` wrote (it holds numpy generator states, so
+    it is loaded with weights_only=False: load only checkpoints you wrote)."""
+    return torch.load(Path(path), map_location=map_location, weights_only=False)
+
+
+def latest_checkpoint(save_dir: str | Path) -> Optional[Path]:
+    """The resume file of the highest step in save_dir, or None."""
+    save_dir = Path(save_dir)
+    if not save_dir.is_dir():
+        return None
+    ckpts = sorted(save_dir.glob("ckpt_*.pth"))
+    return ckpts[-1] if ckpts else None
+
+
+def parse_step_from_checkpoint(path: str | Path) -> int:
+    m = re.search(r"(?:ckpt_|ema_|model)(\d+)", Path(path).name)
+    return int(m.group(1)) if m else 0
 
 
 def select_eval_params(restored: dict, use_ema: bool = True) -> dict:

@@ -18,7 +18,9 @@ layout transforms:
                                            weight_scale (not a norm's weight)
   act_scale collection amax              → the QConv's amax buffer
 
-One function serves the UNet, MDM and DiT families.
+One function serves the UNet, MDM and DiT families. `to_flax_params` is its
+inverse for float models: a state_dict back to the Flax tree, which the
+training loop writes as a flat npz and the JAX model can load.
 """
 
 from __future__ import annotations
@@ -98,3 +100,38 @@ def load_flax_params(source) -> dict[str, torch.Tensor]:
         dtype = np.int8 if leaf == "weight_q" else np.float32
         sd[key] = torch.from_numpy(np.array(value, dtype=dtype))
     return sd
+
+
+def _to_flax(key: str, value: np.ndarray) -> tuple[tuple[str, ...], np.ndarray]:
+    *mods, leaf = key.split(".")
+    if leaf == "weight":
+        if value.ndim == 2:  # Dense
+            return tuple(mods) + ("kernel",), value.T
+        if value.ndim == 3 and mods[-1].endswith("_upsample"):  # ConvTranspose
+            return tuple(mods) + ("kernel",), value.transpose(2, 0, 1)[::-1]
+        if value.ndim == 3:  # Conv
+            return tuple(mods) + ("kernel",), value.transpose(2, 1, 0)
+        return tuple(mods) + ("scale",), value  # GroupNorm / LayerNorm
+    if leaf in ("bias", "action_embedding"):
+        return tuple(mods) + (leaf,), value
+    raise KeyError(f"no Flax layout for the port's parameter {key} (float models only)")
+
+
+def to_flax_params(state_dict: Mapping[str, torch.Tensor]) -> dict:
+    """{"params": nested Flax tree of float32 numpy arrays} from a float model's
+    parameters (`model.state_dict()`, or any {name: tensor} of its parameters):
+    the inverse of `load_flax_params`."""
+    tree: dict = {}
+    for key, tensor in state_dict.items():
+        value = tensor.detach().float().cpu().numpy()
+        path, arr = _to_flax(key, value)
+        node = tree
+        for part in path[:-1]:
+            node = node.setdefault(part, {})
+        node[path[-1]] = np.ascontiguousarray(arr, dtype=np.float32)
+    return {"params": tree}
+
+
+def flatten_flax_params(tree: Mapping[str, Any]) -> dict[str, np.ndarray]:
+    """The flat npz's {'params//a//b//kernel': array} form of a nested tree."""
+    return {_SEP.join(path): arr for path, arr in _flatten(tree).items()}

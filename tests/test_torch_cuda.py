@@ -1303,3 +1303,176 @@ def test_eval_run_kernel_path_matches_plain(cuda_device, tmp_path, monkeypatch):
     assert report["meta"]["params_fingerprint"] == "0d69067e95b7d9da"
     assert report["meta"]["platform"] == "cuda"
     assert report["meta"]["transition_length"] == 30  # EvalArgs' default, the protocol's mask
+
+
+# --------------------------------------------------------------------------- #
+# training: the kernels under autograd at the training shapes, and after AdamW
+# --------------------------------------------------------------------------- #
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    # (B, T, Cin, x channels, Cout, adagn, res): UNet-XL training at B=64, pad 224, f32
+    (64, 224, 526, 528, 1024, True, False),
+    (64, 224, 1024, 1024, 1024, False, True),
+    (64, 112, 2048, 2048, 1024, True, False),
+    (64, 28, 1024, 1024, 1024, False, True),
+])
+def test_kernel_gradients_match_plain_at_the_training_shapes(cuda_device, case):
+    """ConvGnMish's gradients at UNet-XL's training batch equal plain autograd's
+    (GRAD_TOL); its forward is the kernel's (F32_TOL)."""
+    B, T, cin, xc, cout, adagn, res = case
+    args, kw = make_inputs(B, T, cin, cout, adagn, res, torch.float32, cuda_device)
+    args[0] = torch.nn.functional.pad(args[0], (0, xc - cin))
+    leaves = [*args, *kw.values()]
+    probe = torch.randn((B, T, cout), device=cuda_device)
+
+    def grads(fn):
+        inputs = [t.detach().clone().requires_grad_(True) for t in leaves]
+        out = fn(*inputs[:5], **dict(zip(kw, inputs[5:])))
+        return out, torch.autograd.grad((out * probe).sum(), inputs)
+
+    before = resblock.fused_conv_gn_mish.launches
+    got_out, got = grads(resblock.fused_conv_gn_mish)
+    assert resblock.fused_conv_gn_mish.launches == before + 1
+    want_out, want = grads(resblock.reference_conv_gn_mish)
+    assert torch.all((got_out - want_out).abs() <= F32_TOL * (1 + want_out.abs()))
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all()
+        assert torch.all((g - w).abs() <= GRAD_TOL * (1 + w.abs()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["foreach", "fused"])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_resblock_follows_adamw_steps(cuda_device, form, dtype):
+    """After torch.optim.AdamW steps (foreach and fused: both update the weight in
+    place), the half's kernel forward reads the new weight through its cached
+    packed copy: it equals the plain forward on the updated weight."""
+    from condmdi_tpu_torch.models.layers import init_params
+    from condmdi_tpu_torch.models.unet import Conv1dAdaGNBlock
+
+    dt = getattr(torch, dtype)
+    block = init_params(Conv1dAdaGNBlock(256, 512, device=cuda_device), 0).to(dt)
+    args, kw = make_inputs(4, 100, 256, 512, True, False, dt, cuda_device)
+    opt = torch.optim.AdamW(block.parameters(), lr=1e-2, weight_decay=0.01,
+                            **{form: True})
+    tol = BF16_TOL if dt == torch.bfloat16 else F32_TOL
+    outs = []
+    for _ in range(3):
+        out = block(args[0], kw["scale"], kw["shift"])
+        with torch.no_grad():
+            want = resblock.reference_conv_gn_mish(
+                args[0], block.conv.weight, block.conv.bias, block.norm.weight,
+                block.norm.bias, **kw).float()
+        assert torch.all((out.float() - want).abs() <= tol * (1 + want.abs()))
+        outs.append(out.detach().float())
+        opt.zero_grad()
+        out.float().square().mean().backward()
+        opt.step()
+    assert (outs[0] - outs[2]).abs().max() > 10 * tol  # the weights did move
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["foreach", "fused"])
+def test_attention_follows_adamw_steps(cuda_device, form):
+    """MDM's encoder layer after AdamW steps: the attention kernel's forward
+    (planes written per call) equals the plain one on the updated weights."""
+    from condmdi_tpu_torch.models.layers import init_params
+    from condmdi_tpu_torch.models.mdm import TransformerEncoderLayer
+
+    layer = init_params(TransformerEncoderLayer(512, 4, 1024, device=cuda_device), 0)
+    x = torch.randn(8, 197, 512, device=cuda_device)
+    opt = torch.optim.AdamW(layer.parameters(), lr=1e-2, weight_decay=0.01, **{form: True})
+    for _ in range(3):
+        before = attention.fused_self_attention.launches
+        out = layer(x)
+        assert attention.fused_self_attention.launches == before + 1
+        with torch.no_grad():
+            q, k, v = layer.qkv(x).chunk(3, dim=-1)
+            got = attention.mha(q, k, v, 4)
+            want = attention._xla_attention(q, k, v, 4)
+        assert torch.all((got - want).abs() <= F32_TOL * (1 + want.abs()))
+        opt.zero_grad()
+        out.square().mean().backward()
+        opt.step()
+
+
+# Per parameter tensor, the relative error of the gradient and of the update. Set from
+# readings on an NVIDIA H100 80GB HBM3 at 700 W (1.9e-05 and 1.6e-04): the gradient at about
+# 5x its reading; the update at the float32 rounding of p - u for |p| near 1 (a GroupNorm
+# scale), half an ulp, 6e-8, is 6e-4 of an lr-sized update
+TRAIN_GRAD_TOL, TRAIN_UPDATE_TOL = 1e-4, 1e-3
+
+
+@pytest.mark.cuda
+def test_train_step_kernel_path_matches_plain(cuda_device):
+    """One port train step of a small keyframe UNet (f32, cond dropout on) through
+    the kernel and with the halves swapped for the plain version, from the same
+    weights, generator state and warmed AdamW state (three steps' moments, so
+    that the update is a smooth function of the gradient): the loss, and per
+    parameter tensor the gradient and the update, agree. Tolerances: the loss
+    1e-4 * (1 + |plain|); |g_kernel - g_plain| / |g_plain| TRAIN_GRAD_TOL and
+    |p_kernel - p_plain| / |p_plain - p_start| TRAIN_UPDATE_TOL (norms over the
+    tensor)."""
+    import copy
+
+    from condmdi_tpu_torch.diffusion import gaussian, schedule
+    from condmdi_tpu_torch.models.unet import MDM_UNET
+    from condmdi_tpu_torch.training import loop
+
+    model = MDM_UNET(njoints=263, latent_dim=64, dim_mults=(1, 2), keyframe_conditioned=True,
+                     pad_frames_to=64, zero=False, device=cuda_device, seed=0).train()
+    sched = schedule.DiffusionSchedule.create(
+        schedule.get_named_beta_schedule("cosine", 100), device=cuda_device)
+    cfg = loop.TrainConfig(lr=1e-4, keyframe_conditioned=True, grad_clip=1.0)
+    rng = np.random.default_rng(0)
+    lengths = torch.tensor([60, 48, 60, 33], device=cuda_device)
+    batch = {"motion": torch.from_numpy(rng.standard_normal((4, 60, 263)).astype(np.float32))
+             .to(cuda_device),
+             "lengths": lengths,
+             "time_mask": torch.arange(60, device=cuda_device)[None] < lengths[:, None],
+             "text_embed": torch.randn(4, 512, device=cuda_device)}
+
+    def draws(seed):
+        return loop.StepDraws(torch.Generator(cuda_device).manual_seed(seed),
+                              torch.Generator().manual_seed(seed + 1))
+
+    def new_step(state_dict):
+        state = loop.create_train_state(model, cfg, sched)
+        if state_dict is not None:
+            state.load_state_dict(copy.deepcopy(state_dict))
+        return loop.make_train_step(model, sched, gaussian.DiffusionConfig(), cfg), state
+
+    step, state = new_step(None)
+    warm = draws(7)
+    for _ in range(3):
+        step(state, batch, warm)
+    start = {n: p.detach().clone() for n, p in model.named_parameters()}
+    warmed = state.state_dict()
+    results = []
+    for plain in (False, True):
+        with torch.no_grad():
+            for n, p in model.named_parameters():
+                p.copy_(start[n])
+        step, state = new_step(warmed)
+        before = resblock.fused_conv_gn_mish.launches
+        with pytest.MonkeyPatch.context() as mp:
+            if plain:
+                mp.setattr(resblock, "_launch", lambda x, w, b, g, be, s, sh, r, n, eps, p=None:
+                           resblock.reference_conv_gn_mish(x, w, b, g, be, s, sh, r, n_groups=n,
+                                                           eps=eps))
+            metrics = step(state, batch, draws(1))
+        launched = resblock.fused_conv_gn_mish.launches - before
+        results.append((float(metrics["loss"]), launched,
+                        {n: p.grad.detach().clone() for n, p in model.named_parameters()},
+                        {n: p.detach().clone() for n, p in model.named_parameters()}))
+    (loss_k, launched_k, grads_k, params_k), (loss_p, launched_p, grads_p, params_p) = results
+    assert launched_k == 17 and launched_p == 0  # the small UNet's halves, once each
+    assert state.step == 4
+    assert abs(loss_k - loss_p) <= 1e-4 * (1 + abs(loss_p))
+    g_errs = {n: float((grads_k[n] - grads_p[n]).norm() / grads_p[n].norm().clamp(min=1e-30))
+              for n in params_p}
+    u_errs = {n: float((params_k[n] - params_p[n]).norm()
+                       / (params_p[n] - start[n]).norm().clamp(min=1e-30)) for n in params_p}
+    worst_g, worst_u = max(g_errs, key=g_errs.get), max(u_errs, key=u_errs.get)
+    assert g_errs[worst_g] <= TRAIN_GRAD_TOL, (worst_g, g_errs[worst_g])
+    assert u_errs[worst_u] <= TRAIN_UPDATE_TOL, (worst_u, u_errs[worst_u])
