@@ -146,7 +146,22 @@ Phases, in order; any failure exits non-zero:
      stated tolerances (TRAIN_*_TOL); between the two, every kernel call of
      a forward on the weights the kernel step's optimizer just updated against its plain
      version (F32_TOL) and that forward's output against the plain path's (DDIM_TOL);
- 24. a {"kernels": [...]} line (three kernels), the card line, and the final
+ 24. CUDA graphs against eager, in this process: every SamplePipeline,
+     MotionServer bucket and training.train step above replays its sampler step or train
+     step from CUDA graphs (the launch counters count a replay's launches); here each path
+     runs once with graphs and once with cuda_graphs=False (SamplePipeline, TrainLoop):
+     served UNet-XL bf16 and MDM (phases 4 and 8), the int8 mixed step (phase 12), the gate
+     `conditional` CLI (plain, 4 samples), evals.run on the gate (one batch of 32), the
+     gate configuration's training (save/synthetic_unet_m/args.json, 100 steps, 2
+     dispatches of 50) and 6 steps each of UNet-XL and MDM training (cuDNN's deterministic
+     algorithms for the training runs, then 20, 5 and 20 more steps of each run's step
+     function, timed); for each: samples/s or steps/s both ways, host ms a step against
+     device ms (one step behind a spin kernel; the profiler's kernel time for an eager
+     train step) and the idle share, the host's launch calls and the card's
+     kernels a step (torch.profiler), and whether the graph run equals the eager run bit
+     for bit (the trained parameters and EMA for training), which it must, with the same
+     exact launch counts both ways;
+ 25. a {"kernels": [...]} line (three kernels), the card line, and the final
      {"ok": true, ...}.
 
 Per-shape results also go to chiprun_out/chip_smoke.json (`python3 resblock_probe.py
@@ -563,10 +578,14 @@ def kernel_vs_plain(tag, label, run, swap):
     torch.cuda.synchronize()
     t_kernel = time.perf_counter() - t0
     with swap():
+        before = read_counts()
         t0 = time.perf_counter()
         want = run()
         torch.cuda.synchronize()
         t_plain = time.perf_counter() - t0
+        launched = {k: v - before[k] for k, v in read_counts().items()}
+    if any(launched.values()):  # a graph captured on the kernels must not replay here
+        raise SystemExit(f"{label}: the plain path launched kernels {launched}")
     err = (got - want).abs().max().item()
     print(f"[{tag}] {label}: max|kernel - plain| = {err:.3e} (tol {DDIM_TOL:.0e}), "
           f"max|plain| = {want.abs().max().item():.3f}, kernel path {t_kernel:.2f} s, "
@@ -712,8 +731,9 @@ def read_counts():
             "int8_conv1d": int8_conv1d.launches}
 
 
-def serve_requests(pipe, requests):
-    """4 concurrent requests through one MotionServer, the counts read around them."""
+def serve_requests(pipe, requests, outputs=None):
+    """4 concurrent requests through one MotionServer, the counts read around them;
+    the motions are appended to `outputs` where it is given."""
     from condmdi_tpu_torch.serving import MotionServer
 
     server = MotionServer(pipe, T_FRAMES, FEATS, max_batch=SERVE_REQUESTS, max_wait_ms=500,
@@ -735,6 +755,8 @@ def serve_requests(pipe, requests):
         raise SystemExit("served motions are not finite [196, 263] arrays")
     if server.batches != [(SERVE_REQUESTS, SERVE_REQUESTS)]:
         raise SystemExit(f"requests were not coalesced into one bucket: {server.batches}")
+    if outputs is not None:
+        outputs.extend(outs)
     return dict(wall_s=wall, samples_per_s=SERVE_REQUESTS / wall, steps=SERVE_STEPS,
                 batches=server.batches, launches=launches)
 
@@ -2492,6 +2514,326 @@ def train_phase23(xl_loop, mdm_loop):
             "mdm": train_step_pair(mdm_loop, attention_swapped_for_plain, "mdm", "MDM")}
 
 
+# --------------------------------------------------------------------------- #
+# phase 24: the paths the JAX package compiles, with CUDA graphs and without
+# --------------------------------------------------------------------------- #
+GRAPH_OUT = ROOT / "chiprun_out" / "graphs"
+GATE_TRAIN_STEPS, GATE_TRAIN_DISPATCH = 100, 50  # the gate configuration: 2 dispatches of 50
+FEW_TRAIN_STEPS = 6  # UNet-XL and MDM through main; steps 2 on are replays
+# the host's calls that put work on the card, as torch.profiler names them
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cudaGraphLaunch", "cuLaunchKernel",
+                "cuLaunchKernelEx", "cudaMemcpyAsync", "cudaMemsetAsync")
+
+
+@contextlib.contextmanager
+def graphs_off():
+    """SamplePipeline and TrainLoop built with cuda_graphs=False while open (the CLIs,
+    evals.run, training.train.main and this script's `pipeline` build their own)."""
+    import functools
+
+    import condmdi_tpu_torch.sampling.pipeline as pipeline_mod
+    import condmdi_tpu_torch.training.train as train_mod
+
+    saved = pipeline_mod.SamplePipeline, train_mod.TrainLoop
+    pipeline_mod.SamplePipeline = functools.partial(saved[0], cuda_graphs=False)
+    train_mod.TrainLoop = functools.partial(saved[1], cuda_graphs=False)
+    try:
+        yield
+    finally:
+        pipeline_mod.SamplePipeline, train_mod.TrainLoop = saved
+
+
+@contextlib.contextmanager
+def sampling_clock(record):
+    """While open, every sampling program's run is timed on the host clock
+    (synchronised at both ends) and appended to `record` with its program."""
+    import condmdi_tpu_torch.sampling.pipeline as pipeline_mod
+
+    run = pipeline_mod.SamplingProgram.run
+
+    def timed(prog, *a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run(prog, *a, **kw)
+        torch.cuda.synchronize()
+        record.append((prog, time.perf_counter() - t0))
+        return out
+
+    pipeline_mod.SamplingProgram.run = timed
+    try:
+        yield
+    finally:
+        pipeline_mod.SamplingProgram.run = run
+
+
+def step_costs(step, profiler_time=False, n=5):
+    """One step's device ms, the card's kernels and copies (torch.profiler over n
+    steps) and the host's calls that put work on the card (LAUNCH_CALLS). Device
+    ms: one step queued behind a spin kernel (timed_ms), or, with
+    `profiler_time` (a step that waits for the card, or launches more than the
+    launch queue holds), the profiler's kernel time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    device = [e for e in events if e.device_type == DeviceType.CUDA]
+    kernel_us = sum(getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
+                    for e in device)
+    calls = sum(e.count for e in events
+                if e.device_type == DeviceType.CPU and e.key in LAUNCH_CALLS) / n
+    profiled_ms = kernel_us / n / 1e3 if kernel_us else None
+    device_ms = profiled_ms if profiler_time else timed_ms(step, [()], reps=5, iters=1)[0]
+    return dict(device_ms=device_ms, profiler_kernel_ms=profiled_ms,
+                device_ops=sum(e.count for e in device) / n, launch_calls=calls)
+
+
+def program_steps(prog):
+    """(one replayed step, the same step run eagerly) of a sampling program at its
+    first step, on its buffers: t and the noise written, then the branch's graph
+    replayed, or the step's body called."""
+    from condmdi_tpu_torch.diffusion.sampling import at_model_step, step_body
+
+    sched, buf = prog.pipe.sched, prog.buffers
+    ti = sched.num_timesteps - 1
+    graph, body = prog._graph(prog._branch(ti)), step_body(prog.step, buf)
+
+    def prepare():
+        buf.t.fill_(ti)
+        torch.randn(buf.z.shape, out=buf.z)
+
+    def replayed():
+        prepare()
+        return graph(check=False)
+
+    def eager():
+        with at_model_step(sched.model_t_host(ti)):
+            prepare()
+            return body()
+
+    return replayed, eager
+
+
+def graph_row(label, unit, runs, equal, card):
+    """Print one path's line: rate, host ms a step against device ms, idle share,
+    the host's launch calls and the card's kernels a step, both ways."""
+    for r in runs.values():
+        r["idle"] = (None if r["device_ms"] is None
+                     else 1.0 - r["device_ms"] / r["host_ms_per_step"])
+
+    def one(name):
+        r = runs[name]
+        idle = "not measured" if r["idle"] is None else f"{r['idle']:.1%}"
+        device = "not measured" if r["device_ms"] is None else f"{r['device_ms']:.4f}"
+        return (f"{name}: {r['rate']:.4f} {unit}, host {r['host_ms_per_step']:.4f} ms a step, "
+                f"device {device} ms, idle {idle}, {r['launch_calls']:.1f} host launch calls "
+                f"and {r['device_ops']:.1f} device kernels and copies a step")
+
+    g, e = runs["graphs"], runs["eager"]
+    print(f"[graphs] {card}: {label}: {one('graphs')}; {one('eager')}; speed-up "
+          f"{g['rate'] / e['rate']:.3f}x; graph run equals eager run bit for bit: {equal}",
+          flush=True)
+    if not equal:
+        raise SystemExit(f"{label}: the CUDA-graph run differs from the eager run")
+    return dict(label=label, unit=unit, bit_equal=equal, **runs)
+
+
+def graph_serve(dev, card, label, apply_fn, requests, expect):
+    """Phase 4's server over `apply_fn`, with graphs and without: the 4 requests'
+    motions, samples/s, the launches (`expect`, per kernel). `requests()` makes
+    them (a request answers once)."""
+    runs, outs, progs = {}, {}, {}
+    for name in ("graphs", "eager"):
+        record, outs[name] = [], []
+        with graphs_off() if name == "eager" else contextlib.nullcontext(), \
+                sampling_clock(record):
+            served = serve_requests(pipeline(apply_fn, schedule(SERVE_STEPS), dev), requests(),
+                                    outs[name])
+        for kern, count in expect.items():
+            if served["launches"][kern] != count:
+                raise SystemExit(f"{label} ({name}): {kern} launches "
+                                 f"{served['launches'][kern]} != {count}")
+        (prog, seconds), = record
+        progs[name] = prog
+        runs[name] = dict(rate=served["samples_per_s"], wall_s=served["wall_s"],
+                          host_ms_per_step=seconds * 1e3 / SERVE_STEPS,
+                          launches=served["launches"])
+    replayed, eager = program_steps(progs["graphs"])
+    runs["graphs"].update(step_costs(replayed))
+    runs["eager"].update(step_costs(eager))
+    equal = all(np.array_equal(a, b) for a, b in zip(outs["graphs"], outs["eager"]))
+    return graph_row(label, "samples/s", runs, equal, card)
+
+
+def graph_sampling_cli(card, label, run, samples, steps, expect):
+    """A CLI or evals.run through its main, with graphs and without: `run()` returns
+    (the generated motions, launches); samples/s over the sampling runs' host time."""
+    runs, outs, progs = {}, {}, {}
+    for name in ("graphs", "eager"):
+        record = []
+        with graphs_off() if name == "eager" else contextlib.nullcontext(), \
+                sampling_clock(record):
+            outs[name], launches = run(name)
+        for kern, count in expect.items():
+            if launches[kern] != count:
+                raise SystemExit(f"{label} ({name}): {kern} launches {launches[kern]} != {count}")
+        seconds = sum(sec for _, sec in record)
+        progs[name] = record[-1][0]
+        runs[name] = dict(rate=samples / seconds, sampling_s=seconds,
+                          host_ms_per_step=seconds * 1e3 / (steps * len(record)),
+                          launches=launches)
+    replayed, eager = program_steps(progs["graphs"])
+    runs["graphs"].update(step_costs(replayed))
+    runs["eager"].update(step_costs(eager))
+    return graph_row(label, "samples/s", runs, np.array_equal(outs["graphs"], outs["eager"]),
+                     card)
+
+
+def graph_train(card, label, argv, save_root, expect, timed_steps):
+    """training.train.main with graphs and without, under cuDNN's deterministic
+    algorithms (their default weight gradient sums in an order that changes from
+    run to run): the parameters and EMA at the end equal bit for bit. Then, still
+    under them, each run's step function for `timed_steps` more steps on one
+    batch from its device cache: steps/s and host ms a step (host clock,
+    synchronised at both ends), and one step's costs."""
+    import gc
+    import shutil
+
+    runs, loops = {}, {}
+    for name in ("graphs", "eager"):
+        gc.collect()  # an earlier run's graph and its memory pool sit in reference cycles
+        torch.cuda.empty_cache()
+        save_dir = save_root / name
+        shutil.rmtree(save_dir, ignore_errors=True)
+        with graphs_off() if name == "eager" else contextlib.nullcontext(), \
+                deterministic_cudnn():
+            loop, seconds, launches = run_train(argv, save_dir, f"{label} ({name})", expect)
+        drop_checkpoints(save_dir)
+        loops[name] = loop
+        runs[name] = dict(main_s=seconds, launches=launches)
+    got, want = loops["graphs"], loops["eager"]
+    equal = all(torch.equal(a, b) for a, b in zip(got.model.state_dict().values(),
+                                                  want.model.state_dict().values()))
+    equal = equal and all(torch.equal(got.state.ema[k], want.state.ema[k])
+                          for k in want.state.ema)
+    for name, loop in loops.items():
+        data, n = loop.device_data
+        batch = loop._gather(data, np.arange(loop.args.batch_size) % n)
+
+        def step():
+            return loop.step_fn(loop.state, batch, loop.draws)
+
+        with deterministic_cudnn():
+            step()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(timed_steps):
+                step()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            runs[name].update(rate=timed_steps / wall, host_ms_per_step=wall * 1e3 / timed_steps)
+            runs[name].update(step_costs(step, profiler_time=name == "eager"))
+    return graph_row(label, "steps/s", runs, equal, card)
+
+
+def argv_from_args_json(path: Path) -> list[str]:
+    argv = []
+    for key, value in json.loads(path.read_text()).items():
+        if value is None:
+            continue
+        if isinstance(value, bool):
+            value = "true" if value else "false"
+        argv.append(f"--{key}")
+        argv.extend(str(v) for v in value) if isinstance(value, list) else argv.append(str(value))
+    return argv
+
+
+def graphs_phase24(dev, card, int8_model):
+    """Every path the JAX package compiles, with CUDA graphs (the default) and with
+    cuda_graphs=False, in this process: served UNet-XL bf16, served MDM, the int8
+    mixed step, the gate conditional CLI, evals.run on the gate (one batch of
+    32), the gate configuration's training (100 steps, 2 dispatches of 50) and a
+    few steps of UNet-XL and MDM training. Each graph run must equal its eager run
+    bit for bit."""
+    import os
+
+    from condmdi_tpu_torch.models.text import HashTextEncoder
+    from condmdi_tpu_torch.models.unet import MixedStepDenoiser
+    from condmdi_tpu_torch.serving import MotionRequest
+
+    os.environ.setdefault("CONDMDI_SYNTH_CACHE", str(ROOT / ".chipwork" / "synth_cache"))
+    out = {}
+    n, S = SERVE_REQUESTS, SERVE_STEPS
+    text, obs, mask = keyframe_inputs(n, 1)
+
+    def keyframe_requests():
+        return [MotionRequest(text_embed=text[i].numpy(), obs_x0=obs[i].numpy(),
+                              obs_mask=mask[i].numpy(), seed=i) for i in range(n)]
+
+    xl = build_xl(dev, torch.bfloat16)
+    out["serve_xl"] = graph_serve(
+        dev, card, f"served UNet-XL bf16, {n} keyframe requests, {S}-step DDPM, CFG {GUIDANCE}",
+        lambda x, t, y, **kw: xl(x.to(torch.bfloat16), t, y, **kw).float(), keyframe_requests,
+        {"fused_conv_gn_mish": 33 * S})
+    del xl
+    mdm = build_mdm(dev, torch.bfloat16)
+    texts = HashTextEncoder().encode(PROMPTS)
+    out["serve_mdm"] = graph_serve(
+        dev, card, f"served MDM bf16, {n} text requests, {S}-step DDPM, CFG {GUIDANCE}",
+        lambda x, t, y, **_: mdm(x.to(torch.bfloat16), t, y).float(),
+        lambda: [MotionRequest(text_embed=texts[i], seed=i) for i in range(n)],
+        {"fused_self_attention": 8 * S})
+    del mdm
+    mixed = MixedStepDenoiser(int8_model, K_FLOAT)
+    n_float = int((schedule(S).timestep_map < K_FLOAT).sum())
+    out["serve_mixed"] = graph_serve(
+        dev, card, f"served int8 mixed step (k_float {K_FLOAT}), {n} keyframe requests",
+        lambda x, t, y, **kw: mixed(x.to(torch.bfloat16), t, y, **kw).float(),
+        keyframe_requests, {"int8_conv1d": 41 * (S - n_float), "fused_conv_gn_mish": 33 * n_float})
+    del mixed
+
+    def conditional(name):
+        res, _, launches = run_cli("conditional", GATE_CLI, f"graphs_gate_{name}")
+        return res["motion"], launches
+
+    out["cli_gate"] = graph_sampling_cli(
+        card, f"conditional on the gate checkpoint, {CLI_SAMPLES} samples, {CLI_STEPS}-step "
+        "DDPM, CFG 2.5, f32", conditional, CLI_SAMPLES, CLI_STEPS,
+        {"fused_conv_gn_mish": GATE_HALVES * CLI_STEPS})
+
+    def evals_run(name):
+        assert EVAL_GATE[-2] == "--num_samples"
+        run = run_eval("run", EVAL_GATE[:-1] + [str(EVAL_BATCH)], f"graphs_gate_{name}")
+        return run["outputs"][0]["sample"], run["launches"]
+
+    out["eval_gate"] = graph_sampling_cli(
+        card, f"evals.run on the gate checkpoint, one batch of {EVAL_BATCH}, 1000-step DDPM, f32",
+        evals_run, EVAL_BATCH, CLI_STEPS, {"fused_conv_gn_mish": GATE_HALVES * CLI_STEPS})
+
+    gate_argv = argv_from_args_json(ROOT / "save" / "synthetic_unet_m" / "args.json") + [
+        "--num_steps", str(GATE_TRAIN_STEPS), "--steps_per_dispatch", str(GATE_TRAIN_DISPATCH),
+        "--save_interval", str(10 * GATE_TRAIN_STEPS), "--log_interval", str(GATE_TRAIN_DISPATCH),
+        "--text_encoder", "hash", "--data_dir", str(ROOT / "chiprun_out" / "no_humanml3d")]
+    out["train_gate"] = graph_train(
+        card, f"the gate configuration's training, {GATE_TRAIN_STEPS} steps in dispatches of "
+        f"{GATE_TRAIN_DISPATCH}", gate_argv, GRAPH_OUT / "train_gate",
+        ("fused_conv_gn_mish", GATE_HALVES * GATE_TRAIN_STEPS), 20)
+    few = ["--num_steps", str(FEW_TRAIN_STEPS), "--save_interval", str(10 * FEW_TRAIN_STEPS)]
+    out["train_xl"] = graph_train(
+        card, f"UNet-XL training, {FEW_TRAIN_STEPS} steps", XL_TRAIN + few,
+        GRAPH_OUT / "train_xl", ("fused_conv_gn_mish", XL_TRAIN_HALVES * FEW_TRAIN_STEPS), 5)
+    out["train_mdm"] = graph_train(
+        card, f"MDM training, {FEW_TRAIN_STEPS} steps", MDM_TRAIN + few,
+        GRAPH_OUT / "train_mdm", ("fused_self_attention", MDM_TRAIN_ATTENTIONS * FEW_TRAIN_STEPS),
+        20)
+    return out
+
+
 def build_kernels() -> list[str]:
     """Build the three sources at once (one nvcc each) and print ptxas' register
     and spill lines and any note that it serialised wgmma."""
@@ -2586,7 +2928,6 @@ def main() -> int:
     int8_rows, dense_rows = phase("10 int8 kernel", check_int8, int8_shapes, dev)
     int8_out = phase("11 int8 paths", int8_paths, dev, int8_model)
     mixed = phase("12 mixed-step serving", serve_mixed, dev, card, int8_model, served)
-    del int8_model
     unet_recg_err = phase("13 UNet-XL guidance", unet_recguidance_kernel_vs_plain, dev, "float")
     int8_recg_err = phase("14 UNet-XL int8_static guidance", unet_recguidance_kernel_vs_plain,
                           dev, "int8_static")
@@ -2600,6 +2941,8 @@ def main() -> int:
     train22 = phase("22 MDM training", train_phase22, dev, card)
     train23 = phase("23 training step kernel against plain", train_phase23,
                     train21.pop("loop"), train22.pop("loop"))
+    graphs24 = phase("24 CUDA graphs against eager", graphs_phase24, dev, card, int8_model)
+    del int8_model
     print("[time] host seconds by phase: "
           + ", ".join(f"{k} {v:.1f}" for k, v in phase_seconds.items())
           + f"; {sum(phase_seconds.values()):.1f} in all", flush=True)
@@ -2757,6 +3100,7 @@ def main() -> int:
          "cli": {"conditional": cli15, "mdm": cli16, "kernel_vs_plain": cli17},
          "eval": {"gate": eval18, "t2m": eval19, "kernel_vs_plain": eval20},
          "train": {"xl": train21, "mdm": train22, "step_pairs": train23},
+         "graphs": graphs24,
          "phase_seconds": phase_seconds,
          "previous_ms_from_perf_md": dict(previous, f32_resblock=PREV_F32_RESBLOCK_MS,
                                           f32_attention=PREV_F32_ATTENTION_MS)}, indent=1))

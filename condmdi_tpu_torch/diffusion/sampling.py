@@ -1,17 +1,43 @@
-"""Denoising samplers (DDPM / DDIM) as Python loops over the steps.
+"""Denoising samplers (DDPM / DDIM): one step function and the loops over it.
 
 Counterpart of condmdi_tpu/diffusion/sampling.py (PLMS waits for a later
 slice). Classifier-free guidance is folded into `denoise_fn` (the
 batch-doubled forward of models/cfg.py); imputation and reconstruction
 guidance happen in `p_mean_variance`.
 
+The JAX package runs a sampling run as one XLA program, a `lax.scan` over
+the steps. `SamplerStep` is its scan body: (x, t, z[, z_marginal]) ->
+(x, pred_xstart), the denoiser forward, `p_mean_variance` with conditional
+imputation, the posterior mean (DDPM) or the DDIM update, the noise add and
+marginal imputation. Two loops drive it, with the same draws in the same
+order:
+
+  * `ddpm_sample_loop` / `ddim_sample_loop` call it eagerly on fresh tensors;
+  * `run_on_buffers` writes each step's t and noise into static buffers
+    (`StepBuffers`) and runs a body that updates x in place (`step_body`):
+    what a CUDA graph replays (sampling/pipeline.py captures one per
+    denoiser branch, utils/cuda_graph.py). On the CPU the body runs as it is.
+
+So a graph run and an eager run from the same generator seed give the same
+bits. Three cases stay eager by rule, since their step runs autograd or host
+code each step (`SamplerStep.capturable`): `cond_fn`, `cond_loss_fn` and
+inpainting with reconstruction guidance (`autograd.grad` through the
+denoiser). `skip_timesteps` only moves the start: the same step function.
+
 Noise comes from an explicit `torch.Generator` on the schedule's device.
 `step_noise` replaces it with one given tensor per step, so a test can feed
 the same noise to this loop and to the JAX one.
+
+While a loop runs a step, `current_model_step()` is that step's model
+timestep on the host: a denoiser that switches models by timestep
+(models/unet.py `MixedStepDenoiser`) reads it instead of reading t back from
+the card.
 """
 
 from __future__ import annotations
 
+import contextlib
+import threading
 from dataclasses import dataclass
 from typing import Callable, Optional, Sequence
 
@@ -30,6 +56,8 @@ from condmdi_tpu_torch.diffusion.schedule import DiffusionSchedule
 DenoiseFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 CondFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 
+_host = threading.local()
+
 
 @dataclass(frozen=True)
 class SamplerConfig:
@@ -37,6 +65,23 @@ class SamplerConfig:
     eta: float = 0.0  # ddim stochasticity
     return_trajectory: bool = False  # also return every step's pred_xstart
     zero_noise: bool = False  # deterministic updates (testing/debugging)
+
+
+def current_model_step():
+    """The model timestep (a host number) of the step that the sampler loop on
+    this thread is running; None outside a loop."""
+    return getattr(_host, "t_model", None)
+
+
+@contextlib.contextmanager
+def at_model_step(t_model):
+    """`current_model_step()` is `t_model` while open: one step run outside a
+    loop (a server's warm-up)."""
+    saved, _host.t_model = current_model_step(), t_model
+    try:
+        yield
+    finally:
+        _host.t_model = saved
 
 
 def _nonzero_mask(t: torch.Tensor, ndim: int) -> torch.Tensor:
@@ -77,7 +122,199 @@ def _step_noise(i, x, sched, sampler, generator, step_noise):
 
 
 # --------------------------------------------------------------------------- #
-# DDPM
+# the step
+# --------------------------------------------------------------------------- #
+class SamplerStep:
+    """One reverse step of `method` ("ddpm" or "ddim"): the JAX scan body.
+
+    `step(x, t, z, z_marginal)` -> (x at the next step, pred_xstart): z is the
+    step's noise (float32 as drawn, or x's dtype), z_marginal the marginal
+    imputation's (None without it). cond_fn(pred_xstart, t_model) replaces
+    pred_xstart; cond_loss_fn(pred_xstart, t_model) shifts the DDPM posterior
+    mean by variance × grad(-loss) × cond_scale, the gradient taken through
+    the denoiser.
+    """
+
+    def __init__(self, method: str, denoise_fn: DenoiseFn, sched: DiffusionSchedule,
+                 cfg: DiffusionConfig, sampler: SamplerConfig = SamplerConfig(),
+                 inpaint: Optional[InpaintingState] = None, cond_fn: Optional[CondFn] = None,
+                 cond_loss_fn=None, cond_scale: float = 1.0):
+        if method not in ("ddpm", "ddim"):
+            raise ValueError(f"sampler {method!r} is not ported")
+        if cond_loss_fn is not None and method != "ddpm":
+            raise ValueError("cond_loss_fn guides the DDPM sampler only")
+        self.method, self.denoise_fn, self.sched, self.cfg = method, denoise_fn, sched, cfg
+        self.eta = sampler.eta
+        self.inpaint, self.cond_fn = inpaint, cond_fn
+        self.cond_loss_fn, self.cond_scale = cond_loss_fn, cond_scale
+        self.marginal = _is_marginal(inpaint)
+        # conditional-replacement inpainting runs inside p_mean_variance
+        self.pm_inpaint = None if self.marginal else inpaint
+
+    @property
+    def capturable(self) -> bool:
+        """False where the step runs autograd or host code of its own: cond_fn,
+        cond_loss_fn, reconstruction guidance. Those runs stay eager."""
+        recg = self.inpaint is not None and self.inpaint.reconstruction_guidance
+        return self.cond_fn is None and self.cond_loss_fn is None and not recg
+
+    def __call__(self, x, t, z, z_marginal=None):
+        body = self._ddpm if self.method == "ddpm" else self._ddim
+        x_next, pred_xstart = body(x, t, z.to(x.dtype))
+        if self.marginal:
+            x_next = _marginal_impute(self.sched, self.inpaint, x_next, t - 1, z_marginal)
+        return x_next, pred_xstart
+
+    def _ddpm(self, x, t, z):
+        sched, cfg = self.sched, self.cfg
+        if self.cond_loss_fn is not None:
+            with torch.enable_grad():
+                zx = x.detach().requires_grad_(True)
+                out = p_mean_variance(self.denoise_fn, sched, cfg, zx, t, inpaint=self.pm_inpaint)
+                neg_loss = -self.cond_loss_fn(out["pred_xstart"], sched.model_t(t))
+                (grad,) = torch.autograd.grad(neg_loss, zx)
+            out = {k: (v.detach() if v is not None else None) for k, v in out.items()}
+            out["mean"] = out["mean"] + out["variance"] * grad * self.cond_scale
+        else:
+            out = p_mean_variance(self.denoise_fn, sched, cfg, x, t, inpaint=self.pm_inpaint)
+        if self.cond_fn is not None:
+            new_xstart = self.cond_fn(out["pred_xstart"], sched.model_t(t))
+            mean, _, _ = q_posterior_mean_variance(sched, new_xstart, x, t)
+            out = {**out, "mean": mean, "pred_xstart": new_xstart}
+        x_next = out["mean"] + _nonzero_mask(t, x.ndim) * torch.exp(0.5 * out["log_variance"]) * z
+        return x_next, out["pred_xstart"]
+
+    def _ddim(self, x, t, z):
+        sched = self.sched
+        out = p_mean_variance(self.denoise_fn, sched, self.cfg, x, t, inpaint=self.pm_inpaint)
+        if self.cond_fn is not None:
+            out = {**out, "pred_xstart": self.cond_fn(out["pred_xstart"], sched.model_t(t))}
+
+        eps = predict_eps_from_xstart(sched, x, t, out["pred_xstart"])
+        alpha_bar = sched.extract(sched.alphas_cumprod, t, x.ndim)
+        alpha_bar_prev = sched.extract(sched.alphas_cumprod_prev, t, x.ndim)
+        sigma = (
+            self.eta
+            * torch.sqrt((1 - alpha_bar_prev) / (1 - alpha_bar))
+            * torch.sqrt(1 - alpha_bar / alpha_bar_prev)
+        )
+        mean_pred = out["pred_xstart"] * torch.sqrt(alpha_bar_prev) + torch.sqrt(
+            (1 - alpha_bar_prev - sigma**2).clamp(min=0.0)
+        ) * eps
+        return mean_pred + _nonzero_mask(t, x.ndim) * sigma * z, out["pred_xstart"]
+
+
+def sampler_steps(method: str, sched: DiffusionSchedule, skip_timesteps: int = 0) -> range:
+    """The respaced steps a run visits, in order (DDPM may skip the first ones)."""
+    first = sched.num_timesteps - 1 - (skip_timesteps if method == "ddpm" else 0)
+    return range(first, -1, -1)
+
+
+def initial_x(shape, sched, generator=None, noise=None, skip_timesteps=0, init_image=None):
+    """x_T: `noise`, or drawn from `generator`; with skip_timesteps, the init
+    image (zeros if None) noised to the first step visited."""
+    x = noise if noise is not None else _randn(shape, sched, generator)
+    if skip_timesteps:
+        t_start = sched.num_timesteps - 1 - skip_timesteps
+        init = init_image if init_image is not None else torch.zeros_like(x)
+        t0 = torch.full((shape[0],), t_start, dtype=torch.long, device=x.device)
+        x = q_sample(sched, init, t0, x)
+    return x
+
+
+def _finish(x, traj, sampler):
+    if sampler.return_trajectory:
+        return x, torch.stack(traj)
+    return x
+
+
+def eager_loop(step: SamplerStep, x, steps, generator=None, step_noise=None,
+               sampler: SamplerConfig = SamplerConfig()):
+    """Every step called on fresh tensors: t, then the step's noise, then the
+    marginal noise, each drawn as the step starts."""
+    sched, B = step.sched, x.shape[0]
+    traj = []
+    saved = current_model_step()
+    try:
+        for i, ti in enumerate(steps):
+            _host.t_model = sched.model_t_host(ti)
+            t = torch.full((B,), ti, dtype=torch.long, device=x.device)
+            z = _step_noise(i, x, sched, sampler, generator, step_noise)
+            zm = _randn(x.shape, sched, generator) if step.marginal else None
+            x, pred_xstart = step(x, t, z, zm)
+            if sampler.return_trajectory:
+                traj.append(pred_xstart)
+    finally:
+        _host.t_model = saved
+    return _finish(x, traj, sampler)
+
+
+# --------------------------------------------------------------------------- #
+# the loop over static buffers (what a CUDA graph replays)
+# --------------------------------------------------------------------------- #
+@dataclass
+class StepBuffers:
+    """The static inputs of one step: x (updated in place by `step_body`), t [B],
+    z float32 and, with marginal imputation, z_marginal float32."""
+
+    x: torch.Tensor
+    t: torch.Tensor
+    z: torch.Tensor
+    z_marginal: Optional[torch.Tensor] = None
+
+    @classmethod
+    def create(cls, shape, dtype, device, marginal: bool) -> "StepBuffers":
+        f32 = dict(dtype=torch.float32, device=device)
+        return cls(torch.zeros(shape, dtype=dtype, device=device),
+                   torch.zeros(shape[:1], dtype=torch.long, device=device),
+                   torch.zeros(shape, **f32),
+                   torch.zeros(shape, **f32) if marginal else None)
+
+
+def step_body(step: SamplerStep, buf: StepBuffers) -> Callable[[], torch.Tensor]:
+    """One step over `buf` with x written back in place; returns pred_xstart.
+    This is the function a graph captures."""
+
+    def body():
+        x_next, pred_xstart = step(buf.x, buf.t, buf.z, buf.z_marginal)
+        buf.x.copy_(x_next)
+        return pred_xstart
+
+    return body
+
+
+def run_on_buffers(run_step: Callable[[int, int], torch.Tensor], buf: StepBuffers,
+                   sched: DiffusionSchedule, x, steps, generator=None, step_noise=None,
+                   sampler: SamplerConfig = SamplerConfig()):
+    """The loop as a replay drives it: x into `buf`; each step its t and its
+    noise written into `buf` (drawn in `eager_loop`'s order, into the buffers),
+    then `run_step(i, ti)`, which replays the step's graph or runs
+    `step_body` itself, and returns pred_xstart. Returns a copy of the last x."""
+    buf.x.copy_(x)
+    traj = []
+    saved = current_model_step()
+    try:
+        for i, ti in enumerate(steps):
+            _host.t_model = sched.model_t_host(ti)
+            buf.t.fill_(ti)
+            if sampler.zero_noise:
+                buf.z.zero_()
+            elif step_noise is not None:
+                buf.z.copy_(step_noise[i].to(device=buf.z.device, dtype=buf.x.dtype))
+            else:
+                torch.randn(buf.z.shape, generator=generator, out=buf.z)
+            if buf.z_marginal is not None:
+                torch.randn(buf.z_marginal.shape, generator=generator, out=buf.z_marginal)
+            pred_xstart = run_step(i, ti)
+            if sampler.return_trajectory:
+                traj.append(pred_xstart.clone())
+    finally:
+        _host.t_model = saved
+    return _finish(buf.x.clone(), traj, sampler)
+
+
+# --------------------------------------------------------------------------- #
+# the loops
 # --------------------------------------------------------------------------- #
 @torch.no_grad()
 def ddpm_sample_loop(
@@ -96,58 +333,16 @@ def ddpm_sample_loop(
     sampler: SamplerConfig = SamplerConfig(),
     step_noise: Optional[Sequence[torch.Tensor]] = None,
 ):
-    """Ancestral DDPM sampling.
-
-    cond_fn(pred_xstart, t_model): score conditioning, replaces pred_xstart.
-    cond_loss_fn(pred_xstart, t_model): mean-shift guidance; the gradient of
-    -loss with respect to x_t flows through the denoiser and shifts the
-    posterior mean by variance × grad × cond_scale.
-    skip_timesteps / init_image: partial denoising from a noised init image.
-    """
-    B = shape[0]
-    x = noise if noise is not None else _randn(shape, sched, generator)
-    if skip_timesteps:
-        t_start = sched.num_timesteps - 1 - skip_timesteps
-        init = init_image if init_image is not None else torch.zeros_like(x)
-        t0 = torch.full((B,), t_start, dtype=torch.long, device=x.device)
-        x = q_sample(sched, init, t0, x)
-
-    marginal = _is_marginal(inpaint)
-    # conditional-replacement inpainting runs inside p_mean_variance
-    pm_inpaint = None if marginal else inpaint
-
-    traj = []
-    steps = range(sched.num_timesteps - 1 - skip_timesteps, -1, -1)
-    for i, ti in enumerate(steps):
-        t = torch.full((B,), ti, dtype=torch.long, device=x.device)
-        if cond_loss_fn is not None:
-            with torch.enable_grad():
-                z = x.detach().requires_grad_(True)
-                out = p_mean_variance(denoise_fn, sched, cfg, z, t, inpaint=pm_inpaint)
-                neg_loss = -cond_loss_fn(out["pred_xstart"], sched.model_t(t))
-                (grad,) = torch.autograd.grad(neg_loss, z)
-            out = {k: (v.detach() if v is not None else None) for k, v in out.items()}
-            out["mean"] = out["mean"] + out["variance"] * grad * cond_scale
-        else:
-            out = p_mean_variance(denoise_fn, sched, cfg, x, t, inpaint=pm_inpaint)
-        if cond_fn is not None:
-            new_xstart = cond_fn(out["pred_xstart"], sched.model_t(t))
-            mean, _, _ = q_posterior_mean_variance(sched, new_xstart, x, t)
-            out = {**out, "mean": mean, "pred_xstart": new_xstart}
-        z = _step_noise(i, x, sched, sampler, generator, step_noise)
-        x = out["mean"] + _nonzero_mask(t, x.ndim) * torch.exp(0.5 * out["log_variance"]) * z
-        if marginal:
-            x = _marginal_impute(sched, inpaint, x, t - 1, _randn(x.shape, sched, generator))
-        if sampler.return_trajectory:
-            traj.append(out["pred_xstart"])
-    if sampler.return_trajectory:
-        return x, torch.stack(traj)
-    return x
+    """Ancestral DDPM sampling, eagerly (`SamplerStep` for the guidance
+    arguments). skip_timesteps / init_image: partial denoising from a noised
+    init image."""
+    step = SamplerStep("ddpm", denoise_fn, sched, cfg, sampler, inpaint, cond_fn, cond_loss_fn,
+                       cond_scale)
+    x = initial_x(shape, sched, generator, noise, skip_timesteps, init_image)
+    return eager_loop(step, x, sampler_steps("ddpm", sched, skip_timesteps), generator,
+                      step_noise, sampler)
 
 
-# --------------------------------------------------------------------------- #
-# DDIM
-# --------------------------------------------------------------------------- #
 @torch.no_grad()
 def ddim_sample_loop(
     denoise_fn: DenoiseFn,
@@ -161,38 +356,7 @@ def ddim_sample_loop(
     sampler: SamplerConfig = SamplerConfig(method="ddim"),
     step_noise: Optional[Sequence[torch.Tensor]] = None,
 ):
-    """DDIM (eta-parameterized) sampling loop."""
-    B = shape[0]
-    eta = sampler.eta
-    x = noise if noise is not None else _randn(shape, sched, generator)
-
-    marginal = _is_marginal(inpaint)
-    pm_inpaint = None if marginal else inpaint
-
-    traj = []
-    for i, ti in enumerate(range(sched.num_timesteps - 1, -1, -1)):
-        t = torch.full((B,), ti, dtype=torch.long, device=x.device)
-        out = p_mean_variance(denoise_fn, sched, cfg, x, t, inpaint=pm_inpaint)
-        if cond_fn is not None:
-            out = {**out, "pred_xstart": cond_fn(out["pred_xstart"], sched.model_t(t))}
-
-        eps = predict_eps_from_xstart(sched, x, t, out["pred_xstart"])
-        alpha_bar = sched.extract(sched.alphas_cumprod, t, x.ndim)
-        alpha_bar_prev = sched.extract(sched.alphas_cumprod_prev, t, x.ndim)
-        sigma = (
-            eta
-            * torch.sqrt((1 - alpha_bar_prev) / (1 - alpha_bar))
-            * torch.sqrt(1 - alpha_bar / alpha_bar_prev)
-        )
-        z = _step_noise(i, x, sched, sampler, generator, step_noise)
-        mean_pred = out["pred_xstart"] * torch.sqrt(alpha_bar_prev) + torch.sqrt(
-            (1 - alpha_bar_prev - sigma**2).clamp(min=0.0)
-        ) * eps
-        x = mean_pred + _nonzero_mask(t, x.ndim) * sigma * z
-        if marginal:
-            x = _marginal_impute(sched, inpaint, x, t - 1, _randn(x.shape, sched, generator))
-        if sampler.return_trajectory:
-            traj.append(out["pred_xstart"])
-    if sampler.return_trajectory:
-        return x, torch.stack(traj)
-    return x
+    """DDIM (eta-parameterized) sampling loop, eagerly."""
+    step = SamplerStep("ddim", denoise_fn, sched, cfg, sampler, inpaint, cond_fn)
+    x = initial_x(shape, sched, generator, noise)
+    return eager_loop(step, x, sampler_steps("ddim", sched), generator, step_noise, sampler)

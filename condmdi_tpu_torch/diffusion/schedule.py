@@ -102,6 +102,8 @@ class DiffusionSchedule:
     num_timesteps: int
     original_num_steps: int
     rescale_timesteps: bool
+    # the host's copy of timestep_map, which a sampler reads without touching the card
+    host_timestep_map: tuple[int, ...] = ()
 
     @classmethod
     def create(
@@ -188,6 +190,7 @@ class DiffusionSchedule:
             num_timesteps=int(len(betas)),
             original_num_steps=int(original_num_steps),
             rescale_timesteps=bool(rescale_timesteps),
+            host_timestep_map=tuple(int(v) for v in timestep_map),
         )
 
     def to(self, device: str | torch.device) -> "DiffusionSchedule":
@@ -206,6 +209,14 @@ class DiffusionSchedule:
         """arr[t] reshaped to broadcast over a rank-`broadcast_ndim` batch."""
         out = arr[t]
         return out.reshape(out.shape + (1,) * (broadcast_ndim - out.ndim))
+
+    def model_t_host(self, ti: int):
+        """`model_t` of respaced step `ti` as a host number, from the host's copy of
+        the map (an int; the float32 value as a float under rescale_timesteps)."""
+        t = self.host_timestep_map[ti]
+        if self.rescale_timesteps:
+            return float(np.float32(t) * np.float32(1000.0 / self.original_num_steps))
+        return t
 
     def model_t(self, t: torch.Tensor) -> torch.Tensor:
         """Respaced step index → original-process timestep fed to the model."""

@@ -35,7 +35,8 @@ amax buffers too.
 The upsample ConvTranspose (k4 s2, Flax 'SAME' ≡ torch padding 1) stays
 float in every mode. `MixedStepDenoiser` is the float-tail mixed-step
 sampler's denoiser: the int8 model for the early steps, its float twin,
-which shares the same Parameter objects, for the last `k_float`.
+which shares the same Parameter objects, for the last `k_float`; it takes
+the branch from the sampler's step on the host.
 
 Training: a forward given `draws` (a layers.TrainDraws) drops the text
 condition per row at `cond_mask_prob`, as the Flax module's `train=True`
@@ -465,12 +466,17 @@ def float_twin(model: MDM_UNET) -> MDM_UNET:
 class MixedStepDenoiser:
     """The float-tail mixed-step denoiser, an `apply_fn` for SamplePipeline
     and MotionServer: `model` (an int8 mode) for model timesteps >= k_float,
-    its float twin (`float_twin`, the same Parameter objects) below. t is the
-    MODEL timestep (the 1000-step scale even under respacing), so k_float
-    always means the last k_float steps of the full reverse process.
+    its float twin (`float_twin`, the same Parameter objects) below. The
+    timestep is the MODEL timestep (the 1000-step scale even under
+    respacing), so k_float always means the last k_float steps of the full
+    reverse process.
 
-    The branch is chosen on the host from t[0]; on CUDA that reads one value
-    back from the card per call.
+    The branch is taken on the host from the sampler's own step
+    (`diffusion.sampling.current_model_step()`, which the sampler loops set
+    for every step), never from t, which lies on the card: a served step
+    reads nothing back, and each branch is a graph of its own
+    (sampling/pipeline.py captures one per `branch`). A call outside a
+    sampler loop raises; `for_step` gives the model of a timestep.
     """
 
     def __init__(self, model: MDM_UNET, k_float: int):
@@ -484,7 +490,23 @@ class MixedStepDenoiser:
         self.k_float = int(k_float)
         self.twin = float_twin(model) if self.k_float > 0 else None
 
+    def branch(self, t_model) -> str:
+        """"float" or "int8": the leg that runs at model timestep `t_model` (a host number)."""
+        return "float" if self.twin is not None and int(t_model) < self.k_float else "int8"
+
+    def for_step(self, t_model) -> MDM_UNET:
+        """The network that runs at model timestep `t_model` (a host number)."""
+        return self.twin if self.branch(t_model) == "float" else self.model
+
+    def networks(self) -> list[nn.Module]:
+        """The networks whose weights the denoiser reads (a graph's validity key)."""
+        return [self.model] + ([self.twin] if self.twin is not None else [])
+
     def __call__(self, x, t, y=None, obs_x0=None, obs_mask=None):
-        use_float = self.twin is not None and int(t[0]) < self.k_float
-        return (self.twin if use_float else self.model)(x, t, y, obs_x0=obs_x0,
-                                                        obs_mask=obs_mask)
+        from condmdi_tpu_torch.diffusion.sampling import current_model_step
+
+        t_model = current_model_step()
+        if t_model is None:
+            raise RuntimeError("MixedStepDenoiser takes its branch from the sampler's step: call "
+                               "it inside a sampler loop, or call for_step(t_model) directly")
+        return self.for_step(t_model)(x, t, y, obs_x0=obs_x0, obs_mask=obs_mask)

@@ -53,7 +53,7 @@ import torch
 import torch.nn.functional as F
 
 from condmdi_tpu_torch.ops.resblock import recompute_grads
-from condmdi_tpu_torch.ops.weight_cache import weight_key
+from condmdi_tpu_torch.ops.weight_cache import copy_into, repacking, weight_key
 
 _CHUNK = 128  # input channels per K step of the kernel: Cin is padded to a multiple of it
 _TILE = 128  # output rows and output channels per CTA (csrc/quant.cu kBM, kBN)
@@ -277,12 +277,16 @@ class QuantizedWeight:
     scale depend on it, the recorded amax, and the optimizer steps taken
     (ops/weight_cache.py); so `load_state_dict`, an in-place update, `.to()`,
     a recalibration and an optimizer step all invalidate it. (A write through
-    `.data` bypasses the version counter and is not seen.)
+    `.data` bypasses the version counter and is not seen.) Under
+    `weight_cache.repack_on_every_call()` it quantizes on every call into the
+    tensors it holds, and from then on it re-quantizes into those tensors, which
+    a train step's graph keeps writing and reading.
     """
 
     def __init__(self):
         self._key = None
         self._value: Optional[Quantized] = None
+        self._pinned = False  # a captured graph writes and reads these very tensors
 
     def get(self, weight, bias, amax=None, *, mode="int8", weight_scale=None) -> Quantized:
         """mode: 'int8' (codes from the float weight, computed in f32 for a
@@ -292,8 +296,9 @@ class QuantizedWeight:
         scale)."""
         key = (mode, weight_key(weight), weight_key(bias), weight_key(amax),
                weight_key(weight_scale))
-        if key == self._key:
+        if key == self._key and not repacking():
             return self._value
+        self._pinned = self._pinned or repacking()
         with torch.no_grad():
             weight = weight.detach()
             a_scale = None if amax is None else activation_scale(amax.detach())
@@ -309,8 +314,12 @@ class QuantizedWeight:
             if wq.ndim == 2:
                 wq = wq[:, :, None]
             packed = pack_int8_weight(wq) if weight.device.type == "cuda" else None
-            self._value = Quantized(wq, w_scale.float(), None if bias is None else bias.detach().float(),
-                                    a_scale, packed)
+            value = Quantized(wq, w_scale.float(), None if bias is None else bias.detach().float(),
+                              a_scale, packed)
+            if self._pinned and self._value is not None:  # a train step's graph reads these
+                value = Quantized(*(copy_into(held, fresh)
+                                    for held, fresh in zip(self._value, value)))
+            self._value = value
         self._key = key
         return self._value
 

@@ -42,7 +42,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from condmdi_tpu_torch.ops.weight_cache import weight_key
+from condmdi_tpu_torch.ops.weight_cache import copy_into, repacking, weight_key
 
 # dynamic shared memory a block may use on sm_90 (227 KB)
 _MAX_SMEM = 232448
@@ -102,16 +102,22 @@ class PackedConvWeight:
     `.to(dtype)`, `.to(device)` and an optimizer's step (fused AdamW's too,
     which leaves the version counter as it was) all invalidate it. (A write
     through `weight.data` bypasses the version counter and is not seen.)
+    Under `weight_cache.repack_on_every_call()` it packs on every call into the
+    tensor it holds, and from then on it re-packs into that tensor, which a
+    train step's graph keeps writing and reading.
     """
 
     def __init__(self):
         self._key = None
         self._packed = None
+        self._pinned = False  # a captured graph writes and reads this very tensor
 
     def get(self, w: torch.Tensor) -> torch.Tensor:
         key = weight_key(w)
-        if key != self._key:
-            self._packed = packed_for_kernel(w.detach())
+        if repacking() or key != self._key:
+            fresh = packed_for_kernel(w.detach())
+            self._pinned = self._pinned or repacking()
+            self._packed = copy_into(self._packed, fresh) if self._pinned else fresh
             self._key = key
         return self._packed
 

@@ -14,24 +14,66 @@ after a step each cache is remade once, at its next use. The hook is global:
 any optimizer's step anywhere in the process, also one that trains another
 model (the evaluator's trainer), invalidates every cache, and each is remade
 at its next use.
+
+A CUDA graph runs none of this host code. A serving graph keeps the copies it
+was captured with, and its holder (utils/cuda_graph.py) keys it on the same
+`weight_key`s, capturing it again when they change. A train step's graph
+changes its own weights: it is captured under `repack_on_every_call()`, in
+which each cache re-packs its weight on every call into the buffer it already
+holds, so that every replay packs the weights its previous AdamW step wrote;
+and each replay advances the generation (`advance()`), as the eager step's
+hook does, so that an eager call after it packs again.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
 from torch.optim.optimizer import register_optimizer_step_post_hook
 
 _generation = 0
+_repacking = False
 
 
-def _advance(_optimizer, _args, _kwargs) -> None:
+def advance() -> None:
+    """Count one optimizer step: every cache is stale at its next use."""
     global _generation
     _generation += 1
 
 
-register_optimizer_step_post_hook(_advance)
+def generation() -> int:
+    """The optimizer steps counted so far (part of every `weight_key`)."""
+    return _generation
+
+
+register_optimizer_step_post_hook(lambda _optimizer, _args, _kwargs: advance())
+
+
+@contextlib.contextmanager
+def repack_on_every_call():
+    """While open, the caches re-pack on every call, in place (see above)."""
+    global _repacking
+    saved, _repacking = _repacking, True
+    try:
+        yield
+    finally:
+        _repacking = saved
+
+
+def repacking() -> bool:
+    """Whether a train step is being captured (`repack_on_every_call`)."""
+    return _repacking
+
+
+def copy_into(held: Optional[torch.Tensor], fresh: Optional[torch.Tensor]):
+    """`fresh` written into `held` where `held` can take it (the same shape, dtype and
+    device), so that a captured graph keeps reading `held`; else `fresh` itself."""
+    if (held is None or fresh is None or held.shape != fresh.shape
+            or held.dtype != fresh.dtype or held.device != fresh.device):
+        return fresh
+    return held.copy_(fresh)
 
 
 def weight_key(t: Optional[torch.Tensor]):

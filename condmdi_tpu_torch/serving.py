@@ -5,8 +5,11 @@ Counterpart of condmdi_tpu/serving.py:
   * a background thread coalesces concurrent requests up to `max_batch` or
     `max_wait_ms`, and pads the tail with dummy rows to a power-of-two
     bucket, so batch sizes stay few;
-  * each bucket is warmed once (one denoiser forward, which builds the
-    kernels) where the JAX server compiled it;
+  * each bucket is warmed once where the JAX server compiled it: on the card
+    its sampler step is captured as CUDA graphs (sampling/pipeline.py
+    `SamplingProgram.warm`, on the calling thread) and each batch copies
+    its inputs into that bucket's buffers and replays them from the server
+    thread; elsewhere one denoiser forward builds the kernels;
   * per-request keyframes: obs_x0 / obs_mask rows are batched together with
     unconditioned rows, whose mask is all False;
   * a batch's noise comes from a `torch.Generator` on the pipeline's device
@@ -75,7 +78,10 @@ class MotionServer:
 
     # ------------------------------------------------------------------ #
     def warmup(self, buckets=(1, 8, 32)):
-        """Run one denoiser forward at each batch bucket."""
+        """Make each batch bucket's sampling program ready: on the card its sampler
+        step captured as CUDA graphs (one per branch of the apply_fn), as the JAX
+        server compiles a program per bucket; with graphs off or on the CPU, one
+        denoiser forward, which builds the kernels."""
         for b in buckets:
             if b <= self.max_batch:
                 self._warmup(self._bucket(b))
@@ -86,11 +92,12 @@ class MotionServer:
             return
         dev = self.device
         x = torch.zeros((B, self.T, self.F), device=dev)
-        denoise = self.pipe.denoiser(
-            {"text_embed": torch.zeros((B, TEXT_DIM), device=dev)}, self.guidance_param,
-            obs_x0=x, obs_mask=torch.zeros(x.shape, dtype=torch.bool, device=dev),
+        prog = self.pipe.program(
+            x.shape, {"text_embed": torch.zeros((B, TEXT_DIM), device=dev)},
+            self.guidance_param, obs_x0=x,
+            obs_mask=torch.zeros(x.shape, dtype=torch.bool, device=dev),
         )
-        denoise(x, torch.zeros((B,), dtype=torch.long, device=dev))
+        prog.warm()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self._warm.add(B)

@@ -34,6 +34,21 @@ Metrics stay on the device; reading them is the caller's sync. `marks`, when
 given, is called with "forward", "backward", "optimizer" and "end" as the
 step reaches each part (a profiler records CUDA events there); it costs
 nothing when absent.
+
+On the card the step is replayed from a CUDA graph, the counterpart of the
+JAX package's jitted step (`BufferedTrainStep`): the host draws everything
+the step draws, in the eager step's order, into static buffers (the
+keyframe mask on the host, copied through pinned memory; the device generator's
+draws, the model's condition-dropout and dropout masks included, into
+device buffers), writes the learning rate into AdamW's device tensor
+(AdamW is `capturable=True` on CUDA, with the learning rate a device
+tensor, in both modes) and replays one graph of forward, backward, clip,
+AdamW and the EMA. The first step runs eagerly and names the model's
+draws; the second captures the graph under
+`weight_cache.repack_on_every_call()`, so that the graph re-packs the
+weights its own AdamW step updates. The eager step stays for the
+loss-aware sampler (its draw reads t and the losses on the host), for
+`marks` and on the CPU, by rule.
 """
 
 from __future__ import annotations
@@ -93,7 +108,13 @@ class TrainState:
         self.step = int(d["step"])
         for k, v in d["ema"].items():
             self.ema[k].copy_(v)
+        # a tensor learning rate stays the tensor the step (and its graph) writes
+        lrs = [g["lr"] for g in self.optimizer.param_groups]
         self.optimizer.load_state_dict(d["optimizer"])
+        for group, lr in zip(self.optimizer.param_groups, lrs):
+            if isinstance(lr, torch.Tensor):
+                lr.fill_(float(group["lr"]))
+                group["lr"] = lr
         if self.loss_aware is not None:
             self.loss_aware.load_state_dict(d["loss_aware"])
 
@@ -109,9 +130,28 @@ def learning_rate(cfg: TrainConfig, count: int) -> float:
 
 def make_optimizer(params, cfg: TrainConfig) -> torch.optim.AdamW:
     """AdamW as optax.adamw configures it: b1 0.9, b2 adam_beta2, eps 1e-8, the
-    decay on every parameter."""
-    return torch.optim.AdamW(list(params), lr=cfg.lr, betas=(0.9, cfg.adam_beta2), eps=1e-8,
+    decay on every parameter. On CUDA it is capturable (its step count on the
+    card) and its learning rate a float32 tensor on the card, which
+    `set_learning_rate` writes, so that one CUDA graph holds the whole step;
+    on the CPU the learning rate is a Python float, as before."""
+    params = list(params)
+    device = params[0].device if params else torch.device("cpu")
+    if device.type == "cuda":
+        return torch.optim.AdamW(params, lr=torch.tensor(cfg.lr, device=device),
+                                 betas=(0.9, cfg.adam_beta2), eps=1e-8,
+                                 weight_decay=cfg.weight_decay, capturable=True)
+    return torch.optim.AdamW(params, lr=cfg.lr, betas=(0.9, cfg.adam_beta2), eps=1e-8,
                              weight_decay=cfg.weight_decay)
+
+
+def set_learning_rate(optimizer: torch.optim.Optimizer, lr: float) -> None:
+    """Each group's learning rate: written into its tensor where it has one
+    (a launch, no sync), else set as a float."""
+    for group in optimizer.param_groups:
+        if isinstance(group["lr"], torch.Tensor):
+            group["lr"].fill_(lr)
+        else:
+            group["lr"] = lr
 
 
 def global_norm(tensors) -> torch.Tensor:
@@ -199,35 +239,59 @@ class _RecordedDraws:
         return out
 
 
-def make_train_step(model: nn.Module, sched: DiffusionSchedule, dcfg: DiffusionConfig,
-                    tcfg: TrainConfig, marks: Optional[Callable[[str], None]] = None,
-                    ) -> Callable[[TrainState, dict, StepDraws], dict]:
-    """`train_step(state, batch, draws) -> metrics`, updating the model and state.
+@dataclass
+class StepInputs:
+    """Everything one step reads besides the model and its state: the batch and
+    the step's draws (the keyframe mask as drawn, before the drop and the
+    valid-frame mask; None without keyframes)."""
 
-    batch: motion [B, T, F], time_mask [B, T], lengths [B], and text_embed
-    [B, 512] / action [B] where the model takes them, on the model's device.
-    """
-    mark = marks or (lambda _part: None)
+    motion: torch.Tensor
+    time_mask: torch.Tensor
+    y: dict
+    t: torch.Tensor
+    weights: torch.Tensor
+    noise: torch.Tensor
+    obs_mask: Optional[torch.Tensor] = None
+    drop: Optional[torch.Tensor] = None
 
-    def train_step(state: TrainState, batch: dict, draws: StepDraws) -> dict:
-        motion = batch["motion"]
-        B, T = motion.shape[:2]
+
+def draw_step_inputs(state: TrainState, batch: dict, draws: StepDraws, tcfg: TrainConfig,
+                     num_timesteps: int) -> StepInputs:
+    """The step's draws in the JAX step's order (the keyframe mask, its drop, t,
+    the noise; the model's own draws come during the forward). The mask is
+    drawn from the batch's host copy of the lengths where it has one."""
+    motion = batch["motion"]
+    B, T = motion.shape[:2]
+    device = motion.device
+    obs_mask = drop = None
+    if tcfg.keyframe_conditioned:
+        lengths = batch.get("lengths_host", batch["lengths"])
+        obs_mask = draws.keyframe_mask(lengths, T, tcfg.keyframe_selection_scheme)
+        if tcfg.keyframe_mask_prob > 0.0:
+            drop = draws.keyframe_drop(B, tcfg.keyframe_mask_prob, device)
+    t, weights = draws.timesteps(state.loss_aware, B, num_timesteps, device)
+    noise = draws.noise(motion.shape, motion.dtype, device)
+    y = {k: batch[k] for k in ("text_embed", "action") if k in batch}
+    return StepInputs(motion, batch["time_mask"], y, t, weights, noise, obs_mask, drop)
+
+
+def _step_body(model: nn.Module, sched: DiffusionSchedule, dcfg: DiffusionConfig,
+               tcfg: TrainConfig, mark: Callable[[str], None]):
+    """`body(state, inputs, model_draws) -> (metrics, per-sample loss)`: the step
+    from the drawn inputs on; the learning rate is set beforehand
+    (`set_learning_rate`)."""
+
+    def body(state: TrainState, inp: StepInputs, model_draws) -> dict:
+        motion = inp.motion
         device = motion.device
-        time_mask = batch["time_mask"]
-
         mark("forward")
         obs_mask = None
         if tcfg.keyframe_conditioned:
-            obs_mask = draws.keyframe_mask(batch["lengths"], T, tcfg.keyframe_selection_scheme)
-            obs_mask = obs_mask.to(device)
-            if tcfg.keyframe_mask_prob > 0.0:
-                obs_mask = obs_mask & ~draws.keyframe_drop(B, tcfg.keyframe_mask_prob, device)
-            obs_mask = obs_mask & time_mask[..., None]  # a subset of the valid frames
-
-        t, weights = draws.timesteps(state.loss_aware, B, sched.num_timesteps, device)
-        noise = draws.noise(motion.shape, motion.dtype, device)
-        model_draws = draws.model()
-        y = {k: batch[k] for k in ("text_embed", "action") if k in batch}
+            obs_mask = inp.obs_mask.to(device)
+            if inp.drop is not None:
+                obs_mask = obs_mask & ~inp.drop
+            obs_mask = obs_mask & inp.time_mask[..., None]  # a subset of the valid frames
+        t, y = inp.t, inp.y
 
         def denoise_with(md, x_t, t_model):
             if tcfg.use_bf16:
@@ -250,10 +314,10 @@ def make_train_step(model: nn.Module, sched: DiffusionSchedule, dcfg: DiffusionC
             def denoise(x_t, t_model):
                 return denoise_with(model_draws, x_t, t_model)
 
-        terms = training_losses(denoise, sched, dcfg, motion, t, noise, time_mask,
+        terms = training_losses(denoise, sched, dcfg, motion, t, inp.noise, inp.time_mask,
                                 obs_mask=obs_mask, zero_keyframe_loss=tcfg.zero_keyframe_loss,
                                 keyframe_conditioned=tcfg.keyframe_conditioned)
-        loss = torch.mean(terms["loss"] * weights)
+        loss = torch.mean(terms["loss"] * inp.weights)
 
         opt = state.optimizer
         opt.zero_grad()
@@ -269,9 +333,6 @@ def make_train_step(model: nn.Module, sched: DiffusionSchedule, dcfg: DiffusionC
             grad_norm = global_norm(grads)
             if tcfg.grad_clip > 0:
                 clip_by_global_norm_(grads, tcfg.grad_clip, grad_norm)
-            lr = learning_rate(tcfg, state.step)
-            for group in opt.param_groups:
-                group["lr"] = lr
             opt.step()
 
             beta = tcfg.avg_model_beta
@@ -281,9 +342,6 @@ def make_train_step(model: nn.Module, sched: DiffusionSchedule, dcfg: DiffusionC
                 torch._foreach_add_(ema, [p.detach() for p in params], alpha=1.0 - beta)
             else:
                 torch._foreach_copy_(ema, [p.detach() for p in params])
-
-            if state.loss_aware is not None:
-                state.loss_aware = state.loss_aware.update(t.cpu(), terms["loss"].cpu())
 
             metrics = {"loss": loss.detach(), "grad_norm": grad_norm,
                        "param_norm": global_norm([p.detach() for p in params])}
@@ -296,8 +354,159 @@ def make_train_step(model: nn.Module, sched: DiffusionSchedule, dcfg: DiffusionC
                 sel = quartile == q
                 metrics[f"loss_q{q}"] = (torch.where(sel, per_sample, 0.0).sum()
                                          / sel.sum().clamp(min=1))
+        return metrics, per_sample
+
+    return body
+
+
+def make_train_step(model: nn.Module, sched: DiffusionSchedule, dcfg: DiffusionConfig,
+                    tcfg: TrainConfig, marks: Optional[Callable[[str], None]] = None,
+                    cuda_graphs: bool = True,
+                    ) -> Callable[[TrainState, dict, StepDraws], dict]:
+    """`train_step(state, batch, draws) -> metrics`, updating the model and state.
+
+    batch: motion [B, T, F], time_mask [B, T], lengths [B], and text_embed
+    [B, 512] / action [B] where the model takes them, on the model's device
+    (and optionally `lengths_host`, the lengths on the host, which the
+    keyframe mask is drawn from). On CUDA, unless `cuda_graphs` is False, the
+    loss-aware sampler is in use or `marks` is given, the step is a
+    `BufferedTrainStep` replayed from a CUDA graph; otherwise it runs eagerly.
+    """
+    mark = marks or (lambda _part: None)
+    body = _step_body(model, sched, dcfg, tcfg, mark)
+    device = next(model.parameters()).device
+    if (cuda_graphs and device.type == "cuda" and marks is None
+            and tcfg.schedule_sampler == "uniform"):
+        return BufferedTrainStep(model, sched, tcfg, body)
+
+    def train_step(state: TrainState, batch: dict, draws: StepDraws) -> dict:
+        inputs = draw_step_inputs(state, batch, draws, tcfg, sched.num_timesteps)
+        set_learning_rate(state.optimizer, learning_rate(tcfg, state.step))
+        metrics, per_sample = body(state, inputs, draws.model())
+        if state.loss_aware is not None:
+            state.loss_aware = state.loss_aware.update(inputs.t.cpu(), per_sample.cpu())
         state.step += 1
         mark("end")
         return metrics
 
     return train_step
+
+
+class _RecordingDraws:
+    """A model's draws passed through, their shapes and keep probabilities noted."""
+
+    def __init__(self, draws):
+        self.draws, self.calls = draws, []
+
+    def keep(self, shape, keep_prob, device):
+        self.calls.append((tuple(shape), keep_prob))
+        return self.draws.keep(shape, keep_prob, device)
+
+
+class _BufferedDraws:
+    """The model's draws of one step, drawn before it into static buffers and
+    handed out in the order the forward asks for them."""
+
+    def __init__(self, calls, device):
+        self.calls = calls
+        self.masks = [torch.zeros(shape, dtype=torch.bool, device=device) for shape, _ in calls]
+        self.i = 0
+
+    def fill(self, draws) -> None:
+        """Draw this step's masks, in the forward's order, into the buffers."""
+        for (shape, keep_prob), mask in zip(self.calls, self.masks):
+            mask.copy_(draws.keep(shape, keep_prob, mask.device))
+        self.i = 0
+
+    def keep(self, shape, keep_prob, device):
+        expected = self.calls[self.i]
+        if expected != (tuple(shape), keep_prob):
+            raise RuntimeError(f"the forward drew {(tuple(shape), keep_prob)} where its first "
+                               f"step drew {expected}")
+        self.i += 1
+        return self.masks[self.i - 1]
+
+
+class BufferedTrainStep:
+    """The train step over static buffers, replayed from a CUDA graph on the card.
+
+    Called as the eager step is, `step(state, batch, draws) -> metrics`. The
+    first call runs the eager step and notes the model's draws; from the
+    second on, the host copies the batch and the step's draws (drawn as the
+    eager step draws them, in its order) into static buffers, writes the
+    learning rate into AdamW's tensor and runs the body over the buffers: on
+    the card a `CudaGraph` of it (captured at the second call under
+    `weight_cache.repack_on_every_call()`, again where the model's weights or
+    the kernels' implementation changed), on the CPU the body itself. The
+    metrics come back as a copy, so that K steps can be kept before they are
+    read. The state passed must stay the same object across calls.
+    """
+
+    def __init__(self, model: nn.Module, sched: DiffusionSchedule, tcfg: TrainConfig, body):
+        self.model, self.sched, self.tcfg, self.body = model, sched, tcfg, body
+        self.inputs: Optional[StepInputs] = None
+        self.model_draws: Optional[_BufferedDraws] = None
+        self.graph = None
+        self.state = None
+
+    def _eager(self, state, batch, draws):
+        inputs = draw_step_inputs(state, batch, draws, self.tcfg, self.sched.num_timesteps)
+        set_learning_rate(state.optimizer, learning_rate(self.tcfg, state.step))
+        recording = _RecordingDraws(draws.model())
+        metrics, _ = self.body(state, inputs, recording)
+        device = inputs.motion.device
+        # the static buffers, shaped as this step's inputs
+        self.inputs = StepInputs(**{
+            k: (None if v is None else {n: torch.zeros_like(u) for n, u in v.items()}
+                if isinstance(v, dict) else torch.zeros_like(v, device=device))
+            for k, v in vars(inputs).items()})
+        self.model_draws = _BufferedDraws(recording.calls, device)
+        self.state = state
+        return metrics
+
+    def _load(self, state, batch, draws) -> None:
+        drawn = draw_step_inputs(state, batch, draws, self.tcfg, self.sched.num_timesteps)
+        buf = self.inputs
+        for name in ("motion", "time_mask", "t", "weights", "noise", "drop"):
+            src = getattr(drawn, name)
+            if src is not None:
+                getattr(buf, name).copy_(src)
+        for k, v in drawn.y.items():
+            buf.y[k].copy_(v)
+        if drawn.obs_mask is not None:
+            mask = drawn.obs_mask
+            if mask.device.type == "cpu" and buf.obs_mask.device.type == "cuda":
+                mask = mask.pin_memory()  # host → pinned → card, without a sync
+            buf.obs_mask.copy_(mask, non_blocking=True)
+        self.model_draws.fill(draws.model())
+        set_learning_rate(state.optimizer, learning_rate(self.tcfg, state.step))
+
+    def _run_body(self):
+        from condmdi_tpu_torch.ops.weight_cache import repack_on_every_call
+
+        self.model_draws.i = 0
+        with repack_on_every_call():
+            metrics, _ = self.body(self.state, self.inputs, self.model_draws)
+        return metrics
+
+    def __call__(self, state: TrainState, batch: dict, draws: StepDraws) -> dict:
+        if self.inputs is None:
+            metrics = self._eager(state, batch, draws)
+        else:
+            if state is not self.state:
+                raise ValueError("BufferedTrainStep: one TrainState object across its steps")
+            self._load(state, batch, draws)
+            if self.inputs.motion.device.type == "cuda":
+                if self.graph is None:
+                    from condmdi_tpu_torch.utils.cuda_graph import CudaGraph
+
+                    self.graph = CudaGraph(self._run_body, [self.model],
+                                           advances_generation=True)
+                metrics = self.graph()
+            else:
+                metrics = self._run_body()
+            names = list(metrics)
+            values = torch.stack([metrics[k] for k in names])  # a copy the next step keeps
+            metrics = dict(zip(names, values.unbind()))
+        state.step += 1
+        return metrics

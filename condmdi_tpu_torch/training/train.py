@@ -19,7 +19,10 @@ seed). This module owns:
   * --steps_per_dispatch K (with the device cache): K steps per host
     iteration on batches gathered on the card, [K, B] indices drawn at once,
     logging and saving on the JAX loop's boundaries, and the remainder of
-    num_steps single-step on a fresh index stream, as JAX runs its tail;
+    num_steps single-step on a fresh index stream, as JAX runs its tail; on
+    the card each step is a replay of the train step's CUDA graph
+    (training/loop.py `BufferedTrainStep`), so K replays go between two host
+    boundaries, the counterpart of JAX's `lax.scan` over K steps;
   * logging (utils/logger.py: log.txt, progress.csv) every --log_interval
     steps;
   * checkpoints every --save_interval steps and at the end
@@ -76,7 +79,10 @@ class _IndexStream:
 
 
 class TrainLoop:
-    def __init__(self, args, model, sched, dcfg, data_loader, device):
+    """The host loop. `cuda_graphs=False` runs every step eagerly on the card (for
+    comparison with the graph-replayed step, training/loop.py)."""
+
+    def __init__(self, args, model, sched, dcfg, data_loader, device, cuda_graphs: bool = True):
         from condmdi_tpu_torch.training.loop import (
             StepDraws,
             TrainConfig,
@@ -111,7 +117,7 @@ class TrainLoop:
         )
         self.sched, self.dcfg = sched, dcfg
         self.state = create_train_state(model, self.tcfg, sched)
-        self.step_fn = make_train_step(model, sched, dcfg, self.tcfg)
+        self.step_fn = make_train_step(model, sched, dcfg, self.tcfg, cuda_graphs=cuda_graphs)
         self.draws = StepDraws(torch.Generator(device).manual_seed(args.seed),
                                torch.Generator().manual_seed(args.seed))
         # the data stream's position: the streamed loader's (epoch, next batch) and
@@ -194,6 +200,7 @@ class TrainLoop:
         loader = self.data_loader
         full = collate([loader.dataset[i] for i in self._cache_idx], loader.max_motion_length,
                        loader.text_encoder)
+        self._host_lengths = torch.as_tensor(np.asarray(full["lengths"])).long()
         return batch_to_device(full, self.device)
 
     def _refresh_every(self) -> int:
@@ -202,8 +209,15 @@ class TrainLoop:
         return int(getattr(self.args, "device_cache_refresh", 1000) or 0)
 
     def _gather(self, data, idx) -> dict:
-        idx = torch.as_tensor(idx, device=self.device)
-        return {k: v[idx] for k, v in data.items()}
+        """The batch at `idx` gathered on the card, with the lengths' host copy
+        (`lengths_host`, which the keyframe masks are drawn from); the indices
+        go up through pinned memory, so that the host does not wait for the card."""
+        host = torch.as_tensor(np.asarray(idx)).long()
+        on_card = host.pin_memory() if self.device.type == "cuda" else host
+        idx = on_card.to(self.device, non_blocking=True)
+        out = {k: v[idx] for k, v in data.items()}
+        out["lengths_host"] = self._host_lengths[host]
+        return out
 
     def _cached_batches(self, index_stream):
         """Endless batches gathered on the card from the cache."""
@@ -230,7 +244,9 @@ class TrainLoop:
         self._prefetch = PrefetchIterator(produce(), depth=2)
         for batch, pos, np_state in self._prefetch:
             self.stream_pos, self.np_state = pos, np_state
-            yield batch_to_device(batch, self.device)
+            out = batch_to_device(batch, self.device)
+            out["lengths_host"] = torch.as_tensor(np.asarray(batch["lengths"])).long()
+            yield out
 
     def _close_stream(self) -> None:
         """Stop the prefetch thread and put the global numpy stream back where the

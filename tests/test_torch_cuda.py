@@ -816,6 +816,7 @@ def test_int8_kernel_replays_inside_a_cuda_graph(cuda_device, case):
 def test_float_twin_shares_storage_on_the_card(cuda_device):
     """The mixed-step sampler's float twin reads the int8 model's own parameters:
     the same storage, and its packed resblock weights follow an in-place change."""
+    from condmdi_tpu_torch.diffusion.sampling import at_model_step
     from condmdi_tpu_torch.models.unet import MDM_UNET, MixedStepDenoiser
 
     model = MDM_UNET(njoints=263, latent_dim=32, dim_mults=(1, 2), keyframe_conditioned=True,
@@ -829,7 +830,7 @@ def test_float_twin_shares_storage_on_the_card(cuda_device):
     kw = dict(obs_x0=torch.zeros_like(x), obs_mask=torch.zeros(x.shape, dtype=torch.bool,
                                                                  device=cuda_device))
     t = torch.full((2,), 10, device=cuda_device)
-    with torch.no_grad():
+    with torch.no_grad(), at_model_step(10):  # the sampler's step: the float twin's branch
         before = mixed(x, t, y, **kw)
         model.unet.mid_block1.block1.conv.weight.mul_(-1.0)
         after = mixed(x, t, y, **kw)
@@ -1476,3 +1477,341 @@ def test_train_step_kernel_path_matches_plain(cuda_device):
     worst_g, worst_u = max(g_errs, key=g_errs.get), max(u_errs, key=u_errs.get)
     assert g_errs[worst_g] <= TRAIN_GRAD_TOL, (worst_g, g_errs[worst_g])
     assert u_errs[worst_u] <= TRAIN_UPDATE_TOL, (worst_u, u_errs[worst_u])
+
+
+# --------------------------------------------------------------------------- #
+# CUDA graphs: the sampler step and the train step captured and replayed
+# (utils/cuda_graph.py); every replay against the eager call, bit for bit
+# --------------------------------------------------------------------------- #
+def _replay_against_eager(fn, inputs, refill):
+    """`fn()` over the static `inputs` captured by CudaGraph, then the inputs given
+    new contents (`refill`): the replay against an eager call on them."""
+    from condmdi_tpu_torch.utils.cuda_graph import CudaGraph
+
+    graph = CudaGraph(fn)
+    graph()  # the warm-up call and the capture
+    assert graph.graph is not None and graph.captures == 1
+    refill(inputs)
+    got = [t.clone() for t in graph(check=False)]
+    torch.cuda.synchronize()
+    want = fn()
+    assert graph.replays == 1
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.shape == w.shape and torch.isfinite(g).all()
+        assert torch.equal(g, w), (i, float((g - w).abs().max()))
+
+
+def _refill(seed):
+    def refill(inputs):
+        gen = torch.Generator(inputs[0].device).manual_seed(seed)
+        with torch.no_grad():
+            for t in inputs:
+                if t.is_floating_point():
+                    t.copy_(torch.randn(t.shape, generator=gen, device=t.device) * t.std())
+    return refill
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_resblock_launch_replays_from_a_graph(cuda_device, dtype):
+    """The resblock launch under no_grad (the served forward), bf16 included, which
+    no earlier test captured."""
+    args, kw = make_inputs(8, 200, 526, 1024, True, False, getattr(torch, dtype), cuda_device)
+    args[0] = torch.nn.functional.pad(args[0], (0, 2))  # the UNet's 528-channel input
+    cache = resblock.PackedConvWeight()
+
+    def fn():
+        with torch.no_grad():
+            return [resblock.fused_conv_gn_mish(*args, **kw, packed=cache)]
+
+    before = resblock.fused_conv_gn_mish.launches
+    _replay_against_eager(fn, [args[0], kw["scale"]], _refill(1))
+    assert resblock.fused_conv_gn_mish.launches - before == 3  # warm-up, replay, eager
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["conv_gn_mish", "int8_conv1d", "self_attention_bf16",
+                                "self_attention_f32"])
+def test_autograd_functions_replay_forward_and_backward_from_a_graph(cuda_device, op,
+                                                                    monkeypatch):
+    """ConvGnMish, Int8Conv1d and fused_self_attention under capture: the kernel
+    forward and the plain-recompute backward replayed, against the eager call
+    (cuDNN's deterministic algorithms: its default weight gradient sums in an
+    order that changes from call to call)."""
+    from condmdi_tpu_torch.ops import quant
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", False)
+
+    gen = torch.Generator(cuda_device).manual_seed(0)
+
+    def rnd(*shape, dtype=torch.float32, s=1.0):
+        return (torch.randn(shape, generator=gen, device=cuda_device) * s).to(dtype)
+
+    if op == "conv_gn_mish":
+        args, kw = make_inputs(4, 224, 1024, 1024, True, True, torch.float32, cuda_device)
+        leaves = [*args, *kw.values()]
+
+        def forward(*t):
+            return resblock.fused_conv_gn_mish(*t[:5], scale=t[5], shift=t[6], res=t[7])
+        counter = resblock.fused_conv_gn_mish
+    elif op == "int8_conv1d":
+        w = rnd(512, 1024, 3, s=0.02)
+        wq, w_scale = quant.quantize_weight_per_channel(w)
+        leaves = [rnd(4, 112, 1024), rnd(512, s=0.1)]
+
+        def forward(x, bias):
+            return quant.int8_conv1d(x, wq, w_scale, bias, 1, 1)
+        counter = quant.int8_conv1d
+    else:
+        dtype = torch.bfloat16 if op.endswith("bf16") else torch.float32
+        qkv = rnd(8, 197, 3 * 512, dtype=dtype)
+        leaves = [qkv]
+
+        def forward(t):
+            return attention.multihead_attention(t, 4)
+        counter = attention.fused_self_attention
+    leaves = [t.detach().requires_grad_(True) for t in leaves]
+    probe = torch.randn_like(forward(*leaves).float())
+
+    def fn():
+        out = forward(*leaves)
+        grads = torch.autograd.grad((out.float() * probe).sum(), leaves)
+        return [out.detach(), *grads]
+
+    before = counter.launches
+    _replay_against_eager(fn, [t.data for t in leaves], _refill(2))
+    assert counter.launches - before == 3  # warm-up, replay, eager (the capture launches none)
+
+
+def _sample_twice(pipe_fn, shape, y, seed, **kw):
+    """One DDIM run with graphs and one with cuda_graphs=False from the same seed,
+    the launches of each counted."""
+    from condmdi_tpu_torch.utils.cuda_graph import launch_counts
+
+    out = []
+    for graphs in (True, False):
+        pipe = pipe_fn(graphs)
+        before = launch_counts()
+        x = pipe.sample(shape, y, generator=torch.Generator(cuda_device_of(y)).manual_seed(seed),
+                        **kw)
+        torch.cuda.synchronize()
+        out.append((x, tuple(a - b for a, b in zip(launch_counts(), before)), pipe))
+    return out
+
+
+def cuda_device_of(y):
+    return next(v.device for v in y.values() if isinstance(v, torch.Tensor))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["unet_xl_bf16", "mdm", "unet_int8_mixed"])
+def test_ddim20_from_graphs_equals_eager(cuda_device, model):
+    """A DDIM-20 run (eta 0.5, so every step draws its noise; CFG 2.5) with the
+    sampler step replayed from CUDA graphs equals the eager run bit for bit and
+    launches the same kernels as often; the mixed step captures two graphs."""
+    from condmdi_tpu_torch.diffusion import (DiffusionConfig, DiffusionSchedule, SamplerConfig,
+                                             get_named_beta_schedule)
+    from condmdi_tpu_torch.models.mdm import MDM
+    from condmdi_tpu_torch.models.unet import MDM_UNET, MixedStepDenoiser, cast_weights
+    from condmdi_tpu_torch.ops.quant import calibrate_act_scales
+    from condmdi_tpu_torch.sampling.pipeline import SamplePipeline
+
+    B, T, F = 2, 196, 263
+    gen = torch.Generator(cuda_device).manual_seed(3)
+    text = torch.randn(B, 512, generator=gen, device=cuda_device)
+    obs = torch.randn(B, T, F, generator=gen, device=cuda_device)
+    mask = torch.zeros(B, T, F, dtype=torch.bool, device=cuda_device)
+    mask[:, ::10] = True
+    kw = {}
+    if model == "mdm":
+        net = MDM(njoints=F, latent_dim=512, ff_size=1024, num_layers=8, num_heads=4,
+                  device=cuda_device, seed=0).eval()
+
+        def apply_fn(x, t, y, **_):
+            return net(x, t, y)
+    else:
+        mode = "int8_static" if model == "unet_int8_mixed" else "float"
+        net = MDM_UNET(njoints=F, latent_dim=512, dim_mults=(2, 2, 2, 2), zero=False,
+                       keyframe_conditioned=True, pad_frames_to=200, precision_mode=mode,
+                       device=cuda_device, seed=0).eval()
+        kw = dict(obs_x0=obs, obs_mask=mask)
+        if mode == "float":
+            cast_weights(net, torch.bfloat16)
+
+            def apply_fn(x, t, y, **o):
+                return net(x.to(torch.bfloat16), t, y, **o).float()
+        else:
+            sched = DiffusionSchedule.create(get_named_beta_schedule("cosine", 1000),
+                                             device=cuda_device)
+            calibrate_act_scales(net, sched, obs, {"text_embed": text}, generator=gen,
+                                 obs_x0=obs, obs_mask=mask)
+            apply_fn = MixedStepDenoiser(net, 250)
+    sched = DiffusionSchedule.create(get_named_beta_schedule("cosine", 1000),
+                                     use_timesteps=range(0, 1000, 50))
+
+    def pipe_fn(graphs):
+        return SamplePipeline(apply_fn, sched, DiffusionConfig(),
+                              SamplerConfig(method="ddim", eta=0.5), device=cuda_device,
+                              cuda_graphs=graphs)
+
+    (got, n_graph, pipe), (want, n_eager, _) = _sample_twice(
+        pipe_fn, (B, T, F), {"text_embed": text}, 5, guidance_param=2.5, **kw)
+    assert torch.isfinite(got).all() and got.abs().max() > 0
+    assert torch.equal(got, want)
+    assert n_graph == n_eager and sum(n_graph) > 0
+    (prog,) = pipe.programs.values()
+    assert set(prog.graphs) == ({"int8", "float"} if model == "unet_int8_mixed" else {None})
+    assert sum(g.replays for g in prog.graphs.values()) == 20 - len(prog.graphs)
+
+
+@pytest.mark.cuda
+def test_gate_conditional_from_graphs_equals_eager(cuda_device, tmp_path, monkeypatch):
+    """conditional's main on the committed gate checkpoint (f32, DDIM-20, CFG 2.5,
+    imputation): the motions with graphs equal those with cuda_graphs=False bit
+    for bit."""
+    import functools
+    from pathlib import Path
+
+    import condmdi_tpu_torch.sampling.pipeline as pipeline_mod
+    from condmdi_tpu_torch.sampling.conditional import main
+
+    ckpt = Path(__file__).resolve().parent.parent / "save" / "synthetic_unet_m" / \
+        "gate_ema_000100000.npz"
+    argv = ["--model_path", str(ckpt), "--num_samples", "2", "--num_repetitions", "1",
+            "--use_ddim", "true", "--timestep_respacing", "ddim20", "--imputate", "true",
+            "--guidance_param", "2.5"]
+    results = []
+    for graphs in (True, False):
+        if not graphs:
+            monkeypatch.setattr(pipeline_mod, "SamplePipeline", functools.partial(
+                pipeline_mod.SamplePipeline, cuda_graphs=False))
+        np.random.seed(0)
+        out = main(argv + ["--output_dir", str(tmp_path / str(graphs))])
+        results.append(np.load(out / "results.npy", allow_pickle=True).item())
+    assert np.isfinite(results[0]["motion"]).all()
+    assert np.array_equal(results[0]["motion"], results[1]["motion"])
+
+
+@pytest.mark.cuda
+def test_a_weight_change_captures_again(cuda_device):
+    """A pipeline's graph captured on one set of weights, then load_state_dict:
+    the next run captures again and equals an eager run on the new weights."""
+    from condmdi_tpu_torch.diffusion import (DiffusionConfig, DiffusionSchedule, SamplerConfig,
+                                             get_named_beta_schedule)
+    from condmdi_tpu_torch.models.unet import MDM_UNET
+    from condmdi_tpu_torch.sampling.pipeline import SamplePipeline
+
+    cfg = dict(njoints=263, latent_dim=64, dim_mults=(1, 2), keyframe_conditioned=False,
+               pad_frames_to=64, zero=False, device=cuda_device)
+    net = MDM_UNET(**cfg, seed=0).eval()
+    sched = DiffusionSchedule.create(get_named_beta_schedule("cosine", 100),
+                                     use_timesteps=range(0, 100, 10))
+    y = {"text_embed": torch.randn(2, 512, device=cuda_device)}
+
+    def run(graphs):
+        pipe = pipes[graphs]
+        return pipe.sample((2, 60, 263), y, generator=torch.Generator(cuda_device).manual_seed(1))
+
+    pipes = {g: SamplePipeline(net, sched, DiffusionConfig(), SamplerConfig(method="ddim"),
+                               device=cuda_device, cuda_graphs=g) for g in (True, False)}
+    first = run(True)
+    assert torch.equal(first, run(False))
+    (prog,) = pipes[True].programs.values()
+    assert prog.graphs[None].captures == 1
+    run(True)
+    assert prog.graphs[None].captures == 1  # same weights: replayed
+    net.load_state_dict(MDM_UNET(**cfg, seed=1).state_dict())
+    second = run(True)
+    assert prog.graphs[None].captures == 2
+    assert torch.equal(second, run(False)) and not torch.equal(first, second)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("kind", ["unet", "mdm"])
+def test_captured_train_step_equals_the_eager_capturable_step(cuda_device, kind, fused,
+                                                             monkeypatch):
+    """Five steps of a small UNet (keyframes, condition dropout) or MDM (dropout too)
+    replayed from a CUDA graph against five eager steps with the same capturable
+    AdamW (foreach or fused): metrics, parameters and EMA bit for bit (cuDNN's
+    deterministic algorithms in both)."""
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", False)
+    from condmdi_tpu_torch.diffusion import gaussian, schedule
+    from condmdi_tpu_torch.models.mdm import MDM
+    from condmdi_tpu_torch.models.unet import MDM_UNET
+    from condmdi_tpu_torch.training import loop
+
+    def build():
+        if kind == "unet":
+            return MDM_UNET(njoints=263, latent_dim=64, dim_mults=(1, 2),
+                            keyframe_conditioned=True, pad_frames_to=64, zero=False,
+                            cond_mask_prob=0.3, device=cuda_device, seed=0).train()
+        return MDM(njoints=263, latent_dim=64, ff_size=128, num_layers=2, num_heads=4,
+                   dropout=0.1, cond_mask_prob=0.3, device=cuda_device, seed=0).train()
+
+    sched = schedule.DiffusionSchedule.create(
+        schedule.get_named_beta_schedule("cosine", 100), device=cuda_device)
+    cfg = loop.TrainConfig(lr=1e-3, keyframe_conditioned=kind == "unet", grad_clip=1.0,
+                           avg_model_beta=0.9, lr_anneal_steps=4)
+    rng = np.random.default_rng(0)
+    lengths = torch.tensor([60, 48, 60, 33], device=cuda_device)
+    batches = [{"motion": torch.from_numpy(rng.standard_normal((4, 60, 263)).astype(np.float32))
+                .to(cuda_device), "lengths": lengths,
+                "time_mask": torch.arange(60, device=cuda_device)[None] < lengths[:, None],
+                "text_embed": torch.randn(4, 512, device=cuda_device)} for _ in range(5)]
+    results = []
+    for graphs in (True, False):
+        model = build()
+        state = loop.create_train_state(model, cfg, sched)
+        state.optimizer = torch.optim.AdamW(  # make_optimizer's, foreach or fused
+            state.params.values(), lr=torch.tensor(cfg.lr, device=cuda_device),
+            betas=(0.9, cfg.adam_beta2), eps=1e-8, weight_decay=cfg.weight_decay,
+            capturable=True, fused=fused)
+        step = loop.make_train_step(model, sched, gaussian.DiffusionConfig(), cfg,
+                                    cuda_graphs=graphs)
+        assert isinstance(step, loop.BufferedTrainStep) == graphs
+        draws = loop.StepDraws(torch.Generator(cuda_device).manual_seed(4),
+                               torch.Generator().manual_seed(5))
+        metrics = [{k: v.clone() for k, v in step(state, b, draws).items()} for b in batches]
+        if graphs:
+            assert step.graph.captures == 1 and step.graph.replays == 3
+        results.append((metrics, [p.detach().clone() for p in model.parameters()],
+                        [e.clone() for e in state.ema.values()]))
+    (m_g, p_g, e_g), (m_e, p_e, e_e) = results
+    for a, b in zip(m_g, m_e):
+        assert all(torch.equal(a[k], b[k]) for k in a)
+    assert all(torch.equal(a, b) for a, b in zip(p_g + e_g, p_e + e_e))
+    assert any(not torch.equal(a, b.detach()) for a, b in zip(p_g, build().parameters()))
+
+
+@pytest.mark.cuda
+def test_steps_per_dispatch_replays_equal_eager_steps(cuda_device, tmp_path, monkeypatch):
+    """training.train.main with --steps_per_dispatch 4 (8 steps: two dispatches of
+    4 replays) ends on the weights and EMA of the same run with cuda_graphs=False,
+    bit for bit (cuDNN's deterministic algorithms in both)."""
+    import functools
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", False)
+
+    import condmdi_tpu_torch.training.train as train_mod
+
+    argv = ["--num_steps", "8", "--save_interval", "100", "--log_interval", "4",
+            "--batch_size", "4", "--num_frames", "28", "--latent_dim", "32", "--dim_mults", "1",
+            "2", "--diffusion_steps", "8", "--keyframe_conditioned", "true", "--use_fp16",
+            "false", "--data_dir", str(tmp_path / "none"), "--text_encoder", "hash",
+            "--device_data_cache", "true", "--steps_per_dispatch", "4", "--unet_zero", "false"]
+    loops = []
+    for graphs in (True, False):
+        if not graphs:
+            monkeypatch.setattr(train_mod, "TrainLoop", functools.partial(train_mod.TrainLoop,
+                                                                          cuda_graphs=False))
+        loops.append(train_mod.main(argv + ["--save_dir", str(tmp_path / str(graphs))],
+                                    device=cuda_device))
+    got, want = loops
+    assert got.step_fn.graph.replays == 6 and not hasattr(want.step_fn, "graph")
+    for (name, a), b in zip(got.model.state_dict().items(), want.model.state_dict().values()):
+        assert torch.equal(a, b), name
+    assert all(torch.equal(got.state.ema[k], want.state.ema[k]) for k in want.state.ema)

@@ -41,6 +41,7 @@ from condmdi_tpu.ops import quant as jq
 from condmdi_tpu_torch import bench as tbench
 from condmdi_tpu_torch.models import flax_init
 from condmdi_tpu_torch.diffusion import DiffusionConfig, DiffusionSchedule
+from condmdi_tpu_torch.diffusion.sampling import at_model_step
 from condmdi_tpu_torch.models.mdm import MDM as TorchMDM
 from condmdi_tpu_torch.models.unet import (
     MDM_UNET as TorchUNet,
@@ -415,9 +416,13 @@ def test_mixed_step_branches_on_the_model_timestep():
     kw = dict(obs_x0=t(obs), obs_mask=t(mask))
     late, early = torch.full((B,), K - 1), torch.full((B,), K)
     with torch.no_grad():
-        assert torch.equal(mixed(t(x), late, y, **kw), mixed.twin(t(x), late, y, **kw))
-        assert torch.equal(mixed(t(x), early, y, **kw), tm(t(x), early, y, **kw))
+        # the branch is the sampler's host step (at_model_step), as a sampler loop sets it
+        with at_model_step(K - 1):
+            assert torch.equal(mixed(t(x), late, y, **kw), mixed.twin(t(x), late, y, **kw))
+        with at_model_step(K):
+            assert torch.equal(mixed(t(x), early, y, **kw), tm(t(x), early, y, **kw))
         of, o8 = mixed.twin(t(x), early, y, **kw), tm(t(x), early, y, **kw)
+    assert mixed.for_step(K - 1) is mixed.twin and mixed.for_step(K) is tm
     assert (of - o8).abs().mean() / of.abs().mean() > 1e-3
 
 

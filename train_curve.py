@@ -24,7 +24,8 @@ Prints steps/s (the steps after the first row, which holds the start-up, over
 their host wall time) beside the card's name and power limit; then where one
 step's time goes: its host clock against its device time over 5 steps, the
 launches a step, and the kernels and host-side operators that take the most
-(torch.profiler). The last line is one JSON object with the numbers. Outputs
+(torch.profiler), in full float32 as the training ran (TF32 off: `main` turns it
+off only while it runs). The last line is one JSON object with the numbers. Outputs
 go to chiprun_out/train_curve/ (the checkpoints are deleted after the run).
 """
 
@@ -136,6 +137,7 @@ def main() -> int:
         print("train_curve: torch.cuda.is_available() is False", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
+    from condmdi_tpu_torch.device import float32_exact
     from condmdi_tpu_torch.training import train
 
     card = card_line()
@@ -154,7 +156,8 @@ def main() -> int:
     loop = train.main(argv)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    step = profile_steps(loop)
+    with float32_exact():  # as training ran: main turns TF32 off while it runs, and back on
+        step = profile_steps(loop)
     for f in list(OUT.glob("ckpt_*.pth")) + list(OUT.glob("ema_*.npz")):
         f.unlink()
     rows = rows_of(OUT / "progress.csv")
