@@ -152,8 +152,8 @@ Phases, in order; any failure exits non-zero:
      runs once with graphs and once with cuda_graphs=False (SamplePipeline, TrainLoop):
      served UNet-XL bf16 and MDM (phases 4 and 8), the int8 mixed step (phase 12), the gate
      `conditional` CLI (plain, 4 samples), evals.run on the gate (one batch of 32), the
-     gate configuration's training (save/synthetic_unet_m/args.json, 100 steps, 2
-     dispatches of 50) and 6 steps each of UNet-XL and MDM training (cuDNN's deterministic
+     gate configuration's training (save/synthetic_unet_m/args.json, 50 steps, 2
+     dispatches of 25) and 6 steps each of UNet-XL and MDM training (cuDNN's deterministic
      algorithms for the training runs, then 20, 5 and 20 more steps of each run's step
      function, timed); for each: samples/s or steps/s both ways, host ms a step against
      device ms (one step behind a spin kernel; the profiler's kernel time for an eager
@@ -161,7 +161,28 @@ Phases, in order; any failure exits non-zero:
      kernels a step (torch.profiler), and whether the graph run equals the eager run bit
      for bit (the trained parameters and EMA for training), which it must, with the same
      exact launch counts both ways;
- 25. a {"kernels": [...]} line (three kernels), the card line, and the final
+ 25. the GMD trajectory model (traj_unet_adagn_swx at full width, pad 224, f32): every
+     resblock half of its forward at B = 2 and 32 (group widths 8, 16 and 32, a first
+     layer of 4 channels in a row of 8) kernel against plain and timed as phase 17's f32
+     rows; the xz_only model's first half (2 channels); one guided step's gradient with
+     respect to x, kernel path against plain path;
+ 26. generate_gmd through its main at full width (the trajectory model and the UNet-XL abs
+     motion card, Flax's initialisation from --seed, unet_zero off, the 1000-step DDPM, the
+     default classifier_scale 100, 2 prompts) in the modes kps, sdf, trajectory and
+     mdm_legacy: samples/s, exact launches, results.npy with the JAX CLI's keys, finite;
+     kps/sdf's stage 2 holding the stage-1 trajectory on channels 0:4 at every step with
+     imputation on, trajectory/mdm_legacy's motion holding the imputed p2p trajectory; each
+     guided and replayed stage's host ms a step against its device ms; then each mode
+     kernel path against plain path through the CLI at 20 steps (DDIM_TOL);
+ 27. evals.run_condition through its main: one batch of 32, one replication, the 1000-step
+     DDPM for both models; the committed JAX report's keys, finite, a 5-entry traj_error,
+     exact launches, samples/s and each stage's host and device ms a step;
+ 28. PLMS (orders 2 and 4) on the gate checkpoint at conditional's shapes (4 samples,
+     CFG 2.5, 100 steps): graphs against eager bit for bit with the same launches, kernel
+     against plain, samples/s, host and device ms a step; the DDIM reverse ODE from a
+     DDPM-100 sample of the same model (no keyframe observed) back to x_T, kernel against
+     plain within DDIM_TOL * max|plain| (the ODE amplifies differences as it grows |x|);
+ 29. a {"kernels": [...]} line (three kernels), the card line, and the final
      {"ok": true, ...}.
 
 Per-shape results also go to chiprun_out/chip_smoke.json (`python3 resblock_probe.py
@@ -172,6 +193,7 @@ of the JAX package.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import statistics
 import subprocess
@@ -506,8 +528,9 @@ def f32_resblock_rows(name, shapes, B, dev, seed=23):
     total = {k: sum(r[k] * r["per_forward"] for r in rows)
              for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
     total["host_ms_per_call"] = sum(r["host_ms"] * r["per_forward"] for r in rows) / halves
+    first = PREV_F32_RESBLOCK_MS.get(name)
     print(f"[f32 resblock] {name}, the {halves} halves of one f32 forward at B={B}: kernel "
-          f"{total['ms']:.4f} ms (first design: {PREV_F32_RESBLOCK_MS.get(name)} ms), plain "
+          f"{total['ms']:.4f} ms{f' (first design: {first} ms)' if first else ''}, plain "
           f"{total['plain_ms']:.4f} ms, library {total['library_ms']:.4f} ms, bound "
           f"{total['bound_ms']:.4f} ms, host enqueue {total['host_ms_per_call']:.4f} ms a call",
           flush=True)
@@ -2518,7 +2541,7 @@ def train_phase23(xl_loop, mdm_loop):
 # phase 24: the paths the JAX package compiles, with CUDA graphs and without
 # --------------------------------------------------------------------------- #
 GRAPH_OUT = ROOT / "chiprun_out" / "graphs"
-GATE_TRAIN_STEPS, GATE_TRAIN_DISPATCH = 100, 50  # the gate configuration: 2 dispatches of 50
+GATE_TRAIN_STEPS, GATE_TRAIN_DISPATCH = 50, 25  # the gate configuration: 2 dispatches of 25
 FEW_TRAIN_STEPS = 6  # UNet-XL and MDM through main; steps 2 on are replays
 # the host's calls that put work on the card, as torch.profiler names them
 LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cudaGraphLaunch", "cuLaunchKernel",
@@ -2757,7 +2780,7 @@ def graphs_phase24(dev, card, int8_model):
     """Every path the JAX package compiles, with CUDA graphs (the default) and with
     cuda_graphs=False, in this process: served UNet-XL bf16, served MDM, the int8
     mixed step, the gate conditional CLI, evals.run on the gate (one batch of
-    32), the gate configuration's training (100 steps, 2 dispatches of 50) and a
+    32), the gate configuration's training (50 steps, 2 dispatches of 25) and a
     few steps of UNet-XL and MDM training. Each graph run must equal its eager run
     bit for bit."""
     import os
@@ -2831,6 +2854,507 @@ def graphs_phase24(dev, card, int8_model):
         card, f"MDM training, {FEW_TRAIN_STEPS} steps", MDM_TRAIN + few,
         GRAPH_OUT / "train_mdm", ("fused_self_attention", MDM_TRAIN_ATTENTIONS * FEW_TRAIN_STEPS),
         20)
+    return out
+
+
+# --------------------------------------------------------------------------- #
+# phases 25-28: GMD guided generation, its protocol, PLMS and DDIM reverse
+# --------------------------------------------------------------------------- #
+GMD_OUT = ROOT / "chiprun_out" / "gmd"
+TRAJ_CKPT = ROOT / ".chipwork" / "gmd"  # 33 MB a checkpoint: not brought back
+GMD_SAMPLES, GMD_STEPS = 2, 1000  # 2 prompts, the full DDPM
+TRAJ_FEATS, TRAJ_HALVES = 4, 25  # traj_unet_adagn_swx: (rot, x, z, y); 12 resblocks + final
+TRAJ_GROUP_WIDTHS = {8, 16, 32}  # its 64, 128 and 256 channels in GroupNorm(8)
+# the motion card: UNet-XL at the defaults (latent 512, dim_mults 2 2 2 2, 196 frames padded
+# to 224), abs-root features, not keyframe-conditioned, Flax's initialisation from --seed
+# (unet_zero off); the trajectory model from --traj_model_path (its args.json); the CLI's
+# default classifier_scale 100 and seed 10
+GMD_CLI = ["--arch", "unet", "--abs_3d", "true", "--unet_zero", "false", "--num_samples",
+           str(GMD_SAMPLES), "--num_repetitions", "1", "--text_encoder", "hash"]
+# resblock launches per sampler step: the trajectory model's 25 halves (stage 1, one forward
+# a step; its backward recomputes the plain version) and UNet-XL's 33 (stage 2, or the one
+# stage; CFG folds into one batch-doubled forward)
+GMD_MODES = {"kps": TRAJ_HALVES + 33, "sdf": TRAJ_HALVES + 33, "trajectory": 33,
+             "mdm_legacy": 33}
+CLI_KEYS["generate_gmd"] = {"motion", "joints", "text", "lengths", "kframes", "obstacles",
+                            "guidance_mode", "pattern", "text_encoder", "random_init_model"}
+COND_REPORT = ROOT / "save" / "eval_out" / "eval_condition_debug.json"  # the JAX report's form
+PLMS_STEPS, PLMS_ORDERS = 100, (2, 4)
+
+
+@functools.lru_cache(maxsize=None)
+def traj_checkpoint(xz_only=False) -> str:
+    """traj_unet_adagn_swx (unet_zero off) as a checkpoint the CLIs read: its args.json
+    and Flax's initialisation from the CLIs' default seed 10 as a flat npz, written
+    from the port's replay of Flax's init (the weights the JAX CLI draws)."""
+    from condmdi_tpu_torch.models.factory import create_model
+    from condmdi_tpu_torch.models.flax_init import load_flax_init
+    from condmdi_tpu_torch.utils.config import save_args_json, traj_unet_adagn_swx
+    from condmdi_tpu_torch.weights import flatten_flax_params, to_flax_params
+
+    args = traj_unet_adagn_swx(unet_zero=False, xz_only=xz_only)
+    folder = TRAJ_CKPT / ("traj_xz_only" if xz_only else "traj")
+    model = load_flax_init(create_model(args, "cpu"), 10)
+    folder.mkdir(parents=True, exist_ok=True)
+    save_args_json(args, folder / "args.json")
+    path = folder / "model.npz"
+    np.savez(path, **flatten_flax_params(to_flax_params(model.state_dict())))
+    return str(path)
+
+
+def traj_model(dev, xz_only=False):
+    """The trajectory model as the CLIs load it from traj_checkpoint(), with its
+    schedule and diffusion config."""
+    from condmdi_tpu_torch.sampling.synthesize import load_model_for_sampling
+    from condmdi_tpu_torch.utils.config import GMDGenerateArgs, parse_args
+
+    args = parse_args(GMDGenerateArgs, ["--model_path", traj_checkpoint(xz_only),
+                                        "--unet_zero", "false"])
+    return load_model_for_sampling(args, dev)
+
+
+def traj_census(model, B, dev, seed=25):
+    x = seeded_noise((B, T_FRAMES, TRAJ_FEATS), dev, seed=seed)
+    y = {"text_embed": seeded_noise((B, 512), dev, seed=seed + 1)}
+    return record_resblock_shapes(model, x, torch.full((B,), 500, device=dev), y, {})
+
+
+def guided_step_gradient(dev, model, sched, dcfg, B=GMD_SAMPLES):
+    """d(-loss)/dx of one guided stage-1 step (the zigzag keyframes, traj_only, the
+    model at t = 600 through p_mean_variance), kernel path against plain path
+    within F32_TOL * (1 + |plain|); the kernel path's launches (one forward)."""
+    from condmdi_tpu_torch.diffusion.gaussian import p_mean_variance
+    from condmdi_tpu_torch.sampling.gmd import CondKeyLocations, get_kframes, kframes_to_target
+    from condmdi_tpu_torch.utils.assets import NormStats
+
+    sched = sched.to(dev)
+    target, mask = kframes_to_target(get_kframes("zigzag"), B, T_FRAMES, dev)
+    guide = CondKeyLocations(target, mask, NormStats(np.zeros(4, np.float32),
+                                                     np.ones(4, np.float32)), traj_only=True)
+    x = seeded_noise((B, T_FRAMES, TRAJ_FEATS), dev, seed=27)
+    y = {"text_embed": seeded_noise((B, 512), dev, seed=28)}
+    t = torch.full((B,), 600, device=dev)
+
+    def grad():
+        z = x.clone().requires_grad_(True)
+        out = p_mean_variance(lambda xx, tt: model(xx, tt, y), sched, dcfg, z, t)
+        (g,) = torch.autograd.grad(-guide.loss_fn(out["pred_xstart"], sched.model_t(t)), z)
+        return g
+
+    reset_counts()
+    got = grad()
+    torch.cuda.synchronize()
+    launches = read_counts()["fused_conv_gn_mish"]
+    with resblock_swapped_for_plain():
+        want = grad()
+    err = (got - want).abs()
+    bad = int((err > F32_TOL * (1 + want.abs())).sum())
+    print(f"[gmd] one guided stage-1 step at B={B}: d(-loss)/dx kernel path against plain path "
+          f"max|diff| {err.max().item():.3e} (tol {F32_TOL:.0e}*(1+|plain|)), {bad} outside, "
+          f"max|grad| {want.abs().max().item():.3e}; resblock launches {launches} (expected "
+          f"{TRAJ_HALVES})", flush=True)
+    if bad or launches != TRAJ_HALVES or not torch.isfinite(got).all() or not want.abs().max() > 0:
+        raise SystemExit("the guided step's gradient through the kernel disagrees with plain")
+    return dict(max_abs_err=err.max().item(), max_abs_grad=want.abs().max().item(),
+                launches=launches)
+
+
+def gmd_phase25(dev, card):
+    """The trajectory model's resblock halves at full width (pad 224): the census at
+    B = 2 (the CLI) and 32 (the protocol), each shape kernel against plain and timed
+    (f32_resblock_rows); the xz_only model's first half (2 input channels); one guided
+    step's gradient, kernel path against plain path."""
+    model, sched, dcfg = traj_model(dev)
+    out = {}
+    for B in (GMD_SAMPLES, EVAL_BATCH):
+        shapes = traj_census(model, B, dev)
+        widths = {cout // 8 for (_, cout, *_rest) in shapes}
+        firsts = {xc for (cin, *_mid, xc) in shapes if cin == TRAJ_FEATS}
+        if sum(shapes.values()) != TRAJ_HALVES or widths != TRAJ_GROUP_WIDTHS or firsts != {8}:
+            raise SystemExit(f"trajectory model census at B={B}: {shapes}")
+        out[f"B={B}"] = f32_resblock_rows("trajectory model pad 224", shapes, B, dev)
+    xz, _, _ = traj_model(dev, xz_only=True)
+    gen = torch.Generator().manual_seed(29)
+    out["xz_only_first_half"] = []
+    for B in (GMD_SAMPLES, EVAL_BATCH):
+        shapes = traj_census(xz, B, dev)
+        (first,) = [s for s in shapes if s[0] == 2]
+        cin, cout, T, ada, res, xc = first
+        out["xz_only_first_half"].append(dict(
+            B=B, cin=cin, x_channels=xc, max_abs_err_f32=kernel_against_plain(
+                B, T, cin, cout, ada, res, xc, torch.float32, F32_TOL, gen, dev)))
+    out["guided_gradient"] = guided_step_gradient(dev, model, sched, dcfg)
+    print(f"[gmd] {card}: trajectory model f32, the {TRAJ_HALVES} halves of one forward: "
+          + "; ".join(f"{k} kernel {v['ms']:.4f} ms, plain {v['plain_ms']:.4f} ms, library "
+                      f"{v['library_ms']:.4f} ms, bound {v['bound_ms']:.4f} ms"
+                      for k, v in out.items() if k.startswith("B=")), flush=True)
+    return out
+
+
+@contextlib.contextmanager
+def gmd_clock(record):
+    """While open, the guided DDPM loops (`ddpm_sample_loop`, stage 1 of the
+    two-stage modes) and every sampling program's run (stage 2, the one-stage
+    modes) are timed on the host clock, synchronised at both ends."""
+    import condmdi_tpu_torch.diffusion.sampling as sampling_mod
+
+    loop = sampling_mod.ddpm_sample_loop
+
+    def timed(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = loop(*a, **kw)
+        torch.cuda.synchronize()
+        record.setdefault("stage1_s", []).append(time.perf_counter() - t0)
+        return out
+
+    programs = []
+    sampling_mod.ddpm_sample_loop = timed
+    try:
+        with sampling_clock(programs):
+            yield
+    finally:
+        sampling_mod.ddpm_sample_loop = loop
+        record["programs"] = programs
+
+
+@contextlib.contextmanager
+def stage_two_recorder(seen):
+    """While open, two_stage_generate keeps what its stage 2 got: the inpainting
+    state, every step's pred_xstart (the motion pipeline run with
+    return_trajectory) and the stage-1 trajectory."""
+    import dataclasses
+
+    import condmdi_tpu_torch.sampling.gmd as gmd
+
+    real = gmd.two_stage_generate
+
+    def recording(traj_pipe, motion_pipe, *a, **kw):
+        sample = motion_pipe.sample
+        sampler = motion_pipe.sampler
+        motion_pipe.sampler = dataclasses.replace(sampler, return_trajectory=True)
+
+        def keep(*sa, **skw):
+            x, steps = sample(*sa, **skw)
+            seen.update(inpaint=skw["inpaint"], pred_xstart=steps)
+            return x
+
+        motion_pipe.sample = keep
+        try:
+            traj, x = real(traj_pipe, motion_pipe, *a, **kw)
+        finally:
+            del motion_pipe.sample
+            motion_pipe.sampler = sampler
+        seen["traj"] = traj
+        return traj, x
+
+    gmd.two_stage_generate = recording
+    try:
+        yield
+    finally:
+        gmd.two_stage_generate = real
+
+
+def check_stage_two(seen, label):
+    """Stage 2 imputed the stage-1 trajectory, rescaled (identity stats here: the
+    assets are absent), into channels 0:4 at every step with t >= 1 (the
+    imputation's end, impute_until 1), exactly."""
+    inp, traj, steps = seen["inpaint"], seen["traj"], seen["pred_xstart"]
+    held = inp.inpainting_mask[..., :4].all().item() and not inp.inpainting_mask[..., 4:].any()
+    rescaled = torch.equal(inp.inpainted_motion[..., :4], traj)
+    on = int(steps.shape[0]) - inp.stop_imputation_at
+    kept = (steps[:on, ..., :4] - inp.inpainted_motion[..., :4]).abs().max().item()
+    print(f"[gmd] {label}: stage 2's mask holds channels 0:4 {held}, its motion the stage-1 "
+          f"trajectory {rescaled}; max|pred_xstart - trajectory| on channels 0:4 over the "
+          f"{on} steps with imputation on: {kept:.3e}", flush=True)
+    if not (held and rescaled and kept == 0.0):
+        raise SystemExit(f"{label}: stage 2 did not impute the stage-1 trajectory")
+    return kept
+
+
+def check_one_stage_imputation(res, mode, label):
+    """trajectory and mdm_legacy impute through t = 0: the final motion holds the p2p
+    trajectory (abs root: channels 1:3) or its velocities (relative root: 0:3)."""
+    from condmdi_tpu_torch.sampling.gmd import get_kframes, interpolate_kframes_trajectory
+
+    traj = interpolate_kframes_trajectory(get_kframes("square"), res["motion"].shape[1])
+    if mode == "trajectory":
+        got, want = res["motion"][..., 1:3], traj
+    else:
+        vel = np.diff(traj, axis=0, append=traj[-1:])
+        got, want = res["motion"][..., 0:3], np.concatenate([np.zeros_like(vel[:, :1]), vel], -1)
+    err = float(np.abs(got - want[None]).max())
+    print(f"[gmd] {label}: max|motion - imputed trajectory| {err:.3e}", flush=True)
+    if err != 0.0:
+        raise SystemExit(f"{label}: the imputed trajectory is not in the motion")
+    return err
+
+
+def gmd_run(mode, argv, label, steps=GMD_STEPS):
+    """generate_gmd's main on the card (run_cli: counts set to 0 around it), its stages
+    timed; results.npy with the JAX CLI's keys, finite; exact launches."""
+    record, seen = {}, {}
+    with gmd_clock(record), stage_two_recorder(seen) if mode in ("kps", "sdf") and \
+            steps == GMD_STEPS else contextlib.nullcontext():
+        res, seconds, launches = run_cli("generate_gmd", argv + ["--guidance_mode", mode], label)
+    # mdm_legacy's template cuts the motion to 6 s (120 frames), as the reference's does
+    check_cli_result("generate_gmd", res, label, GMD_SAMPLES,
+                     T=120 if mode == "mdm_legacy" else T_FRAMES)
+    expect = GMD_MODES[mode] * steps
+    if launches["fused_conv_gn_mish"] != expect or launches["int8_conv1d"] \
+            or launches["fused_self_attention"]:
+        raise SystemExit(f"{label}: launches {launches}, expected fused_conv_gn_mish {expect}")
+    run = dict(seconds=seconds, samples_per_s=GMD_SAMPLES / seconds, launches=launches,
+               stage1_s=sum(record.get("stage1_s", [])),
+               sampler_runs_s=[sec for _, sec in record["programs"]],
+               programs=[prog for prog, _ in record["programs"]], result=res)
+    if seen:
+        run["stage2_imputation_max_abs"] = check_stage_two(seen, label)
+    return run
+
+
+def gmd_step_costs(run, guided, label, steps=GMD_STEPS):
+    """Host ms a step against device ms (the card's kernel time for one step, by
+    torch.profiler: a guided step waits for its gradient) and the idle share, for the
+    guided stage (eager, `guided` one step of it) and the replayed stage 2."""
+    out = {}
+    if guided is not None:
+        host = (run["stage1_s"] or run["sampler_runs_s"][0]) * 1e3 / steps
+        out["guided"] = dict(host_ms_per_step=host, **step_costs(guided, profiler_time=True))
+    replayed = [p for p in run["programs"] if p.buffered]
+    if replayed:
+        replay, _ = program_steps(replayed[0])
+        host = run["sampler_runs_s"][-1] * 1e3 / steps
+        out["replayed"] = dict(host_ms_per_step=host, **step_costs(replay))
+    for name, c in out.items():
+        c["idle"] = 1.0 - c["device_ms"] / c["host_ms_per_step"] if c["device_ms"] else None
+        idle = "not measured" if c["idle"] is None else f"{c['idle']:.1%}"
+        device = "not measured" if c["device_ms"] is None else f"{c['device_ms']:.4f} ms"
+        print(f"[gmd] {label}, {name} stage: host {c['host_ms_per_step']:.4f} ms a step, device "
+              f"{device}, idle {idle}, {c['launch_calls']:.1f} host launch calls and "
+              f"{c['device_ops']:.1f} device kernels and copies a step", flush=True)
+    return out
+
+
+def guided_step(denoise, sched, dcfg, loss_fn, scale, x):
+    """One guided DDPM step on fixed inputs (`SamplerStep` with the run's loss), at
+    the middle of the schedule; zero noise."""
+    from condmdi_tpu_torch.diffusion.sampling import SamplerStep, at_model_step
+
+    step = SamplerStep("ddpm", denoise, sched, dcfg, cond_loss_fn=loss_fn, cond_scale=scale)
+    t = torch.full((x.shape[0],), sched.num_timesteps // 2, device=x.device)
+    z = torch.zeros_like(x)
+
+    def one():
+        with at_model_step(sched.model_t_host(sched.num_timesteps // 2)):
+            return step(x, t, z)[0]
+
+    return one
+
+
+def gmd_guided_steps(dev, B):
+    """(stage-1 guided step of the trajectory model at batch B, the trajectory mode's
+    guided UNet-XL step at B under CFG 2.5) on fixed inputs, for their device time."""
+    from condmdi_tpu_torch.models.cfg import make_cfg_denoiser, make_plain_denoiser
+    from condmdi_tpu_torch.sampling.gmd import CondKeyLocations, get_kframes, kframes_to_target
+    from condmdi_tpu_torch.sampling.synthesize import load_model_for_sampling
+    from condmdi_tpu_torch.utils.assets import NormStats
+    from condmdi_tpu_torch.utils.config import GMDGenerateArgs, parse_args
+
+    model, sched, dcfg = traj_model(dev)
+    sched = sched.to(dev)
+    y = {"text_embed": seeded_noise((B, 512), dev, seed=30)}
+    target, mask = kframes_to_target(get_kframes("zigzag"), B, T_FRAMES, dev)
+    ident = NormStats(np.zeros(FEATS, np.float32), np.ones(FEATS, np.float32))
+    guide = CondKeyLocations(target, mask, ident, traj_only=True)
+    traj = guided_step(make_plain_denoiser(lambda x, t, yy, **_: model(x, t, yy), y), sched,
+                       dcfg, guide.loss_fn, 100.0, seeded_noise((B, T_FRAMES, 4), dev, 31))
+    if B != GMD_SAMPLES:
+        return traj, None
+    xl, xsched, xdcfg = load_model_for_sampling(parse_args(GMDGenerateArgs, GMD_CLI), dev)
+    xsched = xsched.to(dev)
+    guide_xl = CondKeyLocations(target, mask, ident, abs_3d=True)
+    motion = guided_step(make_cfg_denoiser(lambda x, t, yy, **_: xl(x, t, yy), y, 2.5), xsched,
+                         xdcfg, guide_xl.loss_fn, 100.0, seeded_noise((B, T_FRAMES, FEATS), dev, 32))
+    return traj, motion
+
+
+def gmd_phase26(dev, card):
+    """generate_gmd through its main at full width, 1000-step DDPM, scale 100: kps,
+    sdf, trajectory and mdm_legacy; then each kernel path against plain path through
+    the CLI at 20 steps."""
+    traj_npz = traj_checkpoint()
+    argv = GMD_CLI + ["--traj_model_path", traj_npz]
+    out = {}
+    for mode in GMD_MODES:
+        run = gmd_run(mode, argv, f"gmd_{mode}")
+        if mode in ("trajectory", "mdm_legacy"):
+            run["imputation_max_abs"] = check_one_stage_imputation(run["result"], mode,
+                                                                   f"gmd_{mode}")
+        print(f"[gmd] {card}: generate_gmd {mode}, UNet-XL f32{' + trajectory model' if GMD_MODES[mode] > 33 else ''}, "
+              f"{GMD_STEPS}-step DDPM, {GMD_SAMPLES} samples: {run['seconds']:.2f} s on the host, "
+              f"{run['samples_per_s']:.4f} samples/s (guided stage 1 {run['stage1_s']:.2f} s, "
+              f"sampler runs {[round(s, 2) for s in run['sampler_runs_s']]} s); launches "
+              f"{run['launches']} (expected fused_conv_gn_mish {GMD_MODES[mode]} x {GMD_STEPS})",
+              flush=True)
+        out[mode] = run
+    traj_step, xl_step = gmd_guided_steps(dev, GMD_SAMPLES)
+    for mode, guided in (("kps", traj_step), ("trajectory", xl_step), ("mdm_legacy", None)):
+        out[mode]["steps"] = gmd_step_costs(out[mode], guided, f"generate_gmd {mode}")
+    for mode, per_step in GMD_MODES.items():
+        out[mode]["ddpm20_max_abs_err"] = cli_kernel_vs_plain(
+            "generate_gmd", argv + ["--guidance_mode", mode, "--diffusion_steps", "20"],
+            f"gmd_{mode}_ddpm20", "fused_conv_gn_mish", per_step, resblock_swapped_for_plain)
+    for run in out.values():
+        run.pop("programs")
+        run.pop("result")
+    return out
+
+
+def gmd_phase27(dev, card):
+    """evals.run_condition through its main: one batch of 32, one replication, the
+    1000-step DDPM for both models; the report in the committed JAX report's form."""
+    argv = ["--eval_mode", "debug", "--max_replications", "1", "--arch", "unet",
+            "--unet_zero", "false", "--model_path", "", "--traj_model_path", traj_checkpoint(),
+            "--num_samples", str(EVAL_BATCH), "--text_encoder", "hash", "--seed", "10"]
+    record = {}
+    with gmd_clock(record):
+        run = run_eval("run_condition", argv, "condition")
+    rep, want = run["report"], json.loads(COND_REPORT.read_text())
+    expect = (TRAJ_HALVES + 33) * GMD_STEPS
+    if set(rep) != set(want) or set(rep["per_replication"]) != set(want["per_replication"]) \
+            or set(rep["meta"]) != set(want["meta"]) | {"device_name"}:
+        raise SystemExit(f"run_condition: report keys {sorted(rep)} / meta {sorted(rep['meta'])} "
+                         f"are not the JAX report's")
+    check_eval_report(run, "run_condition")
+    if len(rep["traj_error"]["mean"]) != 5 or run["launches"]["fused_conv_gn_mish"] != expect:
+        raise SystemExit(f"run_condition: traj_error {rep['traj_error']['mean']}, launches "
+                         f"{run['launches']} (expected {expect})")
+    run.update(stage1_s=sum(record["stage1_s"]), sampler_runs_s=[s for _, s in record["programs"]],
+               programs=[p for p, _ in record["programs"]])
+    traj_step, _ = gmd_guided_steps(dev, EVAL_BATCH)
+    steps = gmd_step_costs(run, traj_step, "evals.run_condition")
+    rate = EVAL_BATCH / run["seconds"]
+    print(f"[eval] {card}: evals.run_condition (trajectory model + UNet-XL, f32), "
+          f"{GMD_STEPS}-step DDPM, scale 100, one batch of {EVAL_BATCH}: {run['seconds']:.2f} s "
+          f"on the host, {rate:.4f} samples/s (guided stage 1 {run['stage1_s']:.2f} s, stage 2 "
+          f"{sum(run['sampler_runs_s']):.2f} s); launches {run['launches']} (expected fused_conv_gn_mish "
+          f"{expect}); " + ", ".join(f"{k} {np.round(rep[k]['mean'], 4).tolist()}"
+                                     for k in sorted(EVAL_METRICS | KEYFRAME_METRICS)), flush=True)
+    return dict(seconds=run["seconds"], samples_per_s=rate, launches=run["launches"],
+                stage1_s=run["stage1_s"], sampler_runs_s=run["sampler_runs_s"], steps=steps,
+                metrics={k: rep[k]["mean"] for k in sorted(EVAL_METRICS | KEYFRAME_METRICS)})
+
+
+def plms_step_costs(prog):
+    """(one replayed PLMS body step, the same step eagerly) on the program's buffers."""
+    from condmdi_tpu_torch.diffusion.sampling import at_model_step, plms_step_body
+
+    sched, buf = prog.pipe.sched, prog.buffers
+    ti = sched.num_timesteps - 2
+    graph, body = prog._graph(prog._branch(ti)), plms_step_body(prog.step, buf)
+
+    def replayed():
+        buf.t.fill_(ti)
+        buf.coefs.copy_(prog.step.coefs(0))
+        return graph(check=False)
+
+    def eager():
+        with at_model_step(sched.model_t_host(ti)):
+            buf.t.fill_(ti)
+            buf.coefs.copy_(prog.step.coefs(0))
+            return body()
+
+    return replayed, eager
+
+
+def plms_phase28(dev, card):
+    """PLMS (orders 2 and 4) and the DDIM reverse ODE on the gate checkpoint at
+    conditional's shapes (4 samples, CFG 2.5, keyframes), over PLMS_STEPS respaced
+    steps: graphs against eager bit for bit with the same launches, kernel against
+    plain, samples/s and a step's host and device time; then the DDIM reverse ODE
+    from a DDPM sample of the same model back to x_T, kernel against plain."""
+    from condmdi_tpu_torch.diffusion import SamplerConfig
+    from condmdi_tpu_torch.diffusion.sampling import ddim_reverse_sample_loop
+    from condmdi_tpu_torch.sampling.conditional import parse_cli_args
+    from condmdi_tpu_torch.sampling.pipeline import SamplePipeline
+    from condmdi_tpu_torch.sampling.synthesize import load_model_for_sampling
+
+    model, _, dcfg = load_model_for_sampling(parse_cli_args(GATE_CLI), dev)
+    sched = schedule(PLMS_STEPS)
+    B = CLI_SAMPLES
+    text, obs, mask = (a.to(dev) for a in keyframe_inputs(B, 33))
+    kw = dict(guidance_param=2.5, obs_x0=obs, obs_mask=mask, noise=seeded_noise((B, T_FRAMES, FEATS), dev, 34))
+    y = {"text_embed": text}
+    out = {}
+    for order in PLMS_ORDERS:
+        forwards = PLMS_STEPS + (1 if order > 1 else 0)
+        row, xs, pipes = {}, {}, {}
+        for name in ("graphs", "eager"):
+            pipes[name] = SamplePipeline(model, sched, dcfg, SamplerConfig(method="plms",
+                                         order=order), device=dev, cuda_graphs=name == "graphs")
+            pipes[name].sample((B, T_FRAMES, FEATS), y, **kw)  # captures (or builds) first
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            xs[name] = pipes[name].sample((B, T_FRAMES, FEATS), y, **kw)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            row[name] = dict(seconds=seconds, rate=B / seconds, launches=read_counts(),
+                             host_ms_per_step=seconds * 1e3 / PLMS_STEPS)
+            if row[name]["launches"]["fused_conv_gn_mish"] != GATE_HALVES * forwards:
+                raise SystemExit(f"PLMS order {order} ({name}): launches {row[name]['launches']}")
+        (prog,) = pipes["graphs"].programs.values()
+        replayed, eager = plms_step_costs(prog)
+        row["graphs"].update(step_costs(replayed))
+        row["eager"].update(step_costs(eager))
+        for r in row.values():
+            r["idle"] = 1.0 - r["device_ms"] / r["host_ms_per_step"]
+        equal = torch.equal(xs["graphs"], xs["eager"])
+        with resblock_swapped_for_plain():
+            plain = pipes["graphs"].sample((B, T_FRAMES, FEATS), y, **kw)
+        err = (xs["graphs"] - plain).abs().max().item()
+        print(f"[plms] {card}: PLMS order {order}, gate UNet f32, {PLMS_STEPS} steps ({forwards} "
+              f"forwards), CFG 2.5, B={B}: graphs {row['graphs']['rate']:.4f} samples/s, host "
+              f"{row['graphs']['host_ms_per_step']:.4f} ms a step, device "
+              f"{row['graphs']['device_ms']:.4f} ms, idle {row['graphs']['idle']:.1%}; eager "
+              f"{row['eager']['rate']:.4f} samples/s, host {row['eager']['host_ms_per_step']:.4f} "
+              f"ms a step, device {row['eager']['device_ms']:.4f} ms, idle "
+              f"{row['eager']['idle']:.1%}; graph run equals eager run bit for bit: {equal}; "
+              f"max|kernel - plain| {err:.3e} (tol {DDIM_TOL:.0e}), max|plain| "
+              f"{plain.abs().max().item():.3f}; launches {row['graphs']['launches']}", flush=True)
+        if not (equal and err <= DDIM_TOL and torch.isfinite(xs["graphs"]).all()):
+            raise SystemExit(f"PLMS order {order}: graph/eager or kernel/plain disagree")
+        out[f"order_{order}"] = dict(row, bit_equal=equal, max_abs_err=err)
+    # DDIM reverse: a DDPM sample of the same model (guidance 1.0, no keyframe observed: an
+    # empty mask, as the `uncond` edit mode gives it) back to x_T
+    ddpm = SamplePipeline(model, sched, dcfg, SamplerConfig(), device=dev)
+    free = torch.zeros_like(mask)
+    x0 = ddpm.sample((B, T_FRAMES, FEATS), y, obs_x0=obs, obs_mask=free,
+                     generator=torch.Generator(device=dev).manual_seed(35))
+    denoise = ddpm.denoiser(y, 1.0, obs, free)
+    reset_counts()
+    t0 = time.perf_counter()
+    got = ddim_reverse_sample_loop(denoise, sched.to(dev), dcfg, x0)
+    torch.cuda.synchronize()
+    seconds, launches = time.perf_counter() - t0, read_counts()
+    with resblock_swapped_for_plain():
+        want = ddim_reverse_sample_loop(denoise, sched.to(dev), dcfg, x0)
+    # the reverse ODE amplifies: from |x_0| ~ 20 it reaches |x_T| ~ 50 on these random inputs,
+    # and differences of one float32 rounding per call grow with it to ~5e-3 at elements of
+    # any size; it is held relative to its output's scale, DDIM_TOL * max|plain|
+    err = (got - want).abs().max().item()
+    rel = err / want.abs().max().item()
+    print(f"[plms] {card}: DDIM reverse x_0 -> x_T of {B} DDPM-{PLMS_STEPS} samples (max|x_0| "
+          f"{x0.abs().max().item():.3f}), {PLMS_STEPS} steps: max|kernel - plain| {err:.3e}, "
+          f"max|kernel - plain| / max|plain| {rel:.3e} (tol {DDIM_TOL:.0e}), max|x_T| "
+          f"{want.abs().max().item():.3f}, {seconds:.2f} s on the host; launches {launches}",
+          flush=True)
+    if not (rel <= DDIM_TOL and torch.isfinite(got).all()
+            and launches["fused_conv_gn_mish"] == GATE_HALVES * PLMS_STEPS):
+        raise SystemExit("DDIM reverse: the kernel path disagrees with the plain path")
+    out["ddim_reverse"] = dict(max_abs_err=err, max_rel_err=rel, seconds=seconds,
+                               launches=launches, max_abs_x_T=want.abs().max().item())
     return out
 
 
@@ -2943,6 +3467,10 @@ def main() -> int:
                     train21.pop("loop"), train22.pop("loop"))
     graphs24 = phase("24 CUDA graphs against eager", graphs_phase24, dev, card, int8_model)
     del int8_model
+    gmd25 = phase("25 trajectory model kernel", gmd_phase25, dev, card)
+    gmd26 = phase("26 generate_gmd", gmd_phase26, dev, card)
+    cond27 = phase("27 evals.run_condition", gmd_phase27, dev, card)
+    plms28 = phase("28 PLMS and DDIM reverse", plms_phase28, dev, card)
     print("[time] host seconds by phase: "
           + ", ".join(f"{k} {v:.1f}" for k, v in phase_seconds.items())
           + f"; {sum(phase_seconds.values()):.1f} in all", flush=True)
@@ -3006,6 +3534,22 @@ def main() -> int:
                                "host_ms_per_call")},
         "train_step_loss_abs_err": train23["xl"]["loss_abs_err"],
         "train_after_step_max_rel_err": train23["xl"]["after_step"]["max_rel_err"],
+        # GMD (phases 25-28): the trajectory model's halves (f32, pad 224) summed at B=2
+        # (generate_gmd) and B=32 (run_condition), launches per run, kernel against plain
+        "traj_f32_ms": {k: {kk: v[kk] for kk in ("halves", "ms", "plain_ms", "library_ms",
+                                                 "bound_ms", "host_ms_per_call")}
+                        for k, v in gmd25.items() if k.startswith("B=")},
+        "traj_max_abs_err_f32": max(r["max_abs_err_f32"] for k, v in gmd25.items()
+                                    if k.startswith("B=") for r in v["rows"]),
+        "traj_xz_only_max_abs_err_f32": max(r["max_abs_err_f32"]
+                                            for r in gmd25["xz_only_first_half"]),
+        "gmd_guided_gradient_max_abs_err_f32": gmd25["guided_gradient"]["max_abs_err"],
+        "gmd_launches": dict({m: r["launches"]["fused_conv_gn_mish"] for m, r in gmd26.items()},
+                             run_condition=cond27["launches"]["fused_conv_gn_mish"]),
+        "gmd_ddpm20_max_abs_err_f32": {m: r["ddpm20_max_abs_err"] for m, r in gmd26.items()},
+        "plms_launches": {k: v["graphs"]["launches"]["fused_conv_gn_mish"]
+                          for k, v in plms28.items() if k.startswith("order")},
+        "plms_max_abs_err_f32": {k: v["max_abs_err"] for k, v in plms28.items()},
     }, {
         "name": "fused_self_attention",
         "route": "cuda",
@@ -3101,6 +3645,8 @@ def main() -> int:
          "eval": {"gate": eval18, "t2m": eval19, "kernel_vs_plain": eval20},
          "train": {"xl": train21, "mdm": train22, "step_pairs": train23},
          "graphs": graphs24,
+         "gmd": {"trajectory_model": gmd25, "generate_gmd": gmd26, "run_condition": cond27,
+                 "plms": plms28},
          "phase_seconds": phase_seconds,
          "previous_ms_from_perf_md": dict(previous, f32_resblock=PREV_F32_RESBLOCK_MS,
                                           f32_attention=PREV_F32_ATTENTION_MS)}, indent=1))

@@ -2,8 +2,9 @@
 
 Counterpart of condmdi_tpu/data/dataset.py for `DatasetConfig`,
 `synthetic_captions`, `SyntheticMotionDataset`, `apply_augmentation`,
-`collate`, `DataLoader`, `PrefetchIterator` and `get_dataset_loader` (with
-`NormStats` from condmdi_tpu/utils/assets.py). The same seeds give the same
+`collate`, `DataLoader`, `PrefetchIterator` and `get_dataset_loader`
+(`NormStats` lives in utils/assets.py and is imported here for the callers that
+take it from this module). The same seeds give the same
 items: each item draws from `default_rng((seed, i))`, its captions from
 `default_rng((seed, i, 7))`, and `__getitem__` draws its crop and its caption
 from the global `np.random` in the same order as JAX. Forward kinematics and
@@ -32,14 +33,9 @@ import numpy as np
 import torch
 
 from condmdi_tpu_torch.device import resolve_device
+from condmdi_tpu_torch.utils.assets import NormStats
 
 _STATS_DIR = Path(__file__).resolve().parent
-
-
-@dataclass
-class NormStats:
-    mean: np.ndarray  # [263]
-    std: np.ndarray  # [263]
 
 
 @dataclass

@@ -16,4 +16,5 @@ from condmdi_tpu_torch.diffusion.sampling import (
     SamplerConfig,
     ddim_sample_loop,
     ddpm_sample_loop,
+    plms_sample_loop,
 )

@@ -1,9 +1,9 @@
-"""Denoising samplers (DDPM / DDIM): one step function and the loops over it.
+"""Denoising samplers (DDPM / DDIM / PLMS, and the DDIM reverse ODE): step
+functions and the loops over them.
 
-Counterpart of condmdi_tpu/diffusion/sampling.py (PLMS waits for a later
-slice). Classifier-free guidance is folded into `denoise_fn` (the
-batch-doubled forward of models/cfg.py); imputation and reconstruction
-guidance happen in `p_mean_variance`.
+Counterpart of condmdi_tpu/diffusion/sampling.py. Classifier-free guidance is
+folded into `denoise_fn` (the batch-doubled forward of models/cfg.py);
+imputation and reconstruction guidance happen in `p_mean_variance`.
 
 The JAX package runs a sampling run as one XLA program, a `lax.scan` over
 the steps. `SamplerStep` is its scan body: (x, t, z[, z_marginal]) ->
@@ -23,6 +23,14 @@ bits. Three cases stay eager by rule, since their step runs autograd or host
 code each step (`SamplerStep.capturable`): `cond_fn`, `cond_loss_fn` and
 inpainting with reconstruction guidance (`autograd.grad` through the
 denoiser). `skip_timesteps` only moves the start: the same step function.
+
+PLMS (`PLMSStep`) has two parts, as the JAX loop has: a first step of two
+model calls (pseudo improved Euler, when the order is above 1), always
+eager, then the Adams-Bashforth body over an eps history, newest first,
+which the JAX package runs as its scan and `plms_run_on_buffers` runs over
+static buffers (`PLMSBuffers`: x, t, the history and the step's four
+coefficients) for a graph to replay. `ddim_reverse_sample_loop` runs the
+deterministic DDIM ODE from x_0 to x_T, eagerly.
 
 Noise comes from an explicit `torch.Generator` on the schedule's device.
 `step_noise` replaces it with one given tensor per step, so a test can feed
@@ -48,6 +56,7 @@ from condmdi_tpu_torch.diffusion.gaussian import (
     InpaintingState,
     p_mean_variance,
     predict_eps_from_xstart,
+    predict_xstart_from_eps,
     q_posterior_mean_variance,
     q_sample,
 )
@@ -61,8 +70,9 @@ _host = threading.local()
 
 @dataclass(frozen=True)
 class SamplerConfig:
-    method: str = "ddpm"  # ddpm | ddim
+    method: str = "ddpm"  # ddpm | ddim | plms
     eta: float = 0.0  # ddim stochasticity
+    order: int = 2  # plms Adams-Bashforth order (1-4)
     return_trajectory: bool = False  # also return every step's pred_xstart
     zero_noise: bool = False  # deterministic updates (testing/debugging)
 
@@ -140,7 +150,7 @@ class SamplerStep:
                  inpaint: Optional[InpaintingState] = None, cond_fn: Optional[CondFn] = None,
                  cond_loss_fn=None, cond_scale: float = 1.0):
         if method not in ("ddpm", "ddim"):
-            raise ValueError(f"sampler {method!r} is not ported")
+            raise ValueError(f"SamplerStep runs ddpm or ddim, not {method!r} (PLMSStep: plms)")
         if cond_loss_fn is not None and method != "ddpm":
             raise ValueError("cond_loss_fn guides the DDPM sampler only")
         self.method, self.denoise_fn, self.sched, self.cfg = method, denoise_fn, sched, cfg
@@ -360,3 +370,204 @@ def ddim_sample_loop(
     step = SamplerStep("ddim", denoise_fn, sched, cfg, sampler, inpaint, cond_fn)
     x = initial_x(shape, sched, generator, noise)
     return eager_loop(step, x, sampler_steps("ddim", sched), generator, step_noise, sampler)
+
+
+def ddim_reverse_sample_loop(
+    denoise_fn: DenoiseFn,
+    sched: DiffusionSchedule,
+    cfg: DiffusionConfig,
+    x0: torch.Tensor,
+) -> torch.Tensor:
+    """Deterministic DDIM reverse ODE x_0 → x_T (reference :1418), eagerly."""
+    B, nd = x0.shape[0], x0.ndim
+    x = x0
+    saved = current_model_step()
+    try:
+        with torch.no_grad():
+            for ti in range(sched.num_timesteps):
+                _host.t_model = sched.model_t_host(ti)
+                t = torch.full((B,), ti, dtype=torch.long, device=x.device)
+                out = p_mean_variance(denoise_fn, sched, cfg, x, t)
+                eps = (sched.extract(sched.sqrt_recip_alphas_cumprod, t, nd) * x
+                       - out["pred_xstart"]) / sched.extract(sched.sqrt_recipm1_alphas_cumprod, t, nd)
+                alpha_bar_next = sched.extract(sched.alphas_cumprod_next, t, nd)
+                x = out["pred_xstart"] * torch.sqrt(alpha_bar_next) + torch.sqrt(
+                    1 - alpha_bar_next) * eps
+    finally:
+        _host.t_model = saved
+    return x
+
+
+# --------------------------------------------------------------------------- #
+# PLMS (pseudo linear multistep, Adams-Bashforth order 1-4)
+# --------------------------------------------------------------------------- #
+# index k: the coefficients over [e_t, e_{t-1}, ...] with k + 1 taps, padded to 4
+_AB_COEFS = (
+    (1.0, 0.0, 0.0, 0.0),
+    (3.0 / 2.0, -1.0 / 2.0, 0.0, 0.0),
+    (23.0 / 12.0, -16.0 / 12.0, 5.0 / 12.0, 0.0),
+    (55.0 / 24.0, -59.0 / 24.0, 37.0 / 24.0, -9.0 / 24.0),
+)
+
+
+def plms_body_steps(sched: DiffusionSchedule) -> range:
+    """The steps of the multistep body, after the first step at S - 1."""
+    return range(sched.num_timesteps - 2, -1, -1)
+
+
+class PLMSStep:
+    """PLMS (reference plms_sample:1589): `first(x)` takes the first step at
+    t = S - 1 (two model calls when the order is above 1); `step(x, t, hist,
+    coefs)` is one step of the multistep body, the JAX scan's: the model's
+    eps, the step's Adams-Bashforth coefficients (`coefs`, the row of
+    `_AB_COEFS` for the taps available) over [eps, hist...], the update, and
+    the history shifted with eps in front. `inpaint` goes to p_mean_variance
+    as it is, as the JAX loop passes it."""
+
+    def __init__(self, denoise_fn: DenoiseFn, sched: DiffusionSchedule, cfg: DiffusionConfig,
+                 sampler: SamplerConfig = SamplerConfig(method="plms"),
+                 inpaint: Optional[InpaintingState] = None):
+        self.order = int(sampler.order)
+        if not 1 <= self.order <= 4:
+            raise ValueError(f"PLMS order {self.order} is not in 1-4")
+        self.denoise_fn, self.sched, self.cfg, self.inpaint = denoise_fn, sched, cfg, inpaint
+        self.coef_table = torch.tensor(_AB_COEFS, dtype=torch.float32, device=sched.device)
+
+    @property
+    def capturable(self) -> bool:
+        """False with reconstruction guidance (autograd through the denoiser)."""
+        return not (self.inpaint is not None and self.inpaint.reconstruction_guidance)
+
+    def coefs(self, j: int) -> torch.Tensor:
+        """The coefficients of body step j (0-based): min(j + 2, order) taps."""
+        return self.coef_table[min(j + 2, self.order) - 1]
+
+    def model_eps(self, x, t):
+        out = p_mean_variance(self.denoise_fn, self.sched, self.cfg, x, t, inpaint=self.inpaint)
+        return predict_eps_from_xstart(self.sched, x, t, out["pred_xstart"]), out
+
+    def first(self, x):
+        """(x after the first step, eps of the first call, its pred_xstart)."""
+        sched, nd, B = self.sched, x.ndim, x.shape[0]
+        ti = sched.num_timesteps - 1
+        t0 = torch.full((B,), ti, dtype=torch.long, device=x.device)
+        _host.t_model = sched.model_t_host(ti)
+        eps0, out0 = self.model_eps(x, t0)
+        alpha_bar_prev0 = sched.extract(sched.alphas_cumprod_prev, t0, nd)
+        if self.order > 1:  # pseudo improved Euler (Heun)
+            mean_pred = out0["pred_xstart"] * torch.sqrt(alpha_bar_prev0) + torch.sqrt(
+                1 - alpha_bar_prev0) * eps0
+            _host.t_model = sched.model_t_host(max(ti - 1, 0))
+            eps2, _ = self.model_eps(mean_pred, (t0 - 1).clamp(min=0))
+            eps_prime = (eps0 + eps2) / 2
+        else:
+            eps_prime = eps0
+        pred_prime = predict_xstart_from_eps(sched, x, t0, eps_prime)
+        x = pred_prime * torch.sqrt(alpha_bar_prev0) + torch.sqrt(1 - alpha_bar_prev0) * eps_prime
+        return x, eps0, out0["pred_xstart"]
+
+    def step(self, x, t, hist, coefs):
+        """(x at the next step, the shifted history, pred_xstart)."""
+        sched, nd = self.sched, x.ndim
+        eps, out = self.model_eps(x, t)
+        taps = torch.cat([eps[None], hist], dim=0)[:4]
+        if taps.shape[0] < 4:
+            taps = torch.cat([taps, taps.new_zeros((4 - taps.shape[0],) + taps.shape[1:])])
+        eps_prime = (coefs.to(x.dtype).reshape((4,) + (1,) * nd) * taps).sum(dim=0)
+        pred_prime = predict_xstart_from_eps(sched, x, t, eps_prime)
+        alpha_bar_prev = sched.extract(sched.alphas_cumprod_prev, t, nd)
+        mean_pred = pred_prime * torch.sqrt(alpha_bar_prev) + torch.sqrt(
+            1 - alpha_bar_prev) * eps_prime
+        nz = _nonzero_mask(t, nd)
+        sample = mean_pred * nz + out["pred_xstart"] * (1 - nz)
+        return sample, torch.cat([eps[None], hist[:-1]], dim=0), out["pred_xstart"]
+
+    def initial_history(self, eps0):
+        hist = eps0.new_zeros((self.order,) + eps0.shape)
+        hist[0] = eps0
+        return hist
+
+
+@dataclass
+class PLMSBuffers:
+    """The static inputs of one PLMS body step: x and the eps history (updated in
+    place by `plms_step_body`), t [B] and the step's coefficients [4]."""
+
+    x: torch.Tensor
+    t: torch.Tensor
+    hist: torch.Tensor
+    coefs: torch.Tensor
+
+    @classmethod
+    def create(cls, shape, dtype, device, order: int) -> "PLMSBuffers":
+        return cls(torch.zeros(shape, dtype=dtype, device=device),
+                   torch.zeros(shape[:1], dtype=torch.long, device=device),
+                   torch.zeros((order,) + tuple(shape), dtype=dtype, device=device),
+                   torch.zeros(4, dtype=torch.float32, device=device))
+
+
+def plms_step_body(step: PLMSStep, buf: PLMSBuffers) -> Callable[[], torch.Tensor]:
+    """One body step over `buf`, x and the history written back in place; returns
+    pred_xstart. The function a graph captures."""
+
+    def body():
+        x_next, hist, pred_xstart = step.step(buf.x, buf.t, buf.hist, buf.coefs)
+        buf.x.copy_(x_next)
+        buf.hist.copy_(hist)
+        return pred_xstart
+
+    return body
+
+
+def plms_eager_loop(step: PLMSStep, x):
+    """The first step, then every body step on fresh tensors."""
+    B = x.shape[0]
+    saved = current_model_step()
+    try:
+        x, eps0, _ = step.first(x)
+        hist = step.initial_history(eps0)
+        for j, ti in enumerate(plms_body_steps(step.sched)):
+            _host.t_model = step.sched.model_t_host(ti)
+            t = torch.full((B,), ti, dtype=torch.long, device=x.device)
+            x, hist, _ = step.step(x, t, hist, step.coefs(j))
+    finally:
+        _host.t_model = saved
+    return x
+
+
+def plms_run_on_buffers(run_step: Callable[[int, int], torch.Tensor], buf: PLMSBuffers,
+                        step: PLMSStep, x):
+    """The loop as a replay drives it: the first step eagerly, its x and eps into
+    `buf`; each body step its t and coefficients written into `buf`, then
+    `run_step(j, ti)` (a graph replay, or `plms_step_body` itself). Returns a
+    copy of the last x."""
+    saved = current_model_step()
+    try:
+        x, eps0, _ = step.first(x)
+        buf.x.copy_(x)
+        buf.hist.copy_(step.initial_history(eps0))
+        for j, ti in enumerate(plms_body_steps(step.sched)):
+            _host.t_model = step.sched.model_t_host(ti)
+            buf.t.fill_(ti)
+            buf.coefs.copy_(step.coefs(j))
+            run_step(j, ti)
+    finally:
+        _host.t_model = saved
+    return buf.x.clone()
+
+
+@torch.no_grad()
+def plms_sample_loop(
+    denoise_fn: DenoiseFn,
+    sched: DiffusionSchedule,
+    cfg: DiffusionConfig,
+    shape: tuple[int, ...],
+    generator: Optional[torch.Generator] = None,
+    noise: Optional[torch.Tensor] = None,
+    inpaint: Optional[InpaintingState] = None,
+    sampler: SamplerConfig = SamplerConfig(method="plms", order=2),
+):
+    """PLMS sampling (reference plms_sample_loop:1690), eagerly: a first
+    (Heun) step, then the Adams-Bashforth body over an eps history."""
+    step = PLMSStep(denoise_fn, sched, cfg, sampler, inpaint)
+    return plms_eager_loop(step, initial_x(shape, sched, generator, noise))

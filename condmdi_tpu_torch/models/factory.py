@@ -71,8 +71,6 @@ def create_model(args, device: str | torch.device = "cuda") -> torch.nn.Module:
         if getattr(args, "unet_attention", False):
             raise NotImplementedError(
                 "unet_attention: LinearAttention is not ported yet (ROADMAP Queue A 6)")
-        if getattr(args, "xz_only", False):
-            raise NotImplementedError("xz_only UNet is not ported yet")
         return MDM_UNET(
             njoints=dims["njoints"], nfeats=dims["nfeats"], latent_dim=args.latent_dim,
             dim_mults=tuple(args.dim_mults), adagn=args.unet_adagn, zero=args.unet_zero,
@@ -80,7 +78,8 @@ def create_model(args, device: str | torch.device = "cuda") -> torch.nn.Module:
             keyframe_conditioned=getattr(args, "keyframe_conditioned", False),
             pad_frames_to=int(getattr(args, "unet_pad_to", 224) or 224),
             precision_mode=getattr(args, "precision_mode", "float"),
-            cond_mask_prob=args.cond_mask_prob, device=device, seed=None,
+            cond_mask_prob=args.cond_mask_prob, xz_only=getattr(args, "xz_only", False),
+            device=device, seed=None,
         )
     return MDM(
         njoints=dims["njoints"], nfeats=dims["nfeats"], latent_dim=args.latent_dim,

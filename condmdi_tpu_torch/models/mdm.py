@@ -35,7 +35,7 @@ dropout at `dropout` where the Flax layers have it (after the positional
 encoding, the attention output, the activation and the feed-forward output;
 the decoder also after its cross-attention), all drawn from `draws`.
 
-Not ported here (ROADMAP Queue A 1): arch `gru` and the `*_large` output
+Not ported here (ROADMAP Queue A 4): arch `gru` and the `*_large` output
 head.
 """
 
@@ -164,11 +164,11 @@ class MDM(nn.Module):
         super().__init__()
         if arch.endswith("_large"):
             raise NotImplementedError(
-                f"arch {arch!r}: the *_large output head waits for a later slice (ROADMAP Queue A 1)"
+                f"arch {arch!r}: the *_large output head waits for a later slice (ROADMAP Queue A 4)"
             )
         if arch.startswith("gru"):
             raise NotImplementedError(
-                f"arch {arch!r}: the GRU denoiser waits for a later slice (ROADMAP Queue A 1)"
+                f"arch {arch!r}: the GRU denoiser waits for a later slice (ROADMAP Queue A 4)"
             )
         if not arch.startswith(("trans_enc", "trans_dec")):
             raise ValueError(f"unknown arch {arch}")

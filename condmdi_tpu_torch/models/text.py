@@ -11,7 +11,7 @@ port imports nothing of the JAX package):
     the tag a run records.
 
 The CLIP ViT-B/32 text tower is not ported yet: it needs a CLIP checkpoint
-and the BPE vocabulary in the repository (ROADMAP Queue A 1). Mode `clip`,
+and the BPE vocabulary in the repository (ROADMAP Queue A 4). Mode `clip`,
 and mode `auto` where a CLIP checkpoint is found, raise instead of serving
 other embeddings than the JAX package would.
 """
@@ -98,7 +98,7 @@ def find_clip_checkpoint() -> Optional[str]:
 def _no_clip(ckpt: str) -> NotImplementedError:
     return NotImplementedError(
         f"the CLIP text tower is not ported yet (checkpoint {ckpt!r}); it waits for a CLIP "
-        "checkpoint and vocabulary in the repository (ROADMAP Queue A 1). Use "
+        "checkpoint and vocabulary in the repository (ROADMAP Queue A 4). Use "
         "--text_encoder cached with precomputed embeddings, or hash"
     )
 

@@ -354,7 +354,7 @@ class MDM_UNET(nn.Module):
     def __init__(self, njoints=263, nfeats=1, latent_dim=512,
                  dim_mults: Sequence[float] = (2, 2, 2, 2), adagn=True, zero=True,
                  clip_dim=512, cond_mode="text", keyframe_conditioned=False,
-                 pad_frames_to=224, precision_mode="float", cond_mask_prob=0.1, *,
+                 pad_frames_to=224, precision_mode="float", cond_mask_prob=0.1, xz_only=False, *,
                  device: str | torch.device = "cuda", dtype: torch.dtype = torch.float32,
                  seed: Optional[int] = 0):
         super().__init__()
@@ -368,12 +368,15 @@ class MDM_UNET(nn.Module):
                            clip_dim=clip_dim, cond_mode=cond_mode,
                            keyframe_conditioned=keyframe_conditioned,
                            pad_frames_to=pad_frames_to, precision_mode=precision_mode,
-                           cond_mask_prob=cond_mask_prob)
+                           cond_mask_prob=cond_mask_prob, xz_only=xz_only)
         self.precision_mode = precision_mode
         self.cond_mask_prob = cond_mask_prob
         device = resolve_device(device)
         dd = dict(device=device, dtype=dtype)
-        self.input_feats = njoints * nfeats
+        # xz_only (the trajectory model's option): the network sees and predicts
+        # the pelvis x and z alone
+        self.input_feats = 2 if xz_only else njoints * nfeats
+        self.xz_only = xz_only
         self.latent_dim = latent_dim
         self.keyframe_conditioned = keyframe_conditioned
         self.pad_frames_to = pad_frames_to
@@ -382,7 +385,10 @@ class MDM_UNET(nn.Module):
         self.unet = TemporalUnet(
             input_dim=self.input_feats, cond_dim=latent_dim, dim=latent_dim,
             dim_mults=dim_mults, adagn=adagn, zero=zero,
-            added_input_channels=self.input_feats if keyframe_conditioned else 0,
+            # the keyframe-conditioned input is the data and its mask, before any xz
+            # selection (which JAX makes on 4-channel inputs only)
+            added_input_channels=(2 * njoints * nfeats - self.input_feats
+                                  if keyframe_conditioned else 0),
             precision_mode=precision_mode, **dd,
         )
         if seed is not None:
@@ -404,16 +410,20 @@ class MDM_UNET(nn.Module):
 
         if T > self.pad_frames_to:
             raise ValueError(f"{T} frames > pad target {self.pad_frames_to}")
+        # xz_only on the 4-channel trajectory features (rot, x, z, y): x and z
+        xz = self.xz_only and Fdim == 4 and not self.keyframe_conditioned
         # One zeroed buffer takes the input: right-padded to the UNet length (a
         # multiple of 2^depth) and to a channel count that is a multiple of 8, so
-        # that the resblock kernel's rows are 16-byte aligned (2F = 526 -> 528).
-        # The first resblock ignores the alignment channels.
-        channels = 2 * Fdim if self.keyframe_conditioned else Fdim
+        # that the resblock kernel's rows are 16-byte aligned (2F = 526 -> 528,
+        # 4 or 2 -> 8). The first resblock ignores the alignment channels.
+        channels = 2 * Fdim if self.keyframe_conditioned else (2 if xz else Fdim)
         buf = x.new_zeros((B, self.pad_frames_to, -(-channels // 8) * 8))
         if self.keyframe_conditioned:
             m = obs_mask.to(x.dtype)
             buf[:, :T, :Fdim] = obs_x0.to(x.dtype) * m + x * (1.0 - m)
             buf[:, :T, Fdim:channels] = m  # [B, T, 2F]
+        elif xz:
+            buf[:, :T, :2] = x[..., 1:3]
         else:
             buf[:, :T, :Fdim] = x
 
@@ -425,6 +435,9 @@ class MDM_UNET(nn.Module):
 
         x = self.unet(buf, emb)
         x = x[:, :T, :]
+        if self.xz_only and Fdim == 4:  # back to (rot, x, z, y) with rot and y zero
+            zero = torch.zeros_like(x[..., :1])
+            x = torch.cat([zero, x[..., :2], zero], dim=-1)
         if self.keyframe_conditioned:
             x = x[..., :Fdim]
         return x

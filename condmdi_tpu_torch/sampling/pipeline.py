@@ -1,11 +1,13 @@
 """End-to-end sampling pipeline: model + schedule + guidance → motions.
 
-Counterpart of condmdi_tpu/sampling/pipeline.py for the DDPM and DDIM
-samplers (PLMS waits for a later slice, ROADMAP Queue A 7). Where the JAX
-pipeline jits one program per sampling configuration, this one keeps a
-`SamplingProgram` per configuration and replays its sampler step from CUDA
-graphs (utils/cuda_graph.py); the CLIs, evals.run and MotionServer reach the
-graphs through `SamplePipeline.sample`.
+Counterpart of condmdi_tpu/sampling/pipeline.py for the DDPM, DDIM and PLMS
+samplers. Where the JAX pipeline jits one program per sampling configuration,
+this one keeps a `SamplingProgram` per configuration and replays its sampler
+step from CUDA graphs (utils/cuda_graph.py); the CLIs, evals.run and
+MotionServer reach the graphs through `SamplePipeline.sample`. PLMS replays
+its multistep body, its first (Heun) step runs eagerly. A run guided by a
+`cond_loss_fn` (GMD, sampling/gmd.py) takes a gradient through the denoiser
+every step and runs eagerly.
 """
 
 from __future__ import annotations
@@ -25,12 +27,18 @@ from condmdi_tpu_torch.diffusion.gaussian import (
     get_gradient_schedule,
 )
 from condmdi_tpu_torch.diffusion.sampling import (
+    PLMSBuffers,
+    PLMSStep,
     SamplerConfig,
     SamplerStep,
     StepBuffers,
     at_model_step,
     eager_loop,
     initial_x,
+    plms_body_steps,
+    plms_eager_loop,
+    plms_run_on_buffers,
+    plms_step_body,
     run_on_buffers,
     sampler_steps,
     step_body,
@@ -140,11 +148,13 @@ class SamplingProgram:
     where its weights or the kernels' implementation changed), or, on the CPU,
     runs the same body on the buffers (for tests); without, the same step runs
     eagerly (`diffusion.sampling.eager_loop`). A step that runs autograd
-    (reconstruction guidance) is never buffered.
+    (reconstruction guidance, a `cond_loss_fn`) is never buffered. PLMS keeps
+    its eps history in its buffers (`PLMSBuffers`) and runs its first step
+    eagerly before the body's replays.
     """
 
     def __init__(self, pipe: "SamplePipeline", shape, y, guidance_param, obs_x0, obs_mask,
-                 inpaint, buffered: bool):
+                 inpaint, buffered: bool, cond_loss_fn=None, cond_scale: float = 1.0):
         self.pipe, self.shape = pipe, tuple(shape)
         self.denoise = pipe.denoiser(y, guidance_param, obs_x0, obs_mask)
         self.inpaint = None if inpaint is None else replace(
@@ -152,10 +162,15 @@ class SamplingProgram:
             inpainting_mask=inpaint.inpainting_mask.clone(),
             grad_weights=inpaint.grad_weights.clone())
         sampler = pipe.sampler
-        self.step = SamplerStep(sampler.method, self.denoise, pipe.sched, pipe.dcfg, sampler,
-                                self.inpaint)
+        self.plms = sampler.method == "plms"
+        if self.plms:
+            self.step = PLMSStep(self.denoise, pipe.sched, pipe.dcfg, sampler, self.inpaint)
+        else:
+            self.step = SamplerStep(sampler.method, self.denoise, pipe.sched, pipe.dcfg, sampler,
+                                    self.inpaint, cond_loss_fn=cond_loss_fn,
+                                    cond_scale=cond_scale)
         self.buffered = buffered and self.step.capturable
-        self.buffers: Optional[StepBuffers] = None
+        self.buffers: Optional[StepBuffers | PLMSBuffers] = None
         self.graphs: dict[Any, Callable] = {}
 
     def load(self, y, obs_x0=None, obs_mask=None, inpaint=None) -> None:
@@ -172,22 +187,25 @@ class SamplingProgram:
     def _graph(self, branch) -> Callable:
         """The branch's graph (`graph(check)` replays it); on the CPU its body."""
         graph = self.graphs.get(branch)
+        make_body = plms_step_body if self.plms else step_body
         if graph is None and self.pipe.device.type != "cuda":
-            body = step_body(self.step, self.buffers)
+            body = make_body(self.step, self.buffers)
             graph = self.graphs[branch] = lambda check=True: body()
         if graph is None:
             networks = networks_of(self.pipe.apply_fn)
             if not networks:
                 raise ValueError("SamplePipeline: no module found behind apply_fn to key its "
                                  "CUDA graphs on; give apply_fn a networks() method")
-            graph = self.graphs[branch] = CudaGraph(step_body(self.step, self.buffers), networks,
+            graph = self.graphs[branch] = CudaGraph(make_body(self.step, self.buffers), networks,
                                                     pool=self.pipe.graph_pool())
         return graph
 
     def _ensure_buffers(self, x) -> None:
         if self.buffers is not None and self.buffers.x.dtype != x.dtype:
             self.buffers, self.graphs = None, {}  # graphs read the buffers they were given
-        if self.buffers is None:
+        if self.buffers is None and self.plms:
+            self.buffers = PLMSBuffers.create(x.shape, x.dtype, x.device, self.step.order)
+        elif self.buffers is None:
             self.buffers = StepBuffers.create(x.shape, x.dtype, x.device, self.step.marginal)
 
     def warm(self) -> None:
@@ -197,7 +215,9 @@ class SamplingProgram:
         kernels."""
         self._ensure_buffers(torch.zeros(self.shape, device=self.pipe.device))
         firsts = {}
-        for ti in sampler_steps(self.pipe.sampler.method, self.pipe.sched):
+        steps = (plms_body_steps(self.pipe.sched) if self.plms
+                 else sampler_steps(self.pipe.sampler.method, self.pipe.sched))
+        for ti in steps:
             firsts.setdefault(self._branch(ti), ti)
         with torch.no_grad():
             for branch, ti in firsts.items():
@@ -211,9 +231,11 @@ class SamplingProgram:
     @torch.no_grad()
     def run(self, noise=None, generator=None, step_noise=None):
         pipe = self.pipe
-        steps = sampler_steps(pipe.sampler.method, pipe.sched)
         x = initial_x(self.shape, pipe.sched, generator, noise)
+        steps = None if self.plms else sampler_steps(pipe.sampler.method, pipe.sched)
         if not self.buffered:
+            if self.plms:
+                return plms_eager_loop(self.step, x)
             return eager_loop(self.step, x, steps, generator, step_noise, pipe.sampler)
         self._ensure_buffers(x)
         checked = set()
@@ -224,6 +246,8 @@ class SamplingProgram:
             checked.add(branch)
             return self._graph(branch)(check=check)
 
+        if self.plms:
+            return plms_run_on_buffers(run_step, self.buffers, self.step, x)
         return run_on_buffers(run_step, self.buffers, pipe.sched, x, steps, generator,
                               step_noise, pipe.sampler)
 
@@ -238,7 +262,7 @@ class SamplePipeline:
     replayed from CUDA graphs, one per branch of the apply_fn, all from one
     memory pool; `cuda_graphs=False` runs the same steps eagerly, for
     comparison. Runs stay eager by rule on the CPU and where the step runs
-    autograd (reconstruction guidance).
+    autograd (reconstruction guidance, a `cond_loss_fn`).
     """
 
     apply_fn: Callable[..., torch.Tensor]  # (x, t, y, **obs) -> model out
@@ -274,12 +298,14 @@ class SamplePipeline:
         return make_plain_denoiser(self.apply_fn, y, obs_x0=obs_x0, obs_mask=obs_mask)
 
     def program(self, shape, y, guidance_param=1.0, obs_x0=None, obs_mask=None,
-                inpaint=None) -> SamplingProgram:
+                inpaint=None, cond_loss_fn=None, cond_scale=1.0) -> SamplingProgram:
         """The program for these inputs' layout: kept on the card with graphs, made
-        afresh otherwise; its buffers hold these inputs."""
-        if not (self.cuda_graphs and self.device.type == "cuda"):
+        afresh otherwise (and for a run guided by `cond_loss_fn`, which runs
+        eagerly); its buffers hold these inputs."""
+        if cond_loss_fn is not None or not (self.cuda_graphs and self.device.type == "cuda"):
             return SamplingProgram(self, shape, y, guidance_param, obs_x0, obs_mask, inpaint,
-                                   buffered=False)
+                                   buffered=False, cond_loss_fn=cond_loss_fn,
+                                   cond_scale=cond_scale)
         key = (tuple(shape), float(guidance_param),
                conditioning_signature(y, obs_x0, obs_mask), _inpaint_form(inpaint))
         prog = self.programs.get(key)
@@ -301,8 +327,16 @@ class SamplePipeline:
         noise: Optional[torch.Tensor] = None,
         generator: Optional[torch.Generator] = None,
         step_noise: Optional[Sequence[torch.Tensor]] = None,
+        cond_loss_fn: Optional[Callable[[torch.Tensor, torch.Tensor], torch.Tensor]] = None,
+        cond_scale: float = 1.0,
     ) -> torch.Tensor:
-        prog = self.program(shape, y, guidance_param, obs_x0, obs_mask, inpaint)
+        """cond_loss_fn(pred_xstart, t_model): GMD-style guidance, the DDPM posterior
+        mean shifted by variance x grad(-loss) x cond_scale (ddpm only)."""
+        if cond_loss_fn is not None and self.sampler.method != "ddpm":
+            # gradient guidance rides the DDPM posterior mean only
+            raise ValueError("cond_loss_fn guidance requires the ddpm sampler")
+        prog = self.program(shape, y, guidance_param, obs_x0, obs_mask, inpaint, cond_loss_fn,
+                            cond_scale)
         return prog.run(noise, generator, step_noise)
 
     def sample_to_joints(

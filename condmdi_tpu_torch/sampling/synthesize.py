@@ -9,8 +9,9 @@ Runs on the card, in full float32 (no TF32); `main(argv, device="cpu")`
 runs on the CPU. Text prompts come from --text_prompt, --input_text (a
 file), or a default prompt. Writes
 results.npy {motion, joints, text, lengths, num_samples, num_repetitions,
-text_encoder} in --output_dir, as the JAX CLI does. The stick-figure video is
-not ported (ROADMAP Queue A 8): the run says it skipped it.
+text_encoder} in --output_dir, as the JAX CLI does, and, best-effort, the
+first sample's stick-figure video (sample00.mp4, or a GIF without ffmpeg;
+viz/plot.py; the run says why where it skips it).
 
 Checkpoints (`load_model_for_sampling`): a flat Flax `.npz` (as
 scripts/gate_params_io.py exports one, e.g. the committed
@@ -151,7 +152,12 @@ def main(argv=None, *, device: str | torch.device = "cuda"):
         },
     )
     print(f"saved {out_dir/'results.npy'}")
-    print("viz skipped: the stick-figure video is not ported (ROADMAP Queue A 8)")
+    try:
+        from condmdi_tpu_torch.viz.plot import save_stick_figure_video
+
+        save_stick_figure_video(joints[0][0], out_dir / "sample00.mp4", title=texts[0])
+    except Exception as e:  # viz is best-effort (ffmpeg or matplotlib may be absent)
+        print(f"viz skipped: {e}")
     return out_dir
 
 

@@ -29,6 +29,7 @@ def test_edit_matches_jax(tmp_path, monkeypatch):
 
 def test_synthesize_matches_jax(tmp_path, monkeypatch):
     import condmdi_tpu.viz.plot as jplot
+    import condmdi_tpu_torch.viz.plot as tplot
     from condmdi_tpu.sampling.synthesize import main as jax_main
     from condmdi_tpu_torch.sampling.synthesize import main as port_main
 
@@ -36,6 +37,7 @@ def test_synthesize_matches_jax(tmp_path, monkeypatch):
         raise RuntimeError("video off in this test")
 
     monkeypatch.setattr(jplot, "save_stick_figure_video", no_video)
+    monkeypatch.setattr(tplot, "save_stick_figure_video", no_video)
     inject_xt(monkeypatch)
     argv = SMALL_MDM + ["--text_prompt", "a person waves", "--motion_length", "1.4"]
     j, t = run_both(jax_main, port_main, argv, argv, tmp_path)

@@ -1815,3 +1815,173 @@ def test_steps_per_dispatch_replays_equal_eager_steps(cuda_device, tmp_path, mon
     for (name, a), b in zip(got.model.state_dict().items(), want.model.state_dict().values()):
         assert torch.equal(a, b), name
     assert all(torch.equal(got.state.ema[k], want.state.ema[k]) for k in want.state.ema)
+
+
+# --------------------------------------------------------------------------- #
+# GMD: the trajectory model's resblock shapes, stage 2 and PLMS from graphs
+# --------------------------------------------------------------------------- #
+def traj_unet(device, xz_only):
+    """traj_unet_adagn_swx at full width (latent 512, dim_mults 0.125 0.25 0.5, pad 224)."""
+    from condmdi_tpu_torch.models.unet import MDM_UNET
+
+    return MDM_UNET(njoints=4, latent_dim=512, dim_mults=(0.125, 0.25, 0.5), zero=False,
+                    pad_frames_to=224, xz_only=xz_only, device=device, seed=3).eval()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("xz_only", [False, True], ids=["four_features", "xz_only"])
+@pytest.mark.parametrize("B", [2, 32])
+def test_trajectory_model_halves_match_plain(cuda_device, xz_only, B):
+    """Every resblock half of the trajectory model's forward, as the forward hands
+    it over (group widths 8, 16, 32; a first layer of 4 or 2 channels in a row of
+    8), kernel against plain in float32."""
+    from condmdi_tpu_torch.models.unet import Conv1dAdaGNBlock, Conv1dBlock
+
+    model = traj_unet(cuda_device, xz_only)
+    calls = []
+
+    def hook(mod, args, kwargs, out):
+        ada = isinstance(mod, Conv1dAdaGNBlock)
+        scale, shift = (args[1], args[2]) if ada else (None, None)
+        res = None if ada else kwargs.get("res", args[1] if len(args) > 1 else None)
+        want = resblock.reference_conv_gn_mish(
+            args[0], mod.conv.weight, mod.conv.bias, mod.norm.weight, mod.norm.bias,
+            scale=scale, shift=shift, res=res)
+        calls.append((mod.conv.weight.shape[1], mod.conv.weight.shape[0], args[0].shape[2],
+                      out, want))
+
+    handles = [m.register_forward_hook(hook, with_kwargs=True) for m in model.modules()
+               if isinstance(m, (Conv1dBlock, Conv1dAdaGNBlock))]
+    gen = torch.Generator(cuda_device).manual_seed(B)
+    x = torch.randn(B, 196, 4, generator=gen, device=cuda_device)
+    before = resblock.fused_conv_gn_mish.launches
+    with torch.no_grad():
+        model(x, torch.full((B,), 400, device=cuda_device),
+              {"text_embed": torch.randn(B, 512, generator=gen, device=cuda_device)})
+    for h in handles:
+        h.remove()
+    assert resblock.fused_conv_gn_mish.launches == before + 25 == before + len(calls)
+    assert {cout // 8 for _, cout, *_ in calls} == {8, 16, 32}
+    assert (calls[0][0], calls[0][2]) == ((2, 8) if xz_only else (4, 8))
+    for cin, cout, xc, got, want in calls:
+        assert torch.isfinite(got).all()
+        assert torch.all((got - want).abs() <= F32_TOL * (1 + want.abs())), (cin, cout, xc)
+
+
+@pytest.mark.cuda
+def test_trajectory_model_guided_gradient_matches_plain(cuda_device):
+    """d(-loss)/dx of a GMD guidance loss through the trajectory model: the kernel
+    forward with its plain-recompute backward against the plain forward's."""
+    import condmdi_tpu_torch.models.unet as unet_mod
+    from condmdi_tpu_torch.sampling.gmd import CondKeyLocations, get_kframes, kframes_to_target
+    from condmdi_tpu_torch.utils.assets import NormStats
+
+    model = traj_unet(cuda_device, False).requires_grad_(False)
+    B = 2
+    target, mask = kframes_to_target(get_kframes("zigzag"), B, 196, cuda_device)
+    guide = CondKeyLocations(target, mask, NormStats(np.zeros(4, np.float32),
+                                                     np.ones(4, np.float32)), traj_only=True)
+    gen = torch.Generator(cuda_device).manual_seed(5)
+    x = torch.randn(B, 196, 4, generator=gen, device=cuda_device)
+    y = {"text_embed": torch.randn(B, 512, generator=gen, device=cuda_device)}
+    t = torch.full((B,), 300, device=cuda_device)
+
+    def grad():
+        z = x.clone().requires_grad_(True)
+        (g,) = torch.autograd.grad(-guide.loss_fn(model(z, t, y), t), z)
+        return g
+
+    got = grad()
+    kernel_fn = unet_mod.fused_conv_gn_mish
+    unet_mod.fused_conv_gn_mish = lambda *a, packed=None, **kw: resblock.reference_conv_gn_mish(
+        *a, **kw)
+    try:
+        want = grad()
+    finally:
+        unet_mod.fused_conv_gn_mish = kernel_fn
+    assert want.abs().max() > 0
+    assert torch.all((got - want).abs() <= F32_TOL * (1 + want.abs()))
+
+
+def _gmd_motion_pipes(cuda_device, method="ddpm", order=2):
+    from condmdi_tpu_torch.diffusion import (DiffusionConfig, DiffusionSchedule, SamplerConfig,
+                                             get_named_beta_schedule)
+    from condmdi_tpu_torch.models.unet import MDM_UNET
+    from condmdi_tpu_torch.sampling.pipeline import SamplePipeline
+
+    net = MDM_UNET(njoints=263, latent_dim=512, dim_mults=(2, 2, 2, 2), zero=False,
+                   pad_frames_to=224, device=cuda_device, seed=0).eval()
+    sched = DiffusionSchedule.create(get_named_beta_schedule("cosine", 1000),
+                                     use_timesteps=range(0, 1000, 50))
+    return [SamplePipeline(lambda x, t, y, **_: net(x, t, y), sched, DiffusionConfig(),
+                           SamplerConfig(method=method, order=order), device=cuda_device,
+                           cuda_graphs=graphs) for graphs in (True, False)]
+
+
+@pytest.mark.cuda
+def test_gmd_stage_two_from_graphs_equals_eager(cuda_device):
+    """two_stage_generate's second stage (UNet-XL imputing the stage-1 trajectory,
+    DDPM-20) replayed from CUDA graphs equals the eager run bit for bit, with the
+    same launches; stage 1 (guided) runs eagerly in both."""
+    from condmdi_tpu_torch.diffusion import (DiffusionConfig, DiffusionSchedule, SamplerConfig,
+                                             get_named_beta_schedule)
+    from condmdi_tpu_torch.sampling.gmd import get_kframes, two_stage_generate
+    from condmdi_tpu_torch.sampling.pipeline import SamplePipeline
+    from condmdi_tpu_torch.utils.assets import NormStats
+    from condmdi_tpu_torch.utils.cuda_graph import launch_counts
+
+    traj = traj_unet(cuda_device, False).requires_grad_(False)
+    traj_pipe = SamplePipeline(lambda x, t, y, **_: traj(x, t, y), DiffusionSchedule.create(
+        get_named_beta_schedule("cosine", 1000), use_timesteps=range(0, 1000, 50)),
+        DiffusionConfig(), SamplerConfig(), device=cuda_device)
+    stats = NormStats(np.zeros(263, np.float32), np.ones(263, np.float32))
+    gen = torch.Generator(cuda_device).manual_seed(7)
+    B = 2
+    y = {"text_embed": torch.randn(B, 512, generator=gen, device=cuda_device)}
+    traj_x = torch.randn(B, 196, 4, generator=gen, device=cuda_device)
+    motion_x = torch.randn(B, 196, 263, generator=gen, device=cuda_device)
+    outs = []
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True  # stage 1's gradients, the same both times
+    try:
+        for pipe in _gmd_motion_pipes(cuda_device):
+            before = launch_counts()
+            got = two_stage_generate(traj_pipe, pipe, get_kframes("zigzag"), B, 196, stats,
+                                     stats, y, y, classifier_scale=1.0, traj_noise=traj_x,
+                                     motion_noise=motion_x,
+                                     generator=torch.Generator(cuda_device).manual_seed(9))
+            torch.cuda.synchronize()
+            outs.append((got, tuple(a - b for a, b in zip(launch_counts(), before)), pipe))
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    ((traj_g, x_g), n_g, pipe_g), ((traj_e, x_e), n_e, _) = outs
+    assert torch.equal(traj_g, traj_e)  # the same guided stage 1 (eager, same draws)
+    assert torch.isfinite(x_g).all() and torch.equal(x_g, x_e) and n_g == n_e
+    assert n_g[0] == (25 + 33) * 20
+    (prog,) = pipe_g.programs.values()
+    assert prog.buffered and sum(g.replays for g in prog.graphs.values()) == 19
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order", [1, 2, 4])
+def test_plms_from_graphs_equals_eager(cuda_device, order):
+    """PLMS over 20 steps (UNet-XL f32, CFG 2.5): the first step eager, the multistep
+    body replayed from a CUDA graph with the eps history in its buffers, equals the
+    eager loop bit for bit with the same launches."""
+    from condmdi_tpu_torch.utils.cuda_graph import launch_counts
+
+    gen = torch.Generator(cuda_device).manual_seed(11)
+    y = {"text_embed": torch.randn(2, 512, generator=gen, device=cuda_device)}
+    noise = torch.randn(2, 196, 263, generator=gen, device=cuda_device)
+    outs = []
+    for pipe in _gmd_motion_pipes(cuda_device, "plms", order):
+        before = launch_counts()
+        x = pipe.sample((2, 196, 263), y, guidance_param=2.5, noise=noise)
+        torch.cuda.synchronize()
+        outs.append((x, tuple(a - b for a, b in zip(launch_counts(), before)), pipe))
+    (got, n_g, pipe_g), (want, n_e, _) = outs
+    assert torch.isfinite(got).all() and got.abs().max() > 0
+    assert torch.equal(got, want) and n_g == n_e
+    assert n_g[0] == 33 * (20 + (order > 1))
+    (prog,) = pipe_g.programs.values()
+    assert sum(g.replays for g in prog.graphs.values()) == 19 - 1  # the first body step captures
