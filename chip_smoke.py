@@ -80,7 +80,9 @@ Phases, in order; any failure exits non-zero:
      Function (exactly 41 x 50 launches);
  15. the conditional CLI through its `main` (f32, 1000-step DDPM, CFG 2.5, benchmark_sparse):
      the committed gate checkpoint (save/synthetic_unet_m, 4 samples) plain, with
-     imputation and with reconstruction guidance at its default weight 5, then
+     imputation and with reconstruction guidance at its default weight 5 (eager and
+     host-bound: respaced to 250 of the 1000 steps, to keep the script near 15
+     minutes), then
      UNet-XL at full width and depth with Flax's initialisation from --seed (pad 224,
      2 samples) in float and in int8; each run's results.npy holds the JAX CLI's keys
      and finite motions and joints, imputation keeps the observed features exactly,
@@ -167,14 +169,15 @@ Phases, in order; any failure exits non-zero:
      rows; the xz_only model's first half (2 channels); one guided step's gradient with
      respect to x, kernel path against plain path;
  26. generate_gmd through its main at full width (the trajectory model and the UNet-XL abs
-     motion card, Flax's initialisation from --seed, unet_zero off, the 1000-step DDPM, the
-     default classifier_scale 100, 2 prompts) in the modes kps, sdf, trajectory and
+     motion card, Flax's initialisation from --seed, unet_zero off, a 250-step DDPM (the
+     CLI's 1000 cut to keep the script near 15 minutes), the default
+     classifier_scale 100, 2 prompts) in the modes kps, sdf, trajectory and
      mdm_legacy: samples/s, exact launches, results.npy with the JAX CLI's keys, finite;
      kps/sdf's stage 2 holding the stage-1 trajectory on channels 0:4 at every step with
      imputation on, trajectory/mdm_legacy's motion holding the imputed p2p trajectory; each
      guided and replayed stage's host ms a step against its device ms; then each mode
      kernel path against plain path through the CLI at 20 steps (DDIM_TOL);
- 27. evals.run_condition through its main: one batch of 32, one replication, the 1000-step
+ 27. evals.run_condition through its main: one batch of 32, one replication, the 250-step
      DDPM for both models; the committed JAX report's keys, finite, a 5-entry traj_error,
      exact launches, samples/s and each stage's host and device ms a step;
  28. PLMS (orders 2 and 4) on the gate checkpoint at conditional's shapes (4 samples,
@@ -182,7 +185,30 @@ Phases, in order; any failure exits non-zero:
      against plain, samples/s, host and device ms a step; the DDIM reverse ODE from a
      DDPM-100 sample of the same model (no keyframe observed) back to x_T, kernel against
      plain within DDIM_TOL * max|plain| (the ODE amplifies differences as it grows |x|);
- 29. a {"kernels": [...]} line (three kernels), the card line, and the final
+ 29. evals.run_a2m through its main on HumanAct12 (synthetic, 12 actions; a random-init GRU
+     classifier) at the MDM paper's action-to-motion width (latent 512, 8 layers, ff 1024, 4
+     heads: hd 128, attention route wgmma_f32 at T = 61), the 1000-step DDPM, one batch of
+     32, 5 replications: the committed JAX report's keys, finite, exact launches (8 a
+     forward), samples/s, host ms a step against device ms; one replication with graphs
+     and with cuda_graphs=False, bit for bit; then through main at 20 steps, kernel against
+     plain (DDIM_TOL);
+ 30. evals.run_a2m --dataset uestc (40 actions, ST-GCN on the card) at the same width; then
+     HumanAct12 at the CLIs' default widths (latent 64, 2 layers: hd 16, the tiled
+     mma_sync route), and at 20 steps kernel against plain; the f32 attention at both a2m
+     shapes per call against plain, timed beside SDPA and the bound;
+ 31. evals.run_unconstrained through its main at phase 29's width (MDM no_cond, ST-GCN
+     features, FID / KID / precision-recall / diversity): the committed report's keys,
+     finite, exact launches, samples/s;
+ 32. the model variants at full width, f32: MDM gru (8 layers, B=32, 60 frames) sampled
+     over 100 DDPM steps through SamplePipeline with graphs and without, bit for bit; MDM
+     trans_enc_large one forward kernel against plain (F32_TOL) and DDIM-20 (DDIM_TOL); a
+     UNet-XL action forward (150 features, pad 64) kernel against plain (DDIM_TOL);
+ 33. UNet-XL unconstrained (no_cond) with LinearAttention trained through training.train.main
+     (the motion_abs_unet_adagn_xl card, B=64, 10 steps): exact launches (33 a step), finite
+     losses, steps/s; conditional from its step-10 EMA (2 samples, 1000-step DDPM, the JAX
+     CLI's keys, finite); the f32 halves at B=64; one step through the kernels against the
+     plain path as in phase 23;
+ 34. a {"kernels": [...]} line (three kernels), the card line, and the final
      {"ok": true, ...}.
 
 Per-shape results also go to chiprun_out/chip_smoke.json (`python3 resblock_probe.py
@@ -920,7 +946,10 @@ def f32_attention_rows(dev, cases, seed=31):
         row["bound_ms"], row["bound_by"] = attn_bound_ms(B, T, D, H, dtype=torch.float32)
         print(f"[f32 attention] {name} B={B} T={T} D={D} H={H} (route {row['route']}): "
               f"max_abs_err {row['max_abs_err_f32']:.3e} (tol {F32_TOL:.0e}*(1+|plain|)); kernel "
-              f"{row['ms']:.4f} ms (first design: {PREV_F32_ATTENTION_MS.get(name)} ms), plain "
+              f"{row['ms']:.4f} ms"
+              + (f" (first design: {PREV_F32_ATTENTION_MS[name]} ms)"
+                 if name in PREV_F32_ATTENTION_MS else "")
+              + f", plain "
               f"{row['plain_ms']:.4f} ms, SDPA f32 {row['library_ms']:.4f} ms, bound "
               f"{row['bound_ms']:.4f} ms ({row['bound_by']}); host enqueue: kernel wrapper "
               f"{row['host_ms']:.4f} ms, SDPA {row['library_host_ms']:.4f} ms", flush=True)
@@ -1528,6 +1557,9 @@ GATE_CKPT = str(ROOT / "save" / "synthetic_unet_m" / "gate_ema_000100000.npz")
 GATE_HALVES = 25  # resblock halves of one forward of the gate UNet (latent 128, dim_mults 1 2 2)
 CLI_SAMPLES, CLI_STEPS = 4, 1000  # the gate and MDM runs; the full DDPM, CFG at the default 2.5
 XL_CLI_SAMPLES = 2
+# the reconstruction-guidance run (eager: a gradient through the UNet every step) samples
+# 250 respaced steps of the 1000-step schedule (it took 42-60 s at 1000)
+RECG_CLI_STEPS = 250
 # UNet-XL at full width and depth with Flax's initialisation from --seed; unet_zero off, or
 # the zero-initialised output convs would make every sample exactly 0
 XL_CLI = ["--arch", "unet", "--latent_dim", "512", "--dim_mults", "2", "2", "2", "2",
@@ -1619,9 +1651,11 @@ def cli_phase15(card):
     and with reconstruction guidance (its default weight 5), then UNet-XL at
     full width with no checkpoint, float and int8."""
     runs = {}
-    gate = dict(fused_conv_gn_mish=GATE_HALVES * CLI_STEPS, fused_self_attention=0, int8_conv1d=0)
-    for name, extra, imp in (("gate", [], False), ("gate_imputate", ["--imputate", "true"], True),
-                             ("gate_recguidance", ["--reconstruction_guidance", "true"], False)):
+    recg = ["--reconstruction_guidance", "true", "--timestep_respacing", str(RECG_CLI_STEPS)]
+    for name, extra, imp, steps in (("gate", [], False, CLI_STEPS),
+                                    ("gate_imputate", ["--imputate", "true"], True, CLI_STEPS),
+                                    ("gate_recguidance", recg, False, RECG_CLI_STEPS)):
+        gate = dict(fused_conv_gn_mish=GATE_HALVES * steps, fused_self_attention=0, int8_conv1d=0)
         runs[name] = cli_conditional(name, GATE_CLI + extra, CLI_SAMPLES, True, gate, imp)
     xl = dict(fused_conv_gn_mish=33 * CLI_STEPS, fused_self_attention=0, int8_conv1d=0)
     runs["xl_f32"] = cli_conditional("xl_f32", XL_CLI, XL_CLI_SAMPLES, False, xl)
@@ -2862,7 +2896,9 @@ def graphs_phase24(dev, card, int8_model):
 # --------------------------------------------------------------------------- #
 GMD_OUT = ROOT / "chiprun_out" / "gmd"
 TRAJ_CKPT = ROOT / ".chipwork" / "gmd"  # 33 MB a checkpoint: not brought back
-GMD_SAMPLES, GMD_STEPS = 2, 1000  # 2 prompts, the full DDPM
+# 2 prompts; the sampler's depth cut from the CLIs' 1000 steps to 250, widths untouched,
+# to keep the whole script near 15 minutes
+GMD_SAMPLES, GMD_STEPS = 2, 250
 TRAJ_FEATS, TRAJ_HALVES = 4, 25  # traj_unet_adagn_swx: (rot, x, z, y); 12 resblocks + final
 TRAJ_GROUP_WIDTHS = {8, 16, 32}  # its 64, 128 and 256 channels in GroupNorm(8)
 # the motion card: UNet-XL at the defaults (latent 512, dim_mults 2 2 2 2, 196 frames padded
@@ -2870,7 +2906,8 @@ TRAJ_GROUP_WIDTHS = {8, 16, 32}  # its 64, 128 and 256 channels in GroupNorm(8)
 # (unet_zero off); the trajectory model from --traj_model_path (its args.json); the CLI's
 # default classifier_scale 100 and seed 10
 GMD_CLI = ["--arch", "unet", "--abs_3d", "true", "--unet_zero", "false", "--num_samples",
-           str(GMD_SAMPLES), "--num_repetitions", "1", "--text_encoder", "hash"]
+           str(GMD_SAMPLES), "--num_repetitions", "1", "--text_encoder", "hash",
+           "--diffusion_steps", str(GMD_STEPS)]
 # resblock launches per sampler step: the trajectory model's 25 halves (stage 1, one forward
 # a step; its backward recomputes the plain version) and UNet-XL's 33 (stage 2, or the one
 # stage; CFG folds into one batch-doubled forward)
@@ -3180,7 +3217,7 @@ def gmd_guided_steps(dev, B):
 
 
 def gmd_phase26(dev, card):
-    """generate_gmd through its main at full width, 1000-step DDPM, scale 100: kps,
+    """generate_gmd through its main at full width, GMD_STEPS-step DDPM, scale 100: kps,
     sdf, trajectory and mdm_legacy; then each kernel path against plain path through
     the CLI at 20 steps."""
     traj_npz = traj_checkpoint()
@@ -3213,10 +3250,11 @@ def gmd_phase26(dev, card):
 
 def gmd_phase27(dev, card):
     """evals.run_condition through its main: one batch of 32, one replication, the
-    1000-step DDPM for both models; the report in the committed JAX report's form."""
+    GMD_STEPS-step DDPM for both models; the report in the committed JAX report's form."""
     argv = ["--eval_mode", "debug", "--max_replications", "1", "--arch", "unet",
             "--unet_zero", "false", "--model_path", "", "--traj_model_path", traj_checkpoint(),
-            "--num_samples", str(EVAL_BATCH), "--text_encoder", "hash", "--seed", "10"]
+            "--num_samples", str(EVAL_BATCH), "--text_encoder", "hash", "--seed", "10",
+            "--diffusion_steps", str(GMD_STEPS)]
     record = {}
     with gmd_clock(record):
         run = run_eval("run_condition", argv, "condition")
@@ -3358,6 +3396,351 @@ def plms_phase28(dev, card):
     return out
 
 
+# --------------------------------------------------------------------------- #
+# phases 29-33: action-to-motion and unconstrained generation, the model variants
+# --------------------------------------------------------------------------- #
+A2M_OUT = EVAL_OUT.parent / "a2m"  # never the default: save/ holds the JAX reports
+A2M_BATCH, A2M_FRAMES, A2M_FEATS, A2M_STEPS, A2M_REPS = 32, 60, 150, 1000, 5
+A2M_TOKENS = A2M_FRAMES + 1  # the frames and the action token
+A2M_RUN = ["--eval_mode", "debug", "--diffusion_steps", str(A2M_STEPS), "--num_samples",
+           str(A2M_BATCH), "--batch_size", str(A2M_BATCH), "--num_frames", str(A2M_FRAMES),
+           "--seed", "10"]
+# the MDM paper's action-to-motion width (ff 2 x latent, 4 heads: hd 128, route wgmma_f32),
+# and the JAX CLIs' default width (hd 16: route mma_sync, the tiled kernel)
+A2M_PAPER = ["--latent_dim", "512", "--layers", "8"]
+A2M_DEFAULT = ["--latent_dim", "64", "--layers", "2"]
+A2M_ATTN_SHAPES = [("a2m_paper_width", A2M_BATCH, A2M_TOKENS, 512, 4),
+                   ("a2m_cli_default", A2M_BATCH, A2M_TOKENS, 64, 4)]
+# the committed JAX reports: the form the port's reports must have
+A2M_REPORT = ROOT / "save" / "eval_out" / "eval_a2m_humanact12_debug.json"
+UNCONSTRAINED_REPORT = ROOT / "save" / "eval_out" / "eval_unconstrained_debug.json"
+GRU_STEPS = 100  # the GRU MDM's sample (8 layers x 60 steps of small products a forward)
+XL_UNCONSTRAINED = ["--config", "motion_abs_unet_adagn_xl", "--keyframe_conditioned", "true",
+                    "--unconstrained", "true", "--unet_attention", "true", "--batch_size", "64",
+                    "--num_steps", "10", "--save_interval", "10"] + TRAIN_DATA
+
+
+@contextlib.contextmanager
+def one_replication():
+    """evals.run_a2m and evals.run_unconstrained run one replication while open."""
+    import condmdi_tpu_torch.evals.run_a2m as a2m_mod
+    import condmdi_tpu_torch.evals.run_unconstrained as unc_mod
+
+    saved = a2m_mod.EVAL_MODES, unc_mod.EVAL_MODES
+    a2m_mod.EVAL_MODES = unc_mod.EVAL_MODES = {k: {**v, "replication_times": 1}
+                                               for k, v in saved[0].items()}
+    try:
+        yield
+    finally:
+        a2m_mod.EVAL_MODES, unc_mod.EVAL_MODES = saved
+
+
+def run_protocol(module, argv, label, clock=True):
+    """evals.<module>.main on the card from the repository root, the counts set to 0
+    just before it and read just after; every sampler run's output kept (and, with
+    `clock`, its program and host seconds)."""
+    import importlib
+
+    import condmdi_tpu_torch.sampling.pipeline as pipeline_mod
+
+    main = importlib.import_module(f"condmdi_tpu_torch.evals.{module}").main
+    out = A2M_OUT / label
+    record, samples = [], []
+
+    with contextlib.chdir(ROOT), sampling_clock(record) if clock else contextlib.nullcontext():
+        run = pipeline_mod.SamplingProgram.run  # the clock's, where it is open
+
+        def kept(prog, *a, **kw):
+            x = run(prog, *a, **kw)
+            samples.append(x.detach().cpu().numpy())
+            return x
+
+        pipeline_mod.SamplingProgram.run = kept
+        try:
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            summary = main(argv + ["--output_dir", str(out)])
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches = read_counts()
+        finally:
+            pipeline_mod.SamplingProgram.run = run
+    (path,) = out.glob("eval_*.json")
+    return dict(summary=summary, report=json.loads(path.read_text()), report_name=path.name,
+                seconds=seconds, launches=launches, record=record, samples=samples)
+
+
+def check_protocol(run, label, committed, expect, reps=A2M_REPS):
+    """The report in the committed JAX report's form (its metric keys, its meta keys
+    among the port's), every mean and conf finite; each sampler run's output finite,
+    [32, 60, 150]; the launches exact."""
+    rep, want = run["report"], json.loads(committed.read_text())
+    if set(rep) != set(want) or not set(want["meta"]) <= set(rep["meta"]):
+        raise SystemExit(f"{label}: report keys {sorted(rep)} / meta {sorted(rep['meta'])} are "
+                         f"not the committed report's {sorted(want)} / {sorted(want['meta'])}")
+    values = [np.asarray(rep[k][s], np.float64) for k in want if k != "meta"
+              for s in ("mean", "conf")]
+    shapes = {x.shape for x in run["samples"]}
+    if not all(np.isfinite(v).all() for v in values) or shapes != {
+            (A2M_BATCH, A2M_FRAMES, A2M_FEATS)} or len(run["samples"]) != reps \
+            or not all(np.isfinite(x).all() for x in run["samples"]):
+        raise SystemExit(f"{label}: non-finite metrics or samples (shapes {shapes}, "
+                         f"{len(run['samples'])} runs)")
+    for kern, count in expect.items():
+        if run["launches"][kern] != count:
+            raise SystemExit(f"{label}: {kern} launches {run['launches'][kern]} != {count}")
+
+
+def protocol_line(label, run, card, expect, steps=A2M_STEPS):
+    """Print and return the run's rates and one step's host ms against device ms."""
+    n = A2M_BATCH * len(run["samples"])
+    sampling_s = sum(sec for _, sec in run["record"])
+    replayed, _ = program_steps(run["record"][-1][0])
+    costs = step_costs(replayed)
+    host_ms = sampling_s * 1e3 / (steps * len(run["record"]))
+    idle = 1.0 - costs["device_ms"] / host_ms
+    metrics = {k: v["mean"] for k, v in run["summary"].items()}
+    print(f"[a2m] {card}: {label}: {run['seconds']:.2f} s on the host for {n} samples, "
+          f"{n / run['seconds']:.4f} samples/s ({n / sampling_s:.4f} over the sampler runs' "
+          f"{sampling_s:.2f} s); host {host_ms:.4f} ms a step against device "
+          f"{costs['device_ms']:.4f} ms (idle {idle:.1%}, {costs['launch_calls']:.1f} host "
+          f"launch calls and {costs['device_ops']:.1f} device kernels and copies a step); "
+          f"launches {run['launches']} (expected {expect}); "
+          + ", ".join(f"{k} {np.round(v, 4).tolist()}" for k, v in metrics.items()), flush=True)
+    return dict(seconds=run["seconds"], samples=n, samples_per_s=n / run["seconds"],
+                sampling_s=sampling_s, sampling_samples_per_s=n / sampling_s,
+                host_ms_per_step=host_ms, idle=idle, launches=run["launches"], metrics=metrics,
+                report_name=run["report_name"], **costs)
+
+
+def protocol_graphs(card, label, module, argv, per_step):
+    """One replication through main with graphs and with cuda_graphs=False: the
+    generated motions bit for bit, the same launches, rates and step costs both ways."""
+    def run(name):
+        with one_replication():
+            r = run_protocol(module, argv, f"{label}_{name}", clock=False)
+        return np.stack(r["samples"]), r["launches"]
+
+    return graph_sampling_cli(card, f"{module} {label}, one replication", run, A2M_BATCH,
+                              A2M_STEPS, {"fused_self_attention": per_step * A2M_STEPS})
+
+
+def protocol_kernel_vs_plain(module, argv, label, per_step):
+    """One replication through main at 20 DDPM steps through the kernel and with the
+    plain attention in its place, the same seeds: the motions within DDIM_TOL."""
+    argv = argv + ["--diffusion_steps", "20"]
+    with one_replication():
+        got = run_protocol(module, argv, label + "_kernel", clock=False)
+        with attention_swapped_for_plain():
+            want = run_protocol(module, argv, label + "_plain", clock=False)
+    a, b = np.stack(got["samples"]), np.stack(want["samples"])
+    err = float(np.abs(a - b).max())
+    n = got["launches"]["fused_self_attention"], want["launches"]["fused_self_attention"]
+    print(f"[a2m] {module} {label} DDPM-20 kernel against plain: max|kernel - plain| {err:.3e} "
+          f"(tol {DDIM_TOL:.0e}), max|plain| {float(np.abs(b).max()):.3f}; attention launches "
+          f"{n[0]} / {n[1]} (expected {per_step * 20} / 0)", flush=True)
+    if not (np.isfinite(a).all() and err <= DDIM_TOL and np.abs(b).max() > 0):
+        raise SystemExit(f"{module} {label}: the kernel path disagrees with the plain path")
+    if n != (per_step * 20, 0):
+        raise SystemExit(f"{module} {label}: attention launches {n}")
+    return err
+
+
+def a2m_routes():
+    """The attention routes of the two a2m widths: wgmma_f32 at hd 128, mma_sync at hd 16."""
+    from condmdi_tpu_torch.ops.attention import attention_route
+
+    routes = {name: attention_route(B, T, H, D // H, torch.float32)
+              for name, B, T, D, H in A2M_ATTN_SHAPES}
+    if routes != {"a2m_paper_width": "wgmma_f32", "a2m_cli_default": "mma_sync"}:
+        raise SystemExit(f"the a2m shapes take the routes {routes}")
+    return routes
+
+
+def a2m_phase29(dev, card):
+    """evals.run_a2m through main on HumanAct12 (synthetic, 12 actions) at the MDM
+    paper's width: 5 replications of one batch of 32, the 1000-step DDPM; graphs
+    against eager on one replication; kernel against plain at 20 steps."""
+    a2m_routes()
+    per_step = 8  # one attention launch a layer
+    run = run_protocol("run_a2m", A2M_RUN + A2M_PAPER, "humanact12")
+    expect = {"fused_self_attention": per_step * A2M_STEPS * A2M_REPS, "fused_conv_gn_mish": 0}
+    check_protocol(run, "run_a2m humanact12", A2M_REPORT, expect)
+    out = dict(main=protocol_line("evals.run_a2m humanact12, MDM latent 512 x 8 layers, f32",
+                                  run, card, expect))
+    out["graphs"] = protocol_graphs(card, "humanact12", "run_a2m", A2M_RUN + A2M_PAPER, per_step)
+    out["ddpm20_max_abs_err"] = protocol_kernel_vs_plain("run_a2m", A2M_RUN + A2M_PAPER,
+                                                         "humanact12", per_step)
+    return out
+
+
+def a2m_phase30(dev, card):
+    """evals.run_a2m --dataset uestc (40 actions, ST-GCN on the card) at the paper's
+    width; then HumanAct12 at the CLIs' default widths (hd 16, the mma_sync route),
+    with kernel against plain; the f32 attention at both a2m shapes per call, timed."""
+    argv = A2M_RUN + A2M_PAPER + ["--dataset", "uestc"]
+    run = run_protocol("run_a2m", argv, "uestc")
+    expect = {"fused_self_attention": 8 * A2M_STEPS * A2M_REPS, "fused_conv_gn_mish": 0}
+    check_protocol(run, "run_a2m uestc", A2M_REPORT, expect)
+    if run["report"]["meta"]["dataset"] != "uestc":
+        raise SystemExit("run_a2m --dataset uestc did not run UESTC")
+    out = dict(uestc=protocol_line("evals.run_a2m uestc (ST-GCN), MDM latent 512 x 8 layers, f32",
+                                   run, card, expect))
+    run = run_protocol("run_a2m", A2M_RUN + A2M_DEFAULT, "humanact12_default")
+    expect = {"fused_self_attention": 2 * A2M_STEPS * A2M_REPS, "fused_conv_gn_mish": 0}
+    check_protocol(run, "run_a2m at the default widths", A2M_REPORT, expect)
+    out["default"] = protocol_line("evals.run_a2m humanact12, MDM latent 64 x 2 layers (hd 16), "
+                                   "f32", run, card, expect)
+    out["default_ddpm20_max_abs_err"] = protocol_kernel_vs_plain(
+        "run_a2m", A2M_RUN + A2M_DEFAULT, "humanact12_default", 2)
+    out["attention_rows"] = f32_attention_rows(dev, A2M_ATTN_SHAPES)
+    return out
+
+
+def unconstrained_phase31(dev, card):
+    """evals.run_unconstrained through main at phase 29's width: MDM no_cond, ST-GCN
+    features, FID / KID / precision-recall / diversity over 5 replications."""
+    run = run_protocol("run_unconstrained", A2M_RUN + A2M_PAPER, "unconstrained")
+    expect = {"fused_self_attention": 8 * A2M_STEPS * A2M_REPS, "fused_conv_gn_mish": 0}
+    check_protocol(run, "run_unconstrained", UNCONSTRAINED_REPORT, expect)
+    return protocol_line("evals.run_unconstrained, MDM no_cond latent 512 x 8 layers, f32", run,
+                         card, expect)
+
+
+def variants_phase32(dev, card):
+    """The model variants at full width, f32: MDM gru sampled through SamplePipeline
+    with graphs and without (bit for bit); MDM trans_enc_large, one forward kernel
+    against plain and DDIM-20; a UNet-XL action forward kernel against plain."""
+    from condmdi_tpu_torch.models.mdm import MDM
+    from condmdi_tpu_torch.models.unet import MDM_UNET
+
+    B, shape = A2M_BATCH, (A2M_BATCH, A2M_FRAMES, A2M_FEATS)
+    y = {"action": torch.arange(B, device=dev) % 12}
+    a2m_mdm = dict(njoints=25, nfeats=6, latent_dim=512, ff_size=1024, num_layers=8, num_heads=4,
+                   cond_mode="action", num_actions=12, device=dev, seed=0)
+    gru = MDM(arch="gru", **a2m_mdm).eval()
+    runs, outs, progs = {}, {}, {}
+    for name in ("graphs", "eager"):
+        record = []
+        with graphs_off() if name == "eager" else contextlib.nullcontext(), \
+                sampling_clock(record):
+            pipe = pipeline(lambda x, t, y_, **_: gru(x, t, y_), schedule(GRU_STEPS), dev)
+            reset_counts()
+            outs[name] = pipe.sample(shape, y, generator=torch.Generator(dev).manual_seed(3))
+            torch.cuda.synchronize()
+            launches = read_counts()
+        (progs[name], seconds), = record
+        runs[name] = dict(rate=B / seconds, sampling_s=seconds,
+                          host_ms_per_step=seconds * 1e3 / GRU_STEPS, launches=launches)
+    if not torch.isfinite(outs["graphs"]).all() or any(runs["graphs"]["launches"].values()):
+        raise SystemExit(f"MDM gru: non-finite sample or kernel launches "
+                         f"{runs['graphs']['launches']}")
+    replayed, eager = program_steps(progs["graphs"])
+    runs["graphs"].update(step_costs(replayed))
+    # eager, a step launches ~5,900 kernels, more than the launch queue holds: its device
+    # time is the profiler's kernel time
+    runs["eager"].update(step_costs(eager, profiler_time=True))
+    out = dict(gru=graph_row(f"MDM gru (latent 512, 8 layers) B={B}, {GRU_STEPS}-step DDPM",
+                             "samples/s", runs, torch.equal(outs["graphs"], outs["eager"]), card))
+    del gru, pipe, progs, outs
+
+    def forward_vs_plain(label, model, x, t, y, kernel, per_forward, swap, tol):
+        with torch.no_grad():
+            reset_counts()
+            got = model(x, t, y)
+            torch.cuda.synchronize()
+            launches = read_counts()[kernel]
+            with swap():
+                want = model(x, t, y)
+        err = (got - want).abs()
+        if tol == "f32":
+            bad = int((err > F32_TOL * (1 + want.abs())).sum().item())
+            held = f"{bad} outside {F32_TOL:.0e}*(1+|plain|)"
+        else:
+            bad = int(err.max().item() > DDIM_TOL)
+            held = f"tol {DDIM_TOL:.0e}"
+        print(f"[variants] {label}: max|kernel - plain| = {err.max().item():.3e} ({held}), "
+              f"max|plain| = {want.abs().max().item():.3f}; {kernel} launches {launches} "
+              f"(expected {per_forward})", flush=True)
+        if bad or not torch.isfinite(got).all() or want.abs().max() == 0 \
+                or launches != per_forward:
+            raise SystemExit(f"{label}: the kernel path disagrees with the plain path")
+        return err.max().item()
+
+    x = seeded_noise(shape, dev, seed=41)
+    t = torch.arange(B, device=dev) * 31
+    large = MDM(arch="trans_enc_large", **a2m_mdm).eval()
+    out["large_forward_max_abs_err"] = forward_vs_plain(
+        f"MDM trans_enc_large f32 forward B={B}", large, x, t, y, "fused_self_attention", 8,
+        attention_swapped_for_plain, "f32")
+    pipe = pipeline(lambda x_, t_, y_, **_: large(x_, t_, y_), schedule(20), dev, method="ddim")
+    noise = seeded_noise(shape, dev, seed=42)
+    out["large_ddim20_max_abs_err"] = kernel_vs_plain(
+        "variants", f"MDM trans_enc_large f32 DDIM-20 B={B}",
+        lambda: pipe.sample(shape, y, noise=noise), attention_swapped_for_plain)
+    del large, pipe
+    xl = MDM_UNET(njoints=25, nfeats=6, latent_dim=512, dim_mults=(2, 2, 2, 2), zero=False,
+                  cond_mode="action", num_actions=12, pad_frames_to=64, device=dev, seed=0).eval()
+    out["xl_action_forward_max_abs_err"] = forward_vs_plain(
+        "UNet-XL action (150 features, pad 64) f32 forward B=8", xl, x[:8], t[:8],
+        {"action": y["action"][:8]}, "fused_conv_gn_mish", 33, resblock_swapped_for_plain, "ddim")
+    return out
+
+
+def unconstrained_phase33(dev, card):
+    """UNet-XL unconstrained (no_cond) with LinearAttention trained through main (B=64,
+    10 steps, synthetic set): exact launches, finite losses, steps/s; the f32 halves at
+    B=64; conditional from the step-10 EMA (2 samples, the 1000-step DDPM); one step
+    through the kernels against the plain path, as phase 23."""
+    import shutil
+
+    out_dir = TRAIN_OUT / "xl_unconstrained"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    loop, seconds, launches = run_train(XL_UNCONSTRAINED, out_dir,
+                                        "UNet-XL unconstrained + LinearAttention 10 steps",
+                                        ("fused_conv_gn_mish", 10 * XL_TRAIN_HALVES))
+    model = loop.model
+    if not (model.cond_mode == "no_cond" and model.unet.attention
+            and not hasattr(model, "embed_text")):
+        raise SystemExit("the unconstrained attention UNet was not built as asked")
+    rows = progress_rows(out_dir)
+    losses = [r["loss"] for r in rows]
+    sps = steps_per_second(rows, 3)
+    if not (np.isfinite(losses).all() and len(losses) == 10):
+        raise SystemExit(f"UNet-XL unconstrained training: losses {losses}")
+    print(f"[train] UNet-XL unconstrained + LinearAttention B=64 pad 224: {sps:.3f} steps/s "
+          f"(steps 3-9 over their host time), loss {losses[0]:.4f} -> {losses[-1]:.4f}, "
+          f"{seconds:.2f} s in all [{card}]", flush=True)
+    argv = ["--model_path", str(out_dir / "ema_000000010.npz"), "--edit_mode", "benchmark_sparse",
+            "--num_samples", "2", "--num_repetitions", "1"]
+    res, cli_s, cli_launches = run_cli("conditional", argv, "unconstrained_xl_ema10")
+    # the JAX CLI's keys, finite (the EMA of 10 steps from zero output convs may sample
+    # a nearly constant motion, so its spread is not asked for)
+    if set(res) != CLI_KEYS["conditional"] or res["motion"].shape != (2, T_FRAMES, FEATS) \
+            or not all(np.isfinite(res[k]).all() for k in ("motion", "joints")):
+        raise SystemExit(f"conditional on the unconstrained EMA: keys {sorted(res)}, motion "
+                         f"{res['motion'].shape}")
+    print(f"[train] conditional on the unconstrained step-10 EMA (1000-step DDPM, 2 samples): "
+          f"{cli_s:.2f} s, {2 / cli_s:.4f} samples/s; launches {cli_launches} (expected "
+          f"fused_conv_gn_mish {CLI_STEPS * XL_TRAIN_HALVES})", flush=True)
+    if cli_launches["fused_conv_gn_mish"] != CLI_STEPS * XL_TRAIN_HALVES:
+        raise SystemExit("conditional on the unconstrained EMA: wrong launch count")
+    drop_checkpoints(out_dir)
+    shapes = record_resblock_shapes(model, *train_forward_inputs(loop))
+    if sum(shapes.values()) != XL_TRAIN_HALVES:
+        raise SystemExit(f"expected {XL_TRAIN_HALVES} halves in a training forward: {shapes}")
+    rows_b64 = f32_resblock_rows("UNet-XL unconstrained + LinearAttention training pad 224",
+                                 shapes, 64, dev)
+    pair = train_step_pair(loop, resblock_swapped_for_plain, "xl",
+                           "UNet-XL unconstrained + LinearAttention")
+    del loop, model
+    return dict(launches=launches["fused_conv_gn_mish"], seconds=seconds, steps_per_sec=sps,
+                loss_first=losses[0], loss_last=losses[-1], resblock_rows=rows_b64,
+                conditional=dict(seconds=cli_s, samples_per_s=2 / cli_s, launches=cli_launches),
+                step_pair=pair)
+
+
 def build_kernels() -> list[str]:
     """Build the three sources at once (one nvcc each) and print ptxas' register
     and spill lines and any note that it serialised wgmma."""
@@ -3471,6 +3854,11 @@ def main() -> int:
     gmd26 = phase("26 generate_gmd", gmd_phase26, dev, card)
     cond27 = phase("27 evals.run_condition", gmd_phase27, dev, card)
     plms28 = phase("28 PLMS and DDIM reverse", plms_phase28, dev, card)
+    a2m29 = phase("29 evals.run_a2m humanact12", a2m_phase29, dev, card)
+    a2m30 = phase("30 evals.run_a2m uestc and default widths", a2m_phase30, dev, card)
+    unc31 = phase("31 evals.run_unconstrained", unconstrained_phase31, dev, card)
+    var32 = phase("32 model variants", variants_phase32, dev, card)
+    unc33 = phase("33 UNet-XL unconstrained training", unconstrained_phase33, dev, card)
     print("[time] host seconds by phase: "
           + ", ".join(f"{k} {v:.1f}" for k, v in phase_seconds.items())
           + f"; {sum(phase_seconds.values()):.1f} in all", flush=True)
@@ -3550,6 +3938,19 @@ def main() -> int:
         "plms_launches": {k: v["graphs"]["launches"]["fused_conv_gn_mish"]
                           for k, v in plms28.items() if k.startswith("order")},
         "plms_max_abs_err_f32": {k: v["max_abs_err"] for k, v in plms28.items()},
+        # the model variants and unconstrained training (phases 32-33): a UNet-XL action
+        # forward (pad 64), the unconstrained LinearAttention UNet-XL trained at B=64 and
+        # sampled by conditional from its EMA; its halves at B=64 summed
+        "xl_action_forward_max_abs_err_f32": var32["xl_action_forward_max_abs_err"],
+        "unconstrained_train_launches": {"xl_10_steps": unc33["launches"],
+                                         "xl_ema10_conditional":
+                                             unc33["conditional"]["launches"]["fused_conv_gn_mish"]},
+        "unconstrained_train_ms": {k: unc33["resblock_rows"][k]
+                                   for k in ("halves", "ms", "plain_ms", "library_ms", "bound_ms",
+                                             "host_ms_per_call")},
+        "unconstrained_train_step_loss_abs_err": unc33["step_pair"]["loss_abs_err"],
+        "unconstrained_train_after_step_max_rel_err":
+            unc33["step_pair"]["after_step"]["max_rel_err"],
     }, {
         "name": "fused_self_attention",
         "route": "cuda",
@@ -3583,6 +3984,21 @@ def main() -> int:
         "train_launches": {"mdm_20_steps": train22["launches"]},
         "train_step_loss_abs_err": train23["mdm"]["loss_abs_err"],
         "train_after_step_max_rel_err": train23["mdm"]["after_step"]["max_rel_err"],
+        # action-to-motion and unconstrained generation (phases 29-32): MDM f32 at B=32,
+        # T=61; launches per run; kernel against plain at DDPM-20; per call at both widths
+        "a2m_launches": {"run_a2m_humanact12": a2m29["main"]["launches"]["fused_self_attention"],
+                         "run_a2m_uestc": a2m30["uestc"]["launches"]["fused_self_attention"],
+                         "run_a2m_cli_default_widths":
+                             a2m30["default"]["launches"]["fused_self_attention"],
+                         "run_unconstrained": unc31["launches"]["fused_self_attention"]},
+        "a2m_ddpm20_max_abs_err_f32": {"paper_width": a2m29["ddpm20_max_abs_err"],
+                                       "cli_default_widths": a2m30["default_ddpm20_max_abs_err"]},
+        "a2m_f32_ms": [{k: r[k] for k in ("shape", "B", "T", "D", "H", "route", "max_abs_err_f32",
+                                          "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                                          "host_ms")}
+                       for r in a2m30["attention_rows"]],
+        "large_forward_max_abs_err_f32": var32["large_forward_max_abs_err"],
+        "large_ddim20_max_abs_err_f32": var32["large_ddim20_max_abs_err"],
     }, {
         "name": "int8_conv1d",
         "route": "cuda",
@@ -3647,6 +4063,8 @@ def main() -> int:
          "graphs": graphs24,
          "gmd": {"trajectory_model": gmd25, "generate_gmd": gmd26, "run_condition": cond27,
                  "plms": plms28},
+         "a2m": {"humanact12": a2m29, "uestc_and_default": a2m30, "unconstrained": unc31,
+                 "variants": var32, "unconstrained_training": unc33},
          "phase_seconds": phase_seconds,
          "previous_ms_from_perf_md": dict(previous, f32_resblock=PREV_F32_RESBLOCK_MS,
                                           f32_attention=PREV_F32_ATTENTION_MS)}, indent=1))

@@ -313,6 +313,8 @@ def collate(samples: Sequence[dict], max_motion_length: int, text_encoder=None) 
     time_mask = np.arange(max_motion_length)[None, :] < lengths[:, None]
     batch = dict(motion=motion, time_mask=time_mask, lengths=lengths, text=captions,
                  tokens=[s.get("tokens", []) for s in samples])
+    if any(s.get("action") is not None for s in samples):  # action labels, 0 where absent
+        batch["action"] = np.asarray([s.get("action", 0) for s in samples], np.int32)
     if text_encoder is not None:
         batch["text_embed"] = text_encoder.encode(captions)
     return batch

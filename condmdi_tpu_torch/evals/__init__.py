@@ -1,10 +1,25 @@
 """The evaluation protocols on the port: metrics, the T2M co-embedding evaluator,
-the harness, and the CLIs `evals.run` (CondMDI keyframe protocol),
-`evals.run_t2m` (legacy text-to-motion protocol) and `evals.run_condition`
-(GMD two-stage protocol).
+the harness, the recognition models (the a2m GRU, ST-GCN) and the CLIs
+`evals.run` (CondMDI keyframe protocol), `evals.run_t2m` (legacy
+text-to-motion protocol), `evals.run_condition` (GMD two-stage protocol),
+`evals.run_a2m` (action-to-motion on HumanAct12 / UESTC) and
+`evals.run_unconstrained` (unconditioned generation: FID, KID,
+precision/recall).
 
 Counterpart of condmdi_tpu/evals/ for metrics.py, evaluator.py, common.py,
-harness.py, run.py, run_t2m.py, run_condition.py and train_evaluator.py. The
-other protocols (run_a2m, unconstrained) and the parity checks are not ported
-yet (ROADMAP Queue A 8). Importing the package touches no device.
+harness.py, a2m.py, stgcn.py, unconstrained.py, run.py, run_t2m.py,
+run_condition.py, run_a2m.py, run_unconstrained.py and train_evaluator.py.
+The parity checks (parity.py) are not ported yet (ROADMAP Queue A 8).
+Importing the package touches no device.
 """
+
+from condmdi_tpu_torch.evals import run_a2m, run_unconstrained
+from condmdi_tpu_torch.evals.a2m import A2MClassifier, STGCNClassifier, evaluate_a2m
+from condmdi_tpu_torch.evals.unconstrained import (
+    calculate_kid,
+    evaluate_unconstrained,
+    precision_and_recall,
+)
+
+__all__ = ["run_a2m", "run_unconstrained", "A2MClassifier", "STGCNClassifier", "evaluate_a2m",
+           "calculate_kid", "evaluate_unconstrained", "precision_and_recall"]

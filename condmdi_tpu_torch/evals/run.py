@@ -148,7 +148,7 @@ def main(argv=None, *, device: str | torch.device = "cuda"):
             "no-conditioning baseline, not model performance."
         )
 
-    enc = make_text_encoder(args)
+    enc = make_text_encoder(args, device=dev)
     ds_rel, ds_abs, gt_batches, synthetic_data = load_eval_datasets(args, T, B, enc, dev)
 
     # int8 protocol runs: static scales calibrated along the trajectory the

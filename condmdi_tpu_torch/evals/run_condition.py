@@ -104,7 +104,7 @@ def main(argv=None, *, device: str | torch.device = "cuda"):
     traj_pipe = SamplePipeline(model_apply_fn(traj_model), traj_sched, traj_dcfg, sampler,
                                device=dev)
 
-    enc = make_text_encoder(args)
+    enc = make_text_encoder(args, device=dev)
     ds_rel, ds_abs, gt_batches, synthetic_data = load_eval_datasets(args, T, B, enc, dev)
 
     cfg = EvalConfig(

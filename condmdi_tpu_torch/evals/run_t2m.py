@@ -61,7 +61,7 @@ def main(argv=None, *, device: str | torch.device = "cuda"):
         SamplerConfig(method="ddim" if args.use_ddim else "ddpm"), device=dev,
     )
 
-    enc = make_text_encoder(args)
+    enc = make_text_encoder(args, device=dev)
     ds_rel, ds_abs, gt_batches, synthetic_data = load_eval_datasets(args, T, B, enc, dev)
 
     cfg = EvalConfig(

@@ -68,9 +68,6 @@ def create_model(args, device: str | torch.device = "cuda") -> torch.nn.Module:
             cond_mask_prob=args.cond_mask_prob, device=device, seed=None,
         )
     if arch.startswith("unet"):
-        if getattr(args, "unet_attention", False):
-            raise NotImplementedError(
-                "unet_attention: LinearAttention is not ported yet (ROADMAP Queue A 6)")
         return MDM_UNET(
             njoints=dims["njoints"], nfeats=dims["nfeats"], latent_dim=args.latent_dim,
             dim_mults=tuple(args.dim_mults), adagn=args.unet_adagn, zero=args.unet_zero,
@@ -79,7 +76,7 @@ def create_model(args, device: str | torch.device = "cuda") -> torch.nn.Module:
             pad_frames_to=int(getattr(args, "unet_pad_to", 224) or 224),
             precision_mode=getattr(args, "precision_mode", "float"),
             cond_mask_prob=args.cond_mask_prob, xz_only=getattr(args, "xz_only", False),
-            device=device, seed=None,
+            attention=getattr(args, "unet_attention", False), device=device, seed=None,
         )
     return MDM(
         njoints=dims["njoints"], nfeats=dims["nfeats"], latent_dim=args.latent_dim,
@@ -87,7 +84,8 @@ def create_model(args, device: str | torch.device = "cuda") -> torch.nn.Module:
         cond_mode=dims["cond_mode"], arch=arch,
         emb_trans_dec=getattr(args, "emb_trans_dec", False),
         precision_mode=getattr(args, "precision_mode", "float"),
-        cond_mask_prob=args.cond_mask_prob, device=device, seed=None,
+        cond_mask_prob=args.cond_mask_prob, out_mult=int(getattr(args, "out_mult", 1) or 1),
+        device=device, seed=None,
     )
 
 

@@ -6,9 +6,12 @@ models (MDM_UNET in every precision mode, MDM), so a run with no checkpoint
 draws the same weights as the JAX package: the threefry-2x32 generator with
 JAX's partitionable bit layout, each parameter's key folded from Flax's
 module path and per-module counter (sha1 of the path, as flax.core.scope
-`_fold_in_static`), and lecun-normal as `jax.random.truncated_normal` draws
-it. The threefry bits are exact; the float steps (erf, erfinv) may differ
-from XLA's in the last bit.
+`_fold_in_static`), lecun-normal as `jax.random.truncated_normal` draws
+it, EmbedAction's table as `jax.random.normal` draws it, and the GRU cells'
+recurrent kernels orthogonal as `jax.random.orthogonal` makes them (a normal
+draw, its QR, Q's columns signed by R's diagonal). The threefry bits are
+exact; the float steps (erf, erfinv, QR) may differ from XLA's in the last
+bits.
 """
 
 from __future__ import annotations
@@ -20,8 +23,8 @@ import numpy as np
 import torch
 
 from condmdi_tpu_torch.models.embeddings import EmbedAction
-from condmdi_tpu_torch.models.layers import ConvTransposeParams, Dense, GroupNormParams
-from condmdi_tpu_torch.models.unet import QConv
+from condmdi_tpu_torch.models.layers import Conv1d, ConvTransposeParams, Dense, GroupNormParams
+from condmdi_tpu_torch.models.unet import ChannelLayerNorm, QConv
 from condmdi_tpu_torch.weights import load_flax_params
 
 _M32 = 0xFFFFFFFF
@@ -67,6 +70,27 @@ def _random_bits(key: tuple[int, int], n: int, device) -> torch.Tensor:
     return b0 ^ b1
 
 
+def _uniform(key, shape, lo, hi, device) -> torch.Tensor:
+    """jax.random.uniform in float32 on [lo, hi): 23 random mantissa bits."""
+    bits = _random_bits(key, math.prod(shape), device)
+    floats = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+    lo = torch.as_tensor(lo, dtype=torch.float32, device=device)
+    return torch.maximum(lo, floats * (hi - lo) + lo).reshape(shape)
+
+
+def _normal(key, shape, device) -> torch.Tensor:
+    """jax.random.normal in float32: √2·erfinv of a uniform draw on (nextafter(-1, 0), 1)."""
+    lo = np.nextafter(np.float32(-1.0), np.float32(0.0))
+    u = _uniform(key, shape, lo, np.float32(1.0), device)
+    return float(np.float32(np.sqrt(2))) * torch.special.erfinv(u)
+
+
+def _orthogonal(key, shape, device) -> torch.Tensor:
+    """jax.nn.initializers.orthogonal() of a square [n, n] kernel."""
+    q, r = torch.linalg.qr(_normal(key, shape, device))
+    return q * torch.sign(torch.diagonal(r))[None, :]
+
+
 def _lecun_normal(key, shape, device) -> torch.Tensor:
     """jax.nn.initializers.lecun_normal: truncated_normal(-2, 2) * sqrt(1/fan_in) / 0.8796…,
     fan_in = the product of all but the last axis."""
@@ -97,6 +121,9 @@ def flax_params(model: torch.nn.Module, seed: int = 0, device=None) -> dict[tupl
             return torch.zeros(shape, device=device)
         return _lecun_normal(_param_key(root, path, counter), shape, device)
 
+    def key(path, counter=1):
+        return _param_key(root, path, counter)
+
     for name, mod in model.named_modules():
         path = tuple(name.split(".")) if name else ()
         if isinstance(mod, QConv) and mod.precision_mode == "int8_prequant":
@@ -107,16 +134,28 @@ def flax_params(model: torch.nn.Module, seed: int = 0, device=None) -> dict[tupl
         elif isinstance(mod, QConv):
             cout, cin, k = mod.weight.shape
             tree[path + ("kernel",)] = lecun(path, 1, (k, cin, cout), mod.zero_init)
-        elif isinstance(mod, ConvTransposeParams):
-            cin, cout, k = mod.weight.shape
+        elif isinstance(mod, (ConvTransposeParams, Conv1d)):  # Conv1d: k, Cin/groups, Cout
+            a, b, k = mod.weight.shape
+            cin, cout = (a, b) if isinstance(mod, ConvTransposeParams) else (b, a)
             tree[path + ("kernel",)] = lecun(path, 1, (k, cin, cout))
         elif isinstance(mod, Dense):
             dout, din = mod.weight.shape
-            tree[path + ("kernel",)] = lecun(path, 1, (din, dout), mod.zero_init)
+            if mod.orthogonal:  # [din, din]: its transpose is the port's weight
+                tree[path + ("kernel",)] = _orthogonal(key(path), (din, dout), device)
+            else:
+                tree[path + ("kernel",)] = lecun(path, 1, (din, dout), mod.zero_init)
+            if mod.bias is None:
+                continue
         elif isinstance(mod, GroupNormParams):  # GroupNorm and LayerNorm
             tree[path + ("scale",)] = torch.ones(mod.weight.shape, device=device)
+        elif isinstance(mod, ChannelLayerNorm):
+            tree[path + ("g",)] = torch.ones(mod.g.shape, device=device)
+            tree[path + ("b",)] = torch.zeros(mod.b.shape, device=device)
+            continue
         elif isinstance(mod, EmbedAction):
-            raise NotImplementedError("Flax's init of EmbedAction is not reproduced")
+            shape = tuple(mod.action_embedding.shape)
+            tree[path + ("action_embedding",)] = _normal(key(path), shape, device)
+            continue
         else:
             continue
         tree[path + ("bias",)] = torch.zeros(mod.bias.shape, device=device)

@@ -33,23 +33,56 @@ class ParamModule(nn.Module):
 
 
 class Dense(ParamModule):
-    """y = x @ weight.T + bias; weight [out, in] (Flax Dense kernel is [in, out])."""
+    """y = x @ weight.T + bias; weight [out, in] (Flax Dense kernel is [in, out]).
 
-    def __init__(self, in_features, out_features, *, zero_init=False, device=None, dtype=None):
+    `use_bias=False` holds no bias (Flax's `use_bias=False`); `orthogonal`
+    marks a kernel that Flax initialises orthogonally (the GRU cell's
+    recurrent kernels) instead of lecun-normal."""
+
+    def __init__(self, in_features, out_features, *, zero_init=False, use_bias=True,
+                 orthogonal=False, device=None, dtype=None):
         super().__init__()
         self.weight = _empty((out_features, in_features), device, dtype)
-        self.bias = _empty((out_features,), device, dtype)
+        self.bias = _empty((out_features,), device, dtype) if use_bias else None
         self.zero_init = zero_init
+        self.orthogonal = orthogonal
 
     def reset_parameters(self, generator: torch.Generator) -> None:
-        _lecun_(self.weight, self.weight.shape[1], self.zero_init, generator)
+        if self.orthogonal:
+            _orthogonal_(self.weight, generator)
+        else:
+            _lecun_(self.weight, self.weight.shape[1], self.zero_init, generator)
+        if self.bias is not None:
+            _const_(self.bias, 0.0)
+
+    def forward(self, x):
+        w, b = self.weight, self.bias
+        if x.dtype != w.dtype:  # Flax's promotion: bf16 input, f32 params -> f32
+            dt = torch.promote_types(x.dtype, w.dtype)
+            x, w, b = x.to(dt), w.to(dt), None if b is None else b.to(dt)
+        return F.linear(x, w, b)
+
+
+class Conv1d(ParamModule):
+    """A plain SAME convolution on [B, T, C]: weight [Cout, Cin/groups, k] (Flax's
+    kernel [k, Cin/groups, Cout], `feature_group_count=groups`), bias [Cout]."""
+
+    def __init__(self, in_channels, out_channels, kernel_size, groups=1, *, device=None,
+                 dtype=None):
+        super().__init__()
+        self.weight = _empty((out_channels, in_channels // groups, kernel_size), device, dtype)
+        self.bias = _empty((out_channels,), device, dtype)
+        self.groups = groups
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        _, cin, k = self.weight.shape
+        _lecun_(self.weight, cin * k, False, generator)
         _const_(self.bias, 0.0)
 
     def forward(self, x):
-        if x.dtype != self.weight.dtype:  # Flax's promotion: bf16 input, f32 params -> f32
-            dt = torch.promote_types(x.dtype, self.weight.dtype)
-            return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
-        return F.linear(x, self.weight, self.bias)
+        y = F.conv1d(x.transpose(1, 2), self.weight, self.bias, padding=self.weight.shape[-1] // 2,
+                     groups=self.groups)
+        return y.transpose(1, 2)
 
 
 class TrainDraws:
@@ -118,6 +151,13 @@ def _lecun_(p: torch.Tensor, fan_in: int, zero: bool, generator: torch.Generator
         return
     v = torch.randn(p.shape, generator=generator, dtype=torch.float32) / math.sqrt(fan_in)
     p.copy_(v)
+
+
+@torch.no_grad()
+def _orthogonal_(p: torch.Tensor, generator: torch.Generator) -> None:
+    """An orthogonal [out, in] kernel: Q of a normal draw's QR, columns signed by R's diagonal."""
+    q, r = torch.linalg.qr(torch.randn(p.shape, generator=generator, dtype=torch.float32))
+    p.copy_(q * torch.sign(torch.diagonal(r))[None, :])
 
 
 @torch.no_grad()

@@ -7,13 +7,13 @@ port imports nothing of the JAX package):
     SHA-256 of the caption (tests, benches, asset-free runs);
   * `CachedTextEncoder`: a lookup of precomputed CLIP embeddings (the
     production path: embeddings computed once offline per caption set);
-  * `make_text_encoder` in modes hash, cached and auto, and `encoder_name`,
-    the tag a run records.
+  * `make_text_encoder` in modes hash, cached, clip and auto, and
+    `encoder_name`, the tag a run records.
 
-The CLIP ViT-B/32 text tower is not ported yet: it needs a CLIP checkpoint
-and the BPE vocabulary in the repository (ROADMAP Queue A 4). Mode `clip`,
-and mode `auto` where a CLIP checkpoint is found, raise instead of serving
-other embeddings than the JAX package would.
+Mode `clip` (and `auto` where a checkpoint is found) builds models/clip.py's
+ClipTextEncoder, the CLIP ViT-B/32 text tower on `device`, from a reference
+checkpoint; it needs the checkpoint and the BPE vocabulary, neither of which
+is in the repository.
 """
 
 from __future__ import annotations
@@ -95,24 +95,24 @@ def find_clip_checkpoint() -> Optional[str]:
     return None
 
 
-def _no_clip(ckpt: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"the CLIP text tower is not ported yet (checkpoint {ckpt!r}); it waits for a CLIP "
-        "checkpoint and vocabulary in the repository (ROADMAP Queue A 4). Use "
-        "--text_encoder cached with precomputed embeddings, or hash"
-    )
+def _clip_encoder(ckpt: str, device):
+    from condmdi_tpu_torch.models.clip import ClipTextEncoder
+
+    return ClipTextEncoder.from_torch_checkpoint(ckpt, device=device)
 
 
 def make_text_encoder(args=None, *, mode: Optional[str] = None,
                       embeddings_path: Optional[str] = None,
-                      clip_checkpoint: Optional[str] = None) -> TextEncoder:
+                      clip_checkpoint: Optional[str] = None,
+                      device="cuda") -> TextEncoder:
     """Resolve the text encoder for a run.
 
-      auto    cached npz if given, else HashTextEncoder with a loud warning
-              (raises where a CLIP checkpoint is found: the tower is not ported);
+      auto    cached npz if given, else CLIP if a checkpoint is discoverable,
+              else HashTextEncoder with a loud warning;
       cached  requires an embeddings npz;
       hash    explicit opt-in to pseudo-embeddings;
-      clip    raises until the CLIP tower is ported.
+      clip    requires a CLIP checkpoint (error if absent).
+    The CLIP tower runs on `device` (the card unless the caller passes "cpu").
     """
     mode = mode or getattr(args, "text_encoder", "auto") or "auto"
     npz = embeddings_path if embeddings_path is not None else (
@@ -127,18 +127,26 @@ def make_text_encoder(args=None, *, mode: Optional[str] = None,
             raise ValueError("--text_encoder cached requires --text_embeddings <npz>")
         return CachedTextEncoder.from_npz(npz)
     if mode == "clip":
-        raise _no_clip(ckpt or find_clip_checkpoint() or "")
+        ckpt = ckpt or find_clip_checkpoint()
+        if not ckpt:
+            raise ValueError(
+                "--text_encoder clip requires a CLIP ViT-B/32 checkpoint: pass "
+                "--clip_checkpoint, set $CONDMDI_CLIP_CKPT, or place it at "
+                + " or ".join(_CLIP_CKPT_CANDIDATES)
+            )
+        return _clip_encoder(ckpt, device)
     if mode == "auto":
         if npz:
             return CachedTextEncoder.from_npz(npz)
         ckpt = ckpt or find_clip_checkpoint()
         if ckpt:
-            raise _no_clip(ckpt)
+            return _clip_encoder(ckpt, device)
         warnings.warn(
             "no CLIP checkpoint or embedding table found — text conditioning falls back "
             "to HashTextEncoder (deterministic pseudo-embeddings). Outputs are NOT "
-            "conditioned on real text semantics. Pass --text_embeddings <npz>, or use "
-            "--text_encoder hash to silence this warning.",
+            "conditioned on real text semantics. Pass --text_embeddings <npz> or provide a "
+            "CLIP checkpoint (--clip_checkpoint / $CONDMDI_CLIP_CKPT); use --text_encoder "
+            "hash to silence this warning.",
             stacklevel=2,
         )
         return HashTextEncoder()

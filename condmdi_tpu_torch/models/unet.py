@@ -1,7 +1,9 @@
 """Temporal 1-D UNet denoiser (CondMDI's flagship model).
 
-Counterpart of condmdi_tpu/models/unet.py with `attention=False`
-(LinearAttention waits for a later slice), in every precision mode of the
+Counterpart of condmdi_tpu/models/unet.py, with or without `attention`
+(LinearAttention after a ChannelLayerNorm, added residually after each down
+level's blocks, the first mid block and each up level's blocks), with the
+cond modes `text`, `action` and `no_cond`, in every precision mode of the
 JAX package: "float", and the int8 serving modes "int8" (dynamic activation
 scales), "int8_static" (calibrated per-tensor scales), "int8_static_pc"
 (calibrated per-input-channel scales folded into the weights) and
@@ -17,7 +19,9 @@ weight changes; MDM_UNET pads its
 input's channels to a multiple of 8 (526 → 528) so that the kernel's rows
 are 16-byte aligned, and the first resblock ignores the padding. Downsample
 (k3 s2 p1), residual_conv (1×1) and final_conv (1×1) are plain convolutions
-the JAX package left to XLA; here they stay F.conv1d / F.linear.
+the JAX package left to XLA; here they stay F.conv1d / F.linear. So do
+LinearAttention's two Dense layers and its two products over time, and
+ChannelLayerNorm, in every precision mode.
 
 Int8 modes: every QConv (the resblock convs, residual_conv, the downsample
 convs and final_conv) goes through ops.quant.int8_conv1d: the Hopper int8
@@ -62,7 +66,7 @@ from torch import nn
 
 from condmdi_tpu_torch.device import resolve_device
 from condmdi_tpu_torch.models.cfg import mask_cond
-from condmdi_tpu_torch.models.embeddings import TimestepEmbedder
+from condmdi_tpu_torch.models.embeddings import EmbedAction, TimestepEmbedder
 from condmdi_tpu_torch.models.layers import (
     ConvTransposeParams,
     Dense,
@@ -247,6 +251,50 @@ class Conv1dAdaGNBlock(_ResblockHalf):
         return self._fused(x, scale, shift)
 
 
+class LinearAttention(nn.Module):
+    """Linear attention over time: keys softmaxed over time, a [dh, dh] context
+    per head, queries scaled by dh^-0.5; to_qkv without bias, to_out with."""
+
+    def __init__(self, channels, heads=4, dim_head=32, *, device=None, dtype=None):
+        super().__init__()
+        dd = dict(device=device, dtype=dtype)
+        self.heads, self.dim_head = heads, dim_head
+        hidden = heads * dim_head
+        self.to_qkv = Dense(channels, hidden * 3, use_bias=False, **dd)
+        self.to_out = Dense(hidden, channels, **dd)
+
+    def forward(self, x):
+        B, T, _ = x.shape
+        q, k, v = self.to_qkv(x).chunk(3, dim=-1)
+        # [B, T, H*dh] -> [B, H, dh, T]
+        q, k, v = (u.reshape(B, T, self.heads, self.dim_head).permute(0, 2, 3, 1)
+                   for u in (q, k, v))
+        q = q * self.dim_head ** -0.5
+        k = k.softmax(dim=-1)
+        context = torch.einsum("bhdn,bhen->bhde", k, v)
+        out = torch.einsum("bhde,bhdn->bhen", context, q)  # [B, H, dh, T]
+        return self.to_out(out.permute(0, 3, 1, 2).reshape(B, T, -1))
+
+
+class ChannelLayerNorm(ParamModule):
+    """LayerNorm over channels with the biased variance: (x - mean)/sqrt(var + eps)·g + b."""
+
+    def __init__(self, channels, eps=1e-5, *, device=None, dtype=None):
+        super().__init__()
+        self.g = _empty((channels,), device, dtype)
+        self.b = _empty((channels,), device, dtype)
+        self.eps = eps
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        _const_(self.g, 1.0)
+        _const_(self.b, 0.0)
+
+    def forward(self, x):
+        mean = x.mean(dim=-1, keepdim=True)
+        var = x.var(dim=-1, keepdim=True, unbiased=False)
+        return (x - mean) / torch.sqrt(var + self.eps) * self.g + self.b
+
+
 class ResidualTemporalBlock(nn.Module):
     def __init__(self, in_channels, out_channels, embed_dim, kernel_size=5, adagn=True,
                  zero=True, precision_mode="float", *, device=None, dtype=None):
@@ -287,11 +335,18 @@ class ResidualTemporalBlock(nn.Module):
 
 class TemporalUnet(nn.Module):
     def __init__(self, input_dim, cond_dim, dim=512, dim_mults: Sequence[float] = (2, 2, 2, 2),
-                 adagn=True, zero=True, added_input_channels=0, precision_mode="float", *,
-                 device=None, dtype=None):
+                 attention=False, adagn=True, zero=True, added_input_channels=0,
+                 precision_mode="float", *, device=None, dtype=None):
         super().__init__()
         dd = dict(device=device, dtype=dtype)
         pm = dict(precision_mode=precision_mode, **dd)
+        self.attention = attention
+
+        def attend(name, channels):  # the residual LinearAttention block after a level
+            if attention:
+                self.add_module(f"{name}_attn_norm", ChannelLayerNorm(channels, **dd))
+                self.add_module(f"{name}_attn", LinearAttention(channels, **dd))
+
         # the keyframe-conditioned input carries the mask beside the motion
         in_ch = input_dim + added_input_channels
         dims = [input_dim] + [int(dim * m) for m in dim_mults]
@@ -305,21 +360,29 @@ class TemporalUnet(nn.Module):
             first_in = in_ch if ind == 0 else dim_in
             self.add_module(f"down{ind}_res1", ResidualTemporalBlock(first_in, dim_out, **rb))
             self.add_module(f"down{ind}_res2", ResidualTemporalBlock(dim_out, dim_out, **rb))
+            attend(f"down{ind}", dim_out)
             if ind < self.n_res - 1:
                 self.add_module(f"down{ind}_downsample",
                                 QConv(dim_out, dim_out, 3, stride=2, padding=1, **pm))
         mid = dims[-1]
         self.mid_block1 = ResidualTemporalBlock(mid, mid, **rb)
+        attend("mid", mid)
         self.mid_block2 = ResidualTemporalBlock(mid, mid, **rb)
         self.n_up = len(in_out) - 1
         for ind, (dim_in, dim_out) in enumerate(reversed(in_out[1:])):
             self.add_module(f"up{ind}_res1", ResidualTemporalBlock(dim_out * 2, dim_in, **rb))
             self.add_module(f"up{ind}_res2", ResidualTemporalBlock(dim_in, dim_in, **rb))
+            attend(f"up{ind}", dim_in)
             # `is_last` in the JAX loop compares against n_res - 1, which this
             # loop of n_res - 1 items never reaches: every level upsamples
             self.add_module(f"up{ind}_upsample", ConvTransposeParams(dim_in, dim_in, 4, **dd))
         self.final_block = Conv1dBlock(dims[1], dims[1], kernel_size=5, **pm)
         self.final_conv = QConv(dims[1], input_dim, 1, zero_init=zero, **pm)
+
+    def _attend(self, name, x):
+        if not self.attention:
+            return x
+        return x + getattr(self, f"{name}_attn")(getattr(self, f"{name}_attn_norm")(x))
 
     def forward(self, x, cond):
         """x: [B, T, C] (T divisible by 2^(len(dim_mults)-1)); cond: [B, cond_dim]."""
@@ -327,16 +390,16 @@ class TemporalUnet(nn.Module):
         h = []
         for ind in range(self.n_res):
             x = getattr(self, f"down{ind}_res1")(x, c)
-            x = getattr(self, f"down{ind}_res2")(x, c)
+            x = self._attend(f"down{ind}", getattr(self, f"down{ind}_res2")(x, c))
             h.append(x)
             if ind < self.n_res - 1:
                 x = getattr(self, f"down{ind}_downsample")(x)
-        x = self.mid_block1(x, c)
+        x = self._attend("mid", self.mid_block1(x, c))
         x = self.mid_block2(x, c)
         for ind in range(self.n_up):
             x = torch.cat([x, h.pop()], dim=-1)
             x = getattr(self, f"up{ind}_res1")(x, c)
-            x = getattr(self, f"up{ind}_res2")(x, c)
+            x = self._attend(f"up{ind}", getattr(self, f"up{ind}_res2")(x, c))
             up = getattr(self, f"up{ind}_upsample")
             x = F.conv_transpose1d(x.transpose(1, 2), up.weight, up.bias, stride=2, padding=1)
             x = x.transpose(1, 2).contiguous()
@@ -344,7 +407,7 @@ class TemporalUnet(nn.Module):
 
 
 class MDM_UNET(nn.Module):
-    """UNet denoiser wrapper with keyframe + text/timestep conditioning.
+    """UNet denoiser wrapper with keyframe + text/action/timestep conditioning.
 
     Built on `device` ("cuda" unless the caller passes "cpu"); parameters are
     allocated empty and filled from `seed` (init_params) unless `seed` is None,
@@ -354,12 +417,10 @@ class MDM_UNET(nn.Module):
     def __init__(self, njoints=263, nfeats=1, latent_dim=512,
                  dim_mults: Sequence[float] = (2, 2, 2, 2), adagn=True, zero=True,
                  clip_dim=512, cond_mode="text", keyframe_conditioned=False,
-                 pad_frames_to=224, precision_mode="float", cond_mask_prob=0.1, xz_only=False, *,
-                 device: str | torch.device = "cuda", dtype: torch.dtype = torch.float32,
-                 seed: Optional[int] = 0):
+                 pad_frames_to=224, precision_mode="float", cond_mask_prob=0.1, xz_only=False,
+                 attention=False, num_actions=1, *, device: str | torch.device = "cuda",
+                 dtype: torch.dtype = torch.float32, seed: Optional[int] = 0):
         super().__init__()
-        if cond_mode != "text":
-            raise NotImplementedError("only text conditioning is ported")
         if precision_mode not in PRECISION_MODES:
             raise ValueError(f"unknown precision_mode {precision_mode!r}")
         # what float_twin needs to build the same network in another mode
@@ -368,7 +429,9 @@ class MDM_UNET(nn.Module):
                            clip_dim=clip_dim, cond_mode=cond_mode,
                            keyframe_conditioned=keyframe_conditioned,
                            pad_frames_to=pad_frames_to, precision_mode=precision_mode,
-                           cond_mask_prob=cond_mask_prob, xz_only=xz_only)
+                           cond_mask_prob=cond_mask_prob, xz_only=xz_only,
+                           attention=attention, num_actions=num_actions)
+        self.cond_mode = cond_mode
         self.precision_mode = precision_mode
         self.cond_mask_prob = cond_mask_prob
         device = resolve_device(device)
@@ -381,10 +444,13 @@ class MDM_UNET(nn.Module):
         self.keyframe_conditioned = keyframe_conditioned
         self.pad_frames_to = pad_frames_to
         self.embed_timestep = TimestepEmbedder(latent_dim, **dd)
-        self.embed_text = Dense(clip_dim, latent_dim, **dd)
+        if "text" in cond_mode:
+            self.embed_text = Dense(clip_dim, latent_dim, **dd)
+        if "action" in cond_mode:
+            self.embed_action = EmbedAction(num_actions, latent_dim, **dd)
         self.unet = TemporalUnet(
             input_dim=self.input_feats, cond_dim=latent_dim, dim=latent_dim,
-            dim_mults=dim_mults, adagn=adagn, zero=zero,
+            dim_mults=dim_mults, attention=attention, adagn=adagn, zero=zero,
             # the keyframe-conditioned input is the data and its mask, before any xz
             # selection (which JAX makes on 4-channel inputs only)
             added_input_channels=(2 * njoints * nfeats - self.input_feats
@@ -428,10 +494,14 @@ class MDM_UNET(nn.Module):
             buf[:, :T, :Fdim] = x
 
         emb = self.embed_timestep(timesteps)
-        if "text_embed" in y:
-            enc_text = mask_cond(y["text_embed"].to(x.dtype), y.get("uncond", False),
-                                 self.cond_mask_prob, draws)
+        force_mask = y.get("uncond", False)
+        if "text" in self.cond_mode and "text_embed" in y:
+            enc_text = mask_cond(y["text_embed"].to(x.dtype), force_mask, self.cond_mask_prob,
+                                 draws)
             emb = emb + self.embed_text(enc_text)
+        if "action" in self.cond_mode and "action" in y:
+            emb = emb + mask_cond(self.embed_action(y["action"]), force_mask,
+                                  self.cond_mask_prob, draws)
 
         x = self.unet(buf, emb)
         x = x[:, :T, :]

@@ -68,7 +68,7 @@ def main(argv=None, *, device: str | torch.device = "cuda"):
         ds = Text2MotionDataset(dcfg_data)
     except FileNotFoundError:
         ds = SyntheticMotionDataset(dcfg_data, size=max(args.num_samples, 4), device=dev)
-    encoder = make_text_encoder(args)
+    encoder = make_text_encoder(args, device=dev)
     if getattr(args, "use_fixed_dataset", False):
         # curated reproducible samples (reference --use_fixed_dataset)
         from condmdi_tpu_torch.data.fixed_dataset import (

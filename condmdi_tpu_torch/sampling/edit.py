@@ -57,7 +57,7 @@ def main(argv=None, *, device: str | torch.device = "cuda"):
         ds = Text2MotionDataset(data_cfg)
     except FileNotFoundError:
         ds = SyntheticMotionDataset(data_cfg, size=max(args.num_samples, 4), device=dev)
-    encoder = make_text_encoder(args)
+    encoder = make_text_encoder(args, device=dev)
     batch = collate([ds[i] for i in range(args.num_samples)], n_frames, encoder)
     B = batch["motion"].shape[0]
 

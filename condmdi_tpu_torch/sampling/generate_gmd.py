@@ -99,7 +99,7 @@ def main(argv=None, *, device: str | torch.device = "cuda"):
     F = dims["njoints"] * dims["nfeats"]
     stats = load_norm_stats("abs3d" if args.abs_3d else "t2m")
 
-    encoder = make_text_encoder(args)
+    encoder = make_text_encoder(args, device=dev)
     y = {"text_embed": torch.from_numpy(encoder.encode(texts)).to(dev)}
 
     # gradient guidance requires the DDPM posterior loop (templates never

@@ -119,7 +119,7 @@ def main(argv=None, *, device: str | torch.device = "cuda"):
     model, sched, dcfg = load_model_for_sampling(args, dev)
     F = model.input_feats
 
-    encoder = make_text_encoder(args)
+    encoder = make_text_encoder(args, device=dev)
     y = {"text_embed": torch.from_numpy(encoder.encode(texts)).to(dev)}
     pipe = SamplePipeline(model_apply_fn(model), sched, dcfg,
                           SamplerConfig(method="ddim" if args.use_ddim else "ddpm"), device=dev)

@@ -426,7 +426,7 @@ def main(argv=None, *, device: str | torch.device = "cuda"):
         name=args.dataset, data_dir=args.data_dir, max_motion_length=args.num_frames,
         abs_3d=args.abs_3d, traject_only=args.traj_only, synthetic_size=args.synthetic_size,
     )
-    encoder = make_text_encoder(args)
+    encoder = make_text_encoder(args, device=dev)
     loader = get_dataset_loader(data_cfg, args.batch_size, text_encoder=encoder, device=dev)
 
     model = create_model(args, dev)

@@ -5,20 +5,24 @@ port keeps the Flax module names, so a Flax path maps to a state_dict key by
 joining with '.' and renaming the leaf; the values go through one of a few
 layout transforms:
 
-  Dense kernel          [in, out]        → weight [out, in]
-  Conv kernel           [k, Cin, Cout]   → weight [Cout, Cin, k]
+  Dense kernel          [in, out]        → weight [out, in] (no bias where
+                                           Flax's `use_bias=False`)
+  Conv kernel           [k, Cin, Cout]   → weight [Cout, Cin, k] (grouped:
+                                           [k, Cin/groups, Cout] → [Cout, Cin/groups, k])
   ConvTranspose kernel  [k, in, out]     → weight [in, out, k], flipped along k
                                            (Flax correlates, torch's
                                            ConvTranspose1d takes the conv's
                                            gradient)
   GroupNorm / LayerNorm scale/bias       → weight/bias
   EmbedAction action_embedding           → kept as it is ([num_actions, D])
+  ChannelLayerNorm g / b                 → kept as they are
+  CLIP token_embedding, positional_embedding, text_projection → kept as they are
   int8_prequant QConv kernel_q [k, Cin, Cout] int8, scale [Cout]
                                          → weight_q [Cout, Cin, k] int8,
                                            weight_scale (not a norm's weight)
   act_scale collection amax              → the QConv's amax buffer
 
-One function serves the UNet, MDM and DiT families. `to_flax_params` is its
+One function serves the UNet, MDM (with its GRU cells) and DiT families. `to_flax_params` is its
 inverse for float models: a state_dict back to the Flax tree, which the
 training loop writes as a flat npz and the JAX model can load.
 """
@@ -32,6 +36,9 @@ import numpy as np
 import torch
 
 _SEP = "//"  # the flat npz's path joiner (scripts/gate_params_io.py)
+# leaves whose name and layout the port keeps (CLIP's three raw tensors among them)
+_KEPT = ("bias", "action_embedding", "g", "b", "token_embedding", "positional_embedding",
+         "text_projection")
 
 
 def _flatten(tree: Mapping[str, Any], prefix=()) -> dict[tuple[str, ...], np.ndarray]:
@@ -65,7 +72,7 @@ def _convert(path: tuple[str, ...], arr: np.ndarray, prequant: bool) -> tuple[st
         return "weight", arr.transpose(2, 1, 0)  # Conv
     if leaf == "scale":  # beside kernel_q: the weight scale; else GroupNorm, LayerNorm
         return ("weight_scale" if prequant else "weight"), arr
-    if leaf in ("bias", "action_embedding"):
+    if leaf in _KEPT:
         return leaf, arr
     raise KeyError(f"no port layout for Flax parameter {'/'.join(path)}")
 
@@ -112,7 +119,7 @@ def _to_flax(key: str, value: np.ndarray) -> tuple[tuple[str, ...], np.ndarray]:
         if value.ndim == 3:  # Conv
             return tuple(mods) + ("kernel",), value.transpose(2, 1, 0)
         return tuple(mods) + ("scale",), value  # GroupNorm / LayerNorm
-    if leaf in ("bias", "action_embedding"):
+    if leaf in _KEPT:
         return tuple(mods) + (leaf,), value
     raise KeyError(f"no Flax layout for the port's parameter {key} (float models only)")
 

@@ -265,9 +265,11 @@ def test_flax_init_from_the_seed_equals_jax(arch):
 
 
 def test_unported_options_raise():
+    """--unet_attention, once refused, builds the UNet with its LinearAttention
+    blocks (parity: tests/test_torch_model_variants.py); the model dims follow JAX's."""
     args = tconfig.parse_args(tconfig.CondSyntArgs, ["--arch", "unet", "--unet_attention", "true"])
-    with pytest.raises(NotImplementedError, match="Queue A 6"):
-        tfactory.create_model(args, "cpu")
+    model = tfactory.create_model(args, "cpu")
+    assert model.unet.attention and hasattr(model.unet, "mid_attn")
     assert tfactory.get_model_dims(args) == jfactory.get_model_dims(args)
     assert json.dumps(tfactory.get_model_dims(tconfig.parse_args(
         tconfig.CondSyntArgs, ["--traj_only", "true"]))) == json.dumps(

@@ -1985,3 +1985,58 @@ def test_plms_from_graphs_equals_eager(cuda_device, order):
     assert n_g[0] == 33 * (20 + (order > 1))
     (prog,) = pipe_g.programs.values()
     assert sum(g.replays for g in prog.graphs.values()) == 19 - 1  # the first body step captures
+
+
+# --------------------------------------------------------------------------- #
+# the action-to-motion and unconstrained protocols' shapes (evals.run_a2m,
+# evals.run_unconstrained): MDM at B=32, 60 frames + the condition token
+# --------------------------------------------------------------------------- #
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,route", [(64, "mma_sync"), (512, "wgmma_f32")])
+def test_attention_kernel_at_the_a2m_shapes(cuda_device, D, route):
+    """float32 at T = 61 (not a multiple of 16): the CLIs' default width (hd 16, the
+    tiled mma.sync kernel) and the MDM paper's a2m width (hd 128, the resident
+    kernel on hi/lo planes)."""
+    B, T, H = 32, 61, 4
+    assert attention.attention_route(B, T, H, D // H, torch.float32) == route
+    q, k, v = qkv_views(B, T, D, torch.float32, cuda_device, seed=D)
+    before = attention.fused_self_attention.launches
+    with torch.no_grad():
+        got = attention.mha(q, k, v, H)
+        torch.cuda.synchronize()
+        want = attention._xla_attention(q, k, v, H)
+    assert attention.fused_self_attention.launches == before + 1
+    assert got.shape == (B, T, D) and torch.isfinite(got).all()
+    assert torch.all((got - want).abs() <= F32_TOL * (1 + want.abs()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["gru", "trans_enc"])
+def test_a2m_mdm_from_graphs_equals_eager(cuda_device, arch):
+    """An action MDM at the a2m width (latent 512, 8 layers, B=32, 60 frames) sampled
+    over 20 DDPM steps with the sampler step replayed from CUDA graphs equals the
+    eager run bit for bit with the same launches: the GRU (8 layers x 60 steps of
+    small products a forward, no kernel of the port) and trans_enc (8 attention
+    launches a forward)."""
+    from condmdi_tpu_torch.diffusion import (DiffusionConfig, DiffusionSchedule, SamplerConfig,
+                                             get_named_beta_schedule)
+    from condmdi_tpu_torch.models.mdm import MDM
+    from condmdi_tpu_torch.sampling.pipeline import SamplePipeline
+
+    B, T, F = 32, 60, 150
+    net = MDM(njoints=25, nfeats=6, latent_dim=512, ff_size=1024, num_layers=8, num_heads=4,
+              arch=arch, cond_mode="action", num_actions=12, device=cuda_device, seed=0).eval()
+    sched = DiffusionSchedule.create(get_named_beta_schedule("cosine", 1000),
+                                     use_timesteps=range(0, 1000, 50))
+    y = {"action": torch.arange(B, device=cuda_device) % 12}
+
+    def pipe_fn(graphs):
+        return SamplePipeline(lambda x, t, y_, **_: net(x, t, y_), sched, DiffusionConfig(),
+                              SamplerConfig(), device=cuda_device, cuda_graphs=graphs)
+
+    (got, n_graph, pipe), (want, n_eager, _) = _sample_twice(pipe_fn, (B, T, F), y, 7)
+    assert torch.isfinite(got).all() and got.abs().max() > 0
+    assert torch.equal(got, want) and n_graph == n_eager
+    assert n_graph[1] == (8 * 20 if arch == "trans_enc" else 0)  # fused_self_attention
+    (prog,) = pipe.programs.values()
+    assert sum(g.replays for g in prog.graphs.values()) == 19

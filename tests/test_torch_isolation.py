@@ -58,6 +58,10 @@ def test_import_loads_neither_jax_nor_the_jax_package():
         "import condmdi_tpu_torch.evals.harness, condmdi_tpu_torch.evals.run\n"
         "import condmdi_tpu_torch.evals.run_t2m, condmdi_tpu_torch.data.convert\n"
         "import condmdi_tpu_torch.data.word_vectorizer, condmdi_tpu_torch.utils.seed\n"
+        "import condmdi_tpu_torch.geometry.rotations, condmdi_tpu_torch.data.a2m\n"
+        "import condmdi_tpu_torch.evals.a2m, condmdi_tpu_torch.evals.stgcn\n"
+        "import condmdi_tpu_torch.evals.unconstrained, condmdi_tpu_torch.evals.run_a2m\n"
+        "import condmdi_tpu_torch.evals.run_unconstrained, condmdi_tpu_torch.models.clip\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'flax', 'orbax', 'condmdi_tpu')]\n"
         "assert not bad, bad\n"
@@ -103,6 +107,26 @@ def test_pipeline_and_server_default_to_cuda_and_raise_without_it():
     sched = DiffusionSchedule.create(get_named_beta_schedule("cosine", 4))
     with pytest.raises(RuntimeError, match="CUDA"):
         SamplePipeline(lambda *a, **k: None, sched, DiffusionConfig())
+
+
+@pytest.mark.parametrize("cli", ["run_a2m", "run_unconstrained"])
+def test_protocols_default_to_cuda_and_raise_without_it(cli, tmp_path):
+    _needs_no_cuda()
+    import importlib
+
+    main = importlib.import_module(f"condmdi_tpu_torch.evals.{cli}").main
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(["--output_dir", str(tmp_path)])
+
+
+def test_recognition_models_default_to_cuda_and_raise_without_it():
+    _needs_no_cuda()
+    from condmdi_tpu_torch.evals.a2m import A2MClassifier, STGCNClassifier
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        A2MClassifier.random_init()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        STGCNClassifier.random_init()
 
 
 def test_chip_smoke_fails_alone_in_a_directory(tmp_path):

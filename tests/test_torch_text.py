@@ -56,13 +56,23 @@ def test_modes(tmp_path, monkeypatch):
 
 
 def test_clip_modes_raise_until_the_tower_is_ported(tmp_path, monkeypatch):
+    """The tower is ported now (tests/test_torch_clip.py): mode clip still raises
+    without a checkpoint, as JAX's does; with one found, clip and auto build
+    ClipTextEncoder, as JAX's do, where they raised before the port."""
+    import torch
+    from test_torch_clip import fake_clip_state_dict, write_merges
+
+    from condmdi_tpu_torch.models.clip import ClipTextEncoder
+
     monkeypatch.delenv("CONDMDI_CLIP_CKPT", raising=False)
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match="CLIP"):
+    with pytest.raises(ValueError, match="CLIP"):
         text.make_text_encoder(mode="clip")
     ckpt = tmp_path / "save" / "clip" / "ViT-B-32.pt"
     ckpt.parent.mkdir(parents=True)
-    ckpt.write_bytes(b"")
+    torch.save(fake_clip_state_dict(layers=1), ckpt)
+    monkeypatch.setenv("CONDMDI_CLIP_BPE", write_merges(tmp_path / "merges.txt.gz"))
     assert text.find_clip_checkpoint() == "save/clip/ViT-B-32.pt"
-    with pytest.raises(NotImplementedError, match="CLIP"):
-        text.make_text_encoder(mode="auto")  # JAX would load CLIP here; the port refuses
+    for mode in ("clip", "auto"):  # JAX loads CLIP here, and so does the port
+        enc = text.make_text_encoder(mode=mode, device="cpu")
+        assert isinstance(enc, ClipTextEncoder) and text.encoder_name(enc) == "clip"

@@ -125,8 +125,12 @@ def test_bridge_covers_every_parameter_and_layout():
                                   up[::-1].transpose(1, 2, 0))
     np.testing.assert_array_equal(sd["unet.final_block.norm.weight"].numpy(),
                                   p["final_block"]["norm"]["scale"])
+    # ChannelLayerNorm's g (LinearAttention is ported) is kept as it is; a leaf the
+    # port has no layout for still raises
+    g = np.arange(3, dtype=np.float32)
+    assert np.array_equal(load_flax_params({"params": {"attn": {"g": g}}})["attn.g"].numpy(), g)
     with pytest.raises(KeyError):
-        load_flax_params({"params": {"attn": {"g": np.ones(3, np.float32)}}})
+        load_flax_params({"params": {"attn": {"gamma": np.ones(3, np.float32)}}})
 
 
 def test_bridge_reads_the_flat_npz_like_the_tree(tmp_path):
