@@ -208,7 +208,35 @@ Phases, in order; any failure exits non-zero:
      losses, steps/s; conditional from its step-10 EMA (2 samples, 1000-step DDPM, the JAX
      CLI's keys, finite); the f32 halves at B=64; one step through the kernels against the
      plain path as in phase 23;
- 34. a {"kernels": [...]} line (three kernels), the card line, and the final
+ 34. training_losses with the SMPL terms (rcxyz, fc; get_xyz a Rotation2xyz over
+     SMPLModel.random_init with SMPL's 6890 vertices) on the action MDM at the a2m width
+     (latent 512, 8 layers, B=32, 60 frames, rot6d 25 x 6): one step through the attention
+     kernel against the plain path (loss, every gradient, as phase 23), then 3 AdamW steps
+     with exact launches (8 a step) and host ms against device ms a step;
+ 35. joints2smpl: render_mesh_cli on sample 0 of phase 15's gate conditional results.npy
+     (196 frames) over the same synthetic body, 300 Adam steps replayed from a CUDA graph;
+     the same fit eagerly, bit for bit; the loss drop; 196 .obj files (under .chipwork/);
+ 36. AMASS: UNet-XL with 764 features, keyframe-conditioned (the first half's Cin 1528,
+     k*Cin = 7640), pad 128, B=8 (no text, so no CFG): SyntheticAMASSDataset clips under a
+     joint-level keyframe mask expanded by amass_joint_to_full_mask through the 1000-step
+     DDPM from graphs (33 x 1000 launches); DDIM-20 kernel against plain (DDIM_TOL); every
+     resblock shape per call against plain and timed in f32 (kernel, plain, library,
+     bound), the first half also in bf16 at B = 8, 1, 3; fields_from_poses and dict_to_xyz
+     on the card against the CPU;
+ 37. the file-backed datasets: a HumanML3D tree (40 clips, abs-root and relative features
+     from the synthetic set, a tagged sub-clip each) and a KIT tree written under
+     .chipwork/; training.train through main on the HumanML3D tree (UNet-XL keyframe card,
+     B=16, 5 steps, --use_random_proj true --augment_type full; 33 launches a step);
+ 38. evals.parity through its main on mock assets written under .chipwork/ (GloVe, a T2M
+     evaluator at its real widths, 36 clips, a released-layout .pt from random UNet-XL
+     weights with a 50-step schedule in its args.json): one replication of one batch of
+     32, CFG 2.5; the verdict blocked_expected with the template's nulls; exact launches;
+ 39. parallel/ at world size 1 on NCCL: generate_eval_batch with a 1-rank mesh against the
+     call without (bit for bit), a data-parallel train step replayed from its two graphs
+     against the plain step replayed from its graph (bit for bit, 8 steps; their wall ms), the
+     tensor-parallel UNet-XL and MDM forwards on a 1x1 mesh against the plain forwards; one
+     card shows no more;
+ 40. a {"kernels": [...]} line (three kernels), the card line, and the final
      {"ok": true, ...}.
 
 Per-shape results also go to chiprun_out/chip_smoke.json (`python3 resblock_probe.py
@@ -3741,6 +3769,678 @@ def unconstrained_phase33(dev, card):
                 step_pair=pair)
 
 
+# --------------------------------------------------------------------------- #
+# phases 34-39: SMPL, joints2smpl, AMASS, the file-backed datasets, evals.parity,
+# parallel/ (all in float32, TF32 off)
+# --------------------------------------------------------------------------- #
+WORK = ROOT / ".chipwork"  # written and read here, not brought back (too large)
+SMPL_VERTICES = 6890  # SMPL's vertex count
+SMPL_TRAIN_STEPS = 3
+AMASS = dict(njoints=764, latent_dim=512, dim_mults=(2, 2, 2, 2), keyframe_conditioned=True,
+             pad_frames_to=128, cond_mode="no_cond")
+AMASS_BATCH, AMASS_FRAMES, AMASS_STEPS = 8, 128, 1000
+FILE_TRAIN_STEPS = 5
+PARITY_STEPS = 50  # the mock checkpoint's diffusion steps (the released model has 1000)
+TP_FORWARD_TOL = 1e-4  # |tp - plain| <= tol * (1 + |plain|): the row layers add their bias apart
+
+
+def smpl_phase34(dev, card):
+    """training_losses with the SMPL terms (rcxyz, fc; get_xyz a Rotation2xyz over a
+    6890-vertex synthetic body) on the action MDM at the a2m width, B=32, 60 frames,
+    dropout on: one step through the attention kernel against the plain path (loss,
+    every gradient), then SMPL_TRAIN_STEPS AdamW steps with exact launches, timed: host
+    enqueue and wall ms a step, and the profiler's device ms a step."""
+    from condmdi_tpu_torch.data.a2m import SyntheticA2MDataset
+    from condmdi_tpu_torch.diffusion import DiffusionConfig
+    from condmdi_tpu_torch.diffusion.gaussian import training_losses
+    from condmdi_tpu_torch.models.layers import TrainDraws
+    from condmdi_tpu_torch.models.mdm import MDM as MDMModel
+    from condmdi_tpu_torch.models.smpl import Rotation2xyz, SMPLModel, SMPLWrapper
+    from condmdi_tpu_torch.training.loop import (TrainConfig, clip_by_global_norm_, global_norm,
+                                                 make_optimizer)
+
+    B, T = A2M_BATCH, A2M_FRAMES
+    ds = SyntheticA2MDataset(size=B, num_frames=T, seed=0)
+    x0 = torch.from_numpy(np.stack([ds[i]["motion"] for i in range(B)])).to(dev)
+    y = {"action": torch.tensor([ds[i]["action"] for i in range(B)], device=dev)}
+    time_mask = torch.ones((B, T), dtype=torch.bool, device=dev)
+    body = SMPLModel.random_init(n_vertices=SMPL_VERTICES, seed=0, device=dev)
+    to_xyz = Rotation2xyz(SMPLWrapper(body))
+
+    def get_xyz(x):
+        return to_xyz(x.reshape(x.shape[0], x.shape[1], 25, 6), pose_rep="rot6d")
+
+    sched = schedule(1000).to(dev)
+    dcfg = DiffusionConfig(lambda_rcxyz=1.0, lambda_fc=1.0)
+    model = MDMModel(njoints=25, nfeats=6, latent_dim=512, ff_size=1024, num_layers=8,
+                     num_heads=4, cond_mode="action", num_actions=12, device=dev, seed=0).train()
+    tcfg = TrainConfig(lr=1e-4)
+    opt = make_optimizer(model.parameters(), tcfg)
+    params = list(model.parameters())
+
+    def step(gen):
+        t = torch.randint(0, 1000, (B,), generator=gen, device=dev)
+        noise = torch.randn(x0.shape, generator=gen, device=dev)
+        draws = TrainDraws(gen)
+        terms = training_losses(lambda x, tm: model(x, tm, y, draws=draws), sched, dcfg, x0, t,
+                                noise, time_mask, get_xyz=get_xyz)
+        loss = terms["loss"].mean()
+        opt.zero_grad()
+        loss.backward()
+        with torch.no_grad():
+            grads = [p.grad for p in params]
+            clip_by_global_norm_(grads, tcfg.grad_clip, global_norm(grads))
+            opt.step()
+        return loss.detach(), terms
+
+    # kernel against plain: one step from the same weights and draws, before the optimizer
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    pair = []
+    for swap in (contextlib.nullcontext, attention_swapped_for_plain):
+        model.load_state_dict(start)
+        gen = torch.Generator(dev).manual_seed(3)
+        with swap():
+            t = torch.randint(0, 1000, (B,), generator=gen, device=dev)
+            noise = torch.randn(x0.shape, generator=gen, device=dev)
+            draws = TrainDraws(gen)
+            terms = training_losses(lambda x, tm: model(x, tm, y, draws=draws), sched, dcfg, x0,
+                                    t, noise, time_mask, get_xyz=get_xyz)
+            model.zero_grad()
+            terms["loss"].mean().backward()
+        pair.append(dict(loss=float(terms["loss"].mean().detach()), terms={k: float(v.detach().mean())
+                                                                  for k, v in terms.items()},
+                         grads=parameter_leaves({k: p.grad.clone() for k, p in
+                                                 model.named_parameters()}, "mdm")))
+    k, p = pair
+    if not {"rcxyz_mse", "fc"} <= set(k["terms"]):
+        raise SystemExit(f"SMPL loss terms missing: {sorted(k['terms'])}")
+    loss_err = abs(k["loss"] - p["loss"])
+    g_errs = {n: float((k["grads"][n] - p["grads"][n]).norm()
+                       / p["grads"][n].norm().clamp(min=1e-30))
+              for n in p["grads"] if not n.endswith("[k]")}
+    worst = max(g_errs.items(), key=lambda kv: kv[1])
+    print(f"[smpl] MDM a2m width B={B} T={T} with rcxyz and fc over a {SMPL_VERTICES}-vertex body, "
+          f"one step kernel against plain: loss {k['loss']:.6f} vs {p['loss']:.6f} (|diff| "
+          f"{loss_err:.2e}, tol {TRAIN_LOSS_TOL:.0e} x (1+|plain|)); terms {k['terms']}; "
+          f"gradients |diff|/|plain| at most {worst[1]:.2e} ({worst[0]}, tol "
+          f"{TRAIN_GRAD_TOL:.0e}, {len(g_errs)} tensors)", flush=True)
+    if loss_err > TRAIN_LOSS_TOL * (1 + abs(p["loss"])) or worst[1] > TRAIN_GRAD_TOL \
+            or not np.isfinite(k["loss"]):
+        raise SystemExit("SMPL-loss step: the kernel path disagrees with the plain path")
+    model.load_state_dict(start)
+    del start, pair
+
+    gen = torch.Generator(dev).manual_seed(4)
+    losses, host, wall = [], [], []
+    torch.cuda.synchronize()
+    reset_counts()
+    for _ in range(SMPL_TRAIN_STEPS):
+        t0 = time.perf_counter()
+        loss, _ = step(gen)
+        host.append((time.perf_counter() - t0) * 1e3)  # the host's enqueue of the step
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+    launches = read_counts()
+    # the step launches more kernels than the launch queue holds, so its device time is
+    # the profiler's kernel time (two more steps, not counted above)
+    costs = step_costs(lambda: step(gen), profiler_time=True, n=2)
+    expect = 8 * SMPL_TRAIN_STEPS
+    print(f"[smpl] {SMPL_TRAIN_STEPS} AdamW steps: losses {[round(v, 5) for v in losses]}, host "
+          f"ms a step {[round(v, 2) for v in host]}, wall ms {[round(v, 2) for v in wall]}; a "
+          f"step's device time "
+          + (f"{costs['device_ms']:.3f} ms (profiler)" if costs["device_ms"] else "not measured")
+          + f", "
+          f"{costs['launch_calls']:.0f} launch calls; attention launches "
+          f"{launches['fused_self_attention']} (expected {expect}) [{card}]", flush=True)
+    if launches["fused_self_attention"] != expect or not np.isfinite(losses).all():
+        raise SystemExit("SMPL-loss training: wrong launch count or a non-finite loss")
+    del model, opt
+    return dict(loss_abs_err=loss_err, grad_max_rel_err=worst[1], grad_worst=worst[0],
+                terms_kernel=k["terms"], losses=losses, host_ms=host, wall_ms=wall,
+                launches=launches["fused_self_attention"], **costs)
+
+
+def joints2smpl_phase35(dev, card):
+    """render_mesh_cli on sample 0 of phase 15's gate conditional results.npy (196
+    frames) over a 6890-vertex synthetic body, FitConfig's 300 Adam steps replayed from
+    a CUDA graph; the same fit eagerly, bit for bit; the loss drop; the .obj files."""
+    import shutil
+
+    from condmdi_tpu_torch.models.smpl import SMPLModel
+    from condmdi_tpu_torch.viz.joints2smpl import (FitConfig, fit_loss, fit_smpl_to_joints,
+                                                   render_mesh_cli)
+
+    results = CLI_OUT / "gate" / "results.npy"
+    joints = np.load(results, allow_pickle=True).item()["joints"][0]
+    body = SMPLModel.random_init(n_vertices=SMPL_VERTICES, seed=0, device=dev)
+    target = torch.from_numpy(np.asarray(joints, np.float32)).to(dev)
+    cfg = FitConfig()
+    T = target.shape[0]
+    with torch.no_grad():
+        start = float(fit_loss(body, target, {"pose": torch.zeros((T, 24, 3), device=dev),
+                                              "trans": target[:, 0],
+                                              "betas": torch.zeros(10, device=dev)}, cfg))
+    fits, secs = {}, {}
+    for name, graphs in (("graphs", True), ("eager", False)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fits[name] = fit_smpl_to_joints(body, target, cfg, cuda_graphs=graphs)
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+    (pg, lg), (pe, le) = fits["graphs"], fits["eager"]
+    equal = torch.equal(lg, le) and all(torch.equal(pg[k], pe[k]) for k in pg)
+    out = WORK / "joints2smpl"
+    shutil.rmtree(out, ignore_errors=True)
+    t0 = time.perf_counter()
+    paths, loss = render_mesh_cli(str(results), str(out), 0, model=body)
+    cli_s = time.perf_counter() - t0
+    lines = paths[0].read_text().splitlines()
+    print(f"[joints2smpl] {T} frames, {cfg.num_steps} Adam steps over a {SMPL_VERTICES}-vertex body: "
+          f"loss {start:.5f} -> {float(lg):.5f}; graph-replayed fit {secs['graphs']:.2f} s, eager "
+          f"{secs['eager']:.2f} s, equal bit for bit: {equal}; render_mesh_cli {cli_s:.2f} s, "
+          f"{len(paths)} .obj files of {len(lines)} vertices, loss {loss:.5f} [{card}]",
+          flush=True)
+    if not (equal and float(lg) < start and len(paths) == T and len(lines) == SMPL_VERTICES
+            and abs(loss - float(lg)) <= 1e-6 * (1 + abs(loss)) and np.isfinite(loss)):
+        raise SystemExit("joints2smpl: the replayed fit differs from the eager one, or the fit "
+                         "did not lower the loss, or the mesh files are wrong")
+    return dict(frames=T, loss_start=start, loss_end=float(lg), graph_s=secs["graphs"],
+                eager_s=secs["eager"], graph_equals_eager=equal, render_s=cli_s,
+                obj_files=len(paths))
+
+
+def amass_phase36(dev, card):
+    """UNet-XL with AMASS's 764 features, keyframe-conditioned (first half Cin 1528),
+    pad 128, B=8 (no text: no CFG): SyntheticAMASSDataset clips under a joint-level
+    keyframe mask expanded by amass_joint_to_full_mask, the 1000-step DDPM replayed
+    from graphs with exact launches; DDIM-20 kernel against plain; every resblock shape
+    per call against plain (f32 timed, the new first-half shape also in bf16 at B = 8,
+    1, 3); fields_from_poses and dict_to_xyz on the card against the CPU."""
+    from condmdi_tpu_torch.data.amass import SyntheticAMASSDataset, amass_joint_to_full_mask
+    from condmdi_tpu_torch.data.amass_fk import ForwardKinematics, dict_to_xyz, fields_from_poses
+    from condmdi_tpu_torch.models.unet import MDM_UNET
+
+    B, T = AMASS_BATCH, AMASS_FRAMES
+    model = perturbed(MDM_UNET(**AMASS, zero=False, device=dev, seed=0), dev, torch.float32)
+    ds = SyntheticAMASSDataset(size=B, seed=0)
+    obs = torch.from_numpy(np.stack([ds[i]["motion"] for i in range(B)])).to(dev)
+    joint_mask = np.zeros((B, T, 24), bool)
+    joint_mask[:, ::16] = True  # every 16th frame whole
+    joint_mask[:, 8::16, :4] = True  # and the root and hips between them
+    mask = torch.from_numpy(amass_joint_to_full_mask(joint_mask)).to(dev)
+    shape = (B, T, 764)
+
+    pipe = pipeline(model, schedule(AMASS_STEPS), dev)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    sample = pipe.sample(shape, {}, obs_x0=obs, obs_mask=mask,
+                         generator=torch.Generator(dev).manual_seed(1))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_counts()["fused_conv_gn_mish"]
+    expect = 33 * AMASS_STEPS
+    print(f"[amass] UNet-XL 764 features, keyframes ({int(mask.sum())} observed entries), "
+          f"{AMASS_STEPS}-step DDPM B={B} from graphs: {seconds:.2f} s, {B / seconds:.3f} "
+          f"samples/s; resblock launches {launches} (expected {expect}) [{card}]", flush=True)
+    if launches != expect or not torch.isfinite(sample).all():
+        raise SystemExit("AMASS sampling: wrong launch count or non-finite samples")
+    noise = seeded_noise(shape, dev, seed=9)
+    ddim = pipeline(model, schedule(20), dev, method="ddim")
+    err = kernel_vs_plain("amass", f"UNet-XL amass f32 DDIM-20 B={B}",
+                          lambda: ddim.sample(shape, {}, obs_x0=obs, obs_mask=mask, noise=noise),
+                          resblock_swapped_for_plain)
+
+    shapes = record_resblock_shapes(model, noise, torch.full((B,), 500, device=dev), {},
+                                    dict(obs_x0=obs, obs_mask=mask))
+    if sum(shapes.values()) != 33 or not any(k[0] == 1528 for k in shapes):
+        raise SystemExit(f"AMASS UNet: expected 33 halves with a Cin-1528 first one: {shapes}")
+    gen = torch.Generator().manual_seed(41)
+    first = next(k for k in shapes if k[0] == 1528)
+    bf16_err = max(kernel_against_plain(b, first[2], 1528, first[1], first[3], first[4], first[5],
+                                        torch.bfloat16, BF16_TOL, gen, dev) for b in (B, 1, 3))
+    rows = f32_resblock_rows("UNet-XL amass pad 128", shapes, B, dev)
+    first_row = next(r for r in rows["rows"] if r["cin"] == 1528)
+
+    # the 764-d fields on the card against the CPU
+    rng = np.random.default_rng(2)
+    poses = np.cumsum(0.05 * rng.standard_normal((B, T, 24, 3)), axis=1).astype(np.float32)
+    trans = np.cumsum(0.02 * rng.standard_normal((B, T, 3)), axis=1).astype(np.float32)
+    fk = ForwardKinematics()
+    got = fields_from_poses(torch.from_numpy(poses).to(dev), torch.from_numpy(trans).to(dev), fk)
+    want = fields_from_poses(torch.from_numpy(poses), torch.from_numpy(trans), fk)
+    height = torch.from_numpy(rng.standard_normal((B, T, 24)).astype(np.float32))
+    xyz_got = dict_to_xyz(dict(got, height=height.to(dev)))
+    xyz_want = dict_to_xyz(dict(want, height=height))
+    field_err = max(float((got[k].cpu() - want[k]).abs().max() / (1 + want[k].abs().max()))
+                    for k in want)
+    xyz_err = float((xyz_got.cpu() - xyz_want).abs().max())
+    print(f"[amass] fields_from_poses B={B} T={T} on the card against the CPU: max relative "
+          f"difference {field_err:.2e}; dict_to_xyz {xyz_err:.2e} (tol 1e-4)", flush=True)
+    if field_err > 1e-4 or xyz_err > 1e-4 * (1 + float(xyz_want.abs().max())):
+        raise SystemExit("AMASS fields: the card disagrees with the CPU")
+    del model, pipe, ddim
+    return dict(launches=launches, seconds=seconds, samples_per_s=B / seconds,
+                ddim20_max_abs_err=err, first_half_bf16_max_abs_err=bf16_err,
+                resblock_rows=rows, first_half=first_row, fields_max_rel_err=field_err,
+                xyz_max_abs_err=xyz_err)
+
+
+def write_text2motion_tree(root: Path, n: int, frames: int, dev, kit=False) -> Path:
+    """A HumanML3D (263 features, abs-root and relative) or KIT (251, random) tree of
+    n clips with a base caption and a tagged sub-clip each, and its train split."""
+    from condmdi_tpu_torch.data import dataset as tds
+
+    texts = root / "texts"
+    texts.mkdir(parents=True, exist_ok=True)
+    names = [f"{i:06d}" for i in range(n)]
+    if kit:
+        rng = np.random.default_rng(5)
+        sets = {"new_joint_vecs": rng.standard_normal((n, frames, 251)).astype(np.float32)}
+    else:
+        sets = {sub: tds.SyntheticMotionDataset._make_items(
+            tds.DatasetConfig(abs_3d=abs_3d), 4, n, frames + 1, dev)[0]
+            for abs_3d, sub in ((False, "new_joint_vecs"), (True, "new_joint_vecs_abs_3d"))}
+    for sub, feats in sets.items():
+        (root / sub).mkdir(exist_ok=True)
+        for name, f in zip(names, feats):
+            np.save(root / sub / f"{name}.npy", f)
+    for name in names:
+        (texts / f"{name}.txt").write_text(
+            "a person walks forward#a/DET person/NOUN walk/VERB forward/ADV#0.0#0.0\n"
+            "a person stops#a/DET person/NOUN stop/VERB#1.0#3.5\n")
+    (root / "train.txt").write_text("\n".join(names) + "\n")
+    return root
+
+
+def datasets_phase37(dev, card):
+    """The file-backed datasets: a HumanML3D tree and a KIT tree written here from
+    the synthetic set (tagged captions); training.train through main on the
+    HumanML3D tree (UNet-XL keyframe card, B=16, FILE_TRAIN_STEPS steps) with
+    --use_random_proj true --augment_type full, exact launches; a KIT batch."""
+    import shutil
+
+    from condmdi_tpu_torch.data.dataset import (DatasetConfig, Text2MotionDataset, collate)
+
+    root = WORK / "text2motion"
+    shutil.rmtree(root, ignore_errors=True)
+    hml = write_text2motion_tree(root / "HumanML3D", 40, 120, dev)
+    kit = write_text2motion_tree(root / "KIT-ML", 12, 80, dev, kit=True)
+    kit_ds = Text2MotionDataset(DatasetConfig(name="kit", data_dir=str(kit), split="train"))
+    np.random.seed(0)
+    kit_batch = collate([kit_ds[i] for i in range(8)], 196)
+    argv = ["--config", "motion_abs_unet_adagn_xl", "--keyframe_conditioned", "true",
+            "--batch_size", "16", "--num_steps", str(FILE_TRAIN_STEPS), "--save_interval", "100",
+            "--log_interval", "1", "--data_dir", str(hml), "--use_random_proj", "true",
+            "--augment_type", "full", "--text_encoder", "hash", "--seed", "10"]
+    out_dir = TRAIN_OUT / "humanml_files"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    loop, seconds, launches = run_train(argv, out_dir, "UNet-XL on the HumanML3D tree",
+                                        ("fused_conv_gn_mish", 33 * FILE_TRAIN_STEPS))
+    ds = loop.data_loader.dataset
+    losses = [r["loss"] for r in progress_rows(out_dir)]
+    tagged = sum(e["span"] is not None for e in ds.entries)
+    print(f"[data] HumanML3D tree: {len(ds)} entries ({tagged} tagged sub-clips), random "
+          f"projection {ds.rand_proj is not None}, augment {ds.cfg.augment_type}; "
+          f"{FILE_TRAIN_STEPS} steps in {seconds:.2f} s, losses {[round(v, 4) for v in losses]}; "
+          f"KIT tree: {len(kit_ds)} entries, a batch {kit_batch['motion'].shape} [{card}]",
+          flush=True)
+    if not (isinstance(ds, Text2MotionDataset) and ds.rand_proj is not None and tagged == 40
+            and len(losses) == FILE_TRAIN_STEPS and np.isfinite(losses).all()
+            and kit_batch["motion"].shape == (8, 196, 251)):
+        raise SystemExit("file-backed datasets: the run did not read the tree as asked")
+    drop_checkpoints(out_dir)
+    del loop
+    return dict(entries=len(ds), tagged=tagged, launches=launches["fused_conv_gn_mish"],
+                seconds=seconds, losses=losses, kit_entries=len(kit_ds))
+
+
+def parity_phase38(dev, card):
+    """evals.parity through its main on mock assets written here (GloVe over a few
+    words, a T2M evaluator at its real widths, a HumanML3D tree of 36 clips, a
+    released-layout model000750000.pt from random UNet-XL weights, keyframe and text
+    conditioned, with PARITY_STEPS diffusion steps in its args.json): one replication
+    of one batch of 32 under CFG 2.5; the verdict blocked_expected with the template's
+    nulls; exact launches."""
+    import os
+    import shutil
+
+    from condmdi_tpu_torch.evals import parity
+    from condmdi_tpu_torch.models.unet import MDM_UNET
+
+    root = WORK / "parity"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    write_mock_evaluator_assets(root)
+    write_mock_humanml(root, device=dev)
+    model = perturbed(MDM_UNET(**{**XL, "pad_frames_to": 224}, zero=False, device=dev, seed=0),
+                      dev, torch.float32)
+    write_reference_checkpoint(
+        root / "save" / "condmdi_randomframes" / "model000750000.pt", model,
+        dict(arch="unet", latent_dim=XL["latent_dim"], dim_mults=list(XL["dim_mults"]),
+             diffusion_steps=PARITY_STEPS,
+             keyframe_conditioned=True, abs_3d=True, num_frames=T_FRAMES, unet_adagn=True,
+             unet_zero=False, unet_pad_to=224))
+    del model
+    cwd = os.getcwd()
+    os.chdir(root)
+    try:
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        out = parity.main(["--num_samples", "32", "--max_replications", "1",
+                           "--output_dir", str(EVAL_OUT / "parity")], device=dev)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = read_counts()["fused_conv_gn_mish"]
+    finally:
+        os.chdir(cwd)
+    expect = 33 * PARITY_STEPS
+    print(f"[parity] evals.parity on mock assets: verdict {out['status']}, rows "
+          f"{[(r[0], round(r[1], 4), r[2]) for r in out.get('rows', [])]}; {seconds:.2f} s; "
+          f"resblock launches {launches} (expected {expect}) [{card}]", flush=True)
+    if out["status"] != "blocked_expected" or launches != expect or \
+            any(r[2] is not None or not np.isfinite(r[1]) for r in out["rows"]):
+        raise SystemExit("evals.parity on mocks: wrong verdict, rows or launch count")
+    return dict(status=out["status"], rows=[list(r) for r in out["rows"]], seconds=seconds,
+                launches=launches)
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def parallel_phase39(dev, card):
+    """parallel/ at world size 1 on NCCL (one card shows no more): generate_eval_batch
+    with a 1-rank mesh against the call without (UNet-XL, B=8, CFG 2.5, a 20-step DDPM
+    from graphs) bit for bit; a data-parallel train step (BufferedTrainStep: two graphs,
+    the all-reduce between them on the host) against the plain step replayed from its
+    graph, 8 steps, bit for bit, and the replayed steps' wall ms;
+    the tensor-parallel forward on a 1x1 mesh against the plain forward (UNet-XL and
+    MDM, within TP_FORWARD_TOL), with their launches."""
+    import torch.distributed as dist
+
+    from condmdi_tpu_torch.data.dataset import DatasetConfig, SyntheticMotionDataset, collate
+    from condmdi_tpu_torch.diffusion import DiffusionConfig
+    from condmdi_tpu_torch.evals.harness import EvalConfig, generate_eval_batch
+    from condmdi_tpu_torch.models.text import HashTextEncoder
+    from condmdi_tpu_torch.models.unet import MDM_UNET
+    from condmdi_tpu_torch.parallel import (initialize_distributed, make_mesh, make_mesh_2d,
+                                            tensor_parallel)
+    from condmdi_tpu_torch.training.loop import (StepDraws, TrainConfig, create_train_state,
+                                                 make_train_step)
+
+    initialize_distributed(init_method=f"tcp://localhost:{free_port()}", world_size=1, rank=0,
+                           backend="nccl")
+    out = {}
+    try:
+        mesh = make_mesh()
+        B = 8
+        model = build_xl(dev, torch.float32)
+        pipe = pipeline(model, schedule(20), dev)
+        rel = SyntheticMotionDataset(DatasetConfig(max_motion_length=T_FRAMES, abs_3d=False),
+                                     size=B, seed=1, device=dev)
+        ab = SyntheticMotionDataset(DatasetConfig(max_motion_length=T_FRAMES, abs_3d=True),
+                                    size=B, seed=1, device=dev)
+        np.random.seed(0)
+        batch = collate([rel[i] for i in range(B)], T_FRAMES, HashTextEncoder())
+        cfg = EvalConfig(guidance_param=GUIDANCE, max_frames=T_FRAMES, batch_size=B)
+        gens, counts = [], []
+        for m in (None, mesh):
+            reset_counts()
+            gens.append(generate_eval_batch(pipe, batch, 3, cfg, ab.stats, rel.stats, mesh=m))
+            torch.cuda.synchronize()
+            counts.append(read_counts()["fused_conv_gn_mish"])
+        same = all(np.array_equal(getattr(gens[0], f), getattr(gens[1], f))
+                   for f in ("motions_rel", "dist_error", "keyframe_error", "skate_ratio",
+                             "num_keyframes"))
+        print(f"[parallel] NCCL world size 1: generate_eval_batch (UNet-XL B={B}, CFG "
+              f"{GUIDANCE}, 20-step DDPM) with a 1-rank mesh equals it without, bit for bit: "
+              f"{same}; resblock launches {counts} (expected {33 * 20} each)", flush=True)
+        if not same or counts != [33 * 20, 33 * 20]:
+            raise SystemExit("data-parallel generation at world size 1 differs from the plain run")
+        out["generate_eval_batch_bit_exact"] = same
+        del pipe
+
+        # the train step
+        sched = schedule(1000).to(dev)
+        tcfg = TrainConfig(lr=1e-4, keyframe_conditioned=True)
+        motion = torch.from_numpy(batch["motion"]).to(dev)
+        tb = {"motion": motion, "time_mask": torch.from_numpy(batch["time_mask"]).to(dev),
+              "lengths": torch.from_numpy(batch["lengths"]).long().to(dev),
+              "lengths_host": torch.from_numpy(batch["lengths"]).long(),
+              "text_embed": torch.from_numpy(batch["text_embed"]).to(dev)}
+        runs, step_counts, graph_counts, replay_ms = [], [], [], []
+        n_steps = 8  # eager, captured, replayed 6 times
+        with deterministic_cudnn():
+            for m in (None, mesh):
+                net = MDM_UNET(**XL, zero=False, device=dev, seed=0).train()
+                state = create_train_state(net, tcfg, sched)
+                step = make_train_step(net, sched, DiffusionConfig(), tcfg, mesh=m)
+                draws = StepDraws(torch.Generator(dev).manual_seed(5),
+                                  torch.Generator().manual_seed(6))
+                reset_counts()
+                losses, ms = [], []
+                for _ in range(n_steps):
+                    t0 = time.perf_counter()
+                    losses.append(float(step(state, tb, draws)["loss"]))  # a sync a step
+                    ms.append((time.perf_counter() - t0) * 1e3)
+                torch.cuda.synchronize()
+                replay_ms.append(float(np.mean(ms[2:])))
+                step_counts.append(read_counts()["fused_conv_gn_mish"])
+                graphs = [g for g in (step.graph, getattr(step, "update_graph", None)) if g]
+                graph_counts.append([(g.captures, g.replays) for g in graphs])
+                runs.append((losses, {k: v.detach().clone() for k, v in state.params.items()},
+                             {k: v.clone() for k, v in state.ema.items()}, type(step).__name__))
+                del net, state, step, graphs
+        exact = runs[0][0] == runs[1][0] and all(
+            torch.equal(runs[0][i][k], runs[1][i][k]) for i in (1, 2) for k in runs[0][1])
+        print(f"[parallel] a data-parallel train step ({runs[1][3]}, UNet-XL B={B}; its forward "
+              f"and backward, then its update, replayed from graphs with the all-reduce between "
+              f"them) against the plain one replayed from its graph, {n_steps} steps: losses "
+              f"{runs[1][0]} vs {runs[0][0]}, parameters and EMA bit for bit: {exact}; graphs "
+              f"(captures, replays) {graph_counts[1]} vs {graph_counts[0]}; resblock launches "
+              f"{step_counts} (expected {33 * n_steps} each); a replayed step (wall, synced) "
+              f"{replay_ms[1]:.3f} ms vs {replay_ms[0]:.3f} ms [{card}]", flush=True)
+        want_graphs = [[(1, n_steps - 2)], [(1, n_steps - 2)] * 2]
+        if not exact or step_counts != [33 * n_steps] * 2 or graph_counts != want_graphs or \
+                runs[1][3] != "BufferedTrainStep":
+            raise SystemExit("the data-parallel train step differs from the plain one")
+        out["train_step_bit_exact"] = exact
+        out["train_step_replay_ms"] = {"dp": replay_ms[1], "plain": replay_ms[0]}
+        del runs
+
+        # the tensor-parallel forward on a 1x1 mesh
+        mesh2 = make_mesh_2d(1, 1)
+        text, obs, mask = keyframe_inputs(B, 4)
+        x = seeded_noise((B, T_FRAMES, FEATS), dev, seed=12)
+        t = torch.arange(B, device=dev) * 97
+        y = {"text_embed": text.to(dev)}
+        kw = dict(obs_x0=obs.to(dev), obs_mask=mask.to(dev))
+        mdm = build_mdm(dev, torch.float32)
+        for label, net, args, kernel, per in (("UNet-XL", model, kw, "fused_conv_gn_mish", 33),
+                                              ("MDM", mdm, {}, "fused_self_attention", 8)):
+            tpm = tensor_parallel(net, mesh2)
+            with torch.no_grad():
+                reset_counts()
+                got = tpm(x, t, y, **args)
+                torch.cuda.synchronize()
+                n = read_counts()[kernel]
+                want = net(x, t, y, **args)
+            err = float((got - want).abs().max())
+            scale = float(want.abs().max())
+            print(f"[parallel] tensor-parallel {label} forward on a 1x1 mesh against the plain "
+                  f"forward: max|diff| {err:.3e} (tol {TP_FORWARD_TOL:.0e} x (1+{scale:.3f})); "
+                  f"{kernel} launches {n} (expected {per})", flush=True)
+            if err > TP_FORWARD_TOL * (1 + scale) or n != per or not torch.isfinite(got).all():
+                raise SystemExit(f"tensor-parallel {label} forward differs from the plain one")
+            out[f"tp_{label}_forward_max_abs_err"] = err
+            del tpm
+        del model, mdm
+    finally:
+        dist.destroy_process_group()
+    print(f"[parallel] one card shows world size 1 only: the collectives run (NCCL all-reduce "
+          f"and all-gather of one rank) but split nothing [{card}]", flush=True)
+    return out
+
+
+# --------------------------------------------------------------------------- #
+# phase 38's mock assets (also written by tests/test_torch_parity.py on the CPU)
+# --------------------------------------------------------------------------- #
+GLOVE_WORDS = ("sos", "eos", "unk", "a", "person", "walks")
+
+
+def reference_unet_state_dict(params: dict) -> dict:
+    """A Flax UNet tree ({"params": ...}, models/factory.py's layout) in the reference
+    MDM_UNET .pt layout: the inverse of utils/checkpoint.convert_unet_state_dict,
+    which reads it back."""
+    p = params["params"]
+    sd = {}
+
+    def put(name, value):
+        sd[name] = torch.from_numpy(np.ascontiguousarray(np.asarray(value, np.float32)))
+
+    def dense(pre, d):
+        put(f"{pre}.weight", np.asarray(d["kernel"]).T)
+        put(f"{pre}.bias", d["bias"])
+
+    def conv(pre, d):
+        put(f"{pre}.weight", np.asarray(d["kernel"]).transpose(2, 1, 0))
+        put(f"{pre}.bias", d["bias"])
+
+    def norm(pre, d):
+        put(f"{pre}.weight", d["scale"])
+        put(f"{pre}.bias", d["bias"])
+
+    def res_block(pre, d):
+        dense(f"{pre}.time_mlp.1", d["time_mlp"])
+        conv(f"{pre}.blocks.1.block.0", d["block2"]["conv"])
+        norm(f"{pre}.blocks.1.block.2", d["block2"]["norm"])
+        conv(f"{pre}.blocks.0.block1.0", d["block1"]["conv"])
+        norm(f"{pre}.blocks.0.block1.2", d["block1"]["norm"])
+        if "residual_conv" in d:
+            conv(f"{pre}.residual_conv", d["residual_conv"])
+
+    dense("embed_timestep.time_embed.0", p["embed_timestep"]["fc1"])
+    dense("embed_timestep.time_embed.2", p["embed_timestep"]["fc2"])
+    if "embed_text" in p:
+        dense("embed_text", p["embed_text"])
+    u = p["unet"]
+    dense("unet.time_mlp.0", u["time_fc1"])
+    dense("unet.time_mlp.2", u["time_fc2"])
+    n_levels = sum(1 for k in u if k.startswith("down") and k.endswith("_res1"))
+    for i in range(n_levels):
+        res_block(f"unet.downs.{i}.0", u[f"down{i}_res1"])
+        res_block(f"unet.downs.{i}.1", u[f"down{i}_res2"])
+        if f"down{i}_downsample" in u:
+            conv(f"unet.downs.{i}.3.conv", u[f"down{i}_downsample"])
+    res_block("unet.mid_block1", u["mid_block1"])
+    res_block("unet.mid_block2", u["mid_block2"])
+    for i in range(n_levels - 1):
+        res_block(f"unet.ups.{i}.0", u[f"up{i}_res1"])
+        res_block(f"unet.ups.{i}.1", u[f"up{i}_res2"])
+        if f"up{i}_upsample" in u:
+            d = u[f"up{i}_upsample"]  # Flax ConvTranspose [k, in, out], flipped along k
+            put(f"unet.ups.{i}.3.conv.weight", np.asarray(d["kernel"])[::-1].transpose(1, 2, 0))
+            put(f"unet.ups.{i}.3.conv.bias", d["bias"])
+    conv("unet.final_conv.0.block.0", u["final_block"]["conv"])
+    norm("unet.final_conv.0.block.2", u["final_block"]["norm"])
+    conv("unet.final_conv.1", u["final_conv"])
+    return sd
+
+
+def write_reference_checkpoint(path: Path, model, model_args: dict) -> Path:
+    """The model's weights as a released-layout model####.pt ({"model", "model_avg"})
+    with its args.json beside it."""
+    from condmdi_tpu_torch.weights import to_flax_params
+
+    sd = reference_unet_state_dict(to_flax_params(model.state_dict()))
+    path.parent.mkdir(parents=True, exist_ok=True)
+    torch.save({"model": sd, "model_avg": sd}, path)
+    (path.parent / "args.json").write_text(json.dumps(model_args))
+    return path
+
+
+def write_mock_evaluator_assets(root: Path, seed: int = 0) -> None:
+    """GloVe files over a few words and a T2M evaluator finest.tar with the
+    reference's state-dict layout at its real widths, random."""
+    import pickle
+
+    g = root / "glove"
+    g.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    np.save(g / "our_vab_data.npy", rng.standard_normal((len(GLOVE_WORDS), 300)).astype(np.float32))
+    with open(g / "our_vab_words.pkl", "wb") as fh:
+        pickle.dump(list(GLOVE_WORDS), fh)
+    with open(g / "our_vab_idx.pkl", "wb") as fh:
+        pickle.dump({w: i for i, w in enumerate(GLOVE_WORDS)}, fh)
+
+    gen = torch.Generator().manual_seed(seed)
+
+    def w(*shape):
+        return torch.randn(*shape, generator=gen) * 0.02
+
+    def bigru(inp, hid, out_in, out_hid, pos=None):
+        sd = {"input_emb.weight": w(hid, inp), "input_emb.bias": w(hid),
+              "gru.weight_ih_l0": w(3 * hid, hid), "gru.weight_hh_l0": w(3 * hid, hid),
+              "gru.bias_ih_l0": w(3 * hid), "gru.bias_hh_l0": w(3 * hid),
+              "gru.weight_ih_l0_reverse": w(3 * hid, hid),
+              "gru.weight_hh_l0_reverse": w(3 * hid, hid),
+              "gru.bias_ih_l0_reverse": w(3 * hid), "gru.bias_hh_l0_reverse": w(3 * hid),
+              "hidden": w(2, 1, hid),
+              "output_net.0.weight": w(out_hid, 2 * hid), "output_net.0.bias": w(out_hid),
+              "output_net.1.weight": torch.ones(out_hid), "output_net.1.bias": w(out_hid),
+              "output_net.3.weight": w(out_in, out_hid), "output_net.3.bias": w(out_in)}
+        if pos is not None:
+            sd["pos_emb.weight"], sd["pos_emb.bias"] = w(pos[1], pos[0]), w(pos[1])
+        return sd
+
+    t = root / "t2m" / "text_mot_match" / "model"
+    t.mkdir(parents=True, exist_ok=True)
+    torch.save({"movement_encoder": {"main.0.weight": w(512, 259, 4), "main.0.bias": w(512),
+                                     "main.3.weight": w(512, 512, 4), "main.3.bias": w(512),
+                                     "out_net.weight": w(512, 512), "out_net.bias": w(512)},
+                "motion_encoder": bigru(512, 1024, 512, 1024),
+                "text_encoder": bigru(300, 512, 512, 512, pos=(15, 300))},
+               t / "finest.tar")
+
+
+def write_mock_humanml(root: Path, n: int = 36, frames: int = 64, device="cpu") -> Path:
+    """A HumanML3D tree of n clips (relative and abs-root features from the
+    synthetic set's codec, one caption each), its test split and the stats files
+    (the synthetic population's)."""
+    from condmdi_tpu_torch.data import dataset as tds
+
+    d = root / "dataset" / "HumanML3D"
+    texts = d / "texts"
+    texts.mkdir(parents=True, exist_ok=True)
+    names = [f"{i:06d}" for i in range(n)]
+    for abs_3d, sub in ((False, "new_joint_vecs"), (True, "new_joint_vecs_abs_3d")):
+        feats, _ = tds.SyntheticMotionDataset._make_items(
+            tds.DatasetConfig(abs_3d=abs_3d), 3, n, frames + 1, torch.device(device))
+        (d / sub).mkdir(exist_ok=True)
+        for name, f in zip(names, feats):
+            np.save(d / sub / f"{name}.npy", f)
+    for name in names:
+        (texts / f"{name}.txt").write_text("a person walks#a/DET person/NOUN walks/VERB##\n")
+    (d / "test.txt").write_text("\n".join(names) + "\n")
+    stats = {k: np.load(ROOT / "condmdi_tpu_torch" / "data" / f"synthetic_stats_{k}.npz")
+             for k in ("rel", "abs")}
+    (root / "dataset" / "HumanML3D_abs").mkdir(exist_ok=True)
+    np.save(d / "Mean.npy", stats["rel"]["mean"])
+    np.save(d / "Std.npy", stats["rel"]["std"])
+    np.save(root / "dataset" / "t2m_mean.npy", stats["rel"]["mean"])
+    np.save(root / "dataset" / "t2m_std.npy", stats["rel"]["std"])
+    np.save(root / "dataset" / "HumanML3D_abs" / "Mean_abs_3d.npy", stats["abs"]["mean"])
+    np.save(root / "dataset" / "HumanML3D_abs" / "Std_abs_3d.npy", stats["abs"]["std"])
+    return d
+
+
 def build_kernels() -> list[str]:
     """Build the three sources at once (one nvcc each) and print ptxas' register
     and spill lines and any note that it serialised wgmma."""
@@ -3859,6 +4559,12 @@ def main() -> int:
     unc31 = phase("31 evals.run_unconstrained", unconstrained_phase31, dev, card)
     var32 = phase("32 model variants", variants_phase32, dev, card)
     unc33 = phase("33 UNet-XL unconstrained training", unconstrained_phase33, dev, card)
+    smpl34 = phase("34 SMPL losses in training", smpl_phase34, dev, card)
+    fit35 = phase("35 joints2smpl", joints2smpl_phase35, dev, card)
+    amass36 = phase("36 AMASS", amass_phase36, dev, card)
+    data37 = phase("37 file-backed datasets", datasets_phase37, dev, card)
+    parity38 = phase("38 evals.parity on mock assets", parity_phase38, dev, card)
+    par39 = phase("39 parallel/ at world size 1", parallel_phase39, dev, card)
     print("[time] host seconds by phase: "
           + ", ".join(f"{k} {v:.1f}" for k, v in phase_seconds.items())
           + f"; {sum(phase_seconds.values()):.1f} in all", flush=True)
@@ -3951,6 +4657,26 @@ def main() -> int:
         "unconstrained_train_step_loss_abs_err": unc33["step_pair"]["loss_abs_err"],
         "unconstrained_train_after_step_max_rel_err":
             unc33["step_pair"]["after_step"]["max_rel_err"],
+        # AMASS (phase 36): UNet-XL with 764 features, keyframes (first half Cin 1528), pad
+        # 128, B=8: launches of the 1000-step DDPM, kernel against plain at DDIM-20, the
+        # first half per call (f32 timed, bf16 checked) and all 33 halves summed
+        "amass_launches": amass36["launches"],
+        "amass_ddim20_max_abs_err_f32": amass36["ddim20_max_abs_err"],
+        "amass_first_half_max_abs_err_bf16": amass36["first_half_bf16_max_abs_err"],
+        "amass_first_half_f32": {k: amass36["first_half"][k]
+                                 for k in ("cin", "cout", "T", "B", "max_abs_err_f32", "ms",
+                                           "plain_ms", "library_ms", "bound_ms", "bound_by",
+                                           "host_ms")},
+        "amass_f32_ms": {k: amass36["resblock_rows"][k]
+                         for k in ("halves", "ms", "plain_ms", "library_ms", "bound_ms",
+                                   "host_ms_per_call")},
+        # the file-backed HumanML3D training (phase 37), evals.parity on mocks (phase 38)
+        "file_dataset_train_launches": data37["launches"],
+        "parity_launches": parity38["launches"],
+        # parallel/ at world size 1 on NCCL (phase 39)
+        "dp_generate_eval_batch_bit_exact": par39["generate_eval_batch_bit_exact"],
+        "dp_train_step_bit_exact": par39["train_step_bit_exact"],
+        "tp_1x1_forward_max_abs_err_f32": par39["tp_UNet-XL_forward_max_abs_err"],
     }, {
         "name": "fused_self_attention",
         "route": "cuda",
@@ -3999,6 +4725,11 @@ def main() -> int:
                        for r in a2m30["attention_rows"]],
         "large_forward_max_abs_err_f32": var32["large_forward_max_abs_err"],
         "large_ddim20_max_abs_err_f32": var32["large_ddim20_max_abs_err"],
+        # training with the SMPL losses (phase 34): the a2m MDM at B=32, T=60 under autograd
+        "smpl_train_launches": smpl34["launches"],
+        "smpl_train_step_loss_abs_err": smpl34["loss_abs_err"],
+        "smpl_train_step_grad_max_rel_err": smpl34["grad_max_rel_err"],
+        "tp_1x1_forward_max_abs_err_f32": par39["tp_MDM_forward_max_abs_err"],
     }, {
         "name": "int8_conv1d",
         "route": "cuda",
@@ -4065,6 +4796,8 @@ def main() -> int:
                  "plms": plms28},
          "a2m": {"humanact12": a2m29, "uestc_and_default": a2m30, "unconstrained": unc31,
                  "variants": var32, "unconstrained_training": unc33},
+         "rest": {"smpl_losses": smpl34, "joints2smpl": fit35, "amass": amass36,
+                  "file_datasets": data37, "parity": parity38, "parallel": par39},
          "phase_seconds": phase_seconds,
          "previous_ms_from_perf_md": dict(previous, f32_resblock=PREV_F32_RESBLOCK_MS,
                                           f32_attention=PREV_F32_ATTENTION_MS)}, indent=1))

@@ -1,20 +1,34 @@
-"""The synthetic text-to-motion dataset, its collation and loader, and the HumanML3D guard.
+"""Text-to-motion datasets: HumanML3D / KIT from their files, the synthetic set,
+collation and the loader.
 
 Counterpart of condmdi_tpu/data/dataset.py for `DatasetConfig`,
-`synthetic_captions`, `SyntheticMotionDataset`, `apply_augmentation`,
-`collate`, `DataLoader`, `PrefetchIterator` and `get_dataset_loader`
-(`NormStats` lives in utils/assets.py and is imported here for the callers that
-take it from this module). The same seeds give the same
-items: each item draws from `default_rng((seed, i))`, its captions from
-`default_rng((seed, i, 7))`, and `__getitem__` draws its crop and its caption
-from the global `np.random` in the same order as JAX. Forward kinematics and
-the feature codec run on the device the dataset is given.
+`Text2MotionDataset`, `TextOnlyDataset`, `apply_augmentation`,
+`synthetic_captions`, `SyntheticMotionDataset`, `collate`, `DataLoader`,
+`PrefetchIterator` and `get_dataset_loader` (`NormStats` lives in
+utils/assets.py and is imported here for the callers that take it from this
+module).
 
-The file-backed HumanML3D dataset is not ported (ROADMAP Queue A 8).
-`Text2MotionDataset` keeps the JAX package's existence test, so a caller that
-falls back to the synthetic set on FileNotFoundError behaves as JAX's does
-where the files are absent, and raises NotImplementedError where they are
-present instead of quietly serving synthetic data.
+`Text2MotionDataset` reads the reference's tree (reference
+Text2MotionDatasetV2, dataset.py:231): per-clip .npy features and
+texts/*.txt lines "caption#tokens#f_tag#to_tag", tagged sub-clips at 20 fps,
+the length filter [min_len, 200), then per item a random caption, a crop to
+unit-length multiples with the single/single/double coin (:434-447), the
+trajectory-only slice (:450), rot/full augmentation (:453-474),
+drop_redundant (:476), z-normalisation with std_scale_shift (:481-483) and
+the random projection outside 'eval'/'gt' (:487). The caption and crop come
+from the global `random` and `np.random` in the JAX package's order, so a
+seeded run draws the same items. The sub-clip length filter keeps the JAX
+package's reading: it measures every tagged line by the tags of the last line
+parsed (ROADMAP Queue C 7). Where the split file is absent it raises
+FileNotFoundError, and `get_dataset_loader` and the CLIs fall back to the
+synthetic set.
+
+The synthetic set: the same seeds give the same items: each item draws from
+`default_rng((seed, i))`, its captions from `default_rng((seed, i, 7))`, and
+`__getitem__` draws its crop and its caption from the global `np.random` in
+the same order as JAX. Forward kinematics and the feature codec run on the
+device the dataset is given. Both datasets keep their items on the host;
+`normalize`/`denormalize` take numpy arrays or tensors.
 
 Synthetic sets of 512 items or more are cached on disk, as the JAX package
 does, under $CONDMDI_SYNTH_CACHE (default ~/.cache/condmdi_synth) in a
@@ -25,57 +39,174 @@ the device type the features were computed on.
 from __future__ import annotations
 
 import os
+import random
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Iterator, Sequence
+from typing import Iterator, Optional, Sequence
 
 import numpy as np
 import torch
 
 from condmdi_tpu_torch.device import resolve_device
-from condmdi_tpu_torch.utils.assets import NormStats
+from condmdi_tpu_torch.utils.assets import NormStats, load_norm_stats
 
 _STATS_DIR = Path(__file__).resolve().parent
 
 
+HML_DIM = 263
+
+
 @dataclass
 class DatasetConfig:
-    """The fields of the JAX package's DatasetConfig that the synthetic set, the
-    loader and the HumanML3D guard read (the others configure the file-backed
-    dataset, which is not ported)."""
-
     name: str = "humanml"
     data_dir: str = ""
     split: str = "train"
+    hml_mode: str = "train"  # train | eval | gt | text_only
     max_motion_length: int = 196
+    min_motion_length: int = 40
     unit_length: int = 4
     abs_3d: bool = False
     traject_only: bool = False
+    use_random_projection: bool = False
+    random_projection_scale: float = 10.0
+    augment_type: str = "none"  # none | rot | full
+    std_scale_shift: tuple[float, float] = (1.0, 0.0)
+    drop_redundant: bool = False
+    fixed_len: int = 0
     # the synthetic set's size; 0 = $CONDMDI_SYNTHETIC_SIZE, else batch_size*4
     # (get_dataset_loader)
     synthetic_size: int = 0
 
 
+def _like(a: np.ndarray, x):
+    """`a` as a tensor of x's dtype and device where x is a tensor, else `a`."""
+    if isinstance(x, torch.Tensor):
+        return torch.as_tensor(a, dtype=x.dtype, device=x.device)
+    return a
+
+
 class Text2MotionDataset:
-    """The file-backed HumanML3D dataset: not ported yet (ROADMAP Queue A 8).
+    """File-backed HumanML3D / KIT-ML (the reference's tree; see the module's
+    docstring). `stats` overrides the normalisation stats, which otherwise come
+    from the assets directory (utils/assets.load_norm_stats)."""
 
-    Raises FileNotFoundError where the split file is absent, exactly where the
-    JAX class does, and NotImplementedError where it is present.
-    """
+    # __getitem__ draws a caption, a crop and an augmentation: a cache of collated
+    # batches freezes them (training re-collates it every device_cache_refresh steps)
+    has_random_item_transforms = True
 
-    def __init__(self, cfg: DatasetConfig):
-        root = Path(cfg.data_dir or ("./dataset/KIT-ML" if cfg.name == "kit"
-                                     else "./dataset/HumanML3D"))
+    def __init__(self, cfg: DatasetConfig, stats: Optional[NormStats] = None):
+        self.cfg = cfg
+        if cfg.name == "kit":
+            # KIT: 251-dim, 21 joints, min length 24 (reference dataset.py:255)
+            cfg.min_motion_length = min(cfg.min_motion_length, 24)
+            root = Path(cfg.data_dir or "./dataset/KIT-ML")
+        else:
+            root = Path(cfg.data_dir or "./dataset/HumanML3D")
+        self.motion_dir = root / ("new_joint_vecs" + ("_abs_3d" if cfg.abs_3d else ""))
+        if not self.motion_dir.is_dir():
+            self.motion_dir = root / "new_joint_vecs"
+        self.text_dir = root / "texts"
         split_file = root / f"{cfg.split}.txt"
         if not split_file.exists():
             raise FileNotFoundError(
                 f"HumanML3D split file {split_file} not found — download the "
                 "dataset (reference prepare/*.sh) or use SyntheticMotionDataset"
             )
-        raise NotImplementedError(
-            f"HumanML3D files found at {root}, but the file-backed Text2MotionDataset is not "
-            "ported yet (ROADMAP Queue A 8); move them away to sample on the synthetic set"
-        )
+        kind = "kit" if cfg.name == "kit" else ("abs3d" if cfg.abs_3d else "t2m")
+        self.stats = stats or load_norm_stats(kind)
+        self.rand_proj = None
+        if cfg.use_random_projection:
+            from condmdi_tpu_torch.data.projection import RandomProjection
+
+            self.rand_proj = RandomProjection.load_or_create(scale=cfg.random_projection_scale)
+
+        ids = [line.strip() for line in open(split_file) if line.strip()]
+        self.entries = []
+        for name in ids:
+            mpath = self.motion_dir / f"{name}.npy"
+            if not mpath.exists():
+                continue
+            motion = np.load(mpath, mmap_mode="r")
+            if len(motion) < cfg.min_motion_length or len(motion) >= 200:
+                continue
+            texts = []
+            tpath = self.text_dir / f"{name}.txt"
+            if tpath.exists():
+                for line in open(tpath):
+                    parts = line.strip().split("#")
+                    if len(parts) < 4:
+                        continue
+                    caption, tokens, f_tag, to_tag = parts[0], parts[1], parts[2], parts[3]
+                    f_tag = 0.0 if f_tag in ("", "nan") else float(f_tag)
+                    to_tag = 0.0 if to_tag in ("", "nan") else float(to_tag)
+                    texts.append(dict(caption=caption, tokens=tokens.split(" "),
+                                      f_tag=f_tag, to_tag=to_tag))
+            if not texts:
+                continue
+            # tagged sub-clips (reference :300-330); as in the JAX package, each is
+            # measured by f_tag/to_tag as the loop above left them, the last line's
+            # (ROADMAP Queue C 7)
+            base_texts = [t for t in texts if t["f_tag"] == 0.0 and t["to_tag"] == 0.0]
+            for t in texts:
+                if t["f_tag"] != 0.0 or t["to_tag"] != 0.0:
+                    n_frames = int(to_tag * 20) - int(f_tag * 20)
+                    if cfg.min_motion_length <= n_frames < 200:
+                        self.entries.append(dict(
+                            name=name, span=(int(t["f_tag"] * 20), int(t["to_tag"] * 20)),
+                            texts=[t]))
+            if base_texts:
+                self.entries.append(dict(name=name, span=None, texts=base_texts))
+
+    def __len__(self):
+        return len(self.entries)
+
+    def __getitem__(self, i: int) -> dict:
+        cfg = self.cfg
+        e = self.entries[i]
+        motion = np.load(self.motion_dir / f"{e['name']}.npy").astype(np.float32)
+        if e["span"] is not None:
+            motion = motion[e["span"][0]: e["span"][1]]
+        text = random.choice(e["texts"])
+
+        m_length = len(motion)
+        coin2 = (np.random.choice(["single", "single", "double"]) if cfg.unit_length < 10
+                 else "single")
+        if coin2 == "double":
+            m_length = (m_length // cfg.unit_length - 1) * cfg.unit_length
+        else:
+            m_length = (m_length // cfg.unit_length) * cfg.unit_length
+        start = random.randint(0, len(motion) - m_length)
+        motion = motion[start: start + m_length]
+
+        if cfg.traject_only:
+            motion = motion[:, :4]
+        motion = apply_augmentation(motion, cfg.augment_type)
+        if cfg.drop_redundant:
+            motion = motion[:, :67]
+        motion = self.normalize(motion)
+        return dict(motion=motion, length=m_length, caption=text["caption"],
+                    tokens=text["tokens"])
+
+    def _projected(self) -> bool:
+        return self.rand_proj is not None and self.cfg.hml_mode not in ("eval", "gt")
+
+    def normalize(self, x):
+        """(x - mean) / (std * scale + shift), then the random projection outside
+        'eval'/'gt' (reference __getitem__:481-489); numpy array or tensor."""
+        scale, shift = self.cfg.std_scale_shift
+        F = x.shape[-1]
+        x = (x - _like(self.stats.mean[:F], x)) / _like(self.stats.std[:F] * scale + shift, x)
+        if self._projected():
+            x = x @ _like(self.rand_proj.proj, x)
+        return x
+
+    def denormalize(self, x):
+        """The inverse of `normalize`; numpy array or tensor."""
+        if self._projected():
+            x = x @ _like(self.rand_proj.inv_proj, x)
+        scale, shift = self.cfg.std_scale_shift
+        F = x.shape[-1]
+        return x * _like(self.stats.std[:F] * scale + shift, x) + _like(self.stats.mean[:F], x)
 
 
 def apply_augmentation(motion: np.ndarray, augment_type: str) -> np.ndarray:
@@ -96,6 +227,25 @@ def apply_augmentation(motion: np.ndarray, augment_type: str) -> np.ndarray:
         motion[:, 1] += rand_trans[0]
         motion[:, 2] += rand_trans[1]
     return motion
+
+
+class TextOnlyDataset:
+    """Caption-only dataset for generation without ground-truth motions (reference
+    :866): zero motions of a fixed length."""
+
+    has_random_item_transforms = False
+
+    def __init__(self, cfg: DatasetConfig, captions: Sequence[str], fixed_length: int = 120):
+        self.cfg = cfg
+        self.captions = list(captions)
+        self.fixed_length = fixed_length
+
+    def __len__(self):
+        return len(self.captions)
+
+    def __getitem__(self, i):
+        return dict(motion=np.zeros((self.fixed_length, HML_DIM), np.float32),
+                    length=self.fixed_length, caption=self.captions[i], tokens=[])
 
 
 # --------------------------------------------------------------------------- #
@@ -438,7 +588,7 @@ class PrefetchIterator:
 
 def get_dataset_loader(cfg: DatasetConfig, batch_size: int, text_encoder=None,
                        device: str | torch.device = "cuda", **kw) -> DataLoader:
-    """The HumanML3D loader where its files are, else the synthetic set, whose
+    """The HumanML3D (or KIT) loader where its files are, else the synthetic set, whose
     size is cfg.synthetic_size, else $CONDMDI_SYNTHETIC_SIZE, else
     max(batch_size * 4, 64), as in the JAX package. The synthetic features are
     computed on `device`."""

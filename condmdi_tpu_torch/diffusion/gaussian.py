@@ -386,11 +386,13 @@ def training_losses(
     if cfg.lambda_fc > 0.0 and get_xyz is not None:
         if target_xyz is None:
             target_xyz, output_xyz = get_xyz(target), get_xyz(model_output)
-        feet = [7, 10, 8, 11]  # L_Ankle, L_Foot, R_Ankle, R_Foot
-        gt_feet = target_xyz[:, :, feet, :]
+        def feet(xyz):  # L_Ankle, L_Foot, R_Ankle, R_Foot, without a host index
+            return torch.stack([xyz[:, :, j] for j in (7, 10, 8, 11)], dim=2)
+
+        gt_feet = feet(target_xyz)
         gt_vel = torch.linalg.norm(gt_feet[:, 1:] - gt_feet[:, :-1], dim=-1)
         fc_mask = (gt_vel <= 0.01)[..., None]
-        pred_feet = output_xyz[:, :, feet, :]
+        pred_feet = feet(output_xyz)
         pred_vel = (pred_feet[:, 1:] - pred_feet[:, :-1]) * fc_mask
         terms["fc"] = masked_l2(pred_vel.reshape(B, T - 1, -1),
                                 torch.zeros_like(pred_vel).reshape(B, T - 1, -1),

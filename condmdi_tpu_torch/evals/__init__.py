@@ -4,12 +4,13 @@ the harness, the recognition models (the a2m GRU, ST-GCN) and the CLIs
 text-to-motion protocol), `evals.run_condition` (GMD two-stage protocol),
 `evals.run_a2m` (action-to-motion on HumanAct12 / UESTC) and
 `evals.run_unconstrained` (unconditioned generation: FID, KID,
-precision/recall).
+precision/recall), and `evals.parity`, the paper-parity run of `evals.run` on
+a released checkpoint against the paper's numbers.
 
 Counterpart of condmdi_tpu/evals/ for metrics.py, evaluator.py, common.py,
 harness.py, a2m.py, stgcn.py, unconstrained.py, run.py, run_t2m.py,
-run_condition.py, run_a2m.py, run_unconstrained.py and train_evaluator.py.
-The parity checks (parity.py) are not ported yet (ROADMAP Queue A 8).
+run_condition.py, run_a2m.py, run_unconstrained.py, train_evaluator.py and
+parity.py.
 Importing the package touches no device.
 """
 

@@ -18,10 +18,10 @@ import torch
 def load_eval_datasets(args, T: int, B: int, enc, device: str | torch.device = "cuda"):
     """(ds_rel, ds_abs, gt_batches, synthetic_data) — test split, collated.
 
-    Falls back to synthetic data LOUDLY when HumanML3D is absent (the port's
-    Text2MotionDataset raises FileNotFoundError there, and NotImplementedError
-    where the files are present: that one propagates); callers must propagate
-    `synthetic_data` into the report meta. The synthetic set's codec runs on
+    Reads HumanML3D's test split from its files where they are, and falls back
+    to synthetic data LOUDLY where they are absent (Text2MotionDataset raises
+    FileNotFoundError); callers must propagate `synthetic_data` into the report
+    meta. The synthetic set's codec runs on
     `device`. Collating draws each item's crop and caption from the global
     np.random, in the JAX package's order.
     """

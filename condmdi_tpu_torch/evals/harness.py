@@ -18,8 +18,11 @@ back-conversion; the samples and joints come to the host once per batch for
 the numpy metrics. Noise: each batch's sampler draws from a torch.Generator
 on the device seeded with the batch's integer seed (the JAX package keys
 jax.random with the same integer, so the streams differ); the random edit
-modes draw their masks from a CPU generator seeded with seed + 2**32. The JAX
-package's data-parallel `mesh` option waits for parallel/ (ROADMAP Queue A 8).
+modes draw their masks from a CPU generator seeded with seed + 2**32. With a
+`mesh` (parallel/mesh.py), each rank samples its rows of the batch and the
+samples are gathered back (parallel/dp_sample.py): every row gets the noise it
+gets on one process, so the result is the single-process one up to the
+kernels' arithmetic at the smaller batch.
 """
 
 from __future__ import annotations
@@ -112,6 +115,7 @@ def generate_eval_batch(
     rel_stats,
     model_is_abs: bool = True,
     cache_path: Optional[str] = None,
+    mesh=None,
 ) -> GeneratedBatch:
     """One test batch → generated motions + CondMDI metrics.
 
@@ -121,6 +125,9 @@ def generate_eval_batch(
     masks). `cache_path`: optional .npz path caching the raw samples per
     (seed, batch, replication) — the reference's .pt sample cache
     (comp_v6_model_dataset_condmdi.py:382) for cheap harness re-runs.
+    `mesh`: a data-parallel DeviceMesh (parallel/mesh.py make_mesh): the
+    sampling runs data-parallel over it, the batch split by rows, every rank
+    ending with the whole batch's samples.
     """
     from condmdi_tpu_torch.training.keyframes import get_keyframes_mask
 
@@ -155,12 +162,15 @@ def generate_eval_batch(
             dict(obs_x0=motion_abs, obs_mask=model_mask)
             if cfg.keyframe_conditioned else {}
         )
-        sample = pipe.sample(
-            (B, T, F), y,
-            guidance_param=cfg.guidance_param,
-            generator=torch.Generator(device=dev).manual_seed(seed),
-            **obs_kw,
-        )
+        generator = torch.Generator(device=dev).manual_seed(seed)
+        if mesh is not None:
+            from condmdi_tpu_torch.parallel.dp_sample import dp_sample
+
+            sample = dp_sample(pipe, mesh, (B, T, F), y, guidance_param=cfg.guidance_param,
+                               generator=generator, **obs_kw)
+        else:
+            sample = pipe.sample((B, T, F), y, guidance_param=cfg.guidance_param,
+                                 generator=generator, **obs_kw)
         if cache_path is not None:
             os.makedirs(os.path.dirname(cache_path) or ".", exist_ok=True)
             np.savez(cache_path, sample=sample.cpu().numpy(), obs_mask=obs_mask.cpu().numpy())

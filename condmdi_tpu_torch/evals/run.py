@@ -19,8 +19,11 @@ the JAX report's file name. With
 --precision_mode int8_static/int8_static_pc/int8_prequant the activation
 scales are calibrated along one dynamic-int8 sampling trajectory first;
 --int8_float_last_k K runs the last K model timesteps on the float twin
-(models/unet.py MixedStepDenoiser). One card: the JAX package's data-parallel
-generation over several devices waits for parallel/ (ROADMAP Queue A 8).
+(models/unet.py MixedStepDenoiser). Launched on several cards (torchrun: one
+process a card, NCCL), the generation runs data-parallel when the world size
+divides the batch (parallel/dp_sample.py), as the JAX package shards it over
+its devices; rank 0 writes the report, the others write theirs under
+rank<r>/ beside it.
 """
 
 from __future__ import annotations
@@ -92,6 +95,7 @@ def main(argv=None, *, device: str | torch.device = "cuda"):
     from condmdi_tpu_torch.evals.harness import EvalConfig, evaluation, generate_eval_batch
     from condmdi_tpu_torch.models.text import encoder_name, make_text_encoder
     from condmdi_tpu_torch.models.unet import MixedStepDenoiser
+    from condmdi_tpu_torch.parallel.mesh import initialize_distributed
     from condmdi_tpu_torch.sampling.pipeline import SamplePipeline
     from condmdi_tpu_torch.sampling.synthesize import load_model_for_sampling, model_apply_fn
     from condmdi_tpu_torch.utils.checkpoint import params_fingerprint
@@ -119,6 +123,7 @@ def main(argv=None, *, device: str | torch.device = "cuda"):
 
     T = args.num_frames
     B = 32  # fixed eval batch (reference :455)
+    initialize_distributed()  # joins torchrun's group; a no-op for one process
     dev = resolve_device(device)
 
     model, sched, dcfg = load_model_for_sampling(args, dev)
@@ -187,10 +192,20 @@ def main(argv=None, *, device: str | torch.device = "cuda"):
     vec = load_word_vectorizer()
     evaluator, evaluator_source = load_evaluator(dev)
 
+    # several processes: generation data-parallel over them where the world size
+    # divides the batch (parallel/dp_sample.py); one process keeps the plain path
+    mesh = None
+    world = torch.distributed.get_world_size() if torch.distributed.is_initialized() else 1
+    if world > 1 and B % world == 0:
+        from condmdi_tpu_torch.parallel import make_mesh
+
+        mesh = make_mesh()
+        print(f"eval generation: data-parallel over {world} processes")
+
     def generate_fn(rep):
         return [
             generate_eval_batch(pipe, b, args.seed + rep * 1000 + i, cfg,
-                                ds_abs.stats, ds_rel.stats)
+                                ds_abs.stats, ds_rel.stats, mesh=mesh)
             for i, b in enumerate(gt_batches)
         ]
 
@@ -207,6 +222,8 @@ def main(argv=None, *, device: str | torch.device = "cuda"):
         ]
 
     out_dir = output_dir(args)
+    if mesh is not None and torch.distributed.get_rank() > 0:
+        out_dir = out_dir / f"rank{torch.distributed.get_rank()}"
     out_dir.mkdir(parents=True, exist_ok=True)
     suffix = "" if pmode == "float" else f"_{pmode}"
     if k_float > 0:

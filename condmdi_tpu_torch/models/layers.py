@@ -107,12 +107,20 @@ def dropout(x: torch.Tensor, rate: float, draws) -> torch.Tensor:
 
 
 class ConvTransposeParams(ParamModule):
-    """ConvTranspose1d weight [Cin, Cout, k] and bias [Cout], torch layout."""
+    """ConvTranspose1d weight [Cin, Cout, k] and bias [Cout], torch layout, applied
+    channels-last: [B, T, Cin] → [B, T', Cout]."""
 
-    def __init__(self, in_channels, out_channels, kernel_size, *, device=None, dtype=None):
+    def __init__(self, in_channels, out_channels, kernel_size, stride=1, padding=0, *,
+                 device=None, dtype=None):
         super().__init__()
+        self.stride, self.padding = stride, padding
         self.weight = _empty((in_channels, out_channels, kernel_size), device, dtype)
         self.bias = _empty((out_channels,), device, dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.conv_transpose1d(x.transpose(1, 2), self.weight, self.bias, stride=self.stride,
+                               padding=self.padding)
+        return y.transpose(1, 2).contiguous()
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         cin, _, k = self.weight.shape

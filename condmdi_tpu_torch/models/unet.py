@@ -375,7 +375,8 @@ class TemporalUnet(nn.Module):
             attend(f"up{ind}", dim_in)
             # `is_last` in the JAX loop compares against n_res - 1, which this
             # loop of n_res - 1 items never reaches: every level upsamples
-            self.add_module(f"up{ind}_upsample", ConvTransposeParams(dim_in, dim_in, 4, **dd))
+            self.add_module(f"up{ind}_upsample",
+                            ConvTransposeParams(dim_in, dim_in, 4, stride=2, padding=1, **dd))
         self.final_block = Conv1dBlock(dims[1], dims[1], kernel_size=5, **pm)
         self.final_conv = QConv(dims[1], input_dim, 1, zero_init=zero, **pm)
 
@@ -400,9 +401,7 @@ class TemporalUnet(nn.Module):
             x = torch.cat([x, h.pop()], dim=-1)
             x = getattr(self, f"up{ind}_res1")(x, c)
             x = self._attend(f"up{ind}", getattr(self, f"up{ind}_res2")(x, c))
-            up = getattr(self, f"up{ind}_upsample")
-            x = F.conv_transpose1d(x.transpose(1, 2), up.weight, up.bias, stride=2, padding=1)
-            x = x.transpose(1, 2).contiguous()
+            x = getattr(self, f"up{ind}_upsample")(x)
         return self.final_conv(self.final_block(x))
 
 

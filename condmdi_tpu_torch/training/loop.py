@@ -46,9 +46,10 @@ tensor, in both modes) and replays one graph of forward, backward, clip,
 AdamW and the EMA. The first step runs eagerly and names the model's
 draws; the second captures the graph under
 `weight_cache.repack_on_every_call()`, so that the graph re-packs the
-weights its own AdamW step updates. The eager step stays for the
-loss-aware sampler (its draw reads t and the losses on the host), for
-`marks` and on the CPU, by rule.
+weights its own AdamW step updates. A data-parallel step is replayed as two
+graphs, with the gradients' all-reduce between them on the host. The eager
+step stays for the loss-aware sampler (its draw reads t and the losses on
+the host), for `marks`, for a tensor-parallel step and on the CPU, by rule.
 """
 
 from __future__ import annotations
@@ -255,43 +256,112 @@ class StepInputs:
     drop: Optional[torch.Tensor] = None
 
 
+class _RowDraws:
+    """A model's draws on a data-parallel rank: each drawn at the global batch's
+    shape (the local rows times the mesh size) and cut to this rank's rows, so
+    that a row gets the mask it gets on one process."""
+
+    def __init__(self, draws, mesh):
+        from condmdi_tpu_torch.parallel.mesh import dp_part
+
+        mesh = dp_part(mesh)
+        self.draws, self.mesh, self.n = draws, mesh, mesh.size()
+
+    def keep(self, shape, keep_prob, device):
+        from condmdi_tpu_torch.parallel.mesh import rows_of
+
+        full = (shape[0] * self.n,) + tuple(shape[1:])
+        return self.draws.keep(full, keep_prob, device)[rows_of(self.mesh, full[0])]
+
+
+def _model_draws(draws: StepDraws, mesh):
+    """The model's draws of a step: on a data-parallel rank, the rank's rows of them."""
+    return draws.model() if mesh is None else _RowDraws(draws.model(), mesh)
+
+
 def draw_step_inputs(state: TrainState, batch: dict, draws: StepDraws, tcfg: TrainConfig,
-                     num_timesteps: int) -> StepInputs:
+                     num_timesteps: int, mesh=None) -> StepInputs:
     """The step's draws in the JAX step's order (the keyframe mask, its drop, t,
     the noise; the model's own draws come during the forward). The mask is
-    drawn from the batch's host copy of the lengths where it has one."""
+    drawn from the batch's host copy of the lengths where it has one.
+
+    With a data-parallel `mesh` the batch holds this rank's rows: every draw is
+    made at the global batch's shape (the keyframe mask from the lengths
+    gathered from every rank) and cut to the rank's rows, so that each row gets
+    the draw it gets in a single-process step on the global batch."""
     motion = batch["motion"]
     B, T = motion.shape[:2]
     device = motion.device
+    rows = None
+    if mesh is not None:
+        from condmdi_tpu_torch.parallel.mesh import dp_part, rows_of
+
+        mesh = dp_part(mesh)
+        B = B * mesh.size()
+        rows = rows_of(mesh, B)
+
+    def mine(x):
+        return x if rows is None or x is None else x[rows]
+
     obs_mask = drop = None
     if tcfg.keyframe_conditioned:
         lengths = batch.get("lengths_host", batch["lengths"])
-        obs_mask = draws.keyframe_mask(lengths, T, tcfg.keyframe_selection_scheme)
+        if mesh is not None:
+            from condmdi_tpu_torch.parallel.mesh import all_gather_rows
+
+            lengths = all_gather_rows(mesh, torch.as_tensor(lengths))
+        obs_mask = mine(draws.keyframe_mask(lengths, T, tcfg.keyframe_selection_scheme))
         if tcfg.keyframe_mask_prob > 0.0:
-            drop = draws.keyframe_drop(B, tcfg.keyframe_mask_prob, device)
+            drop = mine(draws.keyframe_drop(B, tcfg.keyframe_mask_prob, device))
     t, weights = draws.timesteps(state.loss_aware, B, num_timesteps, device)
-    noise = draws.noise(motion.shape, motion.dtype, device)
+    noise = draws.noise((B,) + tuple(motion.shape[1:]), motion.dtype, device)
     y = {k: batch[k] for k in ("text_embed", "action") if k in batch}
-    return StepInputs(motion, batch["time_mask"], y, t, weights, noise, obs_mask, drop)
+    return StepInputs(motion, batch["time_mask"], y, mine(t), mine(weights), mine(noise),
+                      obs_mask, drop)
 
 
-def _step_body(model: nn.Module, sched: DiffusionSchedule, dcfg: DiffusionConfig,
-               tcfg: TrainConfig, mark: Callable[[str], None]):
+class _StepBody:
     """`body(state, inputs, model_draws) -> (metrics, per-sample loss)`: the step
     from the drawn inputs on; the learning rate is set beforehand
-    (`set_learning_rate`)."""
+    (`set_learning_rate`). Its parts, which `BufferedTrainStep` replays apart
+    under a mesh: `forward_backward` (the loss and every parameter's gradient),
+    `update` (the clip, AdamW, the EMA and the rank's metrics) and `finish`
+    (the metrics over the global batch, the loss by quartile of t).
 
-    def body(state: TrainState, inp: StepInputs, model_draws) -> dict:
+    With a data-parallel `mesh` the gradients are all-reduced to their mean
+    over the ranks between `forward_backward` and `update`, and `finish`
+    averages the metrics and gathers the per-sample losses and t from every
+    rank. With a ('dp', 'tp') mesh the model is a tensor-parallel copy
+    (parallel/tp.py): the gradients are averaged over 'dp' and the norms taken
+    over the slices of every tp rank."""
+
+    def __init__(self, model: nn.Module, sched: DiffusionSchedule, dcfg: DiffusionConfig,
+                 tcfg: TrainConfig, mark: Callable[[str], None], mesh=None):
+        self.model, self.sched, self.dcfg, self.tcfg, self.mark = model, sched, dcfg, tcfg, mark
+        self.mesh = self.dp = mesh
+        self.norm = global_norm
+        self.sharded: list[bool] = []  # which parameters are tensor-parallel slices
+        if mesh is not None:
+            from condmdi_tpu_torch.parallel.mesh import dp_part
+            from condmdi_tpu_torch.parallel.tp import tp_global_norm, tp_group_of
+
+            tp_group, self.dp = tp_group_of(mesh), dp_part(mesh)
+            if tp_group is not None:
+                self.norm = lambda tensors: tp_global_norm(tensors, self.sharded, tp_group)
+
+    def forward_backward(self, state: TrainState, inp: StepInputs, model_draws):
+        """The weighted loss and the loss terms; every parameter holds its gradient
+        (zero where the loss does not reach it)."""
+        tcfg, model = self.tcfg, self.model
         motion = inp.motion
-        device = motion.device
-        mark("forward")
+        self.mark("forward")
         obs_mask = None
         if tcfg.keyframe_conditioned:
-            obs_mask = inp.obs_mask.to(device)
+            obs_mask = inp.obs_mask.to(motion.device)
             if inp.drop is not None:
                 obs_mask = obs_mask & ~inp.drop
             obs_mask = obs_mask & inp.time_mask[..., None]  # a subset of the valid frames
-        t, y = inp.t, inp.y
+        y = inp.y
 
         def denoise_with(md, x_t, t_model):
             if tcfg.use_bf16:
@@ -314,54 +384,105 @@ def _step_body(model: nn.Module, sched: DiffusionSchedule, dcfg: DiffusionConfig
             def denoise(x_t, t_model):
                 return denoise_with(model_draws, x_t, t_model)
 
-        terms = training_losses(denoise, sched, dcfg, motion, t, inp.noise, inp.time_mask,
-                                obs_mask=obs_mask, zero_keyframe_loss=tcfg.zero_keyframe_loss,
+        terms = training_losses(denoise, self.sched, self.dcfg, motion, inp.t, inp.noise,
+                                inp.time_mask, obs_mask=obs_mask,
+                                zero_keyframe_loss=tcfg.zero_keyframe_loss,
                                 keyframe_conditioned=tcfg.keyframe_conditioned)
         loss = torch.mean(terms["loss"] * inp.weights)
 
-        opt = state.optimizer
-        opt.zero_grad()
-        mark("backward")
+        state.optimizer.zero_grad()
+        self.mark("backward")
         loss.backward()
         params = list(state.params.values())
+        self.sharded[:] = [getattr(p, "tp_sharded", False) for p in params]
         for p in params:  # optax updates every leaf: an unreached one has a zero gradient
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
-        grads = [p.grad for p in params]
-        mark("optimizer")
-        with torch.no_grad():
-            grad_norm = global_norm(grads)
-            if tcfg.grad_clip > 0:
-                clip_by_global_norm_(grads, tcfg.grad_clip, grad_norm)
-            opt.step()
+        self.mark("optimizer")
+        return loss.detach(), {k: v.detach() for k, v in terms.items()}
 
-            beta = tcfg.avg_model_beta
-            ema = list(state.ema.values())
-            if beta > 0:
-                torch._foreach_mul_(ema, beta)
-                torch._foreach_add_(ema, [p.detach() for p in params], alpha=1.0 - beta)
-            else:
-                torch._foreach_copy_(ema, [p.detach() for p in params])
+    @staticmethod
+    def grads(state: TrainState) -> list[torch.Tensor]:
+        return [p.grad for p in state.params.values()]
 
-            metrics = {"loss": loss.detach(), "grad_norm": grad_norm,
-                       "param_norm": global_norm([p.detach() for p in params])}
-            for k in ("rot_mse", "keyframes_mse", "vel_mse", "vb"):
-                if k in terms:
-                    metrics[k] = terms[k].detach().mean()
-            quartile = (4 * t / sched.num_timesteps).to(torch.int32)
-            per_sample = terms["loss"].detach()
-            for q in range(4):
-                sel = quartile == q
-                metrics[f"loss_q{q}"] = (torch.where(sel, per_sample, 0.0).sum()
-                                         / sel.sum().clamp(min=1))
+    def average_grads(self, flat: torch.Tensor) -> None:
+        """The mean of the ranks' gradients (the global batch's), in place, over the
+        gradients laid end to end in `flat`."""
+        from condmdi_tpu_torch.parallel.mesh import all_reduce_mean_
+
+        all_reduce_mean_(self.dp, flat)
+
+    @staticmethod
+    def unflatten_(grads: list[torch.Tensor], flat: torch.Tensor) -> None:
+        torch._foreach_copy_(grads, [v.view_as(g) for v, g in
+                                     zip(flat.split([g.numel() for g in grads]), grads)])
+
+    @torch.no_grad()
+    def update(self, state: TrainState, loss: torch.Tensor, terms: dict):
+        """The clip, AdamW and the EMA from the gradients the parameters hold; the
+        rank's metrics and per-sample loss."""
+        tcfg = self.tcfg
+        params = list(state.params.values())
+        grads = self.grads(state)
+        grad_norm = self.norm(grads)
+        if tcfg.grad_clip > 0:
+            clip_by_global_norm_(grads, tcfg.grad_clip, grad_norm)
+        state.optimizer.step()
+
+        beta = tcfg.avg_model_beta
+        ema = list(state.ema.values())
+        if beta > 0:
+            torch._foreach_mul_(ema, beta)
+            torch._foreach_add_(ema, [p.detach() for p in params], alpha=1.0 - beta)
+        else:
+            torch._foreach_copy_(ema, [p.detach() for p in params])
+
+        metrics = {"loss": loss, "grad_norm": grad_norm,
+                   "param_norm": self.norm([p.detach() for p in params])}
+        for k in ("rot_mse", "keyframes_mse", "vel_mse", "vb"):
+            if k in terms:
+                metrics[k] = terms[k].mean()
+        return metrics, terms["loss"]
+
+    @torch.no_grad()
+    def finish(self, metrics: dict, per_sample: torch.Tensor, t: torch.Tensor):
+        """The metrics over the global batch (under a mesh: the ranks' means
+        averaged, the per-sample losses and t gathered) and the loss by quartile of
+        t; returns (metrics, per-sample loss)."""
+        metrics = dict(metrics)
+        if self.mesh is not None:
+            from condmdi_tpu_torch.parallel.mesh import all_gather_rows, all_reduce_mean_
+
+            for k in [k for k in metrics if k not in ("grad_norm", "param_norm")]:
+                metrics[k] = all_reduce_mean_(self.dp, metrics[k].clone())
+            per_sample, t = all_gather_rows(self.dp, per_sample), all_gather_rows(self.dp, t)
+        quartile = (4 * t / self.sched.num_timesteps).to(torch.int32)
+        for q in range(4):
+            sel = quartile == q
+            metrics[f"loss_q{q}"] = (torch.where(sel, per_sample, 0.0).sum()
+                                     / sel.sum().clamp(min=1))
         return metrics, per_sample
 
-    return body
+    def __call__(self, state: TrainState, inp: StepInputs, model_draws):
+        loss, terms = self.forward_backward(state, inp, model_draws)
+        if self.mesh is not None:
+            with torch.no_grad():
+                grads = self.grads(state)
+                flat = torch.cat([g.reshape(-1) for g in grads])
+                self.average_grads(flat)
+                self.unflatten_(grads, flat)
+        metrics, per_sample = self.update(state, loss, terms)
+        return self.finish(metrics, per_sample, inp.t)
+
+
+def _step_body(model: nn.Module, sched: DiffusionSchedule, dcfg: DiffusionConfig,
+               tcfg: TrainConfig, mark: Callable[[str], None], mesh=None) -> _StepBody:
+    return _StepBody(model, sched, dcfg, tcfg, mark, mesh)
 
 
 def make_train_step(model: nn.Module, sched: DiffusionSchedule, dcfg: DiffusionConfig,
                     tcfg: TrainConfig, marks: Optional[Callable[[str], None]] = None,
-                    cuda_graphs: bool = True,
+                    cuda_graphs: bool = True, mesh=None,
                     ) -> Callable[[TrainState, dict, StepDraws], dict]:
     """`train_step(state, batch, draws) -> metrics`, updating the model and state.
 
@@ -369,22 +490,36 @@ def make_train_step(model: nn.Module, sched: DiffusionSchedule, dcfg: DiffusionC
     [B, 512] / action [B] where the model takes them, on the model's device
     (and optionally `lengths_host`, the lengths on the host, which the
     keyframe mask is drawn from). On CUDA, unless `cuda_graphs` is False, the
-    loss-aware sampler is in use or `marks` is given, the step is a
-    `BufferedTrainStep` replayed from a CUDA graph; otherwise it runs eagerly.
+    loss-aware sampler is in use, `marks` or a 2-D ('dp', 'tp') mesh is given,
+    the step is a `BufferedTrainStep` replayed from CUDA graphs; otherwise it
+    runs eagerly.
+
+    `mesh`: a data-parallel DeviceMesh (parallel/mesh.py make_mesh). The batch
+    then holds this rank's B/n rows of a global batch of B (the ranks' batches
+    in rank order), every rank holds the same model and state and draws from
+    generators seeded alike, and the step equals a single-process step on the
+    global batch (training/loop.py `draw_step_inputs`, `_StepBody`): the
+    counterpart of the JAX package's train step on a 'dp' mesh.
     """
     mark = marks or (lambda _part: None)
-    body = _step_body(model, sched, dcfg, tcfg, mark)
+    body = _step_body(model, sched, dcfg, tcfg, mark, mesh)
     device = next(model.parameters()).device
+    # a tensor-parallel step stays eager: its forward's collectives would sit inside a graph
     if (cuda_graphs and device.type == "cuda" and marks is None
-            and tcfg.schedule_sampler == "uniform"):
+            and (mesh is None or mesh.ndim == 1) and tcfg.schedule_sampler == "uniform"):
         return BufferedTrainStep(model, sched, tcfg, body)
 
     def train_step(state: TrainState, batch: dict, draws: StepDraws) -> dict:
-        inputs = draw_step_inputs(state, batch, draws, tcfg, sched.num_timesteps)
+        inputs = draw_step_inputs(state, batch, draws, tcfg, sched.num_timesteps, mesh)
         set_learning_rate(state.optimizer, learning_rate(tcfg, state.step))
-        metrics, per_sample = body(state, inputs, draws.model())
+        metrics, per_sample = body(state, inputs, _model_draws(draws, mesh))
         if state.loss_aware is not None:
-            state.loss_aware = state.loss_aware.update(inputs.t.cpu(), per_sample.cpu())
+            t = inputs.t
+            if mesh is not None:  # body gathered the losses; the sampler sees the global t
+                from condmdi_tpu_torch.parallel.mesh import all_gather_rows, dp_part
+
+                t = all_gather_rows(dp_part(mesh), t)
+            state.loss_aware = state.loss_aware.update(t.cpu(), per_sample.cpu())
         state.step += 1
         mark("end")
         return metrics
@@ -428,7 +563,7 @@ class _BufferedDraws:
 
 
 class BufferedTrainStep:
-    """The train step over static buffers, replayed from a CUDA graph on the card.
+    """The train step over static buffers, replayed from CUDA graphs on the card.
 
     Called as the eager step is, `step(state, batch, draws) -> metrics`. The
     first call runs the eager step and notes the model's draws; from the
@@ -440,19 +575,29 @@ class BufferedTrainStep:
     the kernels' implementation changed), on the CPU the body itself. The
     metrics come back as a copy, so that K steps can be kept before they are
     read. The state passed must stay the same object across calls.
+
+    Under a data-parallel mesh (the body's) no collective is captured: one
+    graph runs the forward and backward and lays the gradients end to end in a
+    static buffer, the host all-reduces that buffer across the ranks, a second
+    graph runs the clip, AdamW and the EMA from it, and the host then averages
+    the metrics and gathers the per-sample losses (`_StepBody.finish`).
     """
 
     def __init__(self, model: nn.Module, sched: DiffusionSchedule, tcfg: TrainConfig, body):
         self.model, self.sched, self.tcfg, self.body = model, sched, tcfg, body
+        self.mesh = body.mesh
         self.inputs: Optional[StepInputs] = None
         self.model_draws: Optional[_BufferedDraws] = None
-        self.graph = None
+        self.graph = None  # the step's graph; under a mesh, its forward and backward's
+        self.update_graph = None  # under a mesh: the clip, AdamW and the EMA
         self.state = None
+        self.flat = self.loss = self.terms = None  # under a mesh: what the two graphs share
 
     def _eager(self, state, batch, draws):
-        inputs = draw_step_inputs(state, batch, draws, self.tcfg, self.sched.num_timesteps)
+        inputs = draw_step_inputs(state, batch, draws, self.tcfg, self.sched.num_timesteps,
+                                  self.mesh)
         set_learning_rate(state.optimizer, learning_rate(self.tcfg, state.step))
-        recording = _RecordingDraws(draws.model())
+        recording = _RecordingDraws(_model_draws(draws, self.mesh))
         metrics, _ = self.body(state, inputs, recording)
         device = inputs.motion.device
         # the static buffers, shaped as this step's inputs
@@ -465,7 +610,8 @@ class BufferedTrainStep:
         return metrics
 
     def _load(self, state, batch, draws) -> None:
-        drawn = draw_step_inputs(state, batch, draws, self.tcfg, self.sched.num_timesteps)
+        drawn = draw_step_inputs(state, batch, draws, self.tcfg, self.sched.num_timesteps,
+                                 self.mesh)
         buf = self.inputs
         for name in ("motion", "time_mask", "t", "weights", "noise", "drop"):
             src = getattr(drawn, name)
@@ -478,7 +624,7 @@ class BufferedTrainStep:
             if mask.device.type == "cpu" and buf.obs_mask.device.type == "cuda":
                 mask = mask.pin_memory()  # host → pinned → card, without a sync
             buf.obs_mask.copy_(mask, non_blocking=True)
-        self.model_draws.fill(draws.model())
+        self.model_draws.fill(_model_draws(draws, self.mesh))
         set_learning_rate(state.optimizer, learning_rate(self.tcfg, state.step))
 
     def _run_body(self):
@@ -489,6 +635,55 @@ class BufferedTrainStep:
             metrics, _ = self.body(self.state, self.inputs, self.model_draws)
         return metrics
 
+    def _run_forward_backward(self) -> None:
+        """The mesh's first graph: the loss terms and the gradients, laid end to
+        end, into the buffers the second graph reads."""
+        from condmdi_tpu_torch.ops.weight_cache import repack_on_every_call
+
+        self.model_draws.i = 0
+        with repack_on_every_call():
+            loss, terms = self.body.forward_backward(self.state, self.inputs, self.model_draws)
+        grads = self.body.grads(self.state)
+        if self.flat is None:  # made in the first call, which runs eagerly
+            self.flat = torch.empty(sum(g.numel() for g in grads), dtype=grads[0].dtype,
+                                    device=grads[0].device)
+            self.loss = torch.empty_like(loss)
+            self.terms = {k: torch.empty_like(v) for k, v in terms.items()}
+        torch.cat([g.reshape(-1) for g in grads], out=self.flat)
+        self.loss.copy_(loss)
+        for k, v in terms.items():
+            self.terms[k].copy_(v)
+
+    def _run_update(self):
+        self.body.unflatten_(self.body.grads(self.state), self.flat)
+        return self.body.update(self.state, self.loss, self.terms)
+
+    def _replay_update(self):
+        captures = self.update_graph.captures
+        out = self.update_graph()
+        if self.update_graph.captures != captures:
+            # the capture's warm-up stepped AdamW eagerly, which moved the parameters'
+            # version counters that the first graph's key holds
+            self.graph.key = self.graph.validity_key()
+        return out
+
+    def _run_mesh(self, cuda: bool) -> dict:
+        forward_backward, update = self._run_forward_backward, self._run_update
+        if cuda:
+            if self.graph is None:
+                from condmdi_tpu_torch.utils.cuda_graph import CudaGraph
+
+                self.graph = CudaGraph(self._run_forward_backward, [self.model],
+                                       watch_generation=False)
+                self.update_graph = CudaGraph(self._run_update, [self.model],
+                                              advances_generation=True)
+            forward_backward, update = self.graph, self._replay_update
+        forward_backward()
+        with torch.no_grad():
+            self.body.average_grads(self.flat)
+        metrics, per_sample = update()
+        return self.body.finish(metrics, per_sample, self.inputs.t)[0]
+
     def __call__(self, state: TrainState, batch: dict, draws: StepDraws) -> dict:
         if self.inputs is None:
             metrics = self._eager(state, batch, draws)
@@ -496,7 +691,10 @@ class BufferedTrainStep:
             if state is not self.state:
                 raise ValueError("BufferedTrainStep: one TrainState object across its steps")
             self._load(state, batch, draws)
-            if self.inputs.motion.device.type == "cuda":
+            cuda = self.inputs.motion.device.type == "cuda"
+            if self.mesh is not None:
+                metrics = self._run_mesh(cuda)
+            elif cuda:
                 if self.graph is None:
                     from condmdi_tpu_torch.utils.cuda_graph import CudaGraph
 

@@ -80,9 +80,17 @@ class _IndexStream:
 
 class TrainLoop:
     """The host loop. `cuda_graphs=False` runs every step eagerly on the card (for
-    comparison with the graph-replayed step, training/loop.py)."""
+    comparison with the graph-replayed step, training/loop.py).
 
-    def __init__(self, args, model, sched, dcfg, data_loader, device, cuda_graphs: bool = True):
+    `mesh`: a data-parallel DeviceMesh (parallel/mesh.py), the counterpart of the
+    JAX TrainLoop's mesh. Each rank's loader yields its B/n rows (its shard of
+    the data, `process_index` = rank), the step all-reduces the gradients
+    (training/loop.py `make_train_step`), and rank r > 0 logs and keeps its own
+    resume checkpoints under <save_dir>/rank<r>/, so that every rank resumes its
+    own data stream; rank 0's save_dir holds the EMA npz the CLIs read."""
+
+    def __init__(self, args, model, sched, dcfg, data_loader, device, cuda_graphs: bool = True,
+                 mesh=None):
         from condmdi_tpu_torch.training.loop import (
             StepDraws,
             TrainConfig,
@@ -97,6 +105,12 @@ class TrainLoop:
         self.device = device
         self.data_loader = data_loader
         self.save_dir = Path(args.save_dir or "save/condmdi_run")
+        self.mesh = mesh
+        self.batch_size = args.batch_size  # this process's rows of a step's batch
+        if mesh is not None:
+            self.batch_size = args.batch_size // mesh.size()
+            if mesh.get_local_rank() > 0:
+                self.save_dir = self.save_dir / f"rank{mesh.get_local_rank()}"
         self.save_dir.mkdir(parents=True, exist_ok=True)
         self.logger = logger
         logger.configure(str(self.save_dir), log_suffix="")
@@ -117,7 +131,8 @@ class TrainLoop:
         )
         self.sched, self.dcfg = sched, dcfg
         self.state = create_train_state(model, self.tcfg, sched)
-        self.step_fn = make_train_step(model, sched, dcfg, self.tcfg, cuda_graphs=cuda_graphs)
+        self.step_fn = make_train_step(model, sched, dcfg, self.tcfg, cuda_graphs=cuda_graphs,
+                                       mesh=mesh)
         self.draws = StepDraws(torch.Generator(device).manual_seed(args.seed),
                                torch.Generator().manual_seed(args.seed))
         # the data stream's position: the streamed loader's (epoch, next batch) and
@@ -222,7 +237,7 @@ class TrainLoop:
     def _cached_batches(self, index_stream):
         """Endless batches gathered on the card from the cache."""
         data, n = self.device_data
-        B = self.args.batch_size
+        B = self.batch_size
         refresh = self._refresh_every()
         while True:
             if refresh and self.served and self.served % refresh == 0:
@@ -306,7 +321,7 @@ class TrainLoop:
         """K steps per host iteration on batches gathered on the card; the tail
         (num_steps not divisible by K) single-step on a fresh index stream."""
         data, n = self.device_data
-        B = self.args.batch_size
+        B = self.batch_size
         refresh = self._refresh_every()
         step = self.resume_step
         t_last = time.time()
@@ -408,6 +423,9 @@ def main(argv=None, *, device: str | torch.device = "cuda"):
     from condmdi_tpu_torch.models.text import make_text_encoder
     from condmdi_tpu_torch.utils.config import TrainArgs, parse_args, save_args_json
 
+    from condmdi_tpu_torch.parallel.mesh import initialize_distributed
+
+    initialize_distributed()  # joins torchrun's group (and takes its card); one process: no-op
     dev = resolve_device(device)
     args = parse_args(TrainArgs, argv, base_card="motion_abs_unet_adagn_xl")
     seed_all(args.seed)
@@ -424,16 +442,31 @@ def main(argv=None, *, device: str | torch.device = "cuda"):
 
     data_cfg = DatasetConfig(
         name=args.dataset, data_dir=args.data_dir, max_motion_length=args.num_frames,
-        abs_3d=args.abs_3d, traject_only=args.traj_only, synthetic_size=args.synthetic_size,
+        abs_3d=args.abs_3d, traject_only=args.traj_only,
+        use_random_projection=args.use_random_proj, augment_type=args.augment_type,
+        std_scale_shift=tuple(args.std_scale_shift), drop_redundant=args.drop_redundant,
+        synthetic_size=args.synthetic_size,
     )
     encoder = make_text_encoder(args, device=dev)
-    loader = get_dataset_loader(data_cfg, args.batch_size, text_encoder=encoder, device=dev)
+    # several processes (torchrun, one a card): data-parallel over them, each
+    # loading its B/n rows from its shard of the data
+    mesh, rank, world = None, 0, 1
+    if initialize_distributed() and torch.distributed.get_world_size() > 1:
+        from condmdi_tpu_torch.parallel.mesh import make_mesh
+
+        mesh = make_mesh()
+        rank, world = mesh.get_local_rank(), mesh.size()
+        if args.batch_size % world:
+            raise SystemExit(f"--batch_size {args.batch_size} is not divisible by the "
+                             f"{world} processes")
+    loader = get_dataset_loader(data_cfg, args.batch_size // world, text_encoder=encoder,
+                                device=dev, process_index=rank, process_count=world)
 
     model = create_model(args, dev)
     load_flax_init(model, args.seed)
     model.train()
     sched, dcfg = create_gaussian_diffusion(args)
-    loop = TrainLoop(args, model, sched.to(dev), dcfg, loader, dev)
+    loop = TrainLoop(args, model, sched.to(dev), dcfg, loader, dev, mesh=mesh)
     loop.run_loop()
     return loop
 

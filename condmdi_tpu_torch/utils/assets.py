@@ -8,9 +8,10 @@ port imports nothing of the JAX package), and the port's one home of
 Assets are searched in $CONDMDI_ASSETS, then ./dataset (the JAX package also
 searches a mounted copy of the reference repository).
 
-`check_assets` reports which asset groups are present. Downloading them
-(`fetch_assets` and the `--fetch` command line of the JAX module) is not
-ported (ROADMAP Queue A 8).
+`check_assets` reports which asset groups are present; `fetch_assets` and
+the command line (`python -m condmdi_tpu_torch.utils.assets --check` /
+`--fetch [GROUP ...]` / `--dry_run`) download them with the reference's
+commands, which need network access and gdown/wget.
 """
 
 from __future__ import annotations
@@ -215,3 +216,77 @@ def check_assets(root: str | Path = ".") -> dict:
         missing = [p for p in a.check_paths if not (root / p).exists()]
         out[a.name] = {"present": not missing, "missing": missing}
     return out
+
+
+def fetch_assets(names=None, root: str | Path = ".", dry_run: bool = False) -> bool:
+    """Run the download commands of the named asset groups (default: every one
+    that is missing). True if everything asked for is present afterwards.
+
+    Needs network access and gdown/wget; without them each group fails loudly
+    and the others are still tried.
+    """
+    import subprocess
+
+    root = Path(root)
+    status = check_assets(root)
+    todo = [a for a in ASSETS if (names is None or a.name in names)]
+    ok = True
+    for a in todo:
+        if status[a.name]["present"]:
+            print(f"[assets] {a.name}: already present")
+            continue
+        if a.manual:
+            print(f"[assets] {a.name}: MANUAL — {a.manual}")
+            ok = False
+            continue
+        for cmd in a.commands:
+            print(f"[assets] {a.name}: $ {cmd}")
+            if dry_run:
+                continue
+            r = subprocess.run(cmd, shell=True, cwd=root)
+            if r.returncode != 0:
+                print(f"[assets] {a.name}: FAILED (rc={r.returncode}) — "
+                      "check network access / gdown availability")
+                ok = False
+                break
+    final = check_assets(root)
+    for a in todo:
+        state = "present" if final[a.name]["present"] else "MISSING"
+        print(f"[assets] {a.name}: {state}")
+        ok = ok and (final[a.name]["present"] or bool(dry_run))
+    return ok
+
+
+def _main(argv=None):
+    import argparse
+
+    ap = argparse.ArgumentParser(description="Asset bootstrap (port of reference prepare/*.sh)")
+    ap.add_argument("--check", action="store_true", help="print asset status")
+    ap.add_argument("--fetch", nargs="*", metavar="GROUP",
+                    help="download asset groups (no names = all missing)")
+    ap.add_argument("--dry_run", action="store_true",
+                    help="print the commands without running them")
+    ap.add_argument("--root", default=".", help="repo root to place assets in")
+    ns = ap.parse_args(argv)
+
+    if ns.fetch is not None:
+        names = ns.fetch or None
+        known = {a.name for a in ASSETS}
+        bad = set(names or ()) - known
+        if bad:
+            ap.error(f"unknown asset group(s) {sorted(bad)}; known: {sorted(known)}")
+        return 0 if fetch_assets(names, ns.root, dry_run=ns.dry_run) else 1
+
+    status = check_assets(ns.root)
+    width = max(len(a.name) for a in ASSETS)
+    for a in ASSETS:
+        st = status[a.name]
+        mark = "ok     " if st["present"] else "MISSING"
+        print(f"{a.name:<{width}}  {mark}  {a.description}")
+        for m in st["missing"]:
+            print(f"{'':<{width}}           missing: {m}")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(_main())

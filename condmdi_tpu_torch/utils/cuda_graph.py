@@ -99,14 +99,19 @@ class CudaGraph:
     `advances_generation` marks a graph that steps an optimizer: each replay
     counts one optimizer step (`weight_cache.advance`), as the eager step's
     hook does, and the graph stays valid across the steps it counts itself.
+    `watch_generation=False` leaves the optimizer generation out of the key,
+    for a graph that re-packs the weights it reads at every replay
+    (`weight_cache.repack_on_every_call`) beside another graph that steps the
+    optimizer.
     """
 
     def __init__(self, fn: Callable[[], Any], modules: Iterable[nn.Module] = (),
-                 pool=None, advances_generation: bool = False):
+                 pool=None, advances_generation: bool = False, watch_generation: bool = True):
         self.fn = fn
         self.modules = tuple(modules)
         self.pool = pool
         self.advances_generation = advances_generation
+        self.watch_generation = watch_generation
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.outputs = None
         self.key = None
@@ -117,7 +122,7 @@ class CudaGraph:
 
     def validity_key(self) -> tuple:
         tensors = tuple(weight_key(t)[1:] for t in tensors_of(self.modules))
-        return implementation_key(), generation(), tensors
+        return implementation_key(), generation() if self.watch_generation else None, tensors
 
     def __call__(self, check: bool = True):
         """Replay, or capture where there is no graph yet or (with `check`) its key

@@ -142,3 +142,11 @@ def to_flax_params(state_dict: Mapping[str, torch.Tensor]) -> dict:
 def flatten_flax_params(tree: Mapping[str, Any]) -> dict[str, np.ndarray]:
     """The flat npz's {'params//a//b//kernel': array} form of a nested tree."""
     return {_SEP.join(path): arr for path, arr in _flatten(tree).items()}
+
+
+def smpl_model_from_arrays(arrays: Mapping[str, Any], device="cuda"):
+    """A body model from the JAX package's SMPLModel fields as numpy arrays
+    ({field name: array}; the same layout, so only the type changes), on `device`."""
+    from condmdi_tpu_torch.models.smpl import SMPLModel
+
+    return SMPLModel.from_arrays(dict(arrays), device)

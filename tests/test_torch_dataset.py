@@ -1,5 +1,5 @@
 """The port's synthetic dataset, collation, fixed-dataset fixtures and the
-HumanML3D guard against the JAX package's, on the CPU.
+HumanML3D loader's existence test against the JAX package's, on the CPU.
 
 Same seeds, same items: captions, tokens, lengths, time masks and text
 embeddings equal; the normalised motions within DATA_ATOL = 1e-4 absolute
@@ -69,14 +69,25 @@ def test_fixed_dataset_fixture_and_round_trip_equal_jax(tmp_path):
 
 
 def test_text2motion_guard(tmp_path):
+    """FileNotFoundError without the split file, where JAX raises it (the
+    callers' cue to fall back to the synthetic set); with the files, the port
+    reads the same entries as JAX (tests/test_torch_real_datasets.py holds the
+    items)."""
     cfg = tds.DatasetConfig(data_dir=str(tmp_path), split="test")
     with pytest.raises(FileNotFoundError):
         jds.Text2MotionDataset(jds.DatasetConfig(data_dir=str(tmp_path), split="test"))
     with pytest.raises(FileNotFoundError):
         tds.Text2MotionDataset(cfg)
     (tmp_path / "test.txt").write_text("000001\n")
-    with pytest.raises(NotImplementedError, match="Queue A 8"):
-        tds.Text2MotionDataset(cfg)
+    (tmp_path / "new_joint_vecs").mkdir()
+    (tmp_path / "texts").mkdir()
+    np.save(tmp_path / "new_joint_vecs" / "000001.npy", np.zeros((60, 263), np.float32))
+    (tmp_path / "texts" / "000001.txt").write_text("a person walks#a/DET person/NOUN##\n")
+    identity = tds.NormStats(np.zeros(263, np.float32), np.ones(263, np.float32))
+    got = tds.Text2MotionDataset(cfg, stats=identity)
+    want = jds.Text2MotionDataset(jds.DatasetConfig(data_dir=str(tmp_path), split="test"),
+                                  stats=identity)
+    assert got.entries == want.entries and len(got) == 1
 
 
 def test_encoder_name_equals_jax(tmp_path):

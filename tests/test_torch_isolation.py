@@ -62,6 +62,12 @@ def test_import_loads_neither_jax_nor_the_jax_package():
         "import condmdi_tpu_torch.evals.a2m, condmdi_tpu_torch.evals.stgcn\n"
         "import condmdi_tpu_torch.evals.unconstrained, condmdi_tpu_torch.evals.run_a2m\n"
         "import condmdi_tpu_torch.evals.run_unconstrained, condmdi_tpu_torch.models.clip\n"
+        "import condmdi_tpu_torch.models.smpl, condmdi_tpu_torch.viz.joints2smpl\n"
+        "import condmdi_tpu_torch.data.amass, condmdi_tpu_torch.data.amass_fk\n"
+        "import condmdi_tpu_torch.data.get_opt, condmdi_tpu_torch.data.projection\n"
+        "import condmdi_tpu_torch.evals.parity, condmdi_tpu_torch.utils.assets\n"
+        "import condmdi_tpu_torch.parallel, condmdi_tpu_torch.parallel.mesh\n"
+        "import condmdi_tpu_torch.parallel.dp_sample, condmdi_tpu_torch.parallel.tp\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'flax', 'orbax', 'condmdi_tpu')]\n"
         "assert not bad, bad\n"
@@ -127,6 +133,17 @@ def test_recognition_models_default_to_cuda_and_raise_without_it():
         A2MClassifier.random_init()
     with pytest.raises(RuntimeError, match="CUDA"):
         STGCNClassifier.random_init()
+
+
+def test_body_model_and_amass_fields_default_to_cuda_and_raise_without_it(tmp_path):
+    _needs_no_cuda()
+    from condmdi_tpu_torch.data.amass_fk import load_amass_files
+    from condmdi_tpu_torch.models.smpl import SMPLModel
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        SMPLModel.random_init()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        load_amass_files([str(tmp_path / "none.npz")])
 
 
 def test_chip_smoke_fails_alone_in_a_directory(tmp_path):
