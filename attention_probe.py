@@ -2,8 +2,8 @@
 
     python3 attention_probe.py [MODE ...]
 
-MODE is any of timeline, variants, layouts, host, batches, edit. With no
-argument it runs all six. It prints the card's name and power limit first. It stands
+MODE is any of timeline, variants, layouts, host, batches, edit, stream,
+shapes, stream_timeline. With no argument it runs all nine. It prints the card's name and power limit first. It stands
 beside chip_smoke.py, whose timing method it uses; nothing in the package or in
 chip_smoke.py needs it.
 
@@ -26,13 +26,32 @@ chip_smoke.py needs it.
             DDPM), with float32 attention on route 2 as the package builds it,
             on route 2 with its kernel launched in stream order instead of as
             the split pass's programmatic dependent (-DCONDMDI_PROBE_OFF=256,
-            `kOffPdl`), and on route 0, the first design (-DCONDMDI_PROBE_OFF=128,
-            `kOffF32Route`, with `attention_route` answering "mma_sync" for
-            float32), in the order 2, 2', 0, 0, 2', 2 twice: samples/s of each
-            run, and each route's median and best; beside each, one wrapper
-            call's host enqueue at edit's shape, one float32 MDM forward at B=4
-            on the host clock against its device time, and the host's time in
-            that forward by event (torch.profiler, self CPU time).
+            `kOffPdl`), and on route 0, the streaming kernel
+            (-DCONDMDI_PROBE_OFF=128, `kOffF32Route`, with `attention_route`
+            answering "stream" for float32), in the order 2, 2', 0, 0, 2', 2
+            twice: samples/s of each run, and each route's median and best;
+            beside each, one wrapper call's host enqueue at edit's shape, one
+            float32 MDM forward at B=4 on the host clock against its device
+            time, and the host's time in that forward by event (torch.profiler,
+            self CPU time);
+  stream    the streaming route (route 0) at the shapes chip_smoke.py times it
+            at, built with parts switched off as `variants` does (the same
+            `ProbeOff` bits act on the streaming kernel: no scores, no P.V, no
+            softmax, no stores, no Q copies), and its pack pass alone, by the
+            library's `condmdi_attention_pack`; for bf16 shapes read in place,
+            also the same call forced through the pack pass and forced to
+            read in place (float32 split in shared memory);
+  stream_timeline
+            the streaming kernel's clock stamps (a -DCONDMDI_PROBE_STAMPS build):
+            for the first item of each CTA, the cycles since the CTA's start at
+            which consumer 0 had Q, finished tile 0, began tile j, saw its scores
+            done and saw its softmax and tile j-1's P.V done,
+            at the bf16 shapes read in place (percentiles over the CTAs);
+  shapes    the wrapper at the same shapes as this tree's package builds it,
+            each beside SDPA, a shape the wrapper refuses printed as refused:
+            copied with chip_smoke.py into an earlier commit's unpacked tree
+            (git archive into .chipwork/), it times that tree's kernel at these
+            shapes in the same call as this one's.
 
 The probe libraries are built into the package's build directory, all at once.
 """
@@ -57,7 +76,7 @@ SERVED, BENCH = (8, 197, 512, 4), (128, 197, 512, 4)  # (B, T, D, H)
 SLOTS = 32  # 8-byte stamps a CTA
 # csrc/attention.cu `ProbeOff`
 SCORES, PV, SOFTMAX, STORES, Q_LOADS, SLACK, SECOND_CTA = 1, 2, 4, 8, 16, 32, 64
-F32_ROUTE0, NO_PDL = 128, 256  # float32 on route 0; route 2's kernel not the pass's dependent
+F32_STREAM, NO_PDL = 128, 256  # float32 on route 0; route 2's kernel not the pass's dependent
 ARITHMETIC = SCORES | PV | SOFTMAX
 VARIANTS = {
     "as committed": 0,
@@ -294,12 +313,12 @@ def edit(dev):
     torch.backends.cudnn.allow_tf32 = False
     committed = attention.attention_route
 
-    def first_design(B, T, H, hd, dtype):
-        return "mma_sync" if dtype == torch.float32 else committed(B, T, H, hd, dtype)
+    def streaming(B, T, H, hd, dtype):
+        return "stream" if dtype == torch.float32 else committed(B, T, H, hd, dtype)
 
     routes = {"route 2": (None, committed), "route 2 in stream order": (off(NO_PDL), committed),
-              "route 0": (off(F32_ROUTE0), first_design)}
-    expect = {"route 2": "wgmma_f32", "route 2 in stream order": "wgmma_f32", "route 0": "mma_sync"}
+              "route 0": (off(F32_STREAM), streaming)}
+    expect = {"route 2": "wgmma_f32", "route 2 in stream order": "wgmma_f32", "route 0": "stream"}
     argv = cs.MDM_CLI + ["--edit_mode", "benchmark_clip", "--imputate", "true"]
     B, T, D, H = cs.CLI_SAMPLES, cs.MDM_TOKENS, 512, 4
     q, k, v = torch.randn((B, T, 3 * D), device=dev).chunk(3, dim=-1)
@@ -345,18 +364,135 @@ def edit(dev):
               f"{cs.CLI_STEPS}-step run: {diff:.3e}", flush=True)
 
 
+# --------------------------------------------------------------------------- #
+# stream
+# --------------------------------------------------------------------------- #
+STREAM_VARIANTS = {
+    "as committed": 0,
+    "no scores": SCORES,
+    "no P.V": PV,
+    "no softmax": SOFTMAX,
+    "no arithmetic": ARITHMETIC,
+    "copies alone": ARITHMETIC | STORES | Q_LOADS,
+}
+
+
+def stream(dev):
+    """The streaming route at chip_smoke.py's shapes (`cs.STREAM_SHAPES`), each part
+    switched off in turn, then the pack pass alone and, for bf16 shapes that the
+    kernel reads in place, the same call through the pack pass."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    cases = [(name, B, T, D, H, dtype) for name, B, T, D, H, types in cs.STREAM_SHAPES
+             for dtype in types]
+    data = {}
+    for name, B, T, D, H, dtype in cases:
+        n = max(2, -(-64 * 2**20 // (B * T * 3 * D * dtype.itemsize)))
+        data[name, dtype] = [torch.randn((B, T, 3 * D), generator=gen, device=dev).to(
+            dtype).chunk(3, dim=-1) for _ in range(n)]
+    for variant, mask in STREAM_VARIANTS.items():
+        load(off(mask))
+        for name, B, T, D, H, dtype in cases:
+            us = kernel_us(data[name, dtype], H)
+            print(f"[stream] {variant:>14} | {name} {str(dtype)[6:]}: {us:8.2f} us", flush=True)
+    _build._libs.pop("attention.cu", None)
+    lib = _build.load_attention()
+    committed = attention.stream_packs
+    for name, B, T, D, H, dtype in cases:
+        sets = data[name, dtype]
+        planes = torch.empty((3, 2 if dtype == torch.float32 else 1, B * H, -(-T // 16) * 16,
+                              -(-(D // H) // 16) * 16), device=dev, dtype=torch.bfloat16)
+        stream_ = torch.cuda.current_stream(dev).cuda_stream
+
+        def pack(q, k, v):
+            lib.condmdi_attention_pack(q.data_ptr(), k.data_ptr(), v.data_ptr(), planes.data_ptr(),
+                                       B, T, H, D // H, q.stride(0), q.stride(1),
+                                       attention._DTYPES[dtype][0], stream_)
+
+        ms, _ = cs.timed_ms(pack, sets)
+        line = f"[stream] pack pass alone | {name} {str(dtype)[6:]}: {ms * 1e3:8.2f} us"
+        if attention.stream_reads_in_place(*sets[0], D // H):
+            times = {}
+            for packs in (True, False):
+                attention.stream_packs = lambda *_a, packs=packs: packs
+                try:
+                    times[packs] = kernel_us(sets, H)
+                finally:
+                    attention.stream_packs = committed
+            line += (f"; the whole call through the pack pass {times[True]:8.2f} us, read in place "
+                     f"{times[False]:8.2f} us (the package "
+                     f"{'packs' if committed(lib, *sets[0], H) else 'reads in place'})")
+        print(line, flush=True)
+
+
+def stream_timeline(dev):
+    lib = load("CONDMDI_PROBE_STAMPS")
+    lib.condmdi_probe_stamps.argtypes = [ctypes.c_void_p]
+    lib.condmdi_probe_stamps.restype = ctypes.c_int
+    gen = torch.Generator(device=dev).manual_seed(0)
+    names = {1: "Q in place", 2: "tile 0 done", 29: "the last P.V done", 30: "end"}
+    for j in range(1, 9):  # slots 3..26; 29 is the last P.V
+        names.update({3 * j: f"tile {j} begins",
+                      3 * j + 1: f"tile {j}: scores done", 3 * j + 2: f"tile {j}: P.V done"})
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for name, B, T, D, H, types in cs.STREAM_SHAPES:
+        if torch.bfloat16 not in types or not (D // H in (16, 32) or (D // H) % 64 == 0):
+            continue
+        sets = qkv_sets((B, T, D, H), dev, gen)
+        lib.condmdi_probe_stamps(None)
+        for s in sets:  # warm up, and leave the first set cold
+            attention._launch(*s, H)
+        stamps = torch.zeros(4 * sms * SLOTS, dtype=torch.int64, device=dev)  # CTAs an SM: < 4
+        lib.condmdi_probe_stamps(stamps.data_ptr())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        attention._launch(*sets[0], H)
+        torch.cuda.synchronize()
+        lib.condmdi_probe_stamps(None)
+        d = stamps.view(-1, SLOTS).cpu().numpy()
+        ctas = int((d[:, 30] > 0).sum())
+        print(f"[stream_timeline] {name} B={B} T={T} D={D} H={H}: {ctas} CTAs, one call "
+              f"{(time.perf_counter() - t0) * 1e6:.1f} us on the host clock; cycles since each "
+              f"CTA's start, p10 / p50 / p90", flush=True)
+        for slot in sorted(names):
+            seen = d[:, slot] > 0
+            if seen.any():
+                c = sorted(d[seen, slot] - d[seen, 0])
+                p = [c[min(len(c) - 1, int(f * len(c)))] for f in (0.1, 0.5, 0.9)]
+                print(f"[stream_timeline]   {names[slot]:>46} ({seen.sum():3d} CTAs): "
+                      f"{p[0]:7d} {p[1]:7d} {p[2]:7d}", flush=True)
+    _build._libs.pop("attention.cu", None)
+
+
+def shapes(dev):
+    gen = torch.Generator(device=dev).manual_seed(5)
+    for name, B, T, D, H, types in cs.STREAM_SHAPES:
+        for dtype in types:
+            n = max(2, -(-64 * 2**20 // (B * T * 3 * D * dtype.itemsize)))
+            sets = [torch.randn((B, T, 3 * D), generator=gen, device=dev).to(dtype).chunk(
+                3, dim=-1) for _ in range(n)]
+            label = f"{name} {str(dtype)[6:]}, route {attention.attention_route(B, T, H, D // H, dtype)}"
+            try:
+                us = kernel_us(sets, H)
+            except (NotImplementedError, ValueError) as e:
+                print(f"[shapes] {label}: refused ({e})", flush=True)
+                continue
+            print(f"[shapes] {label}: {us:8.2f} us; SDPA {sdpa_us(sets, (B, T, D, H)):8.2f} us",
+                  flush=True)
+
+
 def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         print("attention_probe: torch.cuda.is_available() is False", file=sys.stderr)
         return 2
     modes = {"timeline": timeline, "variants": variants, "layouts": layouts, "host": host,
-             "batches": batches, "edit": edit}
+             "batches": batches, "edit": edit, "stream": stream, "shapes": shapes,
+             "stream_timeline": stream_timeline}
     chosen = argv or list(modes)
     if any(m not in modes for m in chosen):
         print(__doc__, file=sys.stderr)
         return 2
     dev = torch.device("cuda")
-    if "timeline" in chosen:
+    if "timeline" in chosen or "stream_timeline" in chosen:
         start_build("CONDMDI_PROBE_STAMPS")
     if "variants" in chosen or "layouts" in chosen:
         for name, mask in VARIANTS.items():
@@ -364,8 +500,11 @@ def main(argv: list[str]) -> int:
                                                 "K and V copies alone"):
                 start_build(off(mask))
     if "edit" in chosen:
-        start_build(off(F32_ROUTE0))
+        start_build(off(F32_STREAM))
         start_build(off(NO_PDL))
+    if "stream" in chosen:
+        for mask in STREAM_VARIANTS.values():
+            start_build(off(mask))
     print(f"[probe] {cs.card_line()}; torch {torch.__version__}, CUDA {torch.version.cuda}",
           flush=True)
     for m in chosen:

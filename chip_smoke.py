@@ -35,7 +35,13 @@ Phases, in order; any failure exits non-zero:
      CUDA graph on a side stream and replayed twice on new contents, which
      must equal the eager call bit for bit; the float32 route (route 2) at the
      same four shapes, per call and timed beside SDPA in float32 and the first
-     design's time;
+     design's time; then the streaming route (route 0, "stream") per call
+     against plain at the shapes no resident route takes (STREAM_SHAPES: hd 16
+     at evals.run_a2m's default width, hd 128 at T = 225 in float32 and at
+     T = 512 in bf16, hd 4, 256 and 320), each timed (kernel, plain, SDPA,
+     bound, host enqueue) with the layout it took; and one full-width MDM
+     forward (latent 512, 8 layers, f32, B=4, 224 frames: T = 225) kernel path
+     against plain path with exactly 8 launches on that route;
   6. the MDM path, kernel against plain: the full-width bench MDM (trans_enc,
      8 layers, latent 512) over a float32 DDIM-20, B=2;
   7. MDM keyframe editing under autograd, kernel against plain: no_cond MDM,
@@ -193,8 +199,8 @@ Phases, in order; any failure exits non-zero:
      and with cuda_graphs=False, bit for bit; then through main at 20 steps, kernel against
      plain (DDIM_TOL);
  30. evals.run_a2m --dataset uestc (40 actions, ST-GCN on the card) at the same width; then
-     HumanAct12 at the CLIs' default widths (latent 64, 2 layers: hd 16, the tiled
-     mma_sync route), and at 20 steps kernel against plain; the f32 attention at both a2m
+     HumanAct12 at the CLIs' default widths (latent 64, 2 layers: hd 16, the streaming
+     route), and at 20 steps kernel against plain; the f32 attention at both a2m
      shapes per call against plain, timed beside SDPA and the bound;
  31. evals.run_unconstrained through its main at phase 29's width (MDM no_cond, ST-GCN
      features, FID / KID / precision-recall / diversity): the committed report's keys,
@@ -236,8 +242,8 @@ Phases, in order; any failure exits non-zero:
      against the plain step replayed from its graph (bit for bit, 8 steps; their wall ms), the
      tensor-parallel UNet-XL and MDM forwards on a 1x1 mesh against the plain forwards; one
      card shows no more;
- 40. a {"kernels": [...]} line (three kernels), the card line, and the final
-     {"ok": true, ...}.
+ 40. a {"kernels": [...]} line (the three kernels, and the attention's streaming
+     route beside them), the card line, and the final {"ok": true, ...}.
 
 Per-shape results also go to chiprun_out/chip_smoke.json (`python3 resblock_probe.py
 f32` times the float32 rows of phases 2, 5 and 17 alone). Imports nothing of JAX or
@@ -322,6 +328,10 @@ PREV_QDENSE_MS = {
 PREV_F32_RESBLOCK_MS = {"UNet-XL pad 200": 22.334, "gate UNet": 2.816, "UNet-XL pad 224": 22.504}
 PREV_F32_ATTENTION_MS = {"mdm_served": 0.0619, "mdm_bench_batch": 0.5225, "dit_trans_dec": 0.0619,
                          "ragged": 0.0103, "edit": 0.0627, "synthesize": 0.0616}
+# The first tiled attention kernel at the one streaming shape it served on a path
+# (evals.run_a2m at the JAX CLIs' width, f32; PERF.md section 6, an earlier run on an
+# NVIDIA H100 80GB HBM3 at 700 W); the others it refused or was never timed at.
+PREV_STREAM_MS = {("a2m_cli_default", "f32"): 0.0076}
 GUIDANCE_STEPS, GUIDANCE_WEIGHT = 50, 0.05  # phases 7, 13, 14
 SERVE_REQUESTS, SERVE_STEPS, GUIDANCE = 4, 1000, 2.5
 MDM = dict(njoints=FEATS, latent_dim=512, ff_size=1024, num_layers=8, num_heads=4)  # bench.py mdm
@@ -332,6 +342,18 @@ ATTN_SHAPES = [  # (name, B, T, D, H)
     ("dit_trans_dec", 8, T_FRAMES, 512, 4),    # no conditioning token in the sequence
     ("ragged", 3, 25, 128, 2),                 # hd 64, one ragged key tile
 ]
+STREAM_SHAPES = [  # (name, B, T, D, H, types): route 0's shapes, where no resident route fits
+    ("a2m_cli_default", 32, 61, 64, 4, (torch.float32,)),  # evals.run_a2m, the JAX CLIs' width
+    ("mdm_f32_225", 4, 225, 512, 4, (torch.float32,)),     # MDM at 224 frames, edit's B
+    ("t2m_f32_225", 64, 225, 512, 4, (torch.float32,)),    # the same at run_t2m's B
+    ("bf16_long", 8, 512, 512, 4, (torch.bfloat16,)),      # served MDM past route 1's T <= 448
+    ("bf16_long_b128", 128, 512, 512, 4, (torch.bfloat16,)),
+    ("hd4", 8, 197, 16, 4, (torch.bfloat16, torch.float32)),  # --latent_dim 16
+    ("hd256", 8, 197, 1024, 4, (torch.bfloat16,)),         # --latent_dim 1024
+    ("hd320_f32", 2, 197, 1280, 4, (torch.float32,)),      # O's columns in two blocks
+]
+STREAM_PLAN_KEYS = ("chunk_cols", "chunks_a_block", "column_blocks", "depth_chunks", "consumers",
+                    "q_resident", "stages", "smem_bytes")
 # the int8 kernel against its plain version: float32 within INT8_F32_TOL * (1 + |plain|)
 # (the integer sums are exact on both sides, the epilogue is the same two float32
 # roundings), bfloat16 within one output ulp (INT8_BF16_ULP * |plain|)
@@ -1015,6 +1037,97 @@ def attention_graph_replay(dev):
                   f"{out.float().abs().max().item():.3f}", flush=True)
             if differs or not torch.isfinite(out).all() or out.float().abs().max() == 0:
                 raise SystemExit("the captured attention call does not replay the eager one")
+
+
+def stream_rows(dev, seed=37):
+    """The streaming route at each of STREAM_SHAPES and types: the kernel against
+    plain per call (BF16_TOL / F32_TOL), then kernel, plain, SDPA and bound times
+    and the host enqueue, with the layout the launch took (csrc/attention.cu
+    `condmdi_attention_stream_plan`) and whether it read q, k, v in place."""
+    import ctypes
+
+    from condmdi_tpu_torch.ops import _build
+    from condmdi_tpu_torch.ops.attention import (_DTYPES, _launch, _xla_attention,
+                                                 attention_route, stream_packs)
+
+    lib = _build.load_attention()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rows = []
+    for name, B, T, D, H, types in STREAM_SHAPES:
+        hd = D // H
+        for dtype in types:
+            def views():  # column views of one [B, T, 3D] projection, as on the path
+                return torch.randn((B, T, 3 * D), generator=gen, device=dev).to(dtype).chunk(
+                    3, dim=-1)
+
+            tag = "bf16" if dtype == torch.bfloat16 else "f32"
+            tol = BF16_TOL if dtype == torch.bfloat16 else F32_TOL
+            route = attention_route(B, T, H, hd, dtype)
+            q, k, v = views()
+            with torch.no_grad():
+                got = _launch(q, k, v, H)
+                torch.cuda.synchronize()
+                want = _xla_attention(q, k, v, H)
+            err = (got.float() - want.float()).abs()
+            bad = (err > tol * (1 + want.float().abs())).sum().item()
+            plan = (ctypes.c_int * 8)()
+            if lib.condmdi_attention_stream_plan(B, T, H, hd, _DTYPES[dtype][0], plan) != 0:
+                raise SystemExit(f"no streaming layout for {name}")
+            row = dict(shape=name, B=B, T=T, D=D, H=H, dtype=tag, route=route,
+                       max_abs_err=err.max().item(), in_place=not stream_packs(lib, q, k, v, H),
+                       plan=dict(zip(STREAM_PLAN_KEYS, plan)))
+            if route != "stream" or bad or not torch.isfinite(got).all():
+                raise SystemExit(f"the streaming route disagrees with its plain version at {row} "
+                                 f"({bad} outside)")
+            sets = [views() for _ in range(max(2, -(-64 * 2**20 // (B * T * 3 * D * dtype.itemsize))))]
+            with torch.no_grad():
+                row["ms"], row["host_ms"] = timed_ms(lambda q, k, v: _launch(q, k, v, H), sets)
+                row["plain_ms"], _ = timed_ms(lambda q, k, v: _xla_attention(q, k, v, H), sets)
+                heads_first = [tuple(t.view(B, T, H, hd).transpose(1, 2) for t in s) for s in sets]
+                row["library_ms"], row["library_host_ms"] = timed_ms(
+                    F.scaled_dot_product_attention, heads_first)
+            row["bound_ms"], row["bound_by"] = attn_bound_ms(B, T, D, H, dtype=dtype)
+            before = PREV_STREAM_MS.get((name, tag))
+            print(f"[stream] {tag} {name} B={B} T={T} D={D} H={H} (hd {hd}; "
+                  f"{'in place' if row['in_place'] else 'packed'}; {row['plan']}): max_abs_err "
+                  f"{row['max_abs_err']:.3e} (tol {tol:.1e}*(1+|plain|)); kernel {row['ms']:.4f} ms"
+                  + (f" (the first tiled kernel: {before} ms)" if before else "")
+                  + f", plain {row['plain_ms']:.4f} ms, SDPA {row['library_ms']:.4f} ms, bound "
+                  f"{row['bound_ms']:.4f} ms ({row['bound_by']}); host enqueue: kernel wrapper "
+                  f"{row['host_ms']:.4f} ms, SDPA {row['library_host_ms']:.4f} ms", flush=True)
+            rows.append(row)
+    return rows
+
+
+def mdm_225_forward(dev):
+    """One full-width MDM forward (bench.py's mdm: latent 512, 8 layers, 4 heads,
+    hd 128) in float32 at B=4 and 224 frames, T = 225 with the condition token,
+    one row past route 2: the counts set to 0 just before, exactly 8 launches,
+    all on the streaming route; the kernel path against the plain path."""
+    from condmdi_tpu_torch.ops.attention import attention_route
+
+    B, frames = 4, 224
+    route = attention_route(B, frames + 1, MDM["num_heads"], MDM["latent_dim"] // MDM["num_heads"],
+                            torch.float32)
+    model = build_mdm(dev, torch.float32)
+    x = seeded_noise((B, frames, FEATS), dev, seed=41)
+    t = torch.full((B,), 500, device=dev)
+    y = {"text_embed": keyframe_inputs(B, 9)[0].to(dev)}
+    reset_counts()
+    with torch.no_grad():
+        got = model(x, t, y)
+    torch.cuda.synchronize()
+    launches = read_counts()["fused_self_attention"]
+    with torch.no_grad(), attention_swapped_for_plain():
+        want = model(x, t, y)
+    err = (got - want).abs().max().item()
+    print(f"[stream] MDM f32 forward, B={B}, {frames} frames (T = {frames + 1}, route {route}): "
+          f"{launches} attention launches (expected 8); max|kernel - plain| = {err:.3e} (tol "
+          f"{DDIM_TOL:.0e}), max|plain| = {want.abs().max().item():.3f}", flush=True)
+    if route != "stream" or launches != 8 or got.shape != (B, frames, FEATS) \
+            or not torch.isfinite(got).all() or err > DDIM_TOL or want.abs().max() == 0:
+        raise SystemExit(f"MDM at T = {frames + 1}: route {route}, {launches} launches, error {err}")
+    return dict(B=B, T=frames + 1, route=route, launches=launches, max_abs_err=err)
 
 
 # --------------------------------------------------------------------------- #
@@ -3434,7 +3547,7 @@ A2M_RUN = ["--eval_mode", "debug", "--diffusion_steps", str(A2M_STEPS), "--num_s
            str(A2M_BATCH), "--batch_size", str(A2M_BATCH), "--num_frames", str(A2M_FRAMES),
            "--seed", "10"]
 # the MDM paper's action-to-motion width (ff 2 x latent, 4 heads: hd 128, route wgmma_f32),
-# and the JAX CLIs' default width (hd 16: route mma_sync, the tiled kernel)
+# and the JAX CLIs' default width (hd 16: route stream, behind its pack pass)
 A2M_PAPER = ["--latent_dim", "512", "--layers", "8"]
 A2M_DEFAULT = ["--latent_dim", "64", "--layers", "2"]
 A2M_ATTN_SHAPES = [("a2m_paper_width", A2M_BATCH, A2M_TOKENS, 512, 4),
@@ -3576,12 +3689,12 @@ def protocol_kernel_vs_plain(module, argv, label, per_step):
 
 
 def a2m_routes():
-    """The attention routes of the two a2m widths: wgmma_f32 at hd 128, mma_sync at hd 16."""
+    """The attention routes of the two a2m widths: wgmma_f32 at hd 128, stream at hd 16."""
     from condmdi_tpu_torch.ops.attention import attention_route
 
     routes = {name: attention_route(B, T, H, D // H, torch.float32)
               for name, B, T, D, H in A2M_ATTN_SHAPES}
-    if routes != {"a2m_paper_width": "wgmma_f32", "a2m_cli_default": "mma_sync"}:
+    if routes != {"a2m_paper_width": "wgmma_f32", "a2m_cli_default": "stream"}:
         raise SystemExit(f"the a2m shapes take the routes {routes}")
     return routes
 
@@ -3605,7 +3718,7 @@ def a2m_phase29(dev, card):
 
 def a2m_phase30(dev, card):
     """evals.run_a2m --dataset uestc (40 actions, ST-GCN on the card) at the paper's
-    width; then HumanAct12 at the CLIs' default widths (hd 16, the mma_sync route),
+    width; then HumanAct12 at the CLIs' default widths (hd 16, the streaming route),
     with kernel against plain; the f32 attention at both a2m shapes per call, timed."""
     argv = A2M_RUN + A2M_PAPER + ["--dataset", "uestc"]
     run = run_protocol("run_a2m", argv, "uestc")
@@ -4519,6 +4632,8 @@ def main() -> int:
     attn_rows = phase("5 attention kernels", check_attention, dev)
     attn_f32 = phase("5 attention kernels f32 times", f32_attention_rows, dev, ATTN_SHAPES)
     phase("5 attention CUDA graph", attention_graph_replay, dev)
+    stream = phase("5 attention stream route", stream_rows, dev)
+    mdm225 = phase("5 MDM forward at T = 225", mdm_225_forward, dev)
     mdm_ddim_err = phase("6 MDM DDIM", mdm_ddim_kernel_vs_plain, dev)
     recg_err = phase("7 MDM guidance", mdm_recguidance_kernel_vs_plain, dev)
     served_mdm = phase("8 MDM serving", serve_mdm, dev, card)
@@ -4578,6 +4693,7 @@ def main() -> int:
         return "operations" if ops_bound >= per_forward("bound_ms", shape_rows) / 2 else "bytes"
 
     attn = next(r for r in attn_rows if r["shape"] == "mdm_served")
+    a2m_stream = next(r for r in stream if r["shape"] == "a2m_cli_default")
     kernels = [{
         "name": "fused_conv_gn_mish",
         "route": "cuda",
@@ -4731,6 +4847,24 @@ def main() -> int:
         "smpl_train_step_grad_max_rel_err": smpl34["grad_max_rel_err"],
         "tp_1x1_forward_max_abs_err_f32": par39["tp_MDM_forward_max_abs_err"],
     }, {
+        # the attention's streaming route (route 0 of the same wrapper): launches on
+        # evals.run_a2m at the JAX CLIs' width through main (phase 30) and on the MDM
+        # forward at T = 225 (phase 5); times per launch at the a2m shape, f32
+        "name": "fused_self_attention_stream",
+        "route": "cuda",
+        "source": "condmdi_tpu_torch/csrc/attention.cu",
+        "replaces": "condmdi_tpu/ops/attention.py:34",
+        "launches": a2m30["default"]["launches"]["fused_self_attention"] + mdm225["launches"],
+        "max_abs_err": max(r["max_abs_err"] for r in stream if r["dtype"] == "bf16"),
+        "max_abs_err_f32": max(r["max_abs_err"] for r in stream if r["dtype"] == "f32"),
+        "mdm_225_forward_max_abs_err_f32": mdm225["max_abs_err"],
+        "a2m_ddpm20_max_abs_err_f32": a2m30["default_ddpm20_max_abs_err"],
+        **{k: a2m_stream[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        "host_ms_per_call": a2m_stream["host_ms"],
+        "shapes": [{k: r[k] for k in ("shape", "B", "T", "D", "H", "dtype", "in_place", "plan",
+                                      "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
+                                      "bound_by", "host_ms")} for r in stream],
+    }, {
         "name": "int8_conv1d",
         "route": "cuda",
         "source": "condmdi_tpu_torch/csrc/quant.cu",
@@ -4774,6 +4908,7 @@ def main() -> int:
         "eval_ms": {k: eval20["int8_rows"][k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
     }]
     previous = {"fused_conv_gn_mish": PREV_RESBLOCK_MS, "fused_self_attention": PREV_ATTENTION_MS,
+                "fused_self_attention_stream": PREV_STREAM_MS[("a2m_cli_default", "f32")],
                 "int8_conv1d": PREV_INT8_MS}
     for kern in kernels:
         print(f"[kernel] before: {kern['name']} took {previous[kern['name']]} ms in its first "
@@ -4785,6 +4920,7 @@ def main() -> int:
         {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
          "shapes": rows, "shapes_b64": big_rows, "shapes_f32_b8": f32_b8, "serve": served,
          "attention_shapes": attn_rows, "attention_shapes_f32": attn_f32,
+         "attention_stream": stream, "mdm_225_forward": mdm225,
          "serve_mdm": served_mdm, "mdm_forward_b128": bench_forward,
          "int8_shapes": int8_rows, "int8_qdense": dense_rows, "int8_paths": int8_out,
          "serve_mixed": mixed, "kernels": kernels,

@@ -5,18 +5,19 @@
 // Replaces the Pallas TPU kernel condmdi_tpu/ops/attention.py:34 `_attn_kernel`
 // (launched by `_pallas_self_attention`). The TPU layout (q/k/v transposed to
 // [B, H, Tp, hdp] and padded to 128 x 128 tiles, one (batch, head) block in
-// VMEM) is not carried over: both kernels here read the heads straight out of
-// the [B, T, D] column blocks of the fused QKV projection, with a row stride.
+// VMEM) is not carried over: the kernels here read the heads out of the
+// [B, T, D] column blocks of the fused QKV projection, with a row stride, or
+// (route 0, where TMA cannot address them as they lie) out of a packed copy.
 //
 // What bounds it on an H100: bytes. At the served MDM shape (B=8 rows under
 // CFG, T=197, D=512, H=4, hd=128) q, k, v and out in bf16 are 6.46 MB, 1.93 us
 // at 3.35 TB/s, against 4*B*H*T^2*hd = 0.64 GFLOP, 0.64 us at 989 TFLOP/s.
 //
-// Two hand-written kernels, and which shape takes which: `route_of` below, a
-// function of the shape and the type alone, exported as
-// `condmdi_attention_route`. The caller names the route it expects
-// (ops/attention.py `attention_route`, the same function in Python, so that it
-// can be asked where there is no card), and the entry point refuses any other:
+// Three routes, and which shape takes which: `route_of` below, a function of
+// the shape and the type alone, exported as `condmdi_attention_route`. The
+// caller names the route it expects (ops/attention.py `attention_route`, the
+// same function in Python, so that it can be asked where there is no card),
+// and the entry point refuses any other:
 //
 //   route 1, "wgmma" -- `resident::attention_resident_kernel`: bfloat16 with a
 //     head width of 32, 64 or 128 whose K and V fit one block's shared memory,
@@ -27,9 +28,12 @@
 //     or 128 whose hi and lo planes of K and V fit one block,
 //     8*hd*16*ceil(T/16) + 256 <= 231,424 bytes: T <= 224 at hd=128, 448 at
 //     hd=64, 896 at hd=32. This is what the MDM CLIs run (f32, T = 197).
-//   route 0, "mma_sync" -- `tiled::attention_tiled_kernel`: every other head
-//     width (multiples of 8 up to 128) and longer T, in either type. It walks
-//     K and V in 64-key tiles, so any T works.
+//   route 0, "stream" -- `stream::attention_stream_kernel`, behind
+//     `stream::pack_heads_kernel` where it needs one: every other shape, in
+//     either type: any head width from 1 up, any T, any B and H, q/k/v at any
+//     row stride and alignment. K and V stream through a ring of TMA stages,
+//     so no length is too long, and a head wider than the registers hold is
+//     cut into column blocks.
 //
 // route 1, the design. A CTA is one warpgroup (128 threads). A work item is one
 // 64-row query tile of one head of one batch item; a CTA takes a contiguous
@@ -69,7 +73,7 @@
 // operand short of TF32 (10 mantissa bits), so each value is split once into
 // hi = bf16(x) and lo = bf16(x - hi), and each product is three bf16 products,
 // hi.hi + hi.lo + lo.hi, accumulated in f32 in that order: about 16 mantissa
-// bits, the precision of route 0.
+// bits, as route 0 keeps for float32 too.
 //   * The split happens once per call, in `split_qkv_kernel`: q, k and v are
 //     read once and written as bf16 planes [q, k, v][hi, lo][B][T][D]. The
 //     attention kernel is launched as its programmatic dependent: it sets up
@@ -82,15 +86,43 @@
 //     the masking and the hand-over between heads are route 1's. The output
 //     is float32.
 //
-// route 0 is the first version of this kernel, unchanged: one CTA per (tile of
-// 64 query rows, head, batch item), four warps of 16 query rows each, K
-// row-major and V transposed into shared memory tile by tile with plain
-// 16-byte loads staged through registers, mma.sync m16n8k16, the same online
-// softmax. float32 inputs go through the tensor cores as a hi+lo bf16 split
-// (hi*hi + hi*lo + lo*hi for both products), which keeps about 16 mantissa
-// bits. hd may be any multiple of 8 up to 128 (columns up to the next multiple
-// of 16 are zero in shared memory). Timings of both routes, and what was tried
-// and dropped on the way, are in PERF.md.
+// route 0, the design. The shapes it takes have no common layout. Where TMA
+// can address the heads as they lie (hd 16, 32 or a multiple of 64 -- up to
+// 512 in float32 --, 16-byte aligned rows) the kernel reads q, k, v in place;
+// elsewhere a pack pass (one launch for q, k and v) first writes head-major
+// bf16 planes [B*H][t16][hd16], zero past T and past hd, hi and lo for float32.
+// Everything else is route 1's building blocks, arranged to stream:
+//   * A CTA is one or two consumer warpgroups, each with its own 64-row query
+//     tile, and a producer warpgroup behind them. Two consumers share the K
+//     and V copies (128 rows) where T holds two tiles, shared memory both Q
+//     tiles, the registers both O blocks and the items still fill half the
+//     SMs. Work items (batch x head x tile pair x column block) are numbered
+//     in one linear index and walked by persistent CTAs, so no grid dimension
+//     limits B or H.
+//   * One producer thread keeps TMA copies in flight through a ring of up to
+//     12 stages with full and empty mbarriers. A stage holds one chunk: 64
+//     rows of 16, 32 or 64 columns (a box under the 32-, 64- or 128-byte
+//     swizzle), hi and lo side by side for float32. Float32 read in place lands
+//     as it lies, and the producer's other three warps split it into hi and lo
+//     in shared memory, under the same swizzle, before the consumers may take
+//     it. Q is loaded once an item where it fits beside the ring; else each S
+//     stage carries Q's chunk with K's (packed planes only).
+//   * S = Q.K^T by wgmma m64n64k16 from shared memory, one depth chunk a
+//     stage; O += P.V by wgmma m64n{16,32,64}k16 with P in registers and V as
+//     the MN-major operand through the transpose bit, one column chunk of the
+//     block a stage into its own accumulators. Where a head is one column
+//     block, key tile j's scores are issued as one group with tile j-1's P.V
+//     and tile j's softmax runs while that P.V does (route 1's order, first
+//     and last tiles peeled, every wait on a fixed number of groups: ptxas
+//     serialises the products otherwise).
+//   * The online softmax is route 1's. Keys >= T arrive as zeros and are
+//     masked to -inf after the product; rows >= T are never stored.
+//   * O's columns are cut into blocks of at most 256 (128 for float32, whose
+//     P takes twice the registers), each its own work item that recomputes S,
+//     one score chunk at a time.
+// What bounds it: bytes at the shapes on a path (hd 16 at T = 61: 0.6 us;
+// hd 128 at T <= 512 and B <= 8: 2-5 us), operations past B*T of about 1e5
+// in bf16. Timings are in PERF.md.
 
 #include <cuda.h>  // CUtensorMap and its enums; libcuda's encoder is taken at run time
 #include <cuda_bf16.h>
@@ -102,7 +134,7 @@
 
 // Probe builds only. attention_probe.py compiles copies of this file with
 // -DCONDMDI_PROBE_OFF=<mask of ProbeOff>, which switches parts of the resident
-// kernel off (the results are then wrong; the times tell what each part
+// and streaming kernels off (the results are then wrong; the times tell what each part
 // costs), or with -DCONDMDI_PROBE_STAMPS, which records clock64() at a CTA's
 // milestones, 32 slots a CTA. The package's build defines neither, and every
 // line that names them folds away.
@@ -129,13 +161,12 @@ enum ProbeOff {
   kOffScores = 1, kOffPv = 2, kOffSoftmax = 4, kOffStores = 8, kOffQ = 16,
   kOffSlack = 32,      // a row's reference maximum moves on every tile
   kOffSecondCta = 64,  // one CTA an SM
-  kOffF32Route = 128,  // float32 takes route 0, the first design, at every shape
+  kOffF32Route = 128,  // float32 takes route 0, the streaming kernel, at every shape
   kOffPdl = 256,       // route 2's kernel launched in stream order, not as the pass's dependent
 };
 __host__ __device__ constexpr bool probe_off(int part) { return (CONDMDI_PROBE_OFF & part) != 0; }
 
 constexpr float kLog2e = 1.4426950408889634f;
-constexpr int kMaxHd = 128;       // widest head either kernel takes
 constexpr int kMaxSmem = 232448;  // dynamic + static shared memory of one block on sm_90
 
 // two floats as one bf16x2 register, `lo` in the low half (the lower index)
@@ -234,15 +265,15 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// Shared-memory descriptor of an operand stored as rows of ROW_BYTES (128 or 64)
-// under the swizzle of that width, the layout a TMA box with the same swizzle
-// lands in. `sbo`: bytes between groups of 8 rows. `lbo`: for the MN-major
+// Shared-memory descriptor of an operand stored as rows of ROW_BYTES (128, 64
+// or 32) under the swizzle of that width, the layout a TMA box with the same
+// swizzle lands in. `sbo`: bytes between groups of 8 rows. `lbo`: for the MN-major
 // operand, bytes between two ROW_BYTES-wide column groups; unused (16) for the
 // K-major one, whose depth steps move the start address inside the row.
 template <int ROW_BYTES>
 __device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  static_assert(ROW_BYTES == 128 || ROW_BYTES == 64, "128-byte or 64-byte swizzle");
-  constexpr uint64_t kLayout = ROW_BYTES == 128 ? 1 : 2;
+  static_assert(ROW_BYTES == 128 || ROW_BYTES == 64 || ROW_BYTES == 32, "a swizzle's width");
+  constexpr uint64_t kLayout = ROW_BYTES == 128 ? 1 : ROW_BYTES == 64 ? 2 : 3;
   return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
          ((uint64_t)(sbo >> 4) << 32) | (kLayout << 62);
 }
@@ -262,6 +293,22 @@ __device__ __forceinline__ float fast_exp2(float x) {  // 2^x; -inf gives +0
 // (TNSP 0) or MN-major (TNSP 1). scale_d 0 overwrites d.
 template <int N, int TNSP>
 struct WgmmaRS;
+template <int TNSP>
+struct WgmmaRS<16, TNSP> {
+  static __device__ __forceinline__ void run(float (&d)[8], const uint32_t (&a)[4],
+                                             uint64_t b_desc, int scale_d) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+        "{%8, %9, %10, %11}, %12, p, 1, 1, %14;\n"
+        "}\n"
+        : CONDMDI_D8(d, 0)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b_desc), "r"(scale_d), "n"(TNSP));
+  }
+};
 template <int TNSP>
 struct WgmmaRS<32, TNSP> {
   static __device__ __forceinline__ void run(float (&d)[16], const uint32_t (&a)[4],
@@ -750,8 +797,9 @@ EncodeTiled tensor_map_encoder() {
 
 // x [B, T, cols] (rows stride_t elements apart, 16-byte aligned) as a 3-D bf16
 // tensor (cols; T; B), cut in boxes of (box_cols; box_rows; 1) that land in
-// shared memory as rows of box_cols bf16 under the swizzle of that width (128
-// or 64 bytes), which is how wgmma reads them. About 3 us of host time a map.
+// shared memory as rows of box_cols bf16 under the swizzle of that width (128,
+// 64 or 32 bytes), which is how wgmma reads them; what lies outside the tensor
+// arrives as zeros. About 3 us of host time a map.
 bool encode_map(CUtensorMap* map, const void* x, int batch, int t_len, int cols,
                 long long stride_b, long long stride_t, int box_rows, int box_cols) {
   EncodeTiled encode = tensor_map_encoder();
@@ -763,7 +811,9 @@ bool encode_map(CUtensorMap* map, const void* x, int batch, int t_len, int cols,
   const cuuint32_t steps[3] = {1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(x), dims, strides, box,
                 steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                box_cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+                box_cols == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
+                : box_cols == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                 : CU_TENSOR_MAP_SWIZZLE_32B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
@@ -897,321 +947,931 @@ int launch_split(const void* q, const void* k, const void* v, void* out, void* p
 }  // namespace resident
 
 // ------------------------------------------------------------------------- //
-// route 0: float32 and whatever route 1 does not hold; key tiles, mma.sync
+// route 0, "stream": every shape that routes 1 and 2 do not take; K and V
+// stream through a ring of TMA stages
 // ------------------------------------------------------------------------- //
 
-namespace tiled {
-constexpr int kThreads = 128;           // 4 warps x 16 query rows
-constexpr int kBlockM = 64;             // query rows per CTA
-constexpr int kBlockN = 64;             // keys per tile
-constexpr int kPitch = kMaxHd + 8;      // Q/K row pitch (bf16): conflict-free fragment loads
-constexpr int kVtPitch = kBlockN + 8;   // V^T row pitch (bf16)
-constexpr int kQPlane = kBlockM * kPitch;
-constexpr int kKPlane = kBlockN * kPitch;
-constexpr int kVPlane = kMaxHd * kVtPitch;
+namespace stream {
 
-template <typename T>
-struct Split;
-template <>
-struct Split<__nv_bfloat16> {
-  static constexpr int k = 1;  // bf16 planes per value
-};
-template <>
-struct Split<float> {
-  static constexpr int k = 2;  // hi + lo
-};
+using resident::bf16;
+using resident::fast_exp2;
+using resident::fence_barrier_init;
+using resident::fence_regs;
+using resident::mbarrier_arrive_expect_tx;
+using resident::mbarrier_init;
+using resident::mbarrier_wait;
+using resident::smem_u32;
+using resident::split4;
+using resident::tma_load_3d;
+using resident::wgmma_commit;
+using resident::wgmma_desc;
+using resident::wgmma_fence;
+using resident::wgmma_wait;
+using resident::WgmmaRS;
 
-template <typename T>
-constexpr size_t smem_bytes() {
-  return (size_t)Split<T>::k * (kQPlane + kKPlane + kVPlane) * sizeof(__nv_bfloat16);
+constexpr int kRows = 64;              // query rows of a consumer's tile; keys of a key tile
+constexpr int kMaxConsumers = 2;       // warpgroups, each with its own 64-row query tile
+// A producer warpgroup behind the consumers: its first thread issues every copy;
+// where float32 q, k, v are read in place, its other three warps split each
+// landed tile into hi and lo (the converters)
+constexpr int kProducerThreads = 128;
+constexpr int kConverters = kProducerThreads - 32;
+// Registers are handed out by warpgroups: with two consumers the producer is a
+// third, and ptxas caps a thread at 168 registers, which 3 or 4 column chunks
+// of O (96 or 128 floats) overflow; there one consumer, up to 255.
+__host__ __device__ constexpr int max_consumers(int no) { return no >= 3 ? 1 : kMaxConsumers; }
+__host__ __device__ constexpr int max_threads(int no) {
+  return 128 * max_consumers(no) + kProducerThreads;
+}
+constexpr int kMaxStages = 12;
+constexpr int kBarrierBytes = 1024;    // the barriers, ahead of the 1024-aligned stages
+constexpr int kSmemBudget = kMaxSmem - 1024;
+constexpr int kPackThreads = 256;
+
+// One plain arrival (no bytes announced): a stage with nothing to copy.
+__device__ __forceinline__ void mbarrier_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
 }
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ float bf16_residual(float v) {
-  return v - __bfloat162float(__float2bfloat16_rn(v));
-}
-
-__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a, uint32_t b0, uint32_t b1) {
+// d[64 x 64] (+)= a[64 x 16] . b[16 x 64], both from shared memory by
+// descriptor, both K-major. scale_d 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss64(float (&d)[32], uint64_t a_desc, uint64_t b_desc,
+                                           int scale_d) {
+#define CONDMDI_D8(o)                                                                      \
+  "+f"(d[o]), "+f"(d[o + 1]), "+f"(d[o + 2]), "+f"(d[o + 3]), "+f"(d[o + 4]), "+f"(d[o + 5]), \
+      "+f"(d[o + 6]), "+f"(d[o + 7])
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : CONDMDI_D8(0), CONDMDI_D8(8), CONDMDI_D8(16), CONDMDI_D8(24)
+      : "l"(a_desc), "l"(b_desc), "r"(scale_d));
+#undef CONDMDI_D8
 }
 
-// 8 consecutive values (16-byte aligned) as floats
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float* v) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(p);
-  const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    __nv_bfloat162 pair = *reinterpret_cast<const __nv_bfloat162*>(&w[i]);
-    v[2 * i] = __low2float(pair);
-    v[2 * i + 1] = __high2float(pair);
-  }
-}
-__device__ __forceinline__ void load8(const float* p, float* v) {
-  const float4 a = *reinterpret_cast<const float4*>(p);
-  const float4 b = *reinterpret_cast<const float4*>(p + 4);
-  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
-}
+// What a launch needs beside the three tensor maps. A work item is one
+// (batch item, head) pair, one pair of 64-row query tiles (one tile where a
+// CTA has one consumer) and one block of output columns, numbered in one
+// linear index with the column block fastest, then the tile pair.
+struct Args {
+  void* out;             // [B, T, H*hd] contiguous, bf16 (float32 if SPLIT)
+  long long items;       // B*H * pairs * ncb
+  int t_len, heads, hd, hd16;
+  int n_qtiles, n_ktiles, pairs, ncb, ncs;
+  int nq;                // consumer warpgroups (1 or 2)
+  int q_resident;        // Q loaded once an item; else each S stage carries Q's chunk too
+  int stages, chunk_bytes, stage_bytes;
+  int heads_per_item;    // H where the maps address the [B, T, D] views, 1 on the packed planes
+  int lo_items;          // where a lo plane lies after its hi plane in the maps' items
+  int packed;            // launched behind the pack pass, as its programmatic dependent
+  int convert;           // float32 tiles land as they lie and are split in shared memory
+  float scale_log2;
+};
 
-__device__ __forceinline__ void store_f(float* d, float v) { *d = v; }
-__device__ __forceinline__ void store_f(__nv_bfloat16* d, float v) { *d = __float2bfloat16_rn(v); }
+// The layout of one launch, from the shape and the type alone. A chunk is 64
+// rows of CW columns, one TMA box under the swizzle of its row width (32, 64
+// or 128 bytes); a head's depth is ncs chunks, its output columns ncb blocks
+// of NO chunks.
+struct Plan {
+  int cw, no, ncb, ncs, planes, nq, q_resident, stages, chunk_bytes, stage_bytes, q_bytes, smem;
+  bool overlap;  // one column block: a tile's score chunks and P.V chunks are held together
+};
 
-// rows [row0, row0 + 64) x columns [0, hd16) of one head into row-major
-// bf16 planes (hi, then lo for float32); rows >= T and columns >= hd are 0
-template <typename T>
-__device__ void load_rows(const T* __restrict__ base, long long stride_t, int row0, int t_len,
-                          int hd, int hd16, __nv_bfloat16* dst, int plane) {
-  const int chunks = hd16 / 8;
-  for (int idx = threadIdx.x; idx < kBlockM * chunks; idx += kThreads) {
-    const int r = idx / chunks, c = (idx % chunks) * 8;
-    float v[8];
-    if (row0 + r < t_len && c < hd) {
-      load8(base + (long long)(row0 + r) * stride_t + c, v);
-    } else {
-#pragma unroll
-      for (int i = 0; i < 8; ++i) v[i] = 0.f;
-    }
-    uint4 hi;
-    hi.x = pack_bf16(v[0], v[1]);
-    hi.y = pack_bf16(v[2], v[3]);
-    hi.z = pack_bf16(v[4], v[5]);
-    hi.w = pack_bf16(v[6], v[7]);
-    *reinterpret_cast<uint4*>(dst + r * kPitch + c) = hi;
-    if (Split<T>::k == 2) {
-      uint4 lo;
-      lo.x = pack_bf16(bf16_residual(v[0]), bf16_residual(v[1]));
-      lo.y = pack_bf16(bf16_residual(v[2]), bf16_residual(v[3]));
-      lo.z = pack_bf16(bf16_residual(v[4]), bf16_residual(v[5]));
-      lo.w = pack_bf16(bf16_residual(v[6]), bf16_residual(v[7]));
-      *reinterpret_cast<uint4*>(dst + plane + r * kPitch + c) = lo;
-    }
-  }
-}
-
-// V rows [row0, row0 + 64) of one head, transposed: dst[d * kVtPitch + key]
-template <typename T>
-__device__ void load_cols(const T* __restrict__ base, long long stride_t, int row0, int t_len,
-                          int hd, __nv_bfloat16* dst, int plane) {
-  const int chunks = hd / 8;
-  for (int idx = threadIdx.x; idx < kBlockN * chunks; idx += kThreads) {
-    const int r = idx % kBlockN, c = (idx / kBlockN) * 8;  // neighbouring threads, neighbouring keys
-    float v[8];
-    if (row0 + r < t_len) {
-      load8(base + (long long)(row0 + r) * stride_t + c, v);
-    } else {
-#pragma unroll
-      for (int i = 0; i < 8; ++i) v[i] = 0.f;
-    }
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const __nv_bfloat16 hi = __float2bfloat16_rn(v[i]);
-      dst[(c + i) * kVtPitch + r] = hi;
-      if (Split<T>::k == 2)
-        dst[plane + (c + i) * kVtPitch + r] = __float2bfloat16_rn(v[i] - __bfloat162float(hi));
-    }
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-attention_tiled_kernel(const T* __restrict__ q,   // [B, T, *] rows stride_t apart, head h at column h*hd
-                 const T* __restrict__ k,
-                 const T* __restrict__ v,
-                 T* __restrict__ out,       // [B, T, H*hd] contiguous
-                 long long stride_b, long long stride_t,
-                 int t_len, int heads, int hd, float scale_log2) {
-  constexpr int kSplit = Split<T>::k;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* s_q = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* s_k = s_q + kSplit * kQPlane;
-  __nv_bfloat16* s_vt = s_k + kSplit * kKPlane;
-
-  const int m0 = blockIdx.x * kBlockM, h = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int gq = lane >> 2, cq = lane & 3;  // mma fragment row / column pair
-  const long long head = (long long)b * stride_b + (long long)h * hd;
+bool make_plan(int t_len, int hd, bool split, int most_consumers, Plan* p) {
   const int hd16 = (hd + 15) & ~15;
-  const int n_k16 = hd16 / 16;  // 16-deep steps of Q.K^T
-  const int n_d8 = hd / 8;      // 8-wide column tiles of O
-
-  load_rows(q + head, stride_t, m0, t_len, hd, hd16, s_q, kQPlane);
-  __syncthreads();
-  uint32_t qf[kSplit][kMaxHd / 16][4];
-#pragma unroll
-  for (int s = 0; s < kSplit; ++s)
-#pragma unroll
-    for (int kk = 0; kk < kMaxHd / 16; ++kk)
-      if (kk < n_k16) {
-        const __nv_bfloat16* p = s_q + s * kQPlane + (warp * 16 + gq) * kPitch + kk * 16 + 2 * cq;
-        qf[s][kk][0] = ld32(p);
-        qf[s][kk][1] = ld32(p + 8 * kPitch);
-        qf[s][kk][2] = ld32(p + 8);
-        qf[s][kk][3] = ld32(p + 8 * kPitch + 8);
-      }
-
-  float o[kMaxHd / 8][4];
-#pragma unroll
-  for (int dt = 0; dt < kMaxHd / 8; ++dt)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) o[dt][i] = 0.f;
-  // this thread's rows gq and gq + 8: running max (log2 domain) and its part of the row sum
-  float row_max[2] = {-INFINITY, -INFINITY};
-  float row_sum[2] = {0.f, 0.f};
-
-  for (int n0 = 0; n0 < t_len; n0 += kBlockN) {
-    __syncthreads();  // the previous tile's K and V are consumed
-    load_rows(k + head, stride_t, n0, t_len, hd, hd16, s_k, kKPlane);
-    load_cols(v + head, stride_t, n0, t_len, hd, s_vt, kVPlane);
-    __syncthreads();
-
-    // S = Q . K^T for this warp's 16 rows x 64 keys
-    float s[kBlockN / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < kBlockN / 8; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) s[nt][i] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < kMaxHd / 16; ++kk) {
-      if (kk >= n_k16) continue;
-#pragma unroll
-      for (int nt = 0; nt < kBlockN / 8; ++nt) {
-        uint32_t b0[kSplit], b1[kSplit];
-#pragma unroll
-        for (int sp = 0; sp < kSplit; ++sp) {
-          const __nv_bfloat16* p = s_k + sp * kKPlane + (nt * 8 + gq) * kPitch + kk * 16 + 2 * cq;
-          b0[sp] = ld32(p);
-          b1[sp] = ld32(p + 8);
-        }
-        mma_bf16(s[nt], qf[0][kk], b0[0], b1[0]);
-        if (kSplit == 2) {
-          mma_bf16(s[nt], qf[0][kk], b0[kSplit - 1], b1[kSplit - 1]);
-          mma_bf16(s[nt], qf[kSplit - 1][kk], b0[0], b1[0]);
-        }
+  p->cw = hd16 <= 16 ? 16 : hd16 <= 32 ? 32 : 64;
+  const int chunks = (hd16 + p->cw - 1) / p->cw;
+  const int max_no = p->cw < 64 ? 1 : split ? 2 : 4;  // O in registers: at most 256 (128) columns
+  p->ncb = (chunks + max_no - 1) / max_no;
+  p->no = (chunks + p->ncb - 1) / p->ncb;
+  p->ncs = chunks;
+  p->overlap = p->ncb == 1;  // then ncs == no
+  p->planes = split ? 2 : 1;
+  p->chunk_bytes = kRows * 2 * p->cw;
+  const int n_qtiles = (t_len + kRows - 1) / kRows;
+  // Q resident before Q streamed; two consumers before one
+  for (int resident = 1; resident >= 0; --resident) {
+    const int most = most_consumers < max_consumers(p->no) ? most_consumers : max_consumers(p->no);
+    for (int nq = n_qtiles > 1 ? most : 1; nq >= 1; --nq) {
+      const int q_bytes = resident ? nq * p->ncs * p->planes * p->chunk_bytes : 0;
+      const int stage = p->planes * p->chunk_bytes * (resident ? 1 : 1 + nq);
+      int stages = (kSmemBudget - kBarrierBytes - q_bytes) / stage;
+      stages = stages > kMaxStages ? kMaxStages : stages;
+      // the consumer holds a tile's score chunks (all of them where they overlap
+      // P.V, else one) and the previous tile's V chunks; one stage more to prefetch
+      if (stages >= (p->overlap ? p->ncs : 1) + p->no + 1) {
+        p->nq = nq;
+        p->q_resident = resident;
+        p->stages = stages;
+        p->stage_bytes = stage;
+        p->q_bytes = q_bytes;
+        p->smem = kBarrierBytes + stages * stage + q_bytes;
+        return true;
       }
     }
+  }
+  return false;  // never: one consumer with Q streamed needs 6 stages of 32 KB at most
+}
 
-    // scale into the log2 domain, mask keys >= T, online softmax
-    float tile_max[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int nt = 0; nt < kBlockN / 8; ++nt)
+// q, k, v [B, T, *] (rows stride_t apart, head h at column h*hd, any alignment)
+// -> planes [3 (q, k, v)][P][B*H][t16][hd16] bf16, zero past T and past hd;
+// P = 2 for float32 (hi = bf16(x), lo = bf16(x - hi)), 1 for bfloat16. Eight
+// columns a thread, one of q, k, v a grid row (blockIdx.y), so that a
+// thread's place is decoded in 32 bits; 16-byte loads where `vec` says the
+// rows allow them. The attention kernel behind it is its programmatic
+// dependent. ops/attention.py `pack_heads` is its plain version.
+template <typename T>
+__global__ void __launch_bounds__(kPackThreads)
+pack_heads_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                  long long stride_b, long long stride_t, int t_len, int heads, int hd, int t16,
+                  int hd16, int bh_count, bf16* __restrict__ planes, int groups, int vec) {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  constexpr int kPlanes = sizeof(T) == 4 ? 2 : 1;
+  const int g = blockIdx.x * kPackThreads + threadIdx.x;  // < groups < 2^31 (the C entry)
+  if (g >= groups) return;
+  const int which = blockIdx.y;
+  const int c8s = hd16 >> 3, per_head = t16 * c8s;
+  const int bh = g / per_head, within = g - bh * per_head;
+  const int row = within / c8s, c0 = (within - row * c8s) * 8;
+  const int b = bh / heads, h = bh - b * heads;
+  const T* src = (which == 0 ? q : which == 1 ? k : v) + b * stride_b + row * stride_t +
+                 (long long)h * hd + c0;
+  float x[8];
+  if (vec && row < t_len && c0 < hd) {  // hd % 8 == 0: the 8 columns lie inside the head
+    if constexpr (sizeof(T) == 4) {
+      const float4 lo4 = __ldcs(reinterpret_cast<const float4*>(src));
+      const float4 hi4 = __ldcs(reinterpret_cast<const float4*>(src) + 1);
+      x[0] = lo4.x, x[1] = lo4.y, x[2] = lo4.z, x[3] = lo4.w;
+      x[4] = hi4.x, x[5] = hi4.y, x[6] = hi4.z, x[7] = hi4.w;
+    } else {
+      const uint4 raw = __ldcs(reinterpret_cast<const uint4*>(src));
+      const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        const int col = n0 + nt * 8 + 2 * cq + (i & 1);
-        s[nt][i] = col < t_len ? s[nt][i] * scale_log2 : -INFINITY;
-        tile_max[i >> 1] = fmaxf(tile_max[i >> 1], s[nt][i]);
+        const __nv_bfloat162 pair = *reinterpret_cast<const __nv_bfloat162*>(&w[i]);
+        x[2 * i] = __low2float(pair);
+        x[2 * i + 1] = __high2float(pair);
       }
-    float corr[2];
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      if (row < t_len && c0 + e < hd) {
+        if constexpr (sizeof(T) == 4)
+          x[e] = __ldcs(reinterpret_cast<const float*>(src) + e);
+        else
+          x[e] = __bfloat162float(src[e]);
+      } else {
+        x[e] = 0.f;
+      }
+    }
+  }
+  const long long plane = (long long)groups * 8;  // elements of one [B*H][t16][hd16] plane
+  bf16* dst = planes + which * kPlanes * plane + (long long)g * 8;
+  uint2 hi0, lo0, hi1, lo1;
+  split4(make_float4(x[0], x[1], x[2], x[3]), hi0, lo0);
+  split4(make_float4(x[4], x[5], x[6], x[7]), hi1, lo1);
+  *reinterpret_cast<uint4*>(dst) = make_uint4(hi0.x, hi0.y, hi1.x, hi1.y);
+  if constexpr (kPlanes == 2)
+    *reinterpret_cast<uint4*>(dst + plane) = make_uint4(lo0.x, lo0.y, lo1.x, lo1.y);
+}
+
+// The streaming kernel. CTA: `nq` consumer warpgroups (threads 0 .. 128nq-1),
+// each with its own 64-row query tile, then the producer warpgroup, whose
+// first thread issues every copy and whose other three warps, the converters,
+// split float32 read in place. Shared memory: the barriers, then a ring of
+// `stages` stages, then the consumers' Q tiles where Q is resident.
+//   * The producer walks the CTA's items in the consumers' order: each item's
+//     Q tiles (where resident), then for j = 0 .. n the ncs depth chunks of key
+//     tile j's 64 keys of K (with Q's chunk of each consumer where Q is not
+//     resident) and the block's NO column chunks of tile j-1's V. A stage is
+//     filled once the consumers have freed it (empty barrier, one arrival per
+//     consumer) and announced complete by the TMA (full barrier) or, for
+//     float32 in place, by the converters after its tile landed (landed).
+//   * A consumer computes S = Q.K^T over the depth, wgmma m64n64k16 with both
+//     operands from shared memory (K-major); the online softmax in the log2
+//     domain (route 1's: keys >= T masked to -inf, the row's reference maximum
+//     moved only by 2^8 steps); P stays in registers as the A operand of
+//     O += P.V, wgmma m64n{CW}k16 with V MN-major through the transpose bit,
+//     one column chunk a stage into its own accumulators. All stages of a
+//     group are waited for before its first product.
+//   * OVERLAP (one column block, ncs == NO): key tile j's NO score chunks are
+//     one group, issued with tile j-1's P.V, and tile j's softmax runs while
+//     the tensor cores work on that P.V (route 1's order, the first and last
+//     tiles peeled). Otherwise the scores come one chunk a group, each stage
+//     freed once the next chunk's products are issued, then the P.V.
+//   * SPLIT (float32): q, k and v come as hi and lo planes, each product is
+//     three bf16 products (hi.hi, hi.lo, lo.hi), as in route 2.
+//   * A V chunk past the head's columns (the last column block of a wide head)
+//     is not copied; the products on it fill accumulators that are never
+//     stored. Rows >= T and columns >= hd are never stored.
+template <int CW, int NO, bool SPLIT, bool OVERLAP>
+__global__ void __launch_bounds__(max_threads(NO), 1)
+attention_stream_kernel(const __grid_constant__ CUtensorMap q_map,
+                        const __grid_constant__ CUtensorMap k_map,
+                        const __grid_constant__ CUtensorMap v_map, const Args a) {
+  constexpr int kRowBytes = 2 * CW;
+  constexpr int kSteps = CW / 16;  // depth steps of one chunk
+  constexpr int kN = NO * CW;      // output columns of one block
+  constexpr int kPlanes = SPLIT ? 2 : 1;
+  extern __shared__ __align__(1024) unsigned char smem_stream[];
+  const int tid = threadIdx.x;
+  const uint32_t base = smem_u32(smem_stream);
+  if ((base & 1023) != 0) __trap();  // the swizzle is a function of the address
+  const uint32_t full = base, empty = base + 8 * kMaxStages, landed = base + 16 * kMaxStages;
+  const uint32_t q_full = base + 24 * kMaxStages, q_empty = q_full + 8 * kMaxConsumers;
+  const uint32_t q_landed = q_empty + 8 * kMaxConsumers;
+  const uint32_t ring = base + kBarrierBytes;
+  const uint32_t q_region = ring + a.stages * a.stage_bytes;
+  const uint32_t chunk = a.chunk_bytes;
+  const int consumer_threads = 128 * a.nq;
+
+  if (tid == 0) {
+    for (int s = 0; s < a.stages; ++s) {
+      mbarrier_init(full + 8 * s, 1);
+      mbarrier_init(empty + 8 * s, a.nq);
+      mbarrier_init(landed + 8 * s, 1);
+    }
+    for (int w = 0; w < kMaxConsumers; ++w) {
+      mbarrier_init(q_full + 8 * w, 1);
+      mbarrier_init(q_empty + 8 * w, 1);
+      mbarrier_init(q_landed + 8 * w, 1);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();  // the barriers exist before anyone waits on them
+  CONDMDI_STAMP(0);
+  // behind the pack pass: its planes are complete from here on
+  if (a.packed) asm volatile("griddepcontrol.wait;\n" ::: "memory");
+
+  int idx = 0;           // the ring's stage in hand
+  uint32_t phase = 0;    // of the stage's barriers, flipped at each turn of the ring
+  uint32_t q_phase = 0;  // of the Q barriers, flipped at each item
+  auto advance = [&]() {
+    if (++idx == a.stages) {
+      idx = 0;
+      phase ^= 1u;
+    }
+  };
+
+  // The converters (float32 read in place): in the producer's order, each
+  // landed tile of 64 rows x CW floats, row-major, becomes the hi plane (its
+  // first half) and the lo plane (its second), rows of 2*CW bytes under the
+  // swizzle TMA would have written (16-byte unit u of row r lands at u ^ f(r)).
+  // Every converter reads its values before any writes; then the writes are
+  // made visible to wgmma (the async proxy) and one arrival announces them.
+  auto convert_tiles = [&](int ct) {
+    constexpr int kUnits = kRows * CW / 8;  // 16-byte units of one plane
+    constexpr int kPer = (kUnits + kConverters - 1) / kConverters;
+    constexpr int kUnitsRow = CW / 8;
+    auto split_in_place = [&](uint32_t at) {
+      float4 x[kPer][2];
+#pragma unroll
+      for (int i = 0; i < kPer; ++i) {
+        const int u = ct + kConverters * i;
+        if (u < kUnits) {
+          const uint32_t src_at = at + (u / kUnitsRow) * (4 * CW) + (u % kUnitsRow) * 32;
+          asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+                       : "=f"(x[i][0].x), "=f"(x[i][0].y), "=f"(x[i][0].z), "=f"(x[i][0].w)
+                       : "r"(src_at));
+          asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+                       : "=f"(x[i][1].x), "=f"(x[i][1].y), "=f"(x[i][1].z), "=f"(x[i][1].w)
+                       : "r"(src_at + 16));
+        }
+      }
+      asm volatile("bar.sync 1, %0;\n" ::"n"(kConverters) : "memory");
+#pragma unroll
+      for (int i = 0; i < kPer; ++i) {
+        const int u = ct + kConverters * i;
+        if (u < kUnits) {
+          const int row = u / kUnitsRow, unit = u % kUnitsRow;
+          const int swz = kRowBytes == 128 ? (row & 7) : kRowBytes == 64 ? ((row >> 1) & 3)
+                                                                         : ((row >> 2) & 1);
+          const uint32_t dst = at + row * kRowBytes + ((unit ^ swz) * 16);
+          uint2 hi0, lo0, hi1, lo1;
+          split4(x[i][0], hi0, lo0);
+          split4(x[i][1], hi1, lo1);
+          asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(dst), "r"(hi0.x),
+                       "r"(hi0.y), "r"(hi1.x), "r"(hi1.y)
+                       : "memory");
+          asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(dst + chunk),
+                       "r"(lo0.x), "r"(lo0.y), "r"(lo1.x), "r"(lo1.y)
+                       : "memory");
+        }
+      }
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      asm volatile("bar.sync 1, %0;\n" ::"n"(kConverters) : "memory");
+    };
+    for (long long item = blockIdx.x; item < a.items; item += gridDim.x) {
+      if (a.q_resident) {  // where it is not, the launch packs instead
+        for (int w = 0; w < a.nq; ++w) {
+          mbarrier_wait(q_landed + 8 * w, q_phase);
+          for (int c = 0; c < a.ncs; ++c)
+            split_in_place(q_region + (w * a.ncs + c) * kPlanes * chunk);
+          if (ct == 0) mbarrier_arrive(q_full + 8 * w);
+        }
+        q_phase ^= 1u;
+      }
+      for (int j = 0; j <= a.n_ktiles; ++j) {
+        const int n = (j < a.n_ktiles ? a.ncs : 0) + (j > 0 ? NO : 0);
+        for (int c = 0; c < n; ++c) {
+          mbarrier_wait(landed + 8 * idx, phase);
+          split_in_place(ring + idx * a.stage_bytes);
+          if (ct == 0) mbarrier_arrive(full + 8 * idx);
+          advance();
+        }
+      }
+    }
+  };
+
+  if (tid >= consumer_threads + 32) {  // the converters
+    if (SPLIT && a.convert) convert_tiles(tid - consumer_threads - 32);
+    return;
+  }
+  if (tid >= consumer_threads) {  // the producer
+    if (tid != consumer_threads) return;
+    // float32 read in place: one box of 4-byte values a chunk, split by the converters
+    const int boxes = a.convert ? 1 : kPlanes;
+    const uint32_t to_full = a.convert ? landed : full, to_q_full = a.convert ? q_landed : q_full;
+    for (long long item = blockIdx.x; item < a.items; item += gridDim.x) {
+      const int cb = (int)(item % a.ncb);
+      const long long rest = item / a.ncb;
+      const int pair = (int)(rest % a.pairs);
+      const long long bh = rest / a.pairs;
+      const int map_item = (int)(bh / a.heads_per_item);
+      const int head_col = (int)(bh % a.heads_per_item) * a.hd;
+      // a consumer past the last query tile computes on the last one and stores nothing
+      auto q_row = [&](int w) { return min(a.nq * pair + w, a.n_qtiles - 1) * kRows; };
+      if (a.q_resident) {
+        for (int w = 0; w < a.nq; ++w) {
+          const uint32_t bar = to_q_full + 8 * w;
+          mbarrier_wait(q_empty + 8 * w, q_phase ^ 1u);
+          if (probe_off(kOffQ)) {
+            mbarrier_arrive(bar);
+            continue;
+          }
+          mbarrier_arrive_expect_tx(bar, a.ncs * kPlanes * chunk);
+          for (int c = 0; c < a.ncs; ++c)
+            for (int p = 0; p < boxes; ++p)
+              tma_load_3d(q_region + ((w * a.ncs + c) * kPlanes + p) * chunk, &q_map, bar,
+                          head_col + c * CW, q_row(w), map_item + p * a.lo_items);
+        }
+        q_phase ^= 1u;
+      }
+      // in the consumers' order: K of key tile j, then V of tile j - 1
+      for (int j = 0; j <= a.n_ktiles; ++j) {
+        for (int c = 0; c < (j < a.n_ktiles ? a.ncs : 0); ++c) {  // K's depth chunk c (and Q's)
+          mbarrier_wait(empty + 8 * idx, phase ^ 1u);
+          const uint32_t st = ring + idx * a.stage_bytes, bar = to_full + 8 * idx;
+          mbarrier_arrive_expect_tx(bar, a.stage_bytes);
+          for (int p = 0; p < boxes; ++p)
+            tma_load_3d(st + p * chunk, &k_map, bar, head_col + c * CW, j * kRows,
+                        map_item + p * a.lo_items);
+          if (!a.q_resident)
+            for (int w = 0; w < a.nq; ++w)
+#pragma unroll
+              for (int p = 0; p < kPlanes; ++p)
+                tma_load_3d(st + ((1 + w) * kPlanes + p) * chunk, &q_map, bar, head_col + c * CW,
+                            q_row(w), map_item + p * a.lo_items);
+          advance();
+        }
+        for (int c = 0; c < (j > 0 ? NO : 0); ++c) {  // V's column chunk c of block cb
+          mbarrier_wait(empty + 8 * idx, phase ^ 1u);
+          const uint32_t st = ring + idx * a.stage_bytes, bar = to_full + 8 * idx;
+          const int col = cb * kN + c * CW;
+          if (col < a.hd16) {
+            mbarrier_arrive_expect_tx(bar, kPlanes * chunk);
+            for (int p = 0; p < boxes; ++p)
+              tma_load_3d(st + p * chunk, &v_map, bar, head_col + col, (j - 1) * kRows,
+                          map_item + p * a.lo_items);
+          } else {
+            mbarrier_arrive(bar);
+          }
+          advance();
+        }
+      }
+    }
+    return;
+  }
+
+  // a consumer: warpgroup w, its warp's 16 rows, the fragment row / column pair
+  const int w = tid >> 7, wt = tid & 127, warp = wt >> 5, lane = tid & 31;
+  const int gq = lane >> 2, cq = lane & 3;
+  float s[32];         // scores of one key tile: s[4t + 2r + e] is row gq + 8r, key 8t + 2cq + e
+  float o[NO][CW / 2]; // column chunk c of the block: o[c][4t + 2r + e] is column 8t + 2cq + e
+  uint32_t pa[kPlanes][kRows / 16][4];  // P of one key tile as the A fragments of P.V (hi, lo)
+  float row_max[2], row_sum[2], corr[2];
+  const float max_slack = resident::kMaxSlack / a.scale_log2;  // in units of the raw scores
+  auto release = [&](int stage) {  // one arrival per consumer, once its products are done
+    if (wt == 0) mbarrier_arrive(empty + 8 * stage);
+  };
+
+  // the online softmax of key tile j on the finished scores: route 1's
+  auto softmax = [&](int j) -> bool {
+    const int n0 = j * kRows;
+    if (n0 + kRows > a.t_len) {  // the ragged last tile: keys >= T
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int col = n0 + (i >> 2) * 8 + 2 * cq + (i & 1);
+        s[i] = col < a.t_len ? s[i] : -INFINITY;
+      }
+    }
+    float tile_max[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      // the four threads of a quad hold one row; key n0 < T keeps the max finite
+      float m[4];
+#pragma unroll
+      for (int t = 0; t < 4; ++t)
+        m[t] = fmaxf(fmaxf(s[4 * t + 2 * r], s[4 * t + 2 * r + 1]),
+                     fmaxf(s[4 * t + 16 + 2 * r], s[4 * t + 16 + 2 * r + 1]));
+      tile_max[r] = fmaxf(fmaxf(m[0], m[1]), fmaxf(m[2], m[3]));
       tile_max[r] = fmaxf(tile_max[r], __shfl_xor_sync(0xffffffffu, tile_max[r], 1));
       tile_max[r] = fmaxf(tile_max[r], __shfl_xor_sync(0xffffffffu, tile_max[r], 2));
-      const float new_max = fmaxf(row_max[r], tile_max[r]);
-      corr[r] = exp2f(row_max[r] - new_max);  // 0 on the first tile
-      row_max[r] = new_max;
-      row_sum[r] *= corr[r];
     }
+    const bool moved = __any_sync(0xffffffffu, tile_max[0] > row_max[0] + max_slack ||
+                                                   tile_max[1] > row_max[1] + max_slack);
+    if (moved) {
 #pragma unroll
-    for (int nt = 0; nt < kBlockN / 8; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        s[nt][i] = exp2f(s[nt][i] - row_max[i >> 1]);  // masked keys give 0
-        row_sum[i >> 1] += s[nt][i];
+      for (int r = 0; r < 2; ++r) {
+        const float new_max = fmaxf(row_max[r], tile_max[r]);
+        corr[r] = fast_exp2((row_max[r] - new_max) * a.scale_log2);  // 0 on the first tile
+        row_max[r] = new_max;
+        row_sum[r] *= corr[r];
       }
-#pragma unroll
-    for (int dt = 0; dt < kMaxHd / 8; ++dt) {
-      o[dt][0] *= corr[0];
-      o[dt][1] *= corr[0];
-      o[dt][2] *= corr[1];
-      o[dt][3] *= corr[1];
     }
+    const float max_scaled[2] = {row_max[0] * a.scale_log2, row_max[1] * a.scale_log2};
+#pragma unroll
+    for (int i = 0; i < 32; ++i)  // masked keys give 0
+      s[i] = fast_exp2(fmaf(s[i], a.scale_log2, -max_scaled[(i >> 1) & 1]));
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float part[4];
+#pragma unroll
+      for (int t = 0; t < 4; ++t)
+        part[t] = (s[4 * t + 2 * r] + s[4 * t + 2 * r + 1]) +
+                  (s[4 * t + 16 + 2 * r] + s[4 * t + 16 + 2 * r + 1]);
+      row_sum[r] += (part[0] + part[1]) + (part[2] + part[3]);
+    }
+    return moved;
+  };
 
-    // O += P . V: the S accumulators of key tiles 2kk, 2kk+1 are the A fragment of step kk
+  // the S accumulators of key tiles 2kk, 2kk+1 are the A fragment of step kk
+  auto pack_p = [&]() {
 #pragma unroll
-    for (int kk = 0; kk < kBlockN / 16; ++kk) {
-      uint32_t pa[kSplit][4];
-      pa[0][0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      pa[0][1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      pa[0][2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[0][3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-      if (kSplit == 2) {
-        pa[kSplit - 1][0] = pack_bf16(bf16_residual(s[2 * kk][0]), bf16_residual(s[2 * kk][1]));
-        pa[kSplit - 1][1] = pack_bf16(bf16_residual(s[2 * kk][2]), bf16_residual(s[2 * kk][3]));
-        pa[kSplit - 1][2] =
-            pack_bf16(bf16_residual(s[2 * kk + 1][0]), bf16_residual(s[2 * kk + 1][1]));
-        pa[kSplit - 1][3] =
-            pack_bf16(bf16_residual(s[2 * kk + 1][2]), bf16_residual(s[2 * kk + 1][3]));
+    for (int kk = 0; kk < kRows / 16; ++kk)
+#pragma unroll
+      for (int q4 = 0; q4 < 4; ++q4) {
+        const float x0 = s[8 * kk + 2 * q4], x1 = s[8 * kk + 2 * q4 + 1];
+        const __nv_bfloat162 hi = __floats2bfloat162_rn(x0, x1);
+        pa[0][kk][q4] = *reinterpret_cast<const uint32_t*>(&hi);
+        if constexpr (SPLIT)  // lo = bf16(p - hi)
+          pa[kPlanes - 1][kk][q4] = pack_bf16(x0 - __low2float(hi), x1 - __high2float(hi));
       }
-#pragma unroll
-      for (int dt = 0; dt < kMaxHd / 8; ++dt) {
-        if (dt >= n_d8) continue;
-        uint32_t b0[kSplit], b1[kSplit];
-#pragma unroll
-        for (int sp = 0; sp < kSplit; ++sp) {
-          const __nv_bfloat16* p = s_vt + sp * kVPlane + (dt * 8 + gq) * kVtPitch + kk * 16 + 2 * cq;
-          b0[sp] = ld32(p);
-          b1[sp] = ld32(p + 8);
-        }
-        mma_bf16(o[dt], pa[0], b0[0], b1[0]);
-        if (kSplit == 2) {
-          mma_bf16(o[dt], pa[0], b0[kSplit - 1], b1[kSplit - 1]);
-          mma_bf16(o[dt], pa[kSplit - 1], b0[0], b1[0]);
-        }
-      }
+  };
+  const uint32_t q_mine = q_region + w * a.ncs * kPlanes * chunk;  // this consumer's resident Q
+  // Waits for the next n stages; returns the first. A group's stages are all
+  // waited for before its first product: a spin loop between the products of
+  // one group makes ptxas serialise them (C7520).
+  auto wait_stages = [&](int n) -> int {
+    const int first = idx;
+    for (int c = 0; c < n; ++c) {
+      mbarrier_wait(full + 8 * idx, phase);
+      advance();
     }
-  }
+    return first;
+  };
+  auto stage_at = [&](int first, int c) {
+    const int i = first + c;
+    return ring + (i < a.stages ? i : i - a.stages) * a.stage_bytes;
+  };
+  // S = Q . K^T of depth chunk c of one key tile, from stage st
+  auto score_chunk = [&](int c, uint32_t st) {
+    const uint32_t qa = a.q_resident ? q_mine + c * kPlanes * chunk
+                                     : st + (1 + w) * kPlanes * chunk;
+#pragma unroll
+    for (int kk = 0; kk < kSteps; ++kk)
+      if (!probe_off(kOffScores) || a.t_len < 0) {
+        const uint64_t q_hi = wgmma_desc<kRowBytes>(qa + 32 * kk, 16, 8 * kRowBytes);
+        const uint64_t k_hi = wgmma_desc<kRowBytes>(st + 32 * kk, 16, 8 * kRowBytes);
+        wgmma_ss64(s, q_hi, k_hi, c > 0 || kk > 0);
+        if constexpr (SPLIT) {  // + q_hi . k_lo + q_lo . k_hi
+          wgmma_ss64(s, q_hi, wgmma_desc<kRowBytes>(st + chunk + 32 * kk, 16, 8 * kRowBytes), 1);
+          wgmma_ss64(s, wgmma_desc<kRowBytes>(qa + chunk + 32 * kk, 16, 8 * kRowBytes), k_hi, 1);
+        }
+      }
+  };
+  // OVERLAP: all NO (== ncs) score chunks of a key tile as one group, left in
+  // flight; returns the first of their stages
+  auto issue_scores = [&]() -> int {
+    const int first = wait_stages(NO);
+    wgmma_fence();
+#pragma unroll
+    for (int c = 0; c < NO; ++c) score_chunk(c, stage_at(first, c));
+    wgmma_commit();
+    return first;
+  };
+  // else: one score chunk a group, each stage freed once the next chunk's
+  // products are issued, the last one once all are done
+  auto scores_in_turn = [&]() {
+    int held = -1;
+    for (int c = 0; c < a.ncs; ++c) {
+      mbarrier_wait(full + 8 * idx, phase);
+      wgmma_fence();
+      score_chunk(c, ring + idx * a.stage_bytes);
+      wgmma_commit();
+      wgmma_wait<1>();
+      if (held >= 0) release(held);
+      held = idx;
+      advance();
+    }
+    wgmma_wait<0>();
+    release(held);
+  };
+  // O += P . V of one key tile, one column chunk of the block a stage, all left
+  // in flight as one group; returns the first of its NO stages
+  auto issue_pv = [&]() -> int {
+    const int first = wait_stages(NO);
+    wgmma_fence();
+#pragma unroll
+    for (int c = 0; c < NO; ++c) {
+      const uint32_t st = stage_at(first, c);
+#pragma unroll
+      for (int kk = 0; kk < kRows / 16; ++kk)
+        if (!probe_off(kOffPv) || a.t_len < 0) {
+          const uint32_t at = st + kk * 16 * kRowBytes;
+          const uint64_t v_hi = wgmma_desc<kRowBytes>(at, kRows * kRowBytes, 8 * kRowBytes);
+          WgmmaRS<CW, 1>::run(o[c], pa[0][kk], v_hi, 1);
+          if constexpr (SPLIT) {  // + p_hi . v_lo + p_lo . v_hi
+            WgmmaRS<CW, 1>::run(
+                o[c], pa[0][kk],
+                wgmma_desc<kRowBytes>(at + chunk, kRows * kRowBytes, 8 * kRowBytes), 1);
+            WgmmaRS<CW, 1>::run(o[c], pa[kPlanes - 1][kk], v_hi, 1);
+          }
+        }
+    }
+    wgmma_commit();
+    return first;
+  };
+  auto release_from = [&](int first, int n) {
+    for (int c = 0; c < n; ++c) release(first + c < a.stages ? first + c : first + c - a.stages);
+  };
+  auto rescale_o = [&]() {
+#pragma unroll
+    for (int c = 0; c < NO; ++c)
+#pragma unroll
+      for (int i = 0; i < CW / 2; ++i) o[c][i] *= corr[(i >> 1) & 1];
+  };
 
-  // normalise and write rows < T
-  float inv[2];
+  for (long long item = blockIdx.x; item < a.items; item += gridDim.x) {
+    const int cb = (int)(item % a.ncb);
+    const long long rest = item / a.ncb;
+    const int pair = (int)(rest % a.pairs);
+    const long long bh = rest / a.pairs;
+    const int qt = a.nq * pair + w;
+    const bool first_item = item == blockIdx.x;  // the probe's stamps: slots 1-29
+    if (a.q_resident) mbarrier_wait(q_full + 8 * w, q_phase);
+    if (first_item) CONDMDI_STAMP(1);  // Q in place
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    row_sum[r] += __shfl_xor_sync(0xffffffffu, row_sum[r], 1);
-    row_sum[r] += __shfl_xor_sync(0xffffffffu, row_sum[r], 2);
-    inv[r] = 1.f / row_sum[r];
-  }
-  const int d_model = heads * hd;
+    for (int c = 0; c < NO; ++c)
 #pragma unroll
-  for (int dt = 0; dt < kMaxHd / 8; ++dt) {
-    if (dt >= n_d8) continue;
+      for (int i = 0; i < CW / 2; ++i) o[c][i] = 0.f;
+    row_max[0] = row_max[1] = -INFINITY;
+    row_sum[0] = row_sum[1] = 0.f;
+
+    // Tiles in the producer's order: scores of j, then P.V of j - 1. With
+    // OVERLAP both are in flight together and tile j's softmax runs while the
+    // tensor cores work on that P.V; the first and the last tile are peeled,
+    // so that every wait counts a fixed number of groups.
+    auto q_done = [&](int j) {  // the item's last scores are done: Q's place is free
+      if (a.q_resident && j == a.n_ktiles - 1 && wt == 0) mbarrier_arrive(q_empty + 8 * w);
+    };
+    if constexpr (OVERLAP) {
+      int first = issue_scores();
+      wgmma_wait<0>();
+      fence_regs(s);
+      release_from(first, NO);
+      q_done(0);
+      if (!probe_off(kOffSoftmax)) softmax(0);  // o is still 0: nothing to rescale
+      pack_p();
+      if (first_item) CONDMDI_STAMP(2);  // tile 0 softmax done
+      for (int j = 1; j < a.n_ktiles; ++j) {
+        if (first_item && j < 9) CONDMDI_STAMP(3 * j);  // tile j begins
+        first = issue_scores();
+        const int pv = issue_pv();
+        wgmma_wait<1>();  // the scores are done, P.V may still run
+        fence_regs(s);
+        release_from(first, NO);
+        q_done(j);
+        if (first_item && j < 9) CONDMDI_STAMP(3 * j + 1);  // the scores done
+        const bool moved = probe_off(kOffSoftmax) ? false : softmax(j);
+        wgmma_wait<0>();  // P.V is done: O may be rescaled, P overwritten, its stages freed
+        if (first_item && j < 9) CONDMDI_STAMP(3 * j + 2);  // softmax and P.V done
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int row = m0 + warp * 16 + gq + 8 * half;
-      if (row < t_len) {
-        T* dst = out + ((long long)b * t_len + row) * d_model + h * hd + dt * 8 + 2 * cq;
-        store_f(dst, o[dt][2 * half] * inv[half]);
-        store_f(dst + 1, o[dt][2 * half + 1] * inv[half]);
+        for (int c = 0; c < NO; ++c) fence_regs(o[c]);
+        release_from(pv, NO);
+        if (moved) rescale_o();
+        pack_p();
+      }
+    } else {
+      scores_in_turn();
+      fence_regs(s);
+      q_done(0);
+      if (!probe_off(kOffSoftmax)) softmax(0);
+      pack_p();
+      for (int j = 1; j < a.n_ktiles; ++j) {
+        scores_in_turn();
+        fence_regs(s);
+        q_done(j);
+        const int pv = issue_pv();
+        wgmma_wait<0>();
+#pragma unroll
+        for (int c = 0; c < NO; ++c) fence_regs(o[c]);
+        release_from(pv, NO);
+        if (!probe_off(kOffSoftmax) && softmax(j)) rescale_o();
+        pack_p();
       }
     }
+    const int last_pv = issue_pv();  // the last tile's P.V
+    wgmma_wait<0>();
+#pragma unroll
+    for (int c = 0; c < NO; ++c) fence_regs(o[c]);
+    release_from(last_pv, NO);
+    if (a.q_resident) q_phase ^= 1u;
+    if (first_item) CONDMDI_STAMP(29);  // the last P.V done
+
+    // normalise and write rows < T, columns < hd
+    float inv[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      row_sum[r] += __shfl_xor_sync(0xffffffffu, row_sum[r], 1);
+      row_sum[r] += __shfl_xor_sync(0xffffffffu, row_sum[r], 2);
+      inv[r] = 1.f / row_sum[r];
+    }
+    const long long b = bh / a.heads, h = bh % a.heads;
+    const long long d_model = (long long)a.heads * a.hd;
+    const bool pairs = (a.hd & 1) == 0;  // column pairs lie 4 (8) bytes aligned
+    const int t_store = probe_off(kOffStores) ? 0 : a.t_len;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = qt * kRows + warp * 16 + gq + 8 * r;
+      if (row >= t_store) continue;
+      const long long at_row = (b * a.t_len + row) * d_model + h * a.hd;
+#pragma unroll
+      for (int c = 0; c < NO; ++c)
+#pragma unroll
+        for (int t = 0; t < CW / 8; ++t) {
+          const int col = cb * kN + c * CW + 8 * t + 2 * cq;
+          if (col >= a.hd) continue;
+          const float x0 = o[c][4 * t + 2 * r] * inv[r], x1 = o[c][4 * t + 2 * r + 1] * inv[r];
+          if constexpr (SPLIT) {
+            float* dst = static_cast<float*>(a.out) + at_row + col;
+            if (pairs) {
+              *reinterpret_cast<float2*>(dst) = make_float2(x0, x1);
+            } else {
+              dst[0] = x0;
+              if (col + 1 < a.hd) dst[1] = x1;
+            }
+          } else {
+            bf16* dst = static_cast<bf16*>(a.out) + at_row + col;
+            if (pairs) {
+              *reinterpret_cast<uint32_t*>(dst) = pack_bf16(x0, x1);
+            } else {
+              dst[0] = __float2bfloat16_rn(x0);
+              if (col + 1 < a.hd) dst[1] = __float2bfloat16_rn(x1);
+            }
+          }
+        }
+    }
   }
+  CONDMDI_STAMP(30);
 }
 
-template <typename T>
-int launch(const void* q, const void* k, const void* v, void* out, int batch, int t_len,
-           int heads, int hd, long long stride_b, long long stride_t, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<T>();
-  cudaError_t err = cudaFuncSetAttribute(
-      attention_tiled_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((t_len + kBlockM - 1) / kBlockM, heads, batch);
-  const float scale_log2 = kLog2e / sqrtf((float)hd);
-  attention_tiled_kernel<T><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), stride_b, stride_t, t_len, heads, hd, scale_log2);
+// q, k, v as [B, T, D] views that TMA can address in place: a head width
+// whose chunks never cross into the next head (16, 32 or a multiple of 64; in
+// float32 at most 512, so that Q's split planes stay resident), 16-byte
+// aligned pointers and row strides, unit column stride. ops/attention.py
+// `stream_reads_in_place` is the same rule, asked before the planes are allocated.
+bool reads_in_place(const void* q, const void* k, const void* v, int hd, long long stride_b,
+                    long long stride_t, int dtype) {
+  const bool width = hd == 16 || hd == 32 || (hd % 64 == 0 && (dtype == 1 || hd <= 512));
+  const int size = dtype == 0 ? 4 : 2;
+  const uint64_t any = (uint64_t)q | (uint64_t)k | (uint64_t)v | (uint64_t)(stride_b * size) |
+                       (uint64_t)(stride_t * size);
+  return width && (any & 15) == 0;
+}
+
+// float32 x [B, T, cols] (rows stride_t elements apart, 16-byte aligned) as a
+// 3-D tensor (cols; T; B) in boxes of (box_cols; 64; 1), landing row-major with
+// no swizzle, for the converters to split.
+bool encode_map_f32(CUtensorMap* map, const void* x, int batch, int t_len, int cols,
+                    long long stride_b, long long stride_t, int box_cols) {
+  resident::EncodeTiled encode = resident::tensor_map_encoder();
+  if (encode == nullptr) return false;
+  if (batch == 1) stride_b = (long long)t_len * stride_t;  // unused, but must be a valid stride
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)t_len, (cuuint64_t)batch};
+  const cuuint64_t strides[2] = {(cuuint64_t)stride_t * 4, (cuuint64_t)stride_b * 4};
+  const cuuint32_t box[3] = {(cuuint32_t)box_cols, (cuuint32_t)kRows, 1};
+  const cuuint32_t steps[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<void*>(x), dims, strides, box,
+                steps, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// the pack pass alone: q, k, v -> planes (see pack_heads_kernel)
+int launch_pack(const void* q, const void* k, const void* v, void* planes, int batch, int t_len,
+                int heads, int hd, long long stride_b, long long stride_t, int dtype,
+                cudaStream_t stream) {
+  const int t16 = (t_len + 15) & ~15, hd16 = (hd + 15) & ~15;
+  const long long bh = (long long)batch * heads;
+  const long long groups = bh * t16 * (hd16 / 8);  // of one of q, k, v
+  if (groups > 0x7fffffffLL) return (int)cudaErrorInvalidValue;  // a 32 GB plane: never allocated
+  const int size = dtype == 0 ? 4 : 2;
+  const uint64_t any = (uint64_t)q | (uint64_t)k | (uint64_t)v | (uint64_t)(stride_b * size) |
+                       (uint64_t)(stride_t * size);
+  const int vec = hd % 8 == 0 && (any & 15) == 0;
+  const dim3 grid((unsigned)((groups + kPackThreads - 1) / kPackThreads), 3);
+  bf16* p = static_cast<bf16*>(planes);
+  if (dtype == 0)
+    pack_heads_kernel<float><<<grid, kPackThreads, 0, stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+        stride_b, stride_t, t_len, heads, hd, t16, hd16, (int)bh, p, (int)groups, vec);
+  else
+    pack_heads_kernel<bf16><<<grid, kPackThreads, 0, stream>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+        stride_b, stride_t, t_len, heads, hd, t16, hd16, (int)bh, p, (int)groups, vec);
   return (int)cudaGetLastError();
 }
-}  // namespace tiled
+
+// The current device's SM count, asked once per device.
+cudaError_t device_sms(int* n) {
+  static std::atomic<int> sms[resident::kMaxDevices];  // 0 until asked
+  int device = 0;
+  cudaError_t e = cudaGetDevice(&device);
+  if (e != cudaSuccess) return e;
+  if (device < 0 || device >= resident::kMaxDevices) return cudaErrorInvalidDevice;
+  int count = sms[device].load(std::memory_order_acquire);
+  if (count == 0) {
+    e = cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, device);
+    if (e != cudaSuccess) return e;
+    sms[device].store(count, std::memory_order_release);
+  }
+  *n = count;
+  return cudaSuccess;
+}
+
+// The layout of a launch on a card of `sms` SMs: two consumers share the K and
+// V copies only where the items they make still fill half the SMs; else one,
+// and twice the CTAs.
+bool plan_launch(long long bh, int t_len, int hd, bool split, int sms, Plan* p) {
+  if (!make_plan(t_len, hd, split, kMaxConsumers, p)) return false;
+  const int n_qtiles = (t_len + kRows - 1) / kRows;
+  if (p->nq == 2 && bh * ((n_qtiles + 1) / 2) * p->ncb * 2 <= sms)
+    return make_plan(t_len, hd, split, 1, p);
+  return true;
+}
+
+template <int CW, int NO, bool SPLIT, bool OVERLAP = true>
+int launch_kernel(const CUtensorMap (&maps)[3], const Args& a, const Plan& plan,
+                  cudaStream_t stream) {
+  static std::atomic<bool> prepared[resident::kMaxDevices];  // the attribute set, per device
+  auto kernel = attention_stream_kernel<CW, NO, SPLIT, OVERLAP>;
+  int device = 0, n = 0;
+  cudaError_t e = cudaGetDevice(&device);
+  if (e == cudaSuccess) e = device_sms(&n);
+  if (e != cudaSuccess) return (int)e;
+  if (!prepared[device].load(std::memory_order_acquire)) {
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBudget);
+    if (e != cudaSuccess) return (int)e;
+    prepared[device].store(true, std::memory_order_release);
+  }
+  const int threads = 128 * plan.nq + kProducerThreads;
+  int per_sm = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, plan.smem);
+  if (e != cudaSuccess) return (int)e;
+  const long long ctas = (long long)(per_sm > 0 ? per_sm : 1) * n;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(a.items < ctas ? a.items : ctas));
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = (size_t)plan.smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = a.packed && !probe_off(kOffPdl) ? 1 : 0;
+  e = cudaLaunchKernelEx(&cfg, kernel, maps[0], maps[1], maps[2], a);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+// Whether a float32 launch that could read q, k, v in place packs all the
+// same: splitting in shared memory puts the split on each item's own path, which
+// pays where the pack pass's extra bytes and launch cost more: one column block
+// (else every block splits K again) and either one key tile or at least as many
+// items as SMs (else a few CTAs split tile after tile while the rest idle).
+bool packs_float32(long long bh, int t_len, int hd, int sms) {
+  Plan plan;
+  if (!plan_launch(bh, t_len, hd, true, sms, &plan)) return true;
+  const int n_tiles = (t_len + kRows - 1) / kRows;
+  const long long items = bh * ((n_tiles + plan.nq - 1) / plan.nq) * plan.ncb;
+  return !(plan.ncb == 1 && plan.q_resident && (n_tiles == 1 || items >= sms));
+}
+
+// route 0: the pack pass into `planes` ([3][P][B*H][t16][hd16] bf16, the
+// caller's scratch) unless `planes` is null and q, k, v are read in place,
+// then the streaming kernel.
+int launch(const void* q, const void* k, const void* v, void* out, void* planes, int batch,
+           int t_len, int heads, int hd, long long stride_b, long long stride_t, int dtype,
+           cudaStream_t stream) {
+  const bool split = dtype == 0;
+  Plan plan;
+  const long long bh = (long long)batch * heads;
+  int sms = 0;
+  const cudaError_t e = device_sms(&sms);
+  if (e != cudaSuccess) return (int)e;
+  if (!plan_launch(bh, t_len, hd, split, sms, &plan) || (split ? 2 : 1) * bh > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  const int t16 = (t_len + 15) & ~15, hd16 = (hd + 15) & ~15;
+  Args a = {};
+  a.out = out;
+  a.t_len = t_len;
+  a.heads = heads;
+  a.hd = hd;
+  a.hd16 = hd16;
+  a.n_qtiles = (t_len + kRows - 1) / kRows;
+  a.n_ktiles = a.n_qtiles;
+  a.pairs = (a.n_qtiles + plan.nq - 1) / plan.nq;
+  a.ncb = plan.ncb;
+  a.ncs = plan.ncs;
+  a.items = bh * a.pairs * plan.ncb;
+  a.nq = plan.nq;
+  a.q_resident = plan.q_resident;
+  a.stages = plan.stages;
+  a.chunk_bytes = plan.chunk_bytes;
+  a.stage_bytes = plan.stage_bytes;
+  a.packed = planes != nullptr;
+  a.scale_log2 = kLog2e / sqrtf((float)hd);
+  CUtensorMap maps[3];
+  if (a.packed) {
+    const cudaError_t err = (cudaError_t)launch_pack(q, k, v, planes, batch, t_len, heads, hd,
+                                                      stride_b, stride_t, dtype, stream);
+    if (err != cudaSuccess) return (int)err;
+    a.heads_per_item = 1;
+    a.lo_items = split ? (int)bh : 0;
+    const long long tensor = (split ? 2 : 1) * bh * t16 * hd16;  // elements of one of q, k, v
+    for (int i = 0; i < 3; ++i)
+      if (!resident::encode_map(&maps[i], static_cast<const bf16*>(planes) + i * tensor,
+                                (split ? 2 : 1) * (int)bh, t16, hd16, (long long)t16 * hd16, hd16,
+                                kRows, plan.cw))
+        return (int)cudaErrorInvalidValue;
+  } else {  // q, k, v in place; float32 split in shared memory by the converters
+    if (!reads_in_place(q, k, v, hd, stride_b, stride_t, dtype) || (split && !plan.q_resident))
+      return (int)cudaErrorInvalidValue;
+    a.heads_per_item = heads;
+    a.lo_items = 0;
+    a.convert = split;
+    const void* xs[3] = {q, k, v};
+    for (int i = 0; i < 3; ++i)
+      if (split ? !encode_map_f32(&maps[i], xs[i], batch, t_len, heads * hd, stride_b, stride_t,
+                                  plan.cw)
+                : !resident::encode_map(&maps[i], xs[i], batch, t_len, heads * hd, stride_b,
+                                        stride_t, kRows, plan.cw))
+        return (int)cudaErrorInvalidValue;
+  }
+  if (plan.cw == 16)
+    return split ? launch_kernel<16, 1, true>(maps, a, plan, stream)
+                 : launch_kernel<16, 1, false>(maps, a, plan, stream);
+  if (plan.cw == 32)
+    return split ? launch_kernel<32, 1, true>(maps, a, plan, stream)
+                 : launch_kernel<32, 1, false>(maps, a, plan, stream);
+  // several column blocks (a head wider than 256 columns, 128 in float32): chunks
+  // at most as wide as a block's, scores one chunk at a time
+  if (!plan.overlap)
+    return split ? launch_kernel<64, 2, true, false>(maps, a, plan, stream)
+           : plan.no == 3 ? launch_kernel<64, 3, false, false>(maps, a, plan, stream)
+                          : launch_kernel<64, 4, false, false>(maps, a, plan, stream);
+  if (split)
+    return plan.no == 1 ? launch_kernel<64, 1, true>(maps, a, plan, stream)
+                        : launch_kernel<64, 2, true>(maps, a, plan, stream);
+  switch (plan.no) {
+    case 1: return launch_kernel<64, 1, false>(maps, a, plan, stream);
+    case 2: return launch_kernel<64, 2, false>(maps, a, plan, stream);
+    case 3: return launch_kernel<64, 3, false>(maps, a, plan, stream);
+    default: return launch_kernel<64, 4, false>(maps, a, plan, stream);
+  }
+}
+
+}  // namespace stream
 
 // Which kernel a self-attention of T rows and this head width and type takes:
 // 1, the resident wgmma kernel (bfloat16); 2, the same kernel on hi and lo
-// planes (float32); or 0, the tiled mma.sync one. The one place in this file
-// that decides it, from the shape and the type alone.
+// planes (float32); or 0, the streaming kernel, which takes every shape. The
+// one place in this file that decides it, from the shape and the type alone.
 int route_of(int t_len, int head_dim, int dtype) {
   const int planes = dtype == 0 ? 2 : 1;
   const bool resident_fits =
@@ -1230,19 +1890,23 @@ extern "C" int condmdi_attention_route(int t_len, int head_dim, int dtype) {
 }
 
 // q, k, v: [B, T, H*hd] views sharing (stride_b, stride_t) in elements, unit
-// column stride, 16-byte aligned rows; out: [B, T, H*hd] contiguous.
-// dtype 0 = float32, 1 = bfloat16. `route` is the kernel the caller expects, as
+// column stride; out: [B, T, H*hd] contiguous. dtype 0 = float32, 1 =
+// bfloat16. `route` is the kernel the caller expects, as
 // `condmdi_attention_route` names it. `scratch`: route 2's hi and lo planes,
-// 3 * 2 * B * T * H*hd bf16 (16-byte aligned), null for the other routes.
-// Launches on the current device. Returns the launch's cudaGetLastError(), or
-// cudaErrorInvalidValue for a shape or a type that the kernels do not take and
-// for a route that is not this shape's.
+// 3 * 2 * B * T * H*hd bf16 (q/k/v rows 16-byte aligned); route 0's packed
+// planes, 3 * P * B*H * t16 * hd16 bf16 (P = 2 for float32, else 1; t16 and
+// hd16 are T and hd rounded up to 16), or null where the streaming kernel reads
+// q, k, v in place (`stream::reads_in_place`; ops/attention.py `stream_packs`
+// decides); null for route 1. Launches on the current device. Returns the last launch's
+// cudaGetLastError(), or cudaErrorInvalidValue for a shape, a type or a
+// layout that the kernels do not take and for a route that is not this
+// shape's.
 extern "C" int condmdi_attention_forward(const void* q, const void* k, const void* v, void* out,
                                          int batch, int t_len, int heads, int head_dim,
                                          long long stride_b, long long stride_t, int dtype,
                                          int route, void* stream, void* scratch) {
-  if (batch <= 0 || t_len <= 0 || heads <= 0 || head_dim <= 0 || head_dim > kMaxHd ||
-      head_dim % 8 != 0 || (dtype != 0 && dtype != 1) || route != route_of(t_len, head_dim, dtype))
+  if (batch <= 0 || t_len <= 0 || heads <= 0 || head_dim <= 0 || (dtype != 0 && dtype != 1) ||
+      route != route_of(t_len, head_dim, dtype))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (route == 1) {
@@ -1262,13 +1926,48 @@ extern "C" int condmdi_attention_forward(const void* q, const void* k, const voi
     return CONDMDI_SPLIT(32);
 #undef CONDMDI_SPLIT
   }
-  if (batch > 65535 || heads > 65535)  // the tiled kernel's grid puts them in y and z
+  return stream::launch(q, k, v, out, scratch, batch, t_len, heads, head_dim, stride_b, stride_t,
+                        dtype, s);
+}
+
+// For q, k, v that route 0 can read in place (`stream::reads_in_place`):
+// 1 where its launch should pack them all the same (float32 only, see
+// `stream::packs_float32`), so that the caller passes planes; 0 otherwise.
+extern "C" int condmdi_attention_stream_packs(int batch, int t_len, int heads, int head_dim,
+                                              int dtype) {
+  int sms = 0;
+  if (dtype != 0 || stream::device_sms(&sms) != cudaSuccess) return 0;
+  return stream::packs_float32((long long)batch * heads, t_len, head_dim, sms) ? 1 : 0;
+}
+
+// Route 0's pack pass alone, into `planes` as condmdi_attention_forward's
+// scratch: what the card tests hold to ops/attention.py `pack_heads`.
+extern "C" int condmdi_attention_pack(const void* q, const void* k, const void* v, void* planes,
+                                      int batch, int t_len, int heads, int head_dim,
+                                      long long stride_b, long long stride_t, int dtype,
+                                      void* stream) {
+  if (batch <= 0 || t_len <= 0 || heads <= 0 || head_dim <= 0 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
-  if (dtype == 0)
-    return tiled::launch<float>(q, k, v, out, batch, t_len, heads, head_dim, stride_b, stride_t,
-                                s);
-  return tiled::launch<__nv_bfloat16>(q, k, v, out, batch, t_len, heads, head_dim, stride_b,
-                                      stride_t, s);
+  return stream::launch_pack(q, k, v, planes, batch, t_len, heads, head_dim, stride_b, stride_t,
+                             dtype, static_cast<cudaStream_t>(stream));
+}
+
+// Route 0's layout for a shape on the current device: out[0..7] = chunk width,
+// chunks a column block, column blocks, depth chunks, consumer warpgroups, Q
+// resident (1) or streamed (0), ring stages, shared memory bytes. Returns 0,
+// or cudaErrorInvalidValue where no layout fits (none is known).
+extern "C" int condmdi_attention_stream_plan(int batch, int t_len, int heads, int head_dim,
+                                             int dtype, int* out) {
+  stream::Plan p;
+  int sms = 0;
+  const cudaError_t e = stream::device_sms(&sms);
+  if (e != cudaSuccess) return (int)e;
+  if (batch <= 0 || t_len <= 0 || heads <= 0 || head_dim <= 0 ||
+      !stream::plan_launch((long long)batch * heads, t_len, head_dim, dtype == 0, sms, &p))
+    return (int)cudaErrorInvalidValue;
+  const int values[8] = {p.cw, p.no, p.ncb, p.ncs, p.nq, p.q_resident, p.stages, p.smem};
+  for (int i = 0; i < 8; ++i) out[i] = values[i];
+  return 0;
 }
 
 #ifdef CONDMDI_PROBE_STAMPS

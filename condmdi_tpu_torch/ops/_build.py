@@ -110,11 +110,23 @@ def _bind_attention(lib: ctypes.CDLL) -> None:
         ll, ll,       # batch and row strides of q/k/v, in elements
         i, i,         # dtype code, the route the caller expects
         p,            # stream
-        p,            # the float32 route's hi/lo planes (scratch), or null
+        p,            # the planes (scratch): route 2's hi/lo, route 0's packed, or null
     ]
     lib.condmdi_attention_forward.restype = i
     lib.condmdi_attention_route.argtypes = [i, i, i]  # T, head_dim, dtype code
     lib.condmdi_attention_route.restype = i
+    lib.condmdi_attention_stream_packs.argtypes = [i, i, i, i, i]  # B, T, heads, head_dim, dtype
+    lib.condmdi_attention_stream_packs.restype = i
+    lib.condmdi_attention_pack.argtypes = [
+        p, p, p, p,   # q, k, v, the planes
+        i, i, i, i,   # B, T, heads, head_dim
+        ll, ll, i,    # batch and row strides of q/k/v in elements, dtype code
+        p,            # stream
+    ]
+    lib.condmdi_attention_pack.restype = i
+    # B, T, heads, head_dim, dtype code, out[8]
+    lib.condmdi_attention_stream_plan.argtypes = [i, i, i, i, i, ctypes.POINTER(ctypes.c_int)]
+    lib.condmdi_attention_stream_plan.restype = i
     lib.condmdi_error_string.argtypes = [i]
     lib.condmdi_error_string.restype = ctypes.c_char_p
 

@@ -3,13 +3,16 @@
 Counterpart of condmdi_tpu/ops/attention.py, with the same names:
 
   * `fused_self_attention` is a `torch.autograd.Function`. Its forward sends
-    a CUDA tensor to one of the two hand-written Hopper kernels of
+    a CUDA tensor to one of the hand-written Hopper kernels of
     csrc/attention.cu (built and bound by ops/_build.py) or raises; it never
     falls back to the plain version. A CPU tensor takes `_xla_attention`, the
     plain PyTorch version. Which kernel runs is `attention_route`, a function
     of the shape and the type alone: the resident `wgmma` kernel in bf16
     ("wgmma"), the same kernel on hi and lo bf16 planes in float32
-    ("wgmma_f32"), the first tiled kernel for the rest ("mma_sync").
+    ("wgmma_f32"), the streaming kernel for every other shape ("stream"),
+    behind a pack pass (`pack_heads` is its plain version) where it needs one.
+    Every shape the JAX package computes is taken: any head width, T, B and
+    H, and q/k/v at any stride or alignment.
     Its backward recomputes the softmax in plain torch, formula for formula
     as the JAX package's `_fused_bwd` does in XLA: that backward was never a
     Pallas kernel.
@@ -32,10 +35,8 @@ import torch
 
 from condmdi_tpu_torch.ops import _build
 
-_MAX_HEAD_DIM = 128  # the widest head the kernel takes (multiples of 8)
-_MAX_GRID = 65535  # CUDA's limit on grid y and z, where the tiled kernel puts H and B
 _DTYPES = {torch.float32: (0, 4), torch.bfloat16: (1, 2)}  # the C entry's code, bytes a value
-_ROUTE_CODES = {"mma_sync": 0, "wgmma": 1, "wgmma_f32": 2}  # as csrc/attention.cu `route_of`
+_ROUTE_CODES = {"stream": 0, "wgmma": 1, "wgmma_f32": 2}  # as csrc/attention.cu `route_of`
 _WGMMA_HEAD_DIMS = (32, 64, 128)  # head widths the resident kernel is instantiated for
 _WGMMA_SMEM_BUDGET = 232448 - 1024  # a block's shared memory on sm_90, less a reserve
 
@@ -114,6 +115,59 @@ def multihead_attention(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
     return mha(q, k, v, num_heads)
 
 
+def _round16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def pack_heads(q, k, v, num_heads: int) -> torch.Tensor:
+    """The plain version of the streaming route's pack pass (csrc/attention.cu
+    `stream::pack_heads_kernel`): q, k, v [B, T, D] → planes [3, P, B*H, t16,
+    hd16] in bf16, head-major, zero past T and past hd (t16 and hd16 are T and
+    hd rounded up to 16). P = 2 for float32, hi = bf16(x) and lo = bf16(x - hi),
+    so hi + lo keeps about 16 mantissa bits; P = 1 for bfloat16."""
+    B, T, D = q.shape
+    hd = D // num_heads
+    x = torch.stack([_split_heads(t, num_heads).reshape(B * num_heads, T, hd) for t in (q, k, v)])
+    if x.dtype == torch.float32:
+        hi = x.bfloat16()
+        planes = torch.stack([hi, (x - hi.float()).bfloat16()], dim=1)
+    else:
+        planes = x.bfloat16().unsqueeze(1)
+    out = torch.zeros((3, planes.shape[1], B * num_heads, _round16(T), _round16(hd)),
+                      dtype=torch.bfloat16, device=q.device)
+    out[..., :T, :hd] = planes
+    return out
+
+
+def stream_reads_in_place(q, k, v, hd: int) -> bool:
+    """Whether the streaming route reads these q, k, v where they lie, without
+    the pack pass (csrc/attention.cu `stream::reads_in_place`): views whose head
+    width is 16, 32 or a multiple of 64, so that a TMA box never crosses into the
+    next head (in float32 at most 512, so that Q's split planes stay resident in
+    shared memory, where the kernel splits float32 tiles itself), with 16-byte
+    aligned pointers and row strides and a unit column stride (one stride pair
+    for all three)."""
+    if not (hd in (16, 32) or (hd % 64 == 0 and (q.dtype == torch.bfloat16 or hd <= 512))):
+        return False
+    strides, size = q.stride(), q.element_size()
+    if strides[2] != 1 or k.stride() != strides or v.stride() != strides:
+        return False
+    return (q.data_ptr() | k.data_ptr() | v.data_ptr() | size * strides[0]
+            | size * strides[1]) % 16 == 0
+
+
+def stream_packs(lib, q, k, v, num_heads: int) -> bool:
+    """Whether a launch on the streaming route goes through the pack pass: where
+    the kernel cannot read q, k, v in place (`stream_reads_in_place`), and for
+    float32 where the library says splitting in shared memory would cost more
+    than the pass (csrc/attention.cu `stream::packs_float32`: several column
+    blocks, or fewer items than SMs over more than one key tile)."""
+    B, T, D = q.shape
+    hd = D // num_heads
+    return not stream_reads_in_place(q, k, v, hd) or bool(
+        lib.condmdi_attention_stream_packs(B, T, num_heads, hd, _DTYPES[q.dtype][0]))
+
+
 def resident_smem_bytes(T: int, hd: int, planes: int = 1) -> int:
     """Shared memory of the resident kernel (csrc/attention.cu `resident::smem_bytes`,
     which `attention_route` mirrors with it): K and V of one head in `planes`
@@ -132,9 +186,11 @@ def attention_route(B: int, T: int, H: int, hd: int, dtype: torch.dtype) -> str:
     both products on wgmma. "wgmma_f32": float32 at those head widths with the
     hi and lo bf16 planes of K and V within a block (T <= 224 at hd=128, 448 at
     64, 896 at 32): q, k, v split once by a pass before the same kernel, three
-    bf16 products for each. "mma_sync": everything else the kernels take (other
-    head widths; longer T): 64-key tiles, mma.sync. The answer depends on the
-    shape and the type only, never on a build or a launch.
+    bf16 products for each. "stream": every other shape (other head widths,
+    longer T), in either type: K and V stream through a ring of TMA stages into
+    wgmma, behind a pack pass into head-major planes where the kernel cannot
+    read q, k, v in place. The answer depends on the shape and the type only,
+    never on a build or a launch.
 
     This is csrc/attention.cu `route_of` (exported as `condmdi_attention_route`)
     once more in Python, so that the route can be asked where there is no card.
@@ -144,14 +200,21 @@ def attention_route(B: int, T: int, H: int, hd: int, dtype: torch.dtype) -> str:
     planes = 2 if dtype == torch.float32 else 1
     if hd in _WGMMA_HEAD_DIMS and resident_smem_bytes(T, hd, planes) <= _WGMMA_SMEM_BUDGET:
         return "wgmma_f32" if planes == 2 else "wgmma"
-    return "mma_sync"
+    return "stream"
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy from the allocator, whose rows are 16-byte aligned where
+    the rows' bytes are a multiple of 16 (the resident routes' head widths)."""
+    return torch.empty(t.shape, dtype=t.dtype, device=t.device).copy_(t)
 
 
 def _launch(q, k, v, num_heads: int) -> torch.Tensor:
     """Check what the kernels take, launch one on the current stream, count the launch.
 
     Written for a short host path (a served step is bound by the host): no
-    temporaries beyond the output, plain ints to ctypes, the stream's raw handle.
+    temporaries beyond the output and the planes a route needs, plain ints to
+    ctypes, the stream's raw handle.
     """
     dtype, shape = q.dtype, q.shape
     known = _DTYPES.get(dtype)
@@ -171,27 +234,28 @@ def _launch(q, k, v, num_heads: int) -> torch.Tensor:
     if num_heads <= 0 or D % num_heads:
         raise ValueError(f"D={D} is not a multiple of num_heads={num_heads}")
     hd = D // num_heads
-    if hd > _MAX_HEAD_DIM or hd % 8:
-        raise NotImplementedError(
-            f"the kernel takes head widths that are multiples of 8 up to {_MAX_HEAD_DIM}, not {hd}"
-        )
     route = attention_route(B, T, num_heads, hd, dtype)
-    if route == "mma_sync" and (B > _MAX_GRID or num_heads > _MAX_GRID):
-        raise NotImplementedError(f"B={B} or H={num_heads} exceeds the grid limit {_MAX_GRID}")
     strides = q.stride()
     if strides[2] != 1 or k.stride() != strides or v.stride() != strides:
-        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        q, k, v = _aligned(q), _aligned(k), _aligned(v)
         strides = q.stride()
     q_ptr, k_ptr, v_ptr = q.data_ptr(), k.data_ptr(), v.data_ptr()
-    if (q_ptr | k_ptr | v_ptr | (strides[0] * size) | (strides[1] * size)) % 16:
-        # both kernels read rows in 16-byte pieces
-        raise ValueError("fused_self_attention: q/k/v rows must be 16-byte aligned")
-    out = torch.empty(shape, device=q.device, dtype=dtype)
-    # the float32 route's hi and lo bf16 planes of q, k and v, written by its split pass
-    scratch = (torch.empty((3, 2, B, T, D), device=q.device, dtype=torch.bfloat16)
-               if route == "wgmma_f32" else None)
-
+    if route != "stream" and (q_ptr | k_ptr | v_ptr | (strides[0] * size)
+                              | (strides[1] * size)) % 16:
+        # the resident routes read rows in 16-byte pieces: aligned copies
+        q, k, v = _aligned(q), _aligned(k), _aligned(v)
+        strides = q.stride()
+        q_ptr, k_ptr, v_ptr = q.data_ptr(), k.data_ptr(), v.data_ptr()
     lib = _build.load_attention()
+    out = torch.empty(shape, device=q.device, dtype=dtype)
+    if route == "wgmma_f32":  # hi and lo bf16 planes of q, k and v, written by its split pass
+        scratch = torch.empty((3, 2, B, T, D), device=q.device, dtype=torch.bfloat16)
+    elif route == "stream" and stream_packs(lib, q, k, v, num_heads):  # the pack pass's planes
+        scratch = torch.empty((3, 2 if code == 0 else 1, B * num_heads, _round16(T), _round16(hd)),
+                              device=q.device, dtype=torch.bfloat16)
+    else:
+        scratch = None
+
     err = lib.condmdi_attention_forward(
         q_ptr, k_ptr, v_ptr, out.data_ptr(), B, T, num_heads, hd, strides[0], strides[1],
         code, _ROUTE_CODES[route], torch._C._cuda_getCurrentRawStream(index),

@@ -2,9 +2,10 @@
 package's, on the CPU: the plain version against JAX's `_xla_attention` (self,
 cross and causal) and against the Pallas kernel in interpret mode; the
 recompute backward against `jax.vjp`; the dispatch, which on the CPU never
-builds or launches a kernel; and the choice between the two Hopper kernels,
-which is a function of the shape and the type. The kernels themselves are held
-to the plain version on the card by tests/test_torch_cuda.py and chip_smoke.py."""
+builds or launches a kernel; the choice between the Hopper kernels, which is a
+function of the shape and the type; and the streaming route's pack pass
+(`pack_heads`). The kernels themselves are held to the plain version on the card
+by tests/test_torch_cuda.py and chip_smoke.py."""
 
 import numpy as np
 import pytest
@@ -53,6 +54,84 @@ def test_plain_matches_the_pallas_kernel_in_interpret_mode(T):
             *(jnp.asarray(a) for a in (q, k, v)), num_heads=4))
     got = attention._xla_attention(*(torch.from_numpy(a) for a in (q, k, v)), 4).numpy()
     np.testing.assert_allclose(got, want, atol=2e-5, rtol=0)  # the tolerance of the JAX test
+
+
+# the shapes the streaming route took over from refusals and from the first tiled
+# kernel: head widths below a chunk (4), between chunks (20), a whole column block
+# (256) and past it (320); one row, MDM's 225 and one past a 512-key sequence
+STREAM_HEAD_DIMS = [4, 20, 256, 320]
+STREAM_LENGTHS = [1, 225, 513]
+
+
+@pytest.mark.parametrize("hd", STREAM_HEAD_DIMS)
+@pytest.mark.parametrize("T", STREAM_LENGTHS)
+def test_plain_matches_jax_xla_attention_at_the_stream_shapes(hd, T):
+    q, k, v = make_qkv(1, T, T, 2 * hd, seed=hd + T)
+    want = np.asarray(jax_attention._xla_attention(*(jnp.asarray(a) for a in (q, k, v)),
+                                                    num_heads=2))
+    got = attention._xla_attention(*(torch.from_numpy(a) for a in (q, k, v)), 2).numpy()
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("hd", STREAM_HEAD_DIMS)
+@pytest.mark.parametrize("T", STREAM_LENGTHS)
+def test_plain_matches_the_pallas_kernel_at_the_stream_shapes(hd, T):
+    """The Pallas kernel pads T and hd to multiples of 128 and so takes every
+    shape; the port's plain version, which the card holds its kernel to, agrees."""
+    q, k, v = make_qkv(1, T, T, 2 * hd, seed=3 * hd + T)
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(jax_attention._pallas_self_attention(
+            *(jnp.asarray(a) for a in (q, k, v)), num_heads=2))
+    got = attention._xla_attention(*(torch.from_numpy(a) for a in (q, k, v)), 2).numpy()
+    np.testing.assert_allclose(got, want, atol=2e-5, rtol=0)  # the tolerance of the JAX test
+
+
+@pytest.mark.parametrize("B,T,D,H", [(2, 61, 64, 4), (3, 17, 4, 4), (1, 225, 512, 4),
+                                     (2, 33, 1280, 4), (2, 16, 96, 3)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pack_heads_layout(B, T, D, H, dtype):
+    """pack_heads: [3, P, B*H, t16, hd16] bf16, head-major, zero past T and past
+    hd; P = 2 (hi, lo) for float32 with hi + lo within 2^-16 of each value
+    (relative), P = 1 for bfloat16 with the values themselves."""
+    q, k, v = (torch.from_numpy(a).to(dtype) for a in make_qkv(B, T, T, D, seed=T + D))
+    hd = D // H
+    planes = attention.pack_heads(q, k, v, H)
+    P = 2 if dtype == torch.float32 else 1
+    t16, hd16 = -(-T // 16) * 16, -(-hd // 16) * 16
+    assert planes.dtype == torch.bfloat16 and planes.shape == (3, P, B * H, t16, hd16)
+    assert not planes[..., T:, :].any() and not planes[..., :, hd:].any()
+    for i, x in enumerate((q, k, v)):
+        heads = x.reshape(B, T, H, hd).transpose(1, 2).reshape(B * H, T, hd)
+        got = planes[i, :, :, :T, :hd].float()
+        if P == 1:
+            assert torch.equal(got[0], heads.float())
+        else:
+            hi, lo = got
+            assert torch.equal(planes[i, 0, :, :T, :hd], heads.bfloat16())
+            err = (hi + lo - heads).abs()
+            assert torch.all(err <= 2.0 ** -16 * heads.abs())
+
+
+def test_stream_reads_in_place_only_what_tma_can_address():
+    """The streaming route skips its pack pass for column views whose heads a TMA
+    box never crosses (hd 16, 32 or a multiple of 64; in float32 up to 512, where
+    the kernel splits the tiles itself with Q resident) and whose rows are
+    16-byte aligned."""
+    def views(D, dtype=torch.bfloat16, shift=0):
+        buf = torch.zeros(2, 5, 3 * D + shift, dtype=dtype)
+        return buf[..., shift:].chunk(3, dim=-1)
+
+    assert attention.stream_reads_in_place(*views(1024), 256)
+    assert attention.stream_reads_in_place(*views(64), 16)
+    assert attention.stream_reads_in_place(*views(128), 32)
+    assert not attention.stream_reads_in_place(*views(16), 4)          # hd 4: packed
+    assert not attention.stream_reads_in_place(*views(320), 80)        # chunks cross heads
+    assert not attention.stream_reads_in_place(*views(1024, shift=1), 256)  # unaligned rows
+    assert attention.stream_reads_in_place(*views(1024, torch.float32), 256)
+    assert attention.stream_reads_in_place(*views(64, torch.float32), 16)
+    assert not attention.stream_reads_in_place(*views(16, torch.float32), 4)
+    assert not attention.stream_reads_in_place(*views(2304, torch.float32), 576)  # Q not resident
+    assert not attention.stream_reads_in_place(*views(1024, torch.float32, shift=2), 256)
 
 
 def test_backward_formula_matches_jax_vjp():
@@ -119,16 +198,37 @@ def test_card_path_raises_when_the_kernel_cannot_be_built(monkeypatch, tmp_path)
     assert attention.fused_self_attention.launches == before
 
 
-@pytest.mark.parametrize("bad", ["head_dim", "head_dim_wide", "heads", "dtype", "mismatch",
-                                 "shape"])
-def test_card_path_rejects_what_the_kernel_does_not_take(bad):
+class _BuildReached(Exception):
+    pass
+
+
+@pytest.mark.parametrize("bad", ["head_dim", "head_dim_wide", "unaligned_rows", "heads", "dtype",
+                                 "mismatch", "shape"])
+def test_card_path_rejects_what_the_kernel_does_not_take(bad, monkeypatch):
+    """`_launch` refuses before any build what JAX's reshape refuses too (D not a
+    multiple of H), a type the kernels do not take and mismatched q, k, v. Head
+    widths it refused before the streaming route (hd 4, not a multiple of 8; hd
+    256, past 128) and rows that are not 16-byte aligned are taken: the call
+    reaches the build (here a sentinel) and never the plain version."""
+    def never_plain(*_a, **_k):
+        raise AssertionError("the card path fell back to the plain version")
+
+    def sentinel():
+        raise _BuildReached
+
+    monkeypatch.setattr(attention, "_xla_attention", never_plain)
+    monkeypatch.setattr(_build, "load_attention", sentinel)
     q = k = v = torch.zeros(2, 5, 64)
     H = 4
+    taken = bad in ("head_dim", "head_dim_wide", "unaligned_rows")
     if bad == "head_dim":
         H = 16  # hd = 4, not a multiple of 8
     elif bad == "head_dim_wide":
         q = k = v = torch.zeros(2, 5, 512)
         H = 2  # hd = 256 > 128
+    elif bad == "unaligned_rows":  # a bf16 projection one column longer, views one column in
+        q, k, v = torch.zeros(2, 5, 3 * 64 + 1, dtype=torch.bfloat16)[..., 1:].chunk(3, dim=-1)
+        assert (q.data_ptr() % 16) and (q.stride(1) * 2) % 16
     elif bad == "heads":
         H = 5
     elif bad == "dtype":
@@ -137,8 +237,10 @@ def test_card_path_rejects_what_the_kernel_does_not_take(bad):
         k = k.bfloat16()
     else:
         k = torch.zeros(2, 6, 64)
-    with pytest.raises((ValueError, TypeError, NotImplementedError)):
+    before = attention.fused_self_attention.launches
+    with pytest.raises(_BuildReached if taken else (ValueError, TypeError, NotImplementedError)):
         attention._launch(q, k, v, H)
+    assert attention.fused_self_attention.launches == before
 
 
 def test_other_devices_raise():
@@ -155,26 +257,33 @@ def test_other_devices_raise():
     (3, 25, 2, 64, torch.bfloat16, "wgmma"),
     (2, 7, 2, 32, torch.bfloat16, "wgmma"),
     (1, 448, 1, 128, torch.bfloat16, "wgmma"),     # the longest K and V that fit at hd 128 ...
-    (1, 449, 1, 128, torch.bfloat16, "mma_sync"),  # ... and one row more
+    (1, 449, 1, 128, torch.bfloat16, "stream"),    # ... and one row more
     (1, 896, 1, 64, torch.bfloat16, "wgmma"),
-    (1, 897, 1, 64, torch.bfloat16, "mma_sync"),
+    (1, 897, 1, 64, torch.bfloat16, "stream"),
     (1, 1792, 1, 32, torch.bfloat16, "wgmma"),
-    (1, 1793, 1, 32, torch.bfloat16, "mma_sync"),
-    (2, 70, 4, 24, torch.bfloat16, "mma_sync"),    # a width the resident kernel is not built for
-    (2, 70, 4, 16, torch.bfloat16, "mma_sync"),
-    (2, 70, 1, 96, torch.bfloat16, "mma_sync"),
+    (1, 1793, 1, 32, torch.bfloat16, "stream"),
+    (2, 70, 4, 24, torch.bfloat16, "stream"),      # a width the resident kernel is not built for
+    (2, 70, 4, 16, torch.bfloat16, "stream"),
+    (2, 70, 1, 96, torch.bfloat16, "stream"),
+    (8, 197, 4, 4, torch.bfloat16, "stream"),      # --latent_dim 16
+    (8, 197, 4, 256, torch.bfloat16, "stream"),    # --latent_dim 1024
+    (8, 512, 4, 128, torch.bfloat16, "stream"),    # served MDM past T = 448
     (8, 197, 4, 128, torch.float32, "wgmma_f32"),  # float32: hi and lo planes resident
     (4, 197, 4, 128, torch.float32, "wgmma_f32"),  # MDM edit (B=4) as the CLI runs it
     (3, 25, 2, 64, torch.float32, "wgmma_f32"),
     (2, 7, 2, 32, torch.float32, "wgmma_f32"),
     (1, 224, 1, 128, torch.float32, "wgmma_f32"),  # the longest hi+lo K and V at hd 128 ...
-    (1, 225, 1, 128, torch.float32, "mma_sync"),   # ... and one row more
+    (1, 225, 1, 128, torch.float32, "stream"),     # ... and one row more
+    (4, 225, 4, 128, torch.float32, "stream"),     # MDM at 224 frames + the cond token
     (1, 448, 1, 64, torch.float32, "wgmma_f32"),
-    (1, 449, 1, 64, torch.float32, "mma_sync"),
+    (1, 449, 1, 64, torch.float32, "stream"),
     (1, 896, 1, 32, torch.float32, "wgmma_f32"),
-    (1, 897, 1, 32, torch.float32, "mma_sync"),
-    (2, 70, 4, 24, torch.float32, "mma_sync"),     # a width the resident kernel is not built for
-    (2, 70, 1, 96, torch.float32, "mma_sync"),
+    (1, 897, 1, 32, torch.float32, "stream"),
+    (2, 70, 4, 24, torch.float32, "stream"),       # a width the resident kernel is not built for
+    (2, 70, 1, 96, torch.float32, "stream"),
+    (32, 61, 4, 16, torch.float32, "stream"),      # evals.run_a2m at the JAX CLIs' width
+    (8, 197, 4, 4, torch.float32, "stream"),
+    (2, 197, 4, 320, torch.float32, "stream"),     # more columns than one block holds
 ])
 def test_route_is_a_function_of_shape_and_dtype(case):
     B, T, H, hd, dtype, route = case
@@ -300,7 +409,7 @@ def test_probe_switches_are_the_sources_and_the_package_builds_without_them(monk
     bits = {name: int(value) for name, value in re.findall(r"(kOff\w+) = (\d+)", body)}
     assert bits == {"kOffScores": probe.SCORES, "kOffPv": probe.PV, "kOffSoftmax": probe.SOFTMAX,
                     "kOffStores": probe.STORES, "kOffQ": probe.Q_LOADS, "kOffSlack": probe.SLACK,
-                    "kOffSecondCta": probe.SECOND_CTA, "kOffF32Route": probe.F32_ROUTE0,
+                    "kOffSecondCta": probe.SECOND_CTA, "kOffF32Route": probe.F32_STREAM,
                     "kOffPdl": probe.NO_PDL}
     assert sorted(bits.values()) == [1, 2, 4, 8, 16, 32, 64, 128, 256]
     assert probe.VARIANTS["as committed"] == 0
@@ -322,7 +431,11 @@ def test_entry_point_has_one_route_function():
         class _Fn:
             pass
         condmdi_attention_forward, condmdi_attention_route, condmdi_error_string = _Fn(), _Fn(), _Fn()
+        condmdi_attention_pack, condmdi_attention_stream_plan = _Fn(), _Fn()
+        condmdi_attention_stream_packs = _Fn()
 
     _build._bind_attention(Lib)
     assert len(Lib.condmdi_attention_forward.argtypes) == 14
     assert len(Lib.condmdi_attention_route.argtypes) == 3
+    assert len(Lib.condmdi_attention_pack.argtypes) == 12
+    assert "stream::launch(q, k, v, out, scratch," in source

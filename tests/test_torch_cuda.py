@@ -280,9 +280,9 @@ def test_attention_kernel_at_the_tile_edges(cuda_device, T, D, H):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("T,D,H,route", [
-    (448, 128, 1, "wgmma"), (449, 128, 1, "mma_sync"),   # hd 128: K and V of 448 rows fit
-    (896, 128, 2, "wgmma"), (897, 128, 2, "mma_sync"),   # hd 64
-    (200, 96, 4, "mma_sync"), (200, 64, 4, "mma_sync"),  # hd 24 and 16: not a resident width
+    (448, 128, 1, "wgmma"), (449, 128, 1, "stream"),   # hd 128: K and V of 448 rows fit
+    (896, 128, 2, "wgmma"), (897, 128, 2, "stream"),   # hd 64
+    (200, 96, 4, "stream"), (200, 64, 4, "stream"),    # hd 24 and 16: not a resident width
 ])
 def test_attention_kernel_on_each_side_of_the_route_limit(cuda_device, T, D, H, route):
     assert attention.attention_route(2, T, H, D // H, torch.bfloat16) == route
@@ -380,18 +380,20 @@ def test_attention_backward_runs_through_the_kernel_forward(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("bad", ["head_dim", "dtype_mismatch", "unsupported_dtype"])
+@pytest.mark.parametrize("bad", ["heads", "dtype_mismatch", "unsupported_dtype"])
 def test_attention_wrapper_refuses_what_the_kernel_does_not_take(cuda_device, bad):
+    """What JAX's reshape refuses too (D not a multiple of H), and a type the
+    kernels do not take; every head width is taken since the streaming route."""
     q, k, v = qkv_views(2, 16, 64, torch.bfloat16, cuda_device)
     H = 2
-    if bad == "head_dim":
-        H = 16  # hd = 4
+    if bad == "heads":
+        H = 5
     elif bad == "dtype_mismatch":
         k = k.float()
     else:
         q, k, v = q.half(), k.half(), v.half()
     before = attention.fused_self_attention.launches
-    with pytest.raises((NotImplementedError, TypeError)):
+    with pytest.raises((ValueError, TypeError)):
         attention.fused_self_attention.apply(q, k, v, H)
     assert attention.fused_self_attention.launches == before
 
@@ -407,7 +409,7 @@ def test_python_route_is_the_librarys_route(cuda_device):
     lengths = sorted({t + d for t in (1, 16, 64, 197, 224, 448, 896, 1792, 2048)
                       for d in (-1, 0, 1) if t + d >= 1})
     for dtype, (code, _) in attention._DTYPES.items():
-        for hd in range(8, 129, 8):
+        for hd in [*range(1, 129), 136, 256, 320, 1024]:
             for T in lengths:
                 want = lib.condmdi_attention_route(T, hd, code)
                 assert attention._ROUTE_CODES[attention.attention_route(1, T, 1, hd, dtype)] == want, \
@@ -438,24 +440,183 @@ def test_entry_point_refuses_a_route_that_is_not_the_shapes(cuda_device, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,raises", [("bfloat16", False), ("float32", True)])
-def test_attention_batch_past_the_grid_limit(cuda_device, dtype, raises):
+@pytest.mark.parametrize("dtype,route", [("bfloat16", "wgmma"), ("float32", "stream")])
+def test_attention_batch_past_the_grid_limit(cuda_device, dtype, route):
     """70,000 batch items: the resident kernel numbers its work along grid x and
-    takes them (bf16 at hd 32); the tiled kernel (here float32 at hd 24) puts the
-    batch in grid z and the wrapper says so before anything is launched. The
-    float32 route at hd 32 is held to the same batch in
-    test_f32_attention_route_past_the_grid_limit."""
+    takes them (bf16 at hd 32); the streaming kernel (here float32 at hd 24,
+    which the first tiled kernel refused past 65,535) numbers (batch, head,
+    tile) items in one linear index. The float32 route at hd 32 is held to the
+    same batch in test_f32_attention_route_past_the_grid_limit."""
     B, T, D, H = 70_000, 3, 32 if dtype == "bfloat16" else 24, 1
     dt = getattr(torch, dtype)
     q, k, v = (torch.randn(B, T, D, device=cuda_device).to(dt) for _ in range(3))
-    if raises:
-        before = attention.fused_self_attention.launches
-        with pytest.raises(NotImplementedError, match="grid limit"):
-            attention.mha(q, k, v, H)
-        assert attention.fused_self_attention.launches == before
-    else:
-        assert_attention_matches_plain(q, k, v, H)
+    assert attention.attention_route(B, T, H, D // H, dt) == route
+    before = attention.fused_self_attention.launches
+    with torch.no_grad():
+        got = attention.mha(q, k, v, H).float()
+        torch.cuda.synchronize()
+        want = attention._xla_attention(q, k, v, H).float()
+    assert attention.fused_self_attention.launches == before + 1
+    tol = BF16_TOL if dt == torch.bfloat16 else F32_TOL
+    assert torch.isfinite(got).all() and torch.all((got - want).abs() <= tol * (1 + want.abs()))
 
+
+
+# the streaming route ("stream") at the shapes of its issue: (name, B, T, D, H)
+STREAM_SHAPES = [
+    ("a2m_cli_default", 32, 61, 64, 4),   # evals.run_a2m at the JAX CLIs' width (hd 16)
+    ("mdm_225", 4, 225, 512, 4),          # MDM at 224 frames + the cond token
+    ("t2m_225", 64, 225, 512, 4),
+    ("long_512", 8, 512, 512, 4),         # past route 1's T <= 448 at hd 128
+    ("long_512_b128", 128, 512, 512, 4),
+    ("hd4", 8, 197, 16, 4),               # --latent_dim 16
+    ("hd256", 8, 197, 1024, 4),           # --latent_dim 1024
+    ("hd320", 2, 197, 1280, 4),           # more columns than one block holds
+]
+
+
+def assert_stream_matches_plain(q, k, v, H, route="stream"):
+    dt = q.dtype
+    assert attention.attention_route(q.shape[0], q.shape[1], H, q.shape[2] // H, dt) == route
+    before = attention.fused_self_attention.launches
+    with torch.no_grad():
+        got = attention.mha(q, k, v, H).float()
+        torch.cuda.synchronize()
+        want = attention._xla_attention(q, k, v, H).float()
+    assert attention.fused_self_attention.launches == before + 1
+    tol = BF16_TOL if dt == torch.bfloat16 else F32_TOL
+    assert got.shape == q.shape and torch.isfinite(got).all()
+    bad = (got - want).abs() > tol * (1 + want.abs())
+    assert not bad.any(), (bad.sum().item(), (got - want).abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("case", STREAM_SHAPES, ids=[c[0] for c in STREAM_SHAPES])
+def test_stream_route_matches_plain(cuda_device, dtype, case):
+    _, B, T, D, H = case
+    dt = getattr(torch, dtype)
+    # bf16 at hd 128 and T = 225 is route 1's (K and V of 448 rows fit); held here all the same
+    route = "wgmma" if dt == torch.bfloat16 and D // H == 128 and T <= 448 else "stream"
+    assert_stream_matches_plain(*qkv_views(B, T, D, dt, cuda_device, seed=T + D), H, route)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("hd", [1, 3, 4, 8, 20, 24, 40, 48, 72, 96, 136, 200, 264, 320, 384,
+                                520, 1024])
+@pytest.mark.parametrize("T", [1, 65, 130])
+def test_stream_route_at_every_head_width(cuda_device, dtype, hd, T):
+    """Head widths below, between and above the chunk widths (16, 32, 64), above
+    one column block (256 bf16, 128 float32) and where Q no longer fits beside
+    the ring (float32 at hd 1024 streams Q); one, two and three query tiles."""
+    dt = getattr(torch, dtype)
+    if hd in (32, 64, 128):
+        pytest.skip("a resident route's width")
+    H = 2
+    assert_stream_matches_plain(*qkv_views(3, T, H * hd, dt, cuda_device, seed=hd + T), H)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("shift", [1, 3])
+@pytest.mark.parametrize("D,H", [(64, 4), (512, 4), (1024, 4)])
+def test_stream_route_reads_unaligned_rows(cuda_device, dtype, shift, D, H):
+    """q, k, v whose rows begin `shift` elements into a buffer whose rows are
+    3D + shift long: neither the pointers nor the row strides are 16-byte
+    aligned. The streaming route packs them (hd 16, 256); a resident route's
+    shape (hd 128, T = 197) gets aligned copies."""
+    B, T = 3, 197
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(shift + D)
+    buf = torch.from_numpy(rng.standard_normal((B, T, 3 * D + shift)).astype(np.float32))
+    q, k, v = buf.to(cuda_device, dt)[..., shift:].chunk(3, dim=-1)
+    assert (q.data_ptr() % 16) and (q.stride(1) * q.element_size()) % 16
+    route = attention.attention_route(B, T, H, D // H, dt)
+    assert_stream_matches_plain(q, k, v, H, route)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("B,T,D,H", [(2, 61, 64, 4), (3, 200, 72, 3), (2, 17, 4, 4),
+                                     (1, 5, 1280, 4)])
+def test_pack_pass_is_pack_heads_bit_for_bit(cuda_device, dtype, B, T, D, H):
+    """The streaming route's pack pass (csrc/attention.cu `condmdi_attention_pack`)
+    writes what `pack_heads` computes, zero padding included."""
+    from condmdi_tpu_torch.ops import _build
+
+    dt = getattr(torch, dtype)
+    q, k, v = qkv_views(B, T, D, dt, cuda_device, seed=7 * T)
+    want = attention.pack_heads(q, k, v, H)
+    got = torch.full_like(want, float("nan"))
+    lib = _build.load_attention()
+    err = lib.condmdi_attention_pack(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), got.data_ptr(), B, T, H, D // H, q.stride(0),
+        q.stride(1), attention._DTYPES[dt][0], torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 0
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("D,H", [(16, 4), (1024, 4)])
+def test_stream_route_gradients_through_the_function(cuda_device, dtype, D, H):
+    """Autograd on the card at streaming shapes (hd 4 packed; hd 256 read in place
+    in bf16): the kernel forward, the recompute backward."""
+    dt = getattr(torch, dtype)
+    q, k, v = (t.detach().requires_grad_(True)
+               for t in qkv_views(2, 70, D, dt, cuda_device, seed=D))
+    assert attention.attention_route(2, 70, H, D // H, dt) == "stream"
+    before = attention.fused_self_attention.launches
+    out = attention.mha(q, k, v, H)
+    (out.float() * out.float()).sum().backward()
+    assert attention.fused_self_attention.launches == before + 1
+    refs = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    ref = attention._xla_attention(*refs, H)
+    (ref.float() * ref.float()).sum().backward()
+    tol = 5e-2 if dt == torch.bfloat16 else 1e-3
+    for got, want in zip((q, k, v), refs):
+        torch.testing.assert_close(got.grad.float(), want.grad.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,D", [("float32", 512), ("float32", 16), ("bfloat16", 16),
+                                     ("bfloat16", 1024)])
+def test_stream_route_replays_inside_a_cuda_graph(cuda_device, dtype, D):
+    """One `mha` at a streaming shape captured on a side stream and replayed on
+    new contents of the same buffers: equal to the eager call bit for bit (float32
+    at hd 128, read in place and split by the kernel; at hd 4, the pack pass and
+    the kernel as its programmatic dependent; bf16 at hd 4, packed, and at hd
+    256, read in place)."""
+    B, T, H = 4, 225, 4
+    dt = getattr(torch, dtype)
+    assert attention.attention_route(B, T, H, D // H, dt) == "stream"
+    rng = np.random.default_rng(29)
+
+    def fresh():
+        return torch.from_numpy(rng.standard_normal((B, T, 3 * D)).astype(np.float32)).to(
+            cuda_device, dt)
+
+    qkv = fresh()
+    q, k, v = qkv.chunk(3, dim=-1)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side), torch.no_grad():
+        attention.mha(q, k, v, H)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.no_grad(), torch.cuda.graph(graph, stream=side):
+        out = attention.mha(q, k, v, H)
+    for _ in range(2):
+        qkv.copy_(fresh())
+        graph.replay()
+        torch.cuda.synchronize()
+        with torch.no_grad():
+            eager = attention._launch(q, k, v, H)
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager) and out.float().abs().max() > 0
 
 # --------------------------------------------------------------------------- #
 # the int8 conv / matmul kernel (csrc/quant.cu)
@@ -1992,11 +2153,11 @@ def test_plms_from_graphs_equals_eager(cuda_device, order):
 # evals.run_unconstrained): MDM at B=32, 60 frames + the condition token
 # --------------------------------------------------------------------------- #
 @pytest.mark.cuda
-@pytest.mark.parametrize("D,route", [(64, "mma_sync"), (512, "wgmma_f32")])
+@pytest.mark.parametrize("D,route", [(64, "stream"), (512, "wgmma_f32")])
 def test_attention_kernel_at_the_a2m_shapes(cuda_device, D, route):
     """float32 at T = 61 (not a multiple of 16): the CLIs' default width (hd 16, the
-    tiled mma.sync kernel) and the MDM paper's a2m width (hd 128, the resident
-    kernel on hi/lo planes)."""
+    streaming kernel behind its pack pass) and the MDM paper's a2m width (hd 128,
+    the resident kernel on hi/lo planes)."""
     B, T, H = 32, 61, 4
     assert attention.attention_route(B, T, H, D // H, torch.float32) == route
     q, k, v = qkv_views(B, T, D, torch.float32, cuda_device, seed=D)
