@@ -175,7 +175,7 @@ Phases, in order; any failure exits non-zero:
      rows; the xz_only model's first half (2 channels); one guided step's gradient with
      respect to x, kernel path against plain path;
  26. generate_gmd through its main at full width (the trajectory model and the UNet-XL abs
-     motion card, Flax's initialisation from --seed, unet_zero off, a 250-step DDPM (the
+     motion card, Flax's initialisation from --seed, unet_zero off, a 100-step DDPM (the
      CLI's 1000 cut to keep the script near 15 minutes), the default
      classifier_scale 100, 2 prompts) in the modes kps, sdf, trajectory and
      mdm_legacy: samples/s, exact launches, results.npy with the JAX CLI's keys, finite;
@@ -183,7 +183,7 @@ Phases, in order; any failure exits non-zero:
      imputation on, trajectory/mdm_legacy's motion holding the imputed p2p trajectory; each
      guided and replayed stage's host ms a step against its device ms; then each mode
      kernel path against plain path through the CLI at 20 steps (DDIM_TOL);
- 27. evals.run_condition through its main: one batch of 32, one replication, the 250-step
+ 27. evals.run_condition through its main: one batch of 32, one replication, the 100-step
      DDPM for both models; the committed JAX report's keys, finite, a 5-entry traj_error,
      exact launches, samples/s and each stage's host and device ms a step;
  28. PLMS (orders 2 and 4) on the gate checkpoint at conditional's shapes (4 samples,
@@ -242,7 +242,17 @@ Phases, in order; any failure exits non-zero:
      against the plain step replayed from its graph (bit for bit, 8 steps; their wall ms), the
      tensor-parallel UNet-XL and MDM forwards on a 1x1 mesh against the plain forwards; one
      card shows no more;
- 40. a {"kernels": [...]} line (the three kernels, and the attention's streaming
+ 40. wide and long resblock halves, the split route (groups wider than 128 channels,
+     lengths past a cluster of 8 tiles): per call against plain at groups of 136, 256 and
+     512 and at T = 1025, 1280, 2048 and 4096 in both types, with AdaGN and the residual
+     and without, two launches bit for bit; the keyframe UNet-XL at --latent_dim 1024 (pad
+     224, groups of 256) built through create_model_and_diffusion: an f32 forward at B=4
+     and a bf16 forward at B=8 against the plain path (33 launches, every one on the split
+     route), a DDIM-20 run through GaussianDiffusion.p_mean_variance against plain,
+     recover_from_rot on its motion on the card against the CPU; UNet-XL at --unet_pad_to
+     1280, B=2, a forward in each type against plain; every half of those four forwards per
+     call against plain and timed (kernel, plain, library, bound, host), summed;
+ 41. a {"kernels": [...]} line (the three kernels, and the attention's streaming
      route beside them), the card line, and the final {"ok": true, ...}.
 
 Per-shape results also go to chiprun_out/chip_smoke.json (`python3 resblock_probe.py
@@ -581,31 +591,41 @@ def check_kernel(shapes, dev, batch=8):
 
 
 def f32_resblock_rows(name, shapes, B, dev, seed=23):
-    """The float32 route at each resblock shape of one forward at batch B: the
-    kernel against plain per call (F32_TOL), then kernel, plain, library and bound
-    times and the host enqueue; the halves of the forward summed beside the first
-    design's time (PREV_F32_RESBLOCK_MS)."""
+    """`resblock_rows` in float32."""
+    return resblock_rows(name, shapes, B, dev, torch.float32, seed)
+
+
+def resblock_rows(name, shapes, B, dev, dtype, seed=23):
+    """The kernel at each resblock shape of one forward at batch B in `dtype`: the
+    kernel against plain per call (F32_TOL or BF16_TOL), then kernel, plain,
+    library and bound times, the host enqueue and the route the plan takes; the
+    halves of the forward summed (float32 beside the first design's time,
+    PREV_F32_RESBLOCK_MS)."""
+    from condmdi_tpu_torch.ops.resblock import resblock_plan
+
+    tag = "f32" if dtype == torch.float32 else "bf16"
+    tol = F32_TOL if dtype == torch.float32 else BF16_TOL
     gen = torch.Generator().manual_seed(seed)
     rows = []
     for (cin, cout, T, ada, res, xc), count in sorted(shapes.items()):
         row = dict(model=name, cin=cin, cout=cout, T=T, B=B, adagn=ada, res=res, x_channels=xc,
-                   per_forward=count)
-        row["max_abs_err_f32"] = kernel_against_plain(B, T, cin, cout, ada, res, xc,
-                                                      torch.float32, F32_TOL, gen, dev)
-        row.update(time_kernel(B, T, cin, cout, ada, res, xc, gen, dev, dtype=torch.float32))
-        row["bound_ms"], row["bound_by"] = bound_ms(B, T, cin, cout, ada, res,
-                                                    dtype=torch.float32)
-        print(f"[f32 resblock] {name} B={B} {cin}->{cout} T={T} adagn={ada} res={res} x{count}: "
-              f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, library (cuDNN f32 "
-              f"composite) {row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
-              f"({row['bound_by']}), host enqueue {row['host_ms']:.4f} ms", flush=True)
+                   per_forward=count, route=resblock_plan(B, T, cin, cout, dtype).route)
+        row[f"max_abs_err_{tag}"] = kernel_against_plain(B, T, cin, cout, ada, res, xc, dtype,
+                                                         tol, gen, dev)
+        row.update(time_kernel(B, T, cin, cout, ada, res, xc, gen, dev, dtype=dtype))
+        row["bound_ms"], row["bound_by"] = bound_ms(B, T, cin, cout, ada, res, dtype=dtype)
+        print(f"[{tag} resblock] {name} B={B} {cin}->{cout} T={T} adagn={ada} res={res} "
+              f"x{count} ({row['route']} route): kernel {row['ms']:.4f} ms, plain "
+              f"{row['plain_ms']:.4f} ms, library (cuDNN {tag} composite) {row['library_ms']:.4f} "
+              f"ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}), host enqueue "
+              f"{row['host_ms']:.4f} ms", flush=True)
         rows.append(row)
     halves = sum(r["per_forward"] for r in rows)
     total = {k: sum(r[k] * r["per_forward"] for r in rows)
              for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
     total["host_ms_per_call"] = sum(r["host_ms"] * r["per_forward"] for r in rows) / halves
-    first = PREV_F32_RESBLOCK_MS.get(name)
-    print(f"[f32 resblock] {name}, the {halves} halves of one f32 forward at B={B}: kernel "
+    first = PREV_F32_RESBLOCK_MS.get(name) if dtype == torch.float32 else None
+    print(f"[{tag} resblock] {name}, the {halves} halves of one {tag} forward at B={B}: kernel "
           f"{total['ms']:.4f} ms{f' (first design: {first} ms)' if first else ''}, plain "
           f"{total['plain_ms']:.4f} ms, library {total['library_ms']:.4f} ms, bound "
           f"{total['bound_ms']:.4f} ms, host enqueue {total['host_ms_per_call']:.4f} ms a call",
@@ -3037,9 +3057,9 @@ def graphs_phase24(dev, card, int8_model):
 # --------------------------------------------------------------------------- #
 GMD_OUT = ROOT / "chiprun_out" / "gmd"
 TRAJ_CKPT = ROOT / ".chipwork" / "gmd"  # 33 MB a checkpoint: not brought back
-# 2 prompts; the sampler's depth cut from the CLIs' 1000 steps to 250, widths untouched,
-# to keep the whole script near 15 minutes
-GMD_SAMPLES, GMD_STEPS = 2, 250
+# 2 prompts; the sampler's depth cut from the CLIs' 1000 steps to 100, widths untouched,
+# to keep the whole script within its time limit
+GMD_SAMPLES, GMD_STEPS = 2, 100
 TRAJ_FEATS, TRAJ_HALVES = 4, 25  # traj_unet_adagn_swx: (rot, x, z, y); 12 resblocks + final
 TRAJ_GROUP_WIDTHS = {8, 16, 32}  # its 64, 128 and 256 channels in GroupNorm(8)
 # the motion card: UNet-XL at the defaults (latent 512, dim_mults 2 2 2 2, 196 frames padded
@@ -4554,6 +4574,239 @@ def write_mock_humanml(root: Path, n: int = 36, frames: int = 64, device="cpu") 
     return d
 
 
+# --------------------------------------------------------------------------- #
+# phase 40: wide and long resblock halves (the split route)
+# --------------------------------------------------------------------------- #
+# (B, T, Cin, Cout) on the split route: groups of 136 (no multiple of the 128-channel
+# tile), 256 and 512 channels, then lengths past a cluster of 8 row tiles
+SPLIT_CALLS = [
+    (2, 224, 512, 8 * 136), (2, 25, 512, 8 * 136), (4, 224, 2048, 8 * 256),
+    (4, 28, 4096, 8 * 256), (2, 56, 1024, 8 * 512),
+    (2, 1025, 256, 1024), (2, 1280, 1024, 1024), (1, 2048, 128, 512), (1, 4096, 64, 256),
+]
+# the keyframe UNet-XL at --latent_dim 1024 (2,048 channels, groups of 256), built
+# through create_model_and_diffusion as the conditional CLI builds it; DDIM-20
+LATENT1024_ARGV = ["--arch", "unet", "--latent_dim", "1024", "--dim_mults", "2", "2", "2", "2",
+                   "--unet_pad_to", "224", "--unet_zero", "false", "--keyframe_conditioned",
+                   "true", "--use_ddim", "true", "--timestep_respacing", "ddim20"]
+LATENT1024_CLI_B, LATENT1024_SERVED_B = 4, 8  # the CLI's 2 samples x CFG; 4 requests x CFG
+PAD1280, PAD1280_B = 1280, 2  # UNet-XL at --unet_pad_to 1280
+
+
+def split_calls(dev):
+    """The split route per call against plain at every SPLIT_CALLS shape, in both
+    types, with and without AdaGN and the residual; two launches on the same inputs
+    bit for bit. Returns the largest error of each type."""
+    from condmdi_tpu_torch.ops.resblock import fused_conv_gn_mish, resblock_plan
+
+    gen = torch.Generator().manual_seed(40)
+    errs = {torch.bfloat16: 0.0, torch.float32: 0.0}
+    for B, T, cin, cout in SPLIT_CALLS:
+        for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, F32_TOL)):
+            if resblock_plan(B, T, cin, cout, dtype).route != "split":
+                raise SystemExit(f"B={B} T={T} Cout={cout}: not on the split route")
+            for ada, res in ((True, True), (False, False)):
+                errs[dtype] = max(errs[dtype], kernel_against_plain(
+                    B, T, cin, cout, ada, res, cin, dtype, tol, gen, dev))
+            args, kw = make_case(B, T, cin, cout, True, True, dtype, gen, dev)
+            with torch.no_grad():
+                same = torch.equal(fused_conv_gn_mish(*args, **kw), fused_conv_gn_mish(*args, **kw))
+            if not same:
+                raise SystemExit(f"split route B={B} T={T} Cout={cout} {dtype}: two launches "
+                                 "on the same inputs differ")
+    print(f"[split] {len(SPLIT_CALLS)} shapes x 2 types x 2 forms within tolerance, each shape "
+          f"bit for bit twice; largest errors bf16 {errs[torch.bfloat16]:.3e}, f32 "
+          f"{errs[torch.float32]:.3e}", flush=True)
+    return {"bf16": errs[torch.bfloat16], "f32": errs[torch.float32]}
+
+
+def latent1024_model(dev):
+    """The latent-1024 UNet-XL and its GaussianDiffusion through
+    create_model_and_diffusion; weights from a seed, then perturbed on the card."""
+    from condmdi_tpu_torch.diffusion import GaussianDiffusion
+    from condmdi_tpu_torch.models import create_model_and_diffusion
+    from condmdi_tpu_torch.models.layers import init_params
+    from condmdi_tpu_torch.utils.config import CondSyntArgs, parse_args
+
+    model, sched, dcfg = create_model_and_diffusion(parse_args(CondSyntArgs, LATENT1024_ARGV),
+                                                    device=dev)
+    init_params(model, 0)
+    gen = torch.Generator(dev).manual_seed(12)
+    with torch.no_grad():
+        for _, p in sorted(model.named_parameters()):
+            p.add_(0.02 * torch.randn(p.shape, generator=gen, device=dev))
+    return model.requires_grad_(False).eval(), GaussianDiffusion(sched.to(dev), dcfg)
+
+
+def split_launches() -> int:
+    from condmdi_tpu_torch.ops.resblock import fused_conv_gn_mish
+
+    return fused_conv_gn_mish.split_launches
+
+
+def counted(call):
+    """call()'s result, its resblock launches and, of those, the split route's: the
+    counts set to 0 just before it and read just after."""
+    from condmdi_tpu_torch.ops.resblock import fused_conv_gn_mish
+
+    reset_counts()
+    fused_conv_gn_mish.split_launches = 0
+    with torch.no_grad():
+        out = call()
+    return out, read_counts()["fused_conv_gn_mish"], split_launches()
+
+
+def wide_long_phase40(dev, card):
+    """The latent-1024 UNet-XL (f32 forward at the CLI's B=4, bf16 at the served B=8,
+    kernel against plain; a DDIM-20 run through GaussianDiffusion.p_mean_variance;
+    recover_from_rot on the card on its motion against the CPU) and UNet-XL at
+    --unet_pad_to 1280 (B=2, a forward in each type against plain); then the halves
+    of each forward timed at the four points."""
+    import copy
+
+    from condmdi_tpu_torch.data.humanml_repr import recover_from_rot
+    from condmdi_tpu_torch.diffusion.gaussian import predict_eps_from_xstart
+    from condmdi_tpu_torch.geometry.skeleton import t2m_skeleton
+    from condmdi_tpu_torch.models.unet import MDM_UNET, cast_weights
+
+    out = {"split_calls": split_calls(dev)}
+    model, diffusion = latent1024_model(dev)
+    served = cast_weights(copy.deepcopy(model), torch.bfloat16).requires_grad_(False).eval()
+    results = {}
+    for label, net, B, dtype in (("latent-1024 f32", model, LATENT1024_CLI_B, torch.float32),
+                                 ("latent-1024 bf16", served, LATENT1024_SERVED_B,
+                                  torch.bfloat16)):
+        text, obs, mask = keyframe_inputs(B, 40)
+        x = seeded_noise((B, T_FRAMES, FEATS), dev, seed=41).to(dtype)
+        t = torch.full((B,), 600, device=dev)
+        y, kw = {"text_embed": text.to(dev, dtype)}, dict(obs_x0=obs.to(dev, dtype),
+                                                          obs_mask=mask.to(dev))
+
+        def call(net=net, x=x, t=t, y=y, kw=kw):
+            return net(x, t, y, **kw)
+
+        _, launches, split = counted(call)
+        if launches != 33 or not split:
+            raise SystemExit(f"{label}: {launches} resblock launches a forward ({split} on the "
+                             "split route), expected 33")
+        if dtype == torch.float32:
+            with torch.no_grad():
+                err = kernel_vs_plain("latent1024", f"{label} forward B={B}", call,
+                                      resblock_swapped_for_plain)
+            results[label] = dict(launches=launches, split_launches=split, max_abs_err=err)
+        else:
+            err, rel = bf16_forward_kernel_vs_plain(f"{label} forward B={B}", call,
+                                                    resblock_swapped_for_plain)
+            results[label] = dict(launches=launches, split_launches=split, max_abs_err=err,
+                                  rel_rms=rel)
+        shapes = record_resblock_shapes(net, x, t, y, kw)
+        results[label]["rows"] = resblock_rows("latent-1024 UNet-XL pad 224", shapes, B,
+                                               dev, dtype)
+    del served
+    # DDIM-20 (eta 0) through GaussianDiffusion.p_mean_variance, f32, the CLI's B
+    B = LATENT1024_CLI_B
+    text, obs, mask = keyframe_inputs(B, 42)
+    y, kw = {"text_embed": text.to(dev)}, dict(obs_x0=obs.to(dev), obs_mask=mask.to(dev))
+    sched = diffusion.sched
+
+    def ddim():
+        x = seeded_noise((B, T_FRAMES, FEATS), dev, seed=43)
+        with torch.no_grad():
+            for i in range(diffusion.num_timesteps - 1, -1, -1):
+                t = torch.full((B,), i, device=dev, dtype=torch.long)
+                pm = diffusion.p_mean_variance(lambda z, tm: model(z, tm, y, **kw), x, t)
+                eps = predict_eps_from_xstart(sched, x, t, pm["pred_xstart"])
+                abar_prev = sched.extract(sched.alphas_cumprod_prev, t, x.ndim)
+                x = pm["pred_xstart"] * abar_prev.sqrt() + (1 - abar_prev).clamp(min=0).sqrt() * eps
+        return x
+
+    motion, ddim_launches, ddim_split = counted(ddim)
+    if ddim_launches != 33 * diffusion.num_timesteps or not ddim_split:
+        raise SystemExit(f"latent-1024 DDIM-20: {ddim_launches} resblock launches")
+    results["ddim20"] = dict(launches=ddim_launches, split_launches=ddim_split,
+                             max_abs_err=kernel_vs_plain(
+        "latent1024", f"latent-1024 f32 DDIM-20 B={B} through GaussianDiffusion.p_mean_variance",
+        ddim, resblock_swapped_for_plain))
+    # recover_from_rot on the card on the sampled motion, against the same call on the CPU
+    pose = np.random.default_rng(44).standard_normal((22, 3)).astype(np.float32)
+    offsets = torch.from_numpy(t2m_skeleton.offsets_from_reference_pose(pose))
+    joints = recover_from_rot(motion, 22, offsets.to(dev))
+    want = recover_from_rot(motion.cpu(), 22, offsets)
+    rot_err = (joints.cpu() - want).abs().max().item()
+    ok = torch.isfinite(joints).all() and joints.shape == (B, T_FRAMES, 22, 3) and \
+        bool(((joints.cpu() - want).abs() <= 1e-4 * (1 + want.abs())).all())
+    print(f"[latent1024] recover_from_rot on the card against the CPU: {tuple(joints.shape)}, "
+          f"max |card - cpu| = {rot_err:.3e} (tol 1e-4*(1+|cpu|))", flush=True)
+    if not ok:
+        raise SystemExit("recover_from_rot on the card disagrees with the CPU")
+    results["recover_from_rot_max_abs_err"] = rot_err
+    del model, diffusion
+    torch.cuda.empty_cache()
+    out["latent1024"] = results
+
+    # UNet-XL at --unet_pad_to 1280, B=2: a forward in each type against plain
+    pad = {}
+    xl = perturbed(MDM_UNET(**dict(XL, pad_frames_to=PAD1280), device=dev, seed=0), dev,
+                   torch.float32)
+    for dtype in (torch.float32, torch.bfloat16):
+        net = xl if dtype == torch.float32 else cast_weights(xl, torch.bfloat16)
+        B = PAD1280_B
+        rng = np.random.default_rng(45)
+        x = torch.from_numpy(rng.standard_normal((B, PAD1280, FEATS)).astype(np.float32)).to(
+            dev, dtype)
+        obs = torch.from_numpy(0.1 * rng.standard_normal((B, PAD1280, FEATS)).astype(
+            np.float32)).to(dev, dtype)
+        mask = torch.zeros((B, PAD1280, FEATS), dtype=torch.bool, device=dev)
+        mask[:, ::10] = True
+        y = {"text_embed": torch.from_numpy(rng.standard_normal((B, 512)).astype(
+            np.float32)).to(dev, dtype)}
+        t = torch.full((B,), 300, device=dev)
+        kw = dict(obs_x0=obs, obs_mask=mask)
+
+        def call(net=net, x=x, t=t, y=y, kw=kw):
+            return net(x, t, y, **kw)
+
+        label = f"UNet-XL pad 1280 {'f32' if dtype == torch.float32 else 'bf16'}"
+        _, launches, split = counted(call)
+        if launches != 33 or not split:
+            raise SystemExit(f"{label}: {launches} resblock launches a forward ({split} on the "
+                             "split route), expected 33")
+        if dtype == torch.float32:
+            with torch.no_grad():
+                row = dict(launches=launches, split_launches=split, max_abs_err=kernel_vs_plain(
+                    "pad1280", f"{label} forward B={B}", call, resblock_swapped_for_plain))
+        else:
+            err, rel = bf16_forward_kernel_vs_plain(f"{label} forward B={B}", call,
+                                                    resblock_swapped_for_plain)
+            row = dict(launches=launches, split_launches=split, max_abs_err=err, rel_rms=rel)
+        row["rows"] = resblock_rows("UNet-XL pad 1280", record_resblock_shapes(
+            net, x, t, y, kw), B, dev, dtype)
+        pad[label] = row
+    del xl, net
+    torch.cuda.empty_cache()
+    out["pad1280"] = pad
+    return out
+
+
+def split_summary(phase40):
+    """The four timed points of phase 40: every half of a forward summed, and the
+    split route's halves alone."""
+    points = {}
+    for group in ("latent1024", "pad1280"):
+        for label, res in phase40[group].items():
+            if not isinstance(res, dict) or "rows" not in res:
+                continue
+            rows = res["rows"]["rows"]
+            split = [r for r in rows if r["route"] == "split"]
+            point = {k: res["rows"][k] for k in ("halves", "ms", "plain_ms", "library_ms",
+                                                  "bound_ms", "host_ms_per_call")}
+            point["split_halves"] = sum(r["per_forward"] for r in split)
+            for k in ("ms", "plain_ms", "library_ms", "bound_ms"):
+                point[f"split_{k}"] = sum(r[k] * r["per_forward"] for r in split)
+            points[f"{label}, B={rows[0]['B']}"] = point
+    return points
+
+
 def build_kernels() -> list[str]:
     """Build the three sources at once (one nvcc each) and print ptxas' register
     and spill lines and any note that it serialised wgmma."""
@@ -4680,6 +4933,7 @@ def main() -> int:
     data37 = phase("37 file-backed datasets", datasets_phase37, dev, card)
     parity38 = phase("38 evals.parity on mock assets", parity_phase38, dev, card)
     par39 = phase("39 parallel/ at world size 1", parallel_phase39, dev, card)
+    wide40 = phase("40 wide and long resblock halves", wide_long_phase40, dev, card)
     print("[time] host seconds by phase: "
           + ", ".join(f"{k} {v:.1f}" for k, v in phase_seconds.items())
           + f"; {sum(phase_seconds.values()):.1f} in all", flush=True)
@@ -4793,6 +5047,23 @@ def main() -> int:
         "dp_generate_eval_batch_bit_exact": par39["generate_eval_batch_bit_exact"],
         "dp_train_step_bit_exact": par39["train_step_bit_exact"],
         "tp_1x1_forward_max_abs_err_f32": par39["tp_UNet-XL_forward_max_abs_err"],
+        # the split route (phase 40: groups wider than 128 channels, lengths past a cluster
+        # of 8 tiles): its launches on the latent-1024 UNet-XL's forwards and DDIM-20 and
+        # UNet-XL pad 1280's forwards, its largest per-call errors, those runs against
+        # plain, and the halves of each forward summed at the four timed points
+        "split_launches": sum(r["split_launches"] for r in
+                              list(wide40["latent1024"].values()) + list(wide40["pad1280"].values())
+                              if isinstance(r, dict)),
+        "split_max_abs_err": wide40["split_calls"]["bf16"],
+        "split_max_abs_err_f32": wide40["split_calls"]["f32"],
+        "latent1024_forward_max_abs_err_f32": wide40["latent1024"]["latent-1024 f32"]["max_abs_err"],
+        "latent1024_bf16_forward_rel_rms": wide40["latent1024"]["latent-1024 bf16"]["rel_rms"],
+        "latent1024_ddim20_max_abs_err_f32": wide40["latent1024"]["ddim20"]["max_abs_err"],
+        "pad1280_forward_max_abs_err_f32": wide40["pad1280"]["UNet-XL pad 1280 f32"]["max_abs_err"],
+        "pad1280_bf16_forward_rel_rms": wide40["pad1280"]["UNet-XL pad 1280 bf16"]["rel_rms"],
+        "recover_from_rot_card_vs_cpu_max_abs_err":
+            wide40["latent1024"]["recover_from_rot_max_abs_err"],
+        "split_ms": split_summary(wide40),
     }, {
         "name": "fused_self_attention",
         "route": "cuda",
@@ -4934,6 +5205,7 @@ def main() -> int:
                  "variants": var32, "unconstrained_training": unc33},
          "rest": {"smpl_losses": smpl34, "joints2smpl": fit35, "amass": amass36,
                   "file_datasets": data37, "parity": parity38, "parallel": par39},
+         "wide_long": wide40,
          "phase_seconds": phase_seconds,
          "previous_ms_from_perf_md": dict(previous, f32_resblock=PREV_F32_RESBLOCK_MS,
                                           f32_attention=PREV_F32_ATTENTION_MS)}, indent=1))

@@ -85,6 +85,26 @@
 //     byte read by each row tile of each batch item). Deeper rings, three
 //     accumulator sets, 64 x 32 tiles, a split of Cin over a cluster and
 //     128 x 64 tiles were each tried and were no faster (PERF.md section 6).
+//
+// The split route, for every half the clusters cannot hold: a group wider than
+// 128 channels (the UNet at --latent_dim 1024 has groups of 256), or a (batch
+// item, group) of more than 8 tiles (T > 1024, reached with --unet_pad_to).
+// `make_plan` picks the route; ops/resblock.py `resblock_plan` mirrors it.
+//   * The conv kernel of either type, instantiated with SPLIT, on the same
+//     tiles and grid with no cluster. Its epilogue adds the bias, writes the
+//     pre-norm tile in f32 to a scratch [B, T, Cout] that the wrapper
+//     allocates, and each of its groups' moments over the tile (the count, the
+//     tile's mean, the sum of squares about that mean, reduced in a fixed order
+//     as the cluster route reduces them) to [B, groups, tiles, 3].
+//   * `resblock_norm_kernel`, launched as its programmatic dependent, one CTA a
+//     (row block, 256-channel chunk of a group, batch item): it merges the
+//     group's tile moments with Chan's formula in a fixed order, then applies
+//     GroupNorm's affine, AdaGN, Mish and the residual to the scratch and writes
+//     the output once. Two launches on the same inputs give the same bits.
+//   * Beyond the conv's own traffic it moves the scratch: one f32 write and one
+//     read of the output's size (at the latent-1024 UNet's widest half, B=4,
+//     T=224, 2,048 channels: 7.3 MB each way, ~4.4 us at 3.35 TB/s, beside a
+//     conv of 37.6 GFLOP).
 // Timings of both are in PERF.md.
 
 #include <cooperative_groups.h>
@@ -96,8 +116,8 @@ namespace cg = cooperative_groups;
 
 // Probe builds only. resblock_probe.py compiles copies of this file with
 // -DCONDMDI_PROBE_OFF=<mask of ProbeOff>, which switches parts of the float32
-// kernel off (the results are then wrong; the times tell what each part
-// costs). The package's build does not define it, and every line that names it
+// kernel or of the split route off (the results are then wrong; the times tell
+// what each part costs). The package's build does not define it, and every line that names it
 // folds away.
 #ifndef CONDMDI_PROBE_OFF
 #define CONDMDI_PROBE_OFF 0
@@ -117,6 +137,8 @@ constexpr int kMaxSmem = 232448; // dynamic + static shared memory of one block 
 enum ProbeOff {
   kOffMma = 1, kOffCopies = 2, kOffSplit = 4, kOffWeights = 8,
   kOffSmallTerms = 16,  // x_hi.w_hi alone: one product a tap instead of three
+  kOffNorm = 32,        // the split route without its normalisation kernel
+  kOffScratch = 64,     // the split route's conv kernel writes no pre-norm values
 };
 __host__ __device__ constexpr bool probe_off(int part) { return (CONDMDI_PROBE_OFF & part) != 0; }
 
@@ -290,7 +312,40 @@ __device__ float cluster_sum(float v, float* warp_part, float* part, cg::cluster
   return total;
 }
 
-template <int BM, int BN, int STAGES>
+// Sum of v over every thread of the CTA, the same value in every thread, summed
+// in a fixed order (lanes, then warps). `warp_part` must not be read by a later
+// call before a barrier: give each call its own.
+__device__ __forceinline__ float block_sum(float v, float* warp_part) {
+  v = warp_sum(v);
+  if ((threadIdx.x & 31) == 0) warp_part[threadIdx.x >> 5] = v;
+  __syncthreads();
+  float total = 0.f;
+#pragma unroll
+  for (int i = 0; i < kThreads / 32; ++i) total += warp_part[i];
+  return total;
+}
+
+// The split route's partial moments of one (batch item, group, tile): the count,
+// the mean and the centred sum of squares about that mean, at slot `i`.
+__device__ __forceinline__ void store_moments(float* part, size_t i, float n, float mean,
+                                              float m2) {
+  part[3 * i] = n;
+  part[3 * i + 1] = mean;
+  part[3 * i + 2] = m2;
+}
+
+// Two neighbouring pre-norm values to the scratch: one 8-byte store where the
+// pair is aligned, else one or two 4-byte ones.
+__device__ __forceinline__ void store_pair(float* dst, float a, float b, bool pair, bool second) {
+  if (pair) {
+    *reinterpret_cast<float2*>(dst) = make_float2(a, b);
+  } else {
+    dst[0] = a;
+    if (second) dst[1] = b;
+  }
+}
+
+template <int BM, int BN, int STAGES, bool SPLIT>
 __global__ void __launch_bounds__(kThreads, 1)
 resblock_bf16_kernel(const bf16* __restrict__ x,      // [B, T, x_pitch], x_pitch % 8 == 0
                      const bf16* __restrict__ wp,     // packed, see pack_conv_weight
@@ -302,6 +357,8 @@ resblock_bf16_kernel(const bf16* __restrict__ x,      // [B, T, x_pitch], x_pitc
                      long long ss_stride,
                      const bf16* __restrict__ res,    // [B, T, Cout] or null
                      bf16* __restrict__ out,          // [B, T, Cout]
+                     float* __restrict__ pre,         // split route: [B, T, Cout] pre-norm
+                     float* __restrict__ part,        // split route: [B, groups, tiles, 3]
                      int t_len, int x_pitch, int n_chunks, int cout, int group, int cn_tiles,
                      float eps) {
   using C = Cfg<BM, BN, STAGES>;
@@ -431,6 +488,48 @@ resblock_bf16_kernel(const bf16* __restrict__ x,      // [B, T, x_pitch], x_pitc
   const bool pairs = ((cout | group) & 1) == 0;   // channel pairs are 4-byte aligned
   const bool row_ok[2] = {row_base < t_len, row_base + 8 < t_len};
 
+  if constexpr (SPLIT) {
+    // The split route's first kernel: this tile's moments and its pre-norm values;
+    // `resblock_norm_kernel` (launched as this grid's dependent) does the rest.
+    asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+    __shared__ float s_sum[2][kThreads / 32];
+    float s = 0.f;
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        acc[nt * 4 + i] += s_par[0][lcol_base + nt * 8 + (i & 1)];
+        const bool ok = row_ok[i >> 1] && col_base + nt * 8 + (i & 1) < group;
+        s += ok ? acc[nt * 4 + i] : 0.f;
+      }
+    const float n = (float)min(BM, t_len - m0) * (float)min(BN, group - nc0);
+    const float mean = block_sum(s, s_sum[0]) / n;
+    float q = 0.f;
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const bool ok = row_ok[i >> 1] && col_base + nt * 8 + (i & 1) < group;
+        const float d = acc[nt * 4 + i] - mean;
+        q += ok ? d * d : 0.f;
+      }
+    q = block_sum(q, s_sum[1]);
+    if (tid == 0)
+      store_moments(part, ((size_t)b * gridDim.y + blockIdx.y) * gridDim.x + rank, n, mean, q);
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int col = col_base + nt * 8;
+        if (!row_ok[half] || col >= group) continue;
+        const size_t o = ((size_t)b * t_len + row_base + half * 8) * cout + c_group0 + col;
+        if (!probe_off(kOffScratch))
+          store_pair(pre + o, acc[nt * 4 + 2 * half], acc[nt * 4 + 2 * half + 1],
+                     pairs && col + 1 < group, col + 1 < group);
+      }
+    return;
+  }
+
   // the residual, fetched before the statistics so that its latency hides behind them
   float rv[kNT * 4];
 #pragma unroll
@@ -503,39 +602,45 @@ resblock_bf16_kernel(const bf16* __restrict__ x,      // [B, T, x_pitch], x_pitc
   cluster.sync();  // no CTA leaves while another may still read its partial sums
 }
 
-template <int BM, int BN, int STAGES>
+// The conv kernel's launch. The cluster route: one cluster a (batch item, group),
+// the whole half in this one kernel. The split route (SPLIT): the same grid with
+// no cluster, writing the pre-norm values and the moments to `pre` and `part`;
+// scale, shift and res are then null (the normalisation kernel applies them).
+template <int BM, int BN, int STAGES, bool SPLIT>
 int launch_bf16(const void* x, const void* wp, const void* bias, const void* gamma,
                 const void* beta, const void* scale, const void* shift, long long ss_stride,
-                const void* res, void* out, int batch, int t_len, int x_pitch, int cin_pad,
-                int cout, int n_groups, float eps, cudaStream_t stream) {
+                const void* res, void* out, float* pre, float* part, int batch, int t_len,
+                int x_pitch, int cin_pad, int cout, int n_groups, float eps,
+                cudaStream_t stream) {
   using C = Cfg<BM, BN, STAGES>;
-  auto kernel = resblock_bf16_kernel<BM, BN, STAGES>;
+  auto kernel = resblock_bf16_kernel<BM, BN, STAGES, SPLIT>;
   static cudaError_t attr_err =  // once per instantiation
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
   if (attr_err != cudaSuccess) return (int)attr_err;
   const int group = cout / n_groups;
   const int ct_tiles = (t_len + BM - 1) / BM, cn_tiles = (group + BN - 1) / BN;
-  const int cluster_size = ct_tiles * cn_tiles;
-  if (cluster_size > kMaxCluster) return (int)cudaErrorInvalidValue;
+  const int tiles = ct_tiles * cn_tiles;
+  if (!SPLIT && (tiles > kMaxCluster || group > kMaxGroup)) return (int)cudaErrorInvalidValue;
 
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(cluster_size, n_groups, batch);
+  cfg.gridDim = dim3(tiles, n_groups, batch);
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = C::kSmem;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cluster_size;
+  attr[0].val.clusterDim.x = tiles;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
-  cfg.numAttrs = 1;
+  cfg.numAttrs = SPLIT ? 0 : 1;
   cudaError_t err = cudaLaunchKernelEx(
       &cfg, kernel, static_cast<const bf16*>(x), static_cast<const bf16*>(wp),
       static_cast<const bf16*>(bias), static_cast<const bf16*>(gamma),
       static_cast<const bf16*>(beta), static_cast<const bf16*>(scale),
       static_cast<const bf16*>(shift), ss_stride, static_cast<const bf16*>(res),
-      static_cast<bf16*>(out), t_len, x_pitch, cin_pad / kBK, cout, group, cn_tiles, eps);
+      static_cast<bf16*>(out), pre, part, t_len, x_pitch, cin_pad / kBK, cout, group,
+      cn_tiles, eps);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
@@ -595,7 +700,7 @@ __device__ __forceinline__ void split8(const float4 a, const float4 b, uint4& hi
 // One (batch item, channel tile, row tile). The channel tile is BN channels of
 // one group (a cluster spans the group's tiles and T) or, where groups are
 // narrower, `gpc` whole groups, each with its own statistics.
-template <int BM, int BN, int STAGES>
+template <int BM, int BN, int STAGES, bool SPLIT>
 __global__ void __launch_bounds__(kThreads, Cfg<BM, BN, STAGES>::kSmem <= 100000 ? 2 : 1)
 resblock_f32_kernel(const float* __restrict__ x,      // [B, T, x_pitch], x_pitch % 4 == 0
                     const bf16* __restrict__ wp,      // [2][Cin_pad/16, 5, Cout_pad/8, 2, 8, 8]
@@ -607,6 +712,8 @@ resblock_f32_kernel(const float* __restrict__ x,      // [B, T, x_pitch], x_pitc
                     long long ss_stride,
                     const float* __restrict__ res,    // [B, T, Cout] or null
                     float* __restrict__ out,          // [B, T, Cout]
+                    float* __restrict__ pre,          // split route: [B, T, Cout] pre-norm
+                    float* __restrict__ part,         // split route: [B, groups, tiles, 3]
                     int t_len, int x_pitch, int n_chunks, int cout, int n_groups, int group,
                     int gpc, int cn_tiles, float eps) {
   using C = Cfg<BM, BN, STAGES>;
@@ -824,15 +931,49 @@ resblock_f32_kernel(const float* __restrict__ x,      // [B, T, x_pitch], x_pitc
       v = warp_sum(v);
       if (lane == 0) s_part[slot][g] = v;
     }
-    cluster.sync();
-    const unsigned n = cluster.num_blocks();
-    for (int g = tid; g < n_local; g += kThreads) {
-      float total = 0.f;
-      for (unsigned r = 0; r < n; ++r) total += cluster.map_shared_rank(&s_part[slot][0], r)[g];
-      s_stat[slot][g] = total;
+    if constexpr (SPLIT) {  // this CTA's sums alone
+      __syncthreads();
+      for (int g = tid; g < n_local; g += kThreads) s_stat[slot][g] = s_part[slot][g];
+    } else {
+      cluster.sync();
+      const unsigned n = cluster.num_blocks();
+      for (int g = tid; g < n_local; g += kThreads) {
+        float total = 0.f;
+        for (unsigned r = 0; r < n; ++r)
+          total += cluster.map_shared_rank(&s_part[slot][0], r)[g];
+        s_stat[slot][g] = total;
+      }
     }
     __syncthreads();
   };
+  if constexpr (SPLIT) {
+    // The split route's first kernel: each local group's moments over this tile and
+    // the pre-norm values; `resblock_norm_kernel` (this grid's dependent) does the rest.
+    asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+    const float n = (float)min(BM, t_len - m0) * (float)width;
+    group_sums(0, [](float v, int) { return v; });
+    for (int g = tid; g < n_local; g += kThreads) s_stat[0][g] /= n;
+    __syncthreads();
+    group_sums(1, [&](float v, int lg) {
+      const float d = v - s_stat[0][lg];
+      return d * d;
+    });
+    for (int g = tid; g < n_local; g += kThreads)
+      store_moments(part, ((size_t)b * n_groups + g0 + g) * gridDim.x + rank, n, s_stat[0][g],
+                    s_stat[1][g]);
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int lcol = lcol_base + nt * 8;
+        if (!row_ok[half] || lcol >= span) continue;
+        const size_t o = ((size_t)b * t_len + row_base + half * 8) * cout + n_first + lcol;
+        if (!probe_off(kOffScratch))
+          store_pair(pre + o, acc[nt * 4 + 2 * half], acc[nt * 4 + 2 * half + 1],
+                     pairs && lcol + 1 < span, lcol + 1 < span);
+      }
+    return;
+  }
   const float count = (float)t_len * (float)group;
   group_sums(0, [](float v, int) { return v; });
   for (int g = tid; g < n_local; g += kThreads) s_stat[0][g] /= count;
@@ -879,13 +1020,13 @@ resblock_f32_kernel(const float* __restrict__ x,      // [B, T, x_pitch], x_pitc
 // `f32_tiles`.
 __host__ __device__ constexpr int tile_rows(int t_len) { return t_len <= 256 ? 64 : 128; }
 
-template <int BM, int BN, int STAGES>
+template <int BM, int BN, int STAGES, bool SPLIT>
 int launch(const void* x, const void* wp, const void* bias, const void* gamma, const void* beta,
            const void* scale, const void* shift, long long ss_stride, const void* res, void* out,
-           int batch, int t_len, int x_pitch, int cin_pad, int cout, int n_groups, float eps,
-           cudaStream_t stream) {
+           float* pre, float* part, int batch, int t_len, int x_pitch, int cin_pad, int cout,
+           int n_groups, float eps, cudaStream_t stream) {
   using C = Cfg<BM, BN, STAGES>;
-  auto kernel = resblock_f32_kernel<BM, BN, STAGES>;
+  auto kernel = resblock_f32_kernel<BM, BN, STAGES, SPLIT>;
   static cudaError_t attr_err =  // once per instantiation
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
   if (attr_err != cudaSuccess) return (int)attr_err;
@@ -893,33 +1034,200 @@ int launch(const void* x, const void* wp, const void* bias, const void* gamma, c
   const int gpc = group >= BN ? 1 : BN / group;
   const int cn_tiles = group > BN ? (group + BN - 1) / BN : 1;
   const int ct_tiles = (t_len + BM - 1) / BM;
-  const int cluster_size = ct_tiles * cn_tiles;
-  if (cluster_size > kMaxCluster) return (int)cudaErrorInvalidValue;
+  const int tiles = ct_tiles * cn_tiles;
+  if (!SPLIT && (tiles > kMaxCluster || group > kMaxGroup)) return (int)cudaErrorInvalidValue;
 
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(cluster_size, (n_groups + gpc - 1) / gpc, batch);
+  cfg.gridDim = dim3(tiles, (n_groups + gpc - 1) / gpc, batch);
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = C::kSmem;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cluster_size;
+  attr[0].val.clusterDim.x = tiles;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
-  cfg.numAttrs = 1;
+  cfg.numAttrs = SPLIT ? 0 : 1;
   auto f = [](const void* p) { return static_cast<const float*>(p); };
   cudaError_t err = cudaLaunchKernelEx(
       &cfg, kernel, f(x), static_cast<const bf16*>(wp), f(bias), f(gamma), f(beta), f(scale),
-      f(shift), ss_stride, f(res), static_cast<float*>(out), t_len, x_pitch, cin_pad / kBK, cout,
-      n_groups, group, gpc, cn_tiles, eps);
+      f(shift), ss_stride, f(res), static_cast<float*>(out), pre, part, t_len, x_pitch,
+      cin_pad / kBK, cout, n_groups, group, gpc, cn_tiles, eps);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
 }  // namespace f32
 
+// ------------------------------------------------------------------------- //
+// The split route: the conv kernels above without a cluster, then one pass that
+// merges each group's moments and normalises
+// ------------------------------------------------------------------------- //
+
+constexpr int kNormCols = 256;    // channels of one group per CTA of the normalisation
+constexpr int kNormElems = 4096;  // values per CTA of the normalisation, about
+
+// (count, mean, centred sum of squares) of some of a group's values
+struct Moments {
+  float n, mean, m2;
+};
+
+// Chan's pairwise merge: the mean first, then the sum of squares. An empty side
+// gives the other back as it is.
+__device__ __forceinline__ Moments merge(const Moments a, const Moments b) {
+  if (b.n == 0.f) return a;
+  if (a.n == 0.f) return b;
+  const float n = a.n + b.n, d = b.mean - a.mean, f = b.n / n;
+  return {n, a.mean + d * f, a.m2 + b.m2 + d * d * a.n * f};
+}
+
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(bf16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store(bf16* p, float v) { *p = __float2bfloat16_rn(v); }
+
+// One (row block, channel chunk of one group, batch item): the group's tile
+// moments merged in a fixed order (lane l takes tiles l, l + 32, ... in turn,
+// then the lanes pairwise down to lane 0), then GroupNorm's affine, AdaGN, Mish
+// (the exact one in float32, the fast one in bfloat16, as the cluster routes)
+// and the residual on the pre-norm values; each output written once, in x's type.
+// Launched as the conv kernel's programmatic dependent: everything before
+// griddepcontrol.wait overlaps the conv kernel's tail.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+resblock_norm_kernel(const float* __restrict__ pre,   // [B, T, Cout]
+                     const float* __restrict__ part,  // [B, groups, tiles, 3]
+                     const T* __restrict__ gamma, const T* __restrict__ beta,
+                     const T* __restrict__ scale, const T* __restrict__ shift,
+                     long long ss_stride, const T* __restrict__ res, T* __restrict__ out,
+                     int t_len, int cout, int n_groups, int group, int tiles, int norm_rows,
+                     float eps) {
+  __shared__ float s_par[4][kNormCols];  // gamma, beta, 1 + scale, shift of the chunk
+  __shared__ float s_stat[2];            // mean, 1/std
+  const int chunks = (group + kNormCols - 1) / kNormCols;
+  const int g = blockIdx.y / chunks, chunk = blockIdx.y - g * chunks;
+  const int b = blockIdx.z, tid = threadIdx.x;
+  const int c0 = g * group + chunk * kNormCols;  // the chunk's first channel
+  const int ncols = min(kNormCols, group - chunk * kNormCols);
+  const int r0 = blockIdx.x * norm_rows, nrows = min(norm_rows, t_len - r0);
+
+  for (int c = tid; c < ncols; c += kThreads) {  // inputs the conv kernel does not write
+    s_par[0][c] = to_float(gamma[c0 + c]);
+    s_par[1][c] = to_float(beta[c0 + c]);
+    s_par[2][c] = 1.f + (scale != nullptr ? to_float(scale[b * ss_stride + c0 + c]) : 0.f);
+    s_par[3][c] = shift != nullptr ? to_float(shift[b * ss_stride + c0 + c]) : 0.f;
+  }
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");  // the conv kernel's writes are visible
+  if (tid < 32) {
+    const float* p = part + ((size_t)b * n_groups + g) * tiles * 3;
+    Moments m = {0.f, 0.f, 0.f};
+    for (int i = tid; i < tiles; i += 32) m = merge(m, {p[3 * i], p[3 * i + 1], p[3 * i + 2]});
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      const Moments other = {__shfl_down_sync(0xffffffffu, m.n, o),
+                             __shfl_down_sync(0xffffffffu, m.mean, o),
+                             __shfl_down_sync(0xffffffffu, m.m2, o)};
+      m = merge(m, other);
+    }
+    if (tid == 0) {
+      s_stat[0] = m.mean;
+      s_stat[1] = rsqrtf(m.m2 / m.n + eps);
+    }
+  }
+  __syncthreads();
+  const float mean = s_stat[0], rstd = s_stat[1];
+  for (int i = tid; i < nrows * ncols; i += kThreads) {
+    const int r = i / ncols, c = i - r * ncols;
+    const size_t o = ((size_t)b * t_len + r0 + r) * cout + c0 + c;
+    float h = (pre[o] - mean) * rstd * s_par[0][c] + s_par[1][c];
+    h = h * s_par[2][c] + s_par[3][c];
+    if constexpr (sizeof(T) == 4) {
+      h = mish(h);
+    } else {
+      h = mish_fast(h);
+    }
+    store(out + o, h + (res != nullptr ? to_float(res[o]) : 0.f));
+  }
+}
+
+// How one half is computed: the route, the conv kernel's tiles and grid, and the
+// split route's normalisation grid and scratch. Mirrored by ops/resblock.py
+// `resblock_plan`.
+struct Plan {
+  int split;               // 0: the cluster route, 1: the split route
+  int bm, bn, stages;      // the conv kernel's tile and ring
+  int tiles, grid_y, gpc;  // its grid (tiles, grid_y, B); groups a CTA holds
+  int cluster;             // CTAs of one cluster: `tiles`, or 1 on the split route
+  int norm_rows, norm_x, norm_y;  // the normalisation's rows a CTA and grid (x, y, B)
+  long long scratch;       // floats of scratch: the pre-norm values, then the moments
+};
+
+Plan make_plan(int batch, int t_len, int cout, int n_groups, int dtype) {
+  Plan p = {};
+  const int group = cout / n_groups;
+  if (dtype == 0) {
+    p.bm = p.bn = f32::tile_rows(t_len);
+    p.stages = 3;
+    p.gpc = group >= p.bn ? 1 : p.bn / group;
+  } else {
+    p.bm = p.bn = t_len <= 64 ? 64 : 128;
+    p.stages = t_len <= 64 ? 6 : 4;
+    p.gpc = 1;
+  }
+  const int cn_tiles = dtype == 0 && group <= p.bn ? 1 : (group + p.bn - 1) / p.bn;
+  p.tiles = (t_len + p.bm - 1) / p.bm * cn_tiles;
+  p.grid_y = (n_groups + p.gpc - 1) / p.gpc;
+  p.split = group > kMaxGroup || p.tiles > kMaxCluster;
+  p.cluster = p.split ? 1 : p.tiles;
+  if (p.split) {
+    p.norm_rows = kNormElems / (group < kNormCols ? group : kNormCols);
+    p.norm_x = (t_len + p.norm_rows - 1) / p.norm_rows;
+    p.norm_y = n_groups * ((group + kNormCols - 1) / kNormCols);
+    p.scratch = (long long)batch * t_len * cout + 3LL * batch * n_groups * p.tiles;
+  }
+  return p;
+}
+
+template <typename T>
+int launch_norm(const Plan& p, const float* pre, const float* part, const void* gamma,
+                const void* beta, const void* scale, const void* shift, long long ss_stride,
+                const void* res, void* out, int batch, int t_len, int cout, int n_groups,
+                float eps, cudaStream_t stream) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(p.norm_x, p.norm_y, batch);
+  cfg.blockDim = dim3(kThreads);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  auto c = [](const void* q) { return static_cast<const T*>(q); };
+  cudaError_t err = cudaLaunchKernelEx(
+      &cfg, resblock_norm_kernel<T>, pre, part, c(gamma), c(beta), c(scale), c(shift), ss_stride,
+      c(res), static_cast<T*>(out), t_len, cout, n_groups, cout / n_groups, p.tiles, p.norm_rows,
+      eps);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
+
+// The plan of one half (see `Plan`) as 12 numbers: split, bm, bn, stages, tiles,
+// grid_y, gpc, cluster, norm_rows, norm_x, norm_y, scratch floats. Returns 0, or
+// cudaErrorInvalidValue for a shape no route takes.
+extern "C" int condmdi_resblock_plan(int batch, int t_len, int cout, int n_groups, int dtype,
+                                     long long* out) {
+  if (batch <= 0 || t_len <= 0 || n_groups <= 0 || cout % n_groups != 0 || cout <= 0 ||
+      (dtype != 0 && dtype != 1))
+    return (int)cudaErrorInvalidValue;
+  const Plan p = make_plan(batch, t_len, cout, n_groups, dtype);
+  const long long v[12] = {p.split, p.bm, p.bn, p.stages, p.tiles, p.grid_y, p.gpc, p.cluster,
+                           p.norm_rows, p.norm_x, p.norm_y, p.scratch};
+  for (int i = 0; i < 12; ++i) out[i] = v[i];
+  return 0;
+}
 
 // x: [B, T, x_pitch] contiguous, channels [cin, x_pitch) ignored. dtype 0 =
 // float32: w is the split weight of ops/resblock.py `split_conv_weight`, its hi
@@ -929,35 +1237,65 @@ int launch(const void* x, const void* wp, const void* bias, const void* gamma, c
 // [cin/32, 5, Cout/8, 4, 8, 8] of `pack_conv_weight` (chunk of 32 input
 // channels, tap, block of 8 output channels, block of 8 input channels, output
 // channel, input channel; cin the padded width, a multiple of 32) and
-// x_pitch % 8 == 0. Returns the launch's error code, 0 on success.
+// x_pitch % 8 == 0. `scratch` holds the plan's `scratch` floats where the plan is
+// the split route (and may be null on the cluster route). Returns the launch's
+// error code, 0 on success.
 extern "C" int condmdi_resblock_forward(const void* x, const void* w, const void* bias,
                                         const void* gamma, const void* beta, const void* scale,
                                         const void* shift, long long ss_stride, const void* res,
                                         void* out, int batch, int t_len, int x_pitch, int cin,
                                         int cout, int k, int n_groups, float eps, int dtype,
-                                        void* stream) {
+                                        void* stream, void* scratch) {
   if (batch <= 0 || batch > 65535 || t_len <= 0 || cin <= 0 || x_pitch <= 0 || n_groups <= 0 ||
-      n_groups > 65535 || cout % n_groups != 0 || cout / n_groups > kMaxGroup || k != kTaps ||
+      n_groups > 65535 || cout % n_groups != 0 || k != kTaps ||
       (scale == nullptr) != (shift == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Plan p = make_plan(batch, t_len, cout, n_groups, dtype);
+  if (p.split && scratch == nullptr) return (int)cudaErrorInvalidValue;
+  float* pre = p.split ? static_cast<float*>(scratch) : nullptr;
+  float* part = p.split ? pre + (size_t)batch * t_len * cout : nullptr;
   if (dtype == 0) {
     if (cin % f32::kBK != 0 || x_pitch % 4 != 0 || x_pitch > cin ||
         (long long)cin * kTaps * ((cout + 7) / 8 * 8) >= (1LL << 30))
       return (int)cudaErrorInvalidValue;
+    if (p.split) {
 #define CONDMDI_F32(BM, BN, STAGES)                                                            \
-  f32::launch<BM, BN, STAGES>(x, w, bias, gamma, beta, scale, shift, ss_stride, res, out,      \
-                              batch, t_len, x_pitch, cin, cout, n_groups, eps, s)
-    if (f32::tile_rows(t_len) == 64) return CONDMDI_F32(64, 64, 3);
+  f32::launch<BM, BN, STAGES, true>(x, w, bias, gamma, beta, nullptr, nullptr, 0, nullptr,     \
+                                    nullptr, pre, part, batch, t_len, x_pitch, cin, cout,      \
+                                    n_groups, eps, s)
+      const int err = p.bm == 64 ? CONDMDI_F32(64, 64, 3) : CONDMDI_F32(128, 128, 3);
+#undef CONDMDI_F32
+      if (err != 0 || probe_off(kOffNorm)) return err;
+      return launch_norm<float>(p, pre, part, gamma, beta, scale, shift, ss_stride, res, out,
+                                batch, t_len, cout, n_groups, eps, s);
+    }
+#define CONDMDI_F32(BM, BN, STAGES)                                                            \
+  f32::launch<BM, BN, STAGES, false>(x, w, bias, gamma, beta, scale, shift, ss_stride, res,    \
+                                     out, nullptr, nullptr, batch, t_len, x_pitch, cin, cout,  \
+                                     n_groups, eps, s)
+    if (p.bm == 64) return CONDMDI_F32(64, 64, 3);
     return CONDMDI_F32(128, 128, 3);
 #undef CONDMDI_F32
   }
   if (dtype != 1 || cin % kBK != 0 || x_pitch % 8 != 0 || x_pitch > cin)
     return (int)cudaErrorInvalidValue;
+  if (p.split) {
 #define CONDMDI_BF16(BM, BN, STAGES)                                                          \
-  launch_bf16<BM, BN, STAGES>(x, w, bias, gamma, beta, scale, shift, ss_stride, res, out,     \
-                              batch, t_len, x_pitch, cin, cout, n_groups, eps, s)
-  if (t_len <= 64) return CONDMDI_BF16(64, 64, 6);
+  launch_bf16<BM, BN, STAGES, true>(x, w, bias, gamma, beta, nullptr, nullptr, 0, nullptr,    \
+                                    nullptr, pre, part, batch, t_len, x_pitch, cin, cout,     \
+                                    n_groups, eps, s)
+    const int err = p.bm == 64 ? CONDMDI_BF16(64, 64, 6) : CONDMDI_BF16(128, 128, 4);
+#undef CONDMDI_BF16
+    if (err != 0 || probe_off(kOffNorm)) return err;
+    return launch_norm<bf16>(p, pre, part, gamma, beta, scale, shift, ss_stride, res, out, batch,
+                             t_len, cout, n_groups, eps, s);
+  }
+#define CONDMDI_BF16(BM, BN, STAGES)                                                          \
+  launch_bf16<BM, BN, STAGES, false>(x, w, bias, gamma, beta, scale, shift, ss_stride, res,   \
+                                     out, nullptr, nullptr, batch, t_len, x_pitch, cin, cout, \
+                                     n_groups, eps, s)
+  if (p.bm == 64) return CONDMDI_BF16(64, 64, 6);
   return CONDMDI_BF16(128, 128, 4);
 #undef CONDMDI_BF16
 }

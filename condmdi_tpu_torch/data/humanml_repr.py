@@ -1,7 +1,8 @@
 """HumanML3D 263-dim motion feature codec on tensors.
 
 Counterpart of condmdi_tpu/data/humanml_repr.py for `recover_root_rot_pos`,
-`recover_from_ric`, `detect_foot_contacts` and `extract_features`. Features
+`recover_from_ric`, `recover_from_rot`, `detect_foot_contacts` and
+`extract_features`. Features
 are LAST: data is (..., T, 263). `extract_features` takes any leading batch
 dimensions in front of (T, J, 3), where the JAX version takes one item and is
 vmapped by its caller; each item's result is the same.
@@ -20,7 +21,12 @@ from condmdi_tpu_torch.geometry.quaternion import (
     qrot,
     quaternion_to_cont6d,
 )
-from condmdi_tpu_torch.geometry.skeleton import t2m_skeleton
+from condmdi_tpu_torch.geometry.skeleton import (
+    T2M_KINEMATIC_CHAIN,
+    T2M_RAW_OFFSETS,
+    Skeleton,
+    t2m_skeleton,
+)
 
 # Reference motion_process.py:13-21 constants.
 FID_L = (7, 10)
@@ -72,6 +78,20 @@ def recover_from_ric(data: torch.Tensor, joints_num: int = 22,
                           dim=-1)
     positions = positions + root_xz[..., None, :]
     return torch.cat([r_pos[..., None, :], positions], dim=-2)
+
+
+def recover_from_rot(data: torch.Tensor, joints_num: int, offsets: torch.Tensor,
+                     skeleton: Skeleton | None = None, abs_3d: bool = False) -> torch.Tensor:
+    """Features (..., T, 263) → joints (..., T, J, 3) through the cont6d rotation
+    channels and FK (`Skeleton.forward_kinematics_cont6d`)."""
+    skeleton = skeleton or Skeleton(T2M_RAW_OFFSETS, T2M_KINEMATIC_CHAIN)
+    r_rot_quat, r_pos = recover_root_rot_pos(data, abs_3d=abs_3d)
+    r_rot_cont6d = quaternion_to_cont6d(r_rot_quat)
+    start = 1 + 2 + 1 + (joints_num - 1) * 3
+    end = start + (joints_num - 1) * 6
+    cont6d = data[..., start:end].reshape(data.shape[:-1] + (joints_num - 1, 6))
+    cont6d = torch.cat([r_rot_cont6d[..., None, :], cont6d], dim=-2)
+    return skeleton.forward_kinematics_cont6d(cont6d, r_pos, offsets)
 
 
 def detect_foot_contacts(positions: torch.Tensor, thres: float):

@@ -5,6 +5,7 @@ from condmdi_tpu_torch.diffusion.schedule import (
     space_timesteps,
 )
 from condmdi_tpu_torch.diffusion.gaussian import (
+    GaussianDiffusion,
     DiffusionConfig,
     InpaintingState,
     LossType,
@@ -14,6 +15,7 @@ from condmdi_tpu_torch.diffusion.gaussian import (
 )
 from condmdi_tpu_torch.diffusion.sampling import (
     SamplerConfig,
+    GuidanceParams,
     ddim_sample_loop,
     ddpm_sample_loop,
     plms_sample_loop,

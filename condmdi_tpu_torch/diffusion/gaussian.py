@@ -1,7 +1,8 @@
 """Gaussian diffusion core: q/posterior math and p_mean_variance.
 
 Counterpart of condmdi_tpu/diffusion/gaussian.py, training losses
-included (`vb_terms_bpd`, `training_losses`, `calc_bpd_loop`). The denoiser
+included (`vb_terms_bpd`, `training_losses`, `calc_bpd_loop`), and the
+`GaussianDiffusion` wrapper over the functions. The denoiser
 enters as `denoise_fn(x, t_model)`, already closed over weights and
 conditioning, so this module is model-agnostic. Layout is [B, T, F]; time
 masks are [B, T]; observation masks are [B, T, F].
@@ -459,3 +460,29 @@ def calc_bpd_loop(
     vb, xstart_mse, mse = (torch.stack(v, dim=1) for v in (vb, xstart_mse, mse))
     return {"total_bpd": vb.sum(dim=1) + prior_kl, "prior_bpd": prior_kl, "vb": vb,
             "xstart_mse": xstart_mse, "mse": mse}
+
+
+class GaussianDiffusion:
+    """The (schedule, config) pair with the module functions as methods, the
+    interface of the reference GaussianDiffusion; the work is in the functions."""
+
+    def __init__(self, sched: DiffusionSchedule, cfg: DiffusionConfig):
+        self.sched = sched
+        self.cfg = cfg
+
+    @property
+    def num_timesteps(self) -> int:
+        return self.sched.num_timesteps
+
+    def q_sample(self, x_start, t, noise):
+        return q_sample(self.sched, x_start, t, noise)
+
+    def q_posterior_mean_variance(self, x_start, x_t, t):
+        return q_posterior_mean_variance(self.sched, x_start, x_t, t)
+
+    def p_mean_variance(self, denoise_fn, x, t, inpaint=None):
+        return p_mean_variance(denoise_fn, self.sched, self.cfg, x, t, inpaint=inpaint)
+
+    def training_losses(self, denoise_fn, x_start, t, noise, time_mask, **kw):
+        return training_losses(denoise_fn, self.sched, self.cfg, x_start, t, noise, time_mask,
+                               **kw)

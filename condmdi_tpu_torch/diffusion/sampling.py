@@ -69,6 +69,13 @@ _host = threading.local()
 
 
 @dataclass(frozen=True)
+class GuidanceParams:
+    """Static switches for sampler-level guidance plumbing."""
+
+    use_cond_fn: bool = False
+
+
+@dataclass(frozen=True)
 class SamplerConfig:
     method: str = "ddpm"  # ddpm | ddim | plms
     eta: float = 0.0  # ddim stochasticity

@@ -15,6 +15,28 @@ Importing the package touches no device.
 """
 
 from condmdi_tpu_torch.evals import run_a2m, run_unconstrained
+from condmdi_tpu_torch.evals.metrics import (
+    euclidean_distance_matrix,
+    calculate_top_k,
+    calculate_R_precision,
+    calculate_matching_score,
+    calculate_activation_statistics,
+    calculate_diversity,
+    calculate_multimodality,
+    calculate_frechet_distance,
+    calculate_keyframe_error,
+    calculate_trajectory_error,
+    calculate_trajectory_diversity,
+    calculate_skating_ratio,
+    get_metric_statistics,
+)
+from condmdi_tpu_torch.evals.evaluator import EvaluatorWrapper
+from condmdi_tpu_torch.evals.harness import (
+    EvalConfig,
+    compute_kps_error,
+    evaluation,
+    generate_eval_batch,
+)
 from condmdi_tpu_torch.evals.a2m import A2MClassifier, STGCNClassifier, evaluate_a2m
 from condmdi_tpu_torch.evals.unconstrained import (
     calculate_kid,
@@ -22,5 +44,11 @@ from condmdi_tpu_torch.evals.unconstrained import (
     precision_and_recall,
 )
 
-__all__ = ["run_a2m", "run_unconstrained", "A2MClassifier", "STGCNClassifier", "evaluate_a2m",
+__all__ = ["run_a2m", "run_unconstrained", "euclidean_distance_matrix", "calculate_top_k",
+           "calculate_R_precision", "calculate_matching_score", "calculate_activation_statistics",
+           "calculate_diversity", "calculate_multimodality", "calculate_frechet_distance",
+           "calculate_keyframe_error", "calculate_trajectory_error",
+           "calculate_trajectory_diversity", "calculate_skating_ratio", "get_metric_statistics",
+           "EvaluatorWrapper", "EvalConfig", "compute_kps_error", "evaluation",
+           "generate_eval_batch", "A2MClassifier", "STGCNClassifier", "evaluate_a2m",
            "calculate_kid", "evaluate_unconstrained", "precision_and_recall"]

@@ -1,8 +1,9 @@
 """Quaternion algebra on tensors (wxyz convention, real part first).
 
-Counterpart of condmdi_tpu/geometry/quaternion.py for the functions that the
-skeleton's FK/IK and the HumanML3D codec call. Every function broadcasts over
-leading dimensions and works on any device.
+Counterpart of condmdi_tpu/geometry/quaternion.py: the algebra the skeleton's
+FK/IK and the HumanML3D codec call, the continuous 6D rotation, and the
+spherical and linear interpolations. Every function broadcasts over leading
+dimensions and works on any device.
 """
 
 from __future__ import annotations
@@ -96,3 +97,45 @@ def quaternion_to_cont6d(q: torch.Tensor) -> torch.Tensor:
     """Quaternion → continuous 6D rotation: the first two matrix *columns*."""
     m = quaternion_to_matrix(q)
     return torch.cat([m[..., 0], m[..., 1]], dim=-1)
+
+
+def cont6d_to_matrix(c: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
+    """Continuous 6D (column convention) → (*, 3, 3) via Gram-Schmidt."""
+    x_raw, y_raw = c[..., 0:3], c[..., 3:6]
+    x = x_raw / torch.linalg.norm(x_raw, dim=-1, keepdim=True).clamp(min=eps)
+    z = _cross(x, y_raw)
+    z = z / torch.linalg.norm(z, dim=-1, keepdim=True).clamp(min=eps)
+    y = _cross(z, x)
+    return torch.stack([x, y, z], dim=-1)
+
+
+def qslerp(q0: torch.Tensor, q1: torch.Tensor, t) -> torch.Tensor:
+    """Spherical interpolation between unit quaternions, elementwise in t (t
+    broadcasts against the leading dims of q0/q1).
+
+    The shorter arc: q1 is flipped where the dot product is negative. Where
+    sin θ < 1e-6 (in float32: where the dot product rounds to 1) it is the
+    normalised lerp, and the `where`s keep that branch's gradient finite: the
+    slerp weights divide by 1 instead of sin θ there, and θ is taken of 0
+    instead of a dot product of 1, where arccos has no derivative. The values
+    are JAX's; so are the gradients wherever JAX's are finite (at a dot
+    product of exactly 1, JAX's arccos gives NaN).
+    """
+    q0, q1 = qnormalize(q0), qnormalize(q1)
+    d = (q0 * q1).sum(dim=-1, keepdim=True)
+    q1 = torch.where(d < 0, -q1, q1)
+    d = d.abs()
+    edge = d >= 1
+    theta = torch.where(edge, 0.0, torch.arccos(torch.where(edge, 0.0, d)))
+    sin_theta = torch.sin(theta)
+    t = torch.as_tensor(t, dtype=q0.dtype, device=q0.device)
+    t = t[..., None] if t.ndim < q0.ndim else t
+    small = sin_theta < 1e-6
+    safe = torch.where(small, 1.0, sin_theta)
+    w0 = torch.where(small, 1.0 - t, torch.sin((1.0 - t) * theta) / safe)
+    w1 = torch.where(small, t, torch.sin(t * theta) / safe)
+    return qnormalize(w0 * q0 + w1 * q1)
+
+
+def lerp(p0: torch.Tensor, p1: torch.Tensor, t) -> torch.Tensor:
+    return p0 + t * (p1 - p0)

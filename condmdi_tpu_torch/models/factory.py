@@ -122,3 +122,9 @@ def create_gaussian_diffusion(args) -> Tuple[DiffusionSchedule, DiffusionConfig]
     )
     return sched, cfg
 
+
+
+def create_model_and_diffusion(args, device: str | torch.device = "cuda"):
+    """(model, sched, cfg): `create_model` on `device` (its parameters not yet
+    filled) and `create_gaussian_diffusion`, as the JAX factory returns them."""
+    return create_model(args, device), *create_gaussian_diffusion(args)

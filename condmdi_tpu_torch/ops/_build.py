@@ -91,8 +91,12 @@ def _bind_resblock(lib: ctypes.CDLL) -> None:
         p, p,                    # res, out
         i, i, i, i, i, i, i,     # B, T, x's row pitch, Cin (padded for bf16), Cout, k, n_groups
         ctypes.c_float, i, p,    # eps, dtype code, stream
+        p,                       # the split route's scratch (null on the cluster route)
     ]
     lib.condmdi_resblock_forward.restype = i
+    # B, T, Cout, n_groups, dtype code, out[12] (csrc/resblock.cu `Plan`)
+    lib.condmdi_resblock_plan.argtypes = [i, i, i, i, i, ctypes.POINTER(ctypes.c_longlong)]
+    lib.condmdi_resblock_plan.restype = i
     lib.condmdi_error_string.argtypes = [i]
     lib.condmdi_error_string.restype = ctypes.c_char_p
 

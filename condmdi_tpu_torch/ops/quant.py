@@ -12,7 +12,8 @@ reaches it:
     the same arithmetic.
 
 `int8_conv1d.launches` counts kernel launches and nothing else.
-`int8_matmul` is the same op at k=1 over the rows of x.
+`int8_matmul` is the same op at k=1 over the rows of x. `conv1d_f32` is the
+float32 conv beside them, which JAX also left to XLA.
 
 Under autograd (grad enabled and x, a scale or the bias requiring grad) the
 call goes through `Int8Conv1d`: the same forward, and a backward that
@@ -195,6 +196,18 @@ class Int8Conv1d(torch.autograd.Function):
         needs = (ctx.needs_input_grad[0], False, *ctx.needs_input_grad[2:5])
         grads = recompute_grads(plain, ctx.saved_tensors, needs, grad_out)
         return (*grads, None, None, None, None)
+
+
+def conv1d_f32(x, w, bias=None, stride=1, padding=0):
+    """The float conv in JAX's layouts, x [B, T, Cin] (NWC) and w [k, Cin, Cout]
+    (WIO), in full float32 (TF32 off for the call): `F.conv1d`, as JAX lowers
+    its own through XLA."""
+    from condmdi_tpu_torch.device import float32_exact
+
+    with float32_exact():
+        out = F.conv1d(x.transpose(1, 2), w.permute(2, 1, 0), stride=stride,
+                       padding=padding).transpose(1, 2)
+    return out + bias if bias is not None else out
 
 
 def quant_conv1d_from_f32(x, kernel, bias=None, stride=1, padding=0, a_scale=None):

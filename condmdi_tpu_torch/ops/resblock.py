@@ -5,12 +5,20 @@ every Conv1dBlock / Conv1dAdaGNBlock of the UNet calls:
 
   * a CUDA tensor goes to the hand-written Hopper kernel
     (csrc/resblock.cu, built and bound by ops/_build.py), or the call
-    raises; it never falls back to the plain version;
+    raises; it never falls back to the plain version. Every half with Cout a
+    multiple of n_groups and k = 5 is taken (`supports`), on one of two
+    routes (`resblock_plan`): the cluster route, one kernel whose
+    thread-block cluster holds a (batch item, group), for groups of up to 128
+    channels and up to 8 tiles; the split route for every wider group or
+    longer T, the same conv kernel without a cluster writing the pre-norm
+    tile and its moments to a scratch, then a normalisation kernel;
   * a CPU tensor goes to `reference_conv_gn_mish`, the plain PyTorch version
     of the same function, in float32.
 
 `fused_conv_gn_mish.launches` counts kernel launches, and nothing else, so a
-run can show that its resblock halves went through the kernel.
+run can show that its resblock halves went through the kernel;
+`fused_conv_gn_mish.split_launches` counts those of them on the split route
+(`resblock_plan`).
 
 Under autograd (grad enabled and an input that requires grad, as
 reconstruction guidance differentiates the UNet) the call goes through
@@ -37,7 +45,8 @@ parameter changes; a call without one packs on the fly.
 
 from __future__ import annotations
 
-from typing import Optional
+from functools import lru_cache
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -46,11 +55,13 @@ from condmdi_tpu_torch.ops.weight_cache import copy_into, repacking, weight_key
 
 # dynamic shared memory a block may use on sm_90 (227 KB)
 _MAX_SMEM = 232448
-_BLOCK_N = 128  # the group width's upper bound: one cluster holds one group
+_MAX_GROUP = 128  # the cluster routes' widest group: one cluster holds one (item, group)
 _TAPS = 5  # the conv width the kernel is built for (every resblock half)
 _CHUNK = 32  # input channels per stage of the bf16 kernel = the packed weight's chunk
 _F32_CHUNK = 16  # the same for the float32 kernel and its split weight
 _MAX_CLUSTER = 8  # thread blocks of one cluster (the portable limit)
+_NORM_COLS = 256  # channels of one group per CTA of the split route's normalisation
+_NORM_ELEMS = 4096  # values per CTA of that normalisation, about
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -185,6 +196,7 @@ def fused_conv_gn_mish(
 
 
 fused_conv_gn_mish.launches = 0
+fused_conv_gn_mish.split_launches = 0  # of those, the launches on the split route
 
 
 def _forward(x, w, b, gamma, beta, scale, shift, res, n_groups, eps, packed):
@@ -258,7 +270,8 @@ def f32_tiles(T: int) -> tuple[int, int, int]:
 def cluster_size(T: int, group: int, dtype: torch.dtype = torch.bfloat16) -> int:
     """Thread blocks that share one (batch item, group): the row tiles along T
     times the channel tiles of a group wider than the tile (a narrower group
-    shares its CTA with its neighbours)."""
+    shares its CTA with its neighbours). One cluster on the cluster route, where
+    it is at most 8; as many tiles, with no cluster, on the split route."""
     bm, bn, _ = f32_tiles(T) if dtype == torch.float32 else bf16_tiles(T)
     return -(-T // bm) * -(-group // bn)
 
@@ -280,6 +293,63 @@ def smem_bytes(T: int, k: int, dtype: torch.dtype) -> int:
     return stages * ((_CHUNK // 8) * x_plane_rows * 16 + k * bn * _CHUNK * 2)
 
 
+class ResblockPlan(NamedTuple):
+    """How the card computes one half (`resblock_plan`)."""
+
+    route: str                       # "cluster" or "split"
+    tiles: tuple[int, int, int]      # (rows, channels, ring stages) of one conv CTA
+    chunks: int                      # ring stages one conv CTA runs: Cin over the chunk
+    grid: tuple[int, int, int]       # the conv kernel's grid: (tiles, group slots, B)
+    groups_per_cta: int              # whole groups one conv CTA holds (float32 narrow groups)
+    cluster: int                     # CTAs of one cluster; 1 on the split route
+    norm_rows: int                   # split route: rows of one normalisation CTA (else 0)
+    norm_grid: tuple[int, int, int]  # split route: the normalisation's grid (else zeros)
+    scratch: int                     # split route: float32 scratch elements (else 0)
+
+
+@lru_cache(maxsize=1024)
+def resblock_plan(B: int, T: int, cin: int, cout: int, dtype: torch.dtype,
+                  n_groups: int = 8) -> ResblockPlan:
+    """The route, tiles, grid and cluster of one half (mirrors csrc/resblock.cu
+    `make_plan`, which `condmdi_resblock_plan` returns on the card).
+
+    The cluster route, one kernel: a thread-block cluster holds one (batch item,
+    group) and exchanges GroupNorm's sums through distributed shared memory; it
+    takes groups of up to 128 channels whose tiles fit a portable cluster of 8.
+    The split route takes every other shape: the same conv kernel with no
+    cluster writes its pre-norm tile (float32) and each tile's count, mean and
+    centred sum of squares into a scratch, and a second kernel, its
+    programmatic dependent, merges each group's moments with Chan's formula in
+    a fixed order and normalises, one CTA a (row block, 256-channel chunk of a
+    group, batch item). Both are deterministic.
+    """
+    group = cout // n_groups
+    f32 = dtype == torch.float32
+    bm, bn, stages = f32_tiles(T) if f32 else bf16_tiles(T)
+    gpc = (1 if group >= bn else bn // group) if f32 else 1
+    tiles = cluster_size(T, group, dtype)
+    chunks = -(-cin // (_F32_CHUNK if f32 else _CHUNK))
+    grid = (tiles, -(-n_groups // gpc), B)
+    if group <= _MAX_GROUP and tiles <= _MAX_CLUSTER:
+        return ResblockPlan("cluster", (bm, bn, stages), chunks, grid, gpc, tiles, 0, (0, 0, 0), 0)
+    norm_rows = _NORM_ELEMS // min(group, _NORM_COLS)
+    norm_grid = (-(-T // norm_rows), n_groups * -(-group // _NORM_COLS), B)
+    scratch = B * T * cout + 3 * B * n_groups * tiles
+    return ResblockPlan("split", (bm, bn, stages), chunks, grid, gpc, 1, norm_rows, norm_grid,
+                        scratch)
+
+
+def supports(B: int, T: int, cin: int, cout: int, k: int, n_groups: int) -> bool:
+    """Whether the card kernel computes this half: every half with Cout a multiple
+    of n_groups and k = 5 taps, at any B, T, Cin and group width (the cluster
+    route or the split route, `resblock_plan`); `_launch` raises for every other
+    half, by the same two checks. Nothing calls this to choose a path: a CUDA tensor always takes the
+    kernel. (JAX's `supports` also takes `interpret`, which names Pallas's
+    interpret mode; the port has no such mode, so the argument is gone.)"""
+    del B, T, cin  # every batch, length and input width is taken
+    return k == _TAPS and n_groups > 0 and cout % n_groups == 0
+
+
 def _launch(x, w, b, gamma, beta, scale, shift, res, n_groups, eps, packed=None):
     """Check what the kernel takes, launch it on the current stream, count the launch.
 
@@ -297,21 +367,11 @@ def _launch(x, w, b, gamma, beta, scale, shift, res, n_groups, eps, packed=None)
     cout, cin, k = w.shape
     if not cin <= xc <= -(-cin // 8) * 8:
         raise ValueError(f"fused_conv_gn_mish: weight {tuple(w.shape)} does not take Cin={xc}")
-    if k != _TAPS:
+    if k != _TAPS:  # with the next check, `supports`
         raise NotImplementedError(f"the kernel is built for k={_TAPS} taps, not {k}")
     if cout % n_groups:
         raise ValueError(f"Cout={cout} is not a multiple of n_groups={n_groups}")
-    group = cout // n_groups
-    if group > _BLOCK_N:
-        raise NotImplementedError(
-            f"group width {group} > {_BLOCK_N}: one cluster holds one group"
-        )
     bf16 = dtype == torch.bfloat16
-    if cluster_size(T, group, dtype) > _MAX_CLUSTER:
-        raise NotImplementedError(
-            f"T={T} needs a cluster of {cluster_size(T, group, dtype)} blocks, more than "
-            f"{_MAX_CLUSTER}"
-        )
     if not (b.shape == gamma.shape == beta.shape == (cout,)):
         raise ValueError(f"b, gamma and beta must have shape ({cout},)")
     if res is not None and res.shape != (B, T, cout):
@@ -334,6 +394,9 @@ def _launch(x, w, b, gamma, beta, scale, shift, res, n_groups, eps, packed=None)
     w = packed.get(w) if packed is not None else packed_for_kernel(w)
     w_cin = w.shape[0] * _CHUNK if bf16 else w.shape[1] * _F32_CHUNK
     out = torch.empty((B, T, cout), device=device, dtype=dtype)
+    plan = resblock_plan(B, T, cin, cout, dtype, n_groups)
+    scratch = (torch.empty(plan.scratch, device=device, dtype=torch.float32)
+               if plan.scratch else None)
 
     from condmdi_tpu_torch.ops import _build
 
@@ -346,8 +409,11 @@ def _launch(x, w, b, gamma, beta, scale, shift, res, n_groups, eps, packed=None)
         None if res is None else res.data_ptr(), out.data_ptr(),
         B, T, x.shape[2], w_cin, cout, k, n_groups, eps, code,
         torch.cuda.current_stream(device).cuda_stream,
+        None if scratch is None else scratch.data_ptr(),
     )
     if err != 0:
         raise RuntimeError(f"resblock kernel launch failed: {_build.error_string(lib, err)}")
     fused_conv_gn_mish.launches += 1
+    if scratch is not None:
+        fused_conv_gn_mish.split_launches += 1
     return out

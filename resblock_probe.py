@@ -1,8 +1,8 @@
 """Where the float32 kernel routes' time goes, on one NVIDIA GPU.
 
-    python3 resblock_probe.py [f32] [parts]
+    python3 resblock_probe.py [f32] [parts] [split]
 
-With no argument it runs both. It prints the card's name and power limit first.
+With no argument it runs all three. It prints the card's name and power limit first.
 It stands beside chip_smoke.py, whose timing method and inputs it uses; nothing
 in the package or in chip_smoke.py needs it.
 
@@ -18,7 +18,12 @@ in the package or in chip_smoke.py needs it.
           float32 kernel switched off (the results are then wrong; the times
           tell what each part costs), and times each variant at four float32
           shapes of the sampling CLIs as chip_smoke.py times them (inputs
-          rotated past L2, the split weight made beforehand).
+          rotated past L2, the split weight made beforehand);
+  split   the split route (the conv kernel with no cluster, then the
+          normalisation kernel) at the widest halves it takes on a path, in
+          builds with its parts switched off: the normalisation kernel not
+          launched, and the conv kernel's pre-norm stores skipped too, so that
+          the times tell what the second kernel and the scratch cost.
 
 The probe libraries are built into the package's build directory, all at once.
 """
@@ -39,7 +44,7 @@ from condmdi_tpu_torch.ops import _build
 
 SOURCE = _build.CSRC_DIR / "resblock.cu"
 # csrc/resblock.cu `ProbeOff`
-MMA, COPIES, SPLIT, WEIGHTS, SMALL_TERMS = 1, 2, 4, 8, 16
+MMA, COPIES, SPLIT, WEIGHTS, SMALL_TERMS, NORM, SCRATCH = 1, 2, 4, 8, 16, 32, 64
 VARIANTS = {
     "as committed": 0,
     "one product a tap (x_hi.w_hi)": SMALL_TERMS,
@@ -50,6 +55,18 @@ VARIANTS = {
     "no copies, no split": COPIES | SPLIT,
     "no copies, no split, no wgmma": COPIES | SPLIT | MMA,
 }
+SPLIT_VARIANTS = {
+    "as committed": 0,
+    "conv kernel alone (no normalisation kernel)": NORM,
+    "conv kernel alone, no pre-norm stores": NORM | SCRATCH,
+}
+SPLIT_SHAPES = [  # (B, T, Cin, Cout, dtype): the split route's widest halves on a path
+    (4, 224, 2048, 2048, torch.float32),   # --latent_dim 1024, pad 224, the CLI's B
+    (4, 112, 4096, 2048, torch.float32),
+    (8, 224, 2048, 2048, torch.bfloat16),  # the same UNet served (4 requests x CFG)
+    (2, 1280, 1024, 1024, torch.float32),  # UNet-XL at --unet_pad_to 1280
+    (2, 1280, 1024, 1024, torch.bfloat16),
+]
 SHAPES = [  # (B, T, Cin, x channels, Cout, adagn, res): the CLIs' f32 halves
     (4, 28, 1024, 1024, 1024, False, True),    # UNet-XL pad 224, 64 CTAs
     (4, 112, 1024, 1024, 1024, True, False),   # 128 CTAs
@@ -130,11 +147,35 @@ def parts(dev):
             print(f"[parts]   {ms * 1e3:8.2f} us  {name}", flush=True)
 
 
+def split(dev):
+    from condmdi_tpu_torch.ops.resblock import PackedConvWeight, fused_conv_gn_mish
+
+    libs = build_all(set(SPLIT_VARIANTS.values()))
+    gen = torch.Generator().manual_seed(4)
+    for B, T, cin, cout, dtype in SPLIT_SHAPES:
+        one = dtype.itemsize * (B * T * cin + cout * cin * 5)
+        cases = [cs.make_case(B, T, cin, cout, True, True, dtype, gen, dev)
+                 for _ in range(max(2, -(-64 * 2**20 // one)))]
+        kin = [(*a, kw.get("scale"), kw.get("shift"), kw.get("res")) for a, kw in cases]
+        caches = {a[1].data_ptr(): PackedConvWeight() for a, _ in cases}
+        for a, _ in cases:
+            caches[a[1].data_ptr()].get(a[1])
+        bound, by = cs.bound_ms(B, T, cin, cout, True, True, dtype=dtype)
+        print(f"[split] {str(dtype)[6:]} x[{B},{T},{cin}] Cout={cout} adagn res: bound "
+              f"{bound * 1e3:.2f} us ({by})", flush=True)
+        for name, mask in SPLIT_VARIANTS.items():
+            _build._libs["resblock.cu"] = libs[mask]
+            with torch.no_grad():
+                ms, _ = cs.timed_ms(
+                    lambda *z: fused_conv_gn_mish(*z, packed=caches[z[1].data_ptr()]), kin)
+            print(f"[split]   {ms * 1e3:8.2f} us  {name}", flush=True)
+
+
 def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         print("resblock_probe: torch.cuda.is_available() is False", file=sys.stderr)
         return 2
-    known = {"f32": f32, "parts": parts}
+    known = {"f32": f32, "parts": parts, "split": split}
     modes = argv or list(known)
     if set(modes) - set(known):
         raise SystemExit(f"resblock_probe: unknown mode(s) {sorted(set(modes) - set(known))}")

@@ -135,20 +135,119 @@ def test_module_output_follows_its_weight(cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("bad", ["long_T_bf16", "long_T_f32", "group_width", "taps"])
 def test_kernel_wrapper_refuses_what_the_kernel_does_not_take(cuda_device, bad):
+    """A conv width other than 5 is refused, before any launch. T=1025 (nine row
+    tiles, more than a cluster of 8 holds) in either type and a group of 136
+    channels (wider than the cluster routes' 128) were refused too until the split
+    route took them: they now launch the kernel, which agrees with the plain
+    version."""
     B, T, cin, cout, dt = 1, 16, 16, 64, torch.bfloat16
     if bad == "long_T_bf16":
-        T = 1025  # nine 128-row tiles: more than one cluster holds
+        T = 1025
     elif bad == "long_T_f32":
-        T, dt = 1025, torch.float32  # nine 128-row tiles: more than one cluster holds
+        T, dt = 1025, torch.float32
     elif bad == "group_width":
         cout = 8 * 136
     args, kw = make_inputs(B, T, cin, cout, False, False, dt, cuda_device)
+    before = resblock.fused_conv_gn_mish.launches
     if bad == "taps":
         args[1] = args[1][..., :3].contiguous()
+        with torch.no_grad(), pytest.raises(NotImplementedError):
+            resblock.fused_conv_gn_mish(*args, **kw)
+        assert resblock.fused_conv_gn_mish.launches == before
+        return
+    assert resblock.resblock_plan(B, T, cin, cout, dt).route == "split"
+    with torch.no_grad():
+        got = resblock.fused_conv_gn_mish(*args, **kw).float()
+        want = resblock.reference_conv_gn_mish(*args, **kw).float()
+    assert resblock.fused_conv_gn_mish.launches == before + 1
+    tol = BF16_TOL if dt == torch.bfloat16 else F32_TOL
+    assert torch.isfinite(got).all()
+    assert torch.all((got - want).abs() <= tol * (1 + want.abs()))
+
+
+# (B, T, Cin, Cout) on the split route: groups of 136, 256 and 512 channels (chip_smoke.py
+# phase 40's widths; 136 is no multiple of the 128-channel tile), at the lengths of a
+# UNet-XL level and at T <= 64 (64-row tiles); then lengths past a cluster of 8 tiles
+SPLIT_SHAPES = [
+    (2, 224, 128, 8 * 136), (2, 25, 128, 8 * 136), (2, 224, 256, 8 * 256), (3, 56, 64, 8 * 256),
+    (4, 28, 2048, 8 * 256), (1, 60, 64, 8 * 512), (1, 1025, 64, 1024), (2, 1280, 64, 512),
+    (1, 2048, 32, 256), (1, 4096, 32, 128), (2, 1280, 40, 8 * 16), (1, 1100, 24, 8 * 256),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("case", SPLIT_SHAPES, ids=lambda c: "B{}T{}cin{}cout{}".format(*c))
+@pytest.mark.parametrize("adagn,res", [(True, False), (False, True), (True, True),
+                                       (False, False)])
+def test_split_route_matches_plain(cuda_device, dtype, case, adagn, res):
+    """The split route (the conv with no cluster, then the normalisation as its
+    programmatic dependent) within the cluster routes' tolerances of the plain
+    version, one launch a call."""
+    B, T, cin, cout = case
+    dt = getattr(torch, dtype)
+    assert resblock.resblock_plan(B, T, cin, cout, dt).route == "split"
+    args, kw = make_inputs(B, T, cin, cout, adagn, res, dt, cuda_device)
     before = resblock.fused_conv_gn_mish.launches
-    with torch.no_grad(), pytest.raises(NotImplementedError):
-        resblock.fused_conv_gn_mish(*args, **kw)
-    assert resblock.fused_conv_gn_mish.launches == before
+    with torch.no_grad():
+        got = resblock.fused_conv_gn_mish(*args, **kw).float()
+        torch.cuda.synchronize()
+        want = resblock.reference_conv_gn_mish(*args, **kw).float()
+    assert resblock.fused_conv_gn_mish.launches == before + 1
+    tol = BF16_TOL if dt == torch.bfloat16 else F32_TOL
+    assert torch.isfinite(got).all()
+    assert torch.all((got - want).abs() <= tol * (1 + want.abs()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("case", [(4, 224, 2048, 2048), (2, 1280, 1024, 1024), (2, 200, 64, 1024)])
+def test_two_launches_give_the_same_bits(cuda_device, dtype, case):
+    """Two launches on the same inputs give bit-identical outputs: on the split route
+    (the moments merged in a fixed order), and on the cluster route (the last case)."""
+    B, T, cin, cout = case
+    args, kw = make_inputs(B, T, cin, cout, True, True, getattr(torch, dtype), cuda_device)
+    with torch.no_grad():
+        first = resblock.fused_conv_gn_mish(*args, **kw)
+        second = resblock.fused_conv_gn_mish(*args, **kw)
+    assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+def test_python_resblock_plan_is_the_librarys(cuda_device):
+    """ops/resblock.py `resblock_plan` and csrc/resblock.cu `make_plan` (as
+    `condmdi_resblock_plan` returns it) agree at every route's edges."""
+    import ctypes
+
+    from condmdi_tpu_torch.ops import _build
+
+    lib = _build.load_resblock()
+    for code, dt in ((0, torch.float32), (1, torch.bfloat16)):
+        for B in (1, 4):
+            for T in (1, 25, 64, 65, 200, 256, 257, 1024, 1025, 1280, 4096):
+                for cout in (8, 64, 128, 1024, 1088, 2048, 4096):
+                    out = (ctypes.c_longlong * 12)()
+                    assert lib.condmdi_resblock_plan(B, T, cout, 8, code, out) == 0
+                    p = resblock.resblock_plan(B, T, 64, cout, dt)
+                    assert tuple(out) == (int(p.route == "split"), *p.tiles, *p.grid[:2],
+                                          p.groups_per_cta, p.cluster, p.norm_rows,
+                                          *p.norm_grid[:2], p.scratch), (dt, B, T, cout)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_split_route_replays_from_a_graph(cuda_device, dtype):
+    """The split route under capture (its scratch from the graph's pool, the
+    normalisation a programmatic dependent inside the graph): the replay on new
+    inputs equals an eager call bit for bit."""
+    args, kw = make_inputs(4, 224, 2048, 2048, True, True, getattr(torch, dtype), cuda_device)
+    cache = resblock.PackedConvWeight()
+
+    def fn():
+        with torch.no_grad():
+            return [resblock.fused_conv_gn_mish(*args, **kw, packed=cache)]
+
+    _replay_against_eager(fn, [args[0], kw["res"]], _refill(2))
 
 
 GRAD_TOL = 1e-5  # |kernel path - plain path| <= tol * (1 + |plain|) for a gradient
@@ -163,6 +262,11 @@ GRAD_TOL = 1e-5  # |kernel path - plain path| <= tol * (1 + |plain|) for a gradi
     # the conditional CLI's UNet-XL at pad 224, B=4 (two channel tiles a group, 64-row tiles)
     (4, 224, 526, 528, 1024, True, False),
     (4, 28, 2048, 2048, 1024, True, False),
+    # the latent-1024 UNet-XL at pad 224 (groups of 256: the split route) and a length
+    # past a cluster of 8 row tiles
+    (4, 224, 526, 528, 2048, True, False),
+    (2, 56, 4096, 4096, 2048, False, True),
+    (1, 1280, 64, 64, 512, True, True),
 ])
 def test_kernel_gradients_match_plain(cuda_device, case):
     """Under autograd the half goes through ConvGnMish: the kernel forward, a
@@ -939,6 +1043,45 @@ def test_python_int8_plan_is_the_librarys(cuda_device, shape):
         assert lib.condmdi_int8_conv1d_plan(B, T, cin_pad, cout, k, stride, pad, sms, out) == 0
         want = dict(zip(("t_pad", "m_tiles", "n_tiles", "split", "steps"), list(out)))
         assert quant.int8_plan(B, T, cin, cout, k, stride, pad, sms) == want
+
+
+@pytest.mark.cuda
+def test_int8_forward_of_the_latent_1024_unet_matches_plain(cuda_device):
+    """The keyframe UNet-XL at --latent_dim 1024 (2,048 channels, up-path convs of
+    K = 4,096 x 5) in int8 mode, float32 activations, B=2 at pad 224: the forward
+    through the int8 kernel against the same forward with its launch swapped for
+    the plain version (each call is bit for bit the plain one; 5e-3 on the output,
+    as the CLI's int8 test), 41 int8 launches."""
+    from condmdi_tpu_torch.models.unet import MDM_UNET
+    from condmdi_tpu_torch.ops import quant
+
+    model = MDM_UNET(njoints=263, latent_dim=1024, dim_mults=(2, 2, 2, 2),
+                     keyframe_conditioned=True, pad_frames_to=224, zero=False,
+                     precision_mode="int8", device=cuda_device, seed=4).requires_grad_(False)
+    assert max(w.shape[1] for w in model.parameters() if w.ndim == 3) == 4096
+    rng = np.random.default_rng(8)
+
+    def arr(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(cuda_device)
+
+    x, obs = arr(2, 196, 263), arr(2, 196, 263)
+    mask = torch.zeros((2, 196, 263), dtype=torch.bool, device=cuda_device)
+    mask[:, ::20] = True
+    y, t = {"text_embed": arr(2, 512)}, torch.tensor([30, 800], device=cuda_device)
+    before = quant.int8_conv1d.launches
+    with torch.no_grad():
+        got = model(x, t, y, obs_x0=obs, obs_mask=mask)
+    assert quant.int8_conv1d.launches - before == 41
+    launch = quant._launch
+    quant._launch = lambda x, wq, ws, b, stride, pad, a_scale, pc, packed: \
+        quant.plain_int8_conv1d(x, wq, ws, b, stride, pad, a_scale, pc)
+    try:
+        with torch.no_grad():
+            want = model(x, t, y, obs_x0=obs, obs_mask=mask)
+    finally:
+        quant._launch = launch
+    assert torch.isfinite(got).all() and want.abs().max() > 0
+    assert (got - want).abs().max() <= 5e-3
 
 
 @pytest.mark.cuda
@@ -1973,9 +2116,15 @@ def test_steps_per_dispatch_replays_equal_eager_steps(cuda_device, tmp_path, mon
                                     device=cuda_device))
     got, want = loops
     assert got.step_fn.graph.replays == 6 and not hasattr(want.step_fn, "graph")
-    for (name, a), b in zip(got.model.state_dict().items(), want.model.state_dict().values()):
-        assert torch.equal(a, b), name
-    assert all(torch.equal(got.state.ema[k], want.state.ema[k]) for k in want.state.ema)
+    # every entry compared before the verdict, so that a failure names the first
+    # parameter or EMA entry that parted, with its largest difference and the count
+    pairs = [(f"param {name}", a, b) for (name, a), b in
+             zip(got.model.state_dict().items(), want.model.state_dict().values())]
+    pairs += [(f"ema {k}", got.state.ema[k], want.state.ema[k]) for k in want.state.ema]
+    parted = [(name, float((a.float() - b.float()).abs().max())) for name, a, b in pairs
+              if not torch.equal(a, b)]
+    assert not parted, (f"{len(parted)} of {len(pairs)} entries parted; first: {parted[0][0]}, "
+                        f"largest |graph - eager| {parted[0][1]:.3e}")
 
 
 # --------------------------------------------------------------------------- #

@@ -68,6 +68,9 @@ def test_import_loads_neither_jax_nor_the_jax_package():
         "import condmdi_tpu_torch.evals.parity, condmdi_tpu_torch.utils.assets\n"
         "import condmdi_tpu_torch.parallel, condmdi_tpu_torch.parallel.mesh\n"
         "import condmdi_tpu_torch.parallel.dp_sample, condmdi_tpu_torch.parallel.tp\n"
+        "import condmdi_tpu_torch.geometry, condmdi_tpu_torch.data, condmdi_tpu_torch.models\n"
+        "import condmdi_tpu_torch.diffusion, condmdi_tpu_torch.diffusion.gaussian\n"
+        "import condmdi_tpu_torch.diffusion.sampling\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'flax', 'orbax', 'condmdi_tpu')]\n"
         "assert not bad, bad\n"

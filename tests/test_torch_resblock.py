@@ -1,7 +1,8 @@
 """The port's fused resblock half (condmdi_tpu_torch/ops/resblock.py) against
 the JAX package's: its plain version against JAX's XLA reference and against
 the Pallas kernel in interpret mode, on the CPU; and the wrapper's refusal
-to fall back. Gradients through its autograd Function are held to JAX's in
+to fall back. Wide groups and long lengths (the split route) are in
+tests/test_torch_resblock_split.py. Gradients through its autograd Function are held to JAX's in
 tests/test_torch_grad.py. The Hopper kernel itself is held to its plain version on the
 card by tests/test_torch_cuda.py and chip_smoke.py."""
 
@@ -130,18 +131,40 @@ def test_card_path_refuses_autograd(monkeypatch, tmp_path):
         resblock._launch(x, *targs[1:], None, None, None, 8, 1e-5)
 
 
-@pytest.mark.parametrize("bad", ["group_width", "dtype", "weight"])
-def test_card_path_rejects_what_the_kernel_does_not_take(bad):
+def _stub_out_nvcc(monkeypatch, tmp_path):
+    """The card path with no compiler: a call that reaches the build raises there."""
+    monkeypatch.setattr(resblock, "reference_conv_gn_mish", _never_plain)
+    monkeypatch.setattr(_build, "find_nvcc", lambda: (_ for _ in ()).throw(RuntimeError("nvcc")))
+    monkeypatch.setattr(_build, "_libs", {})
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+
+
+@pytest.mark.parametrize("bad", ["group_width", "dtype", "weight", "groups"])
+def test_card_path_rejects_what_the_kernel_does_not_take(bad, monkeypatch, tmp_path):
+    """A dtype other than float32/bfloat16, a conv width other than 5 and a Cout
+    that n_groups does not divide are refused before any build. A group wider than
+    the cluster routes' 128 channels (256 here) was refused too until the split
+    route took it: such a call now goes on to the kernel's build (which fails
+    here, without nvcc) and never to the plain version."""
     args, kw = make_inputs(2, 16, 24, 32, adagn=False, res=False)
     (x, w, b, g, be), _ = to_torch(args, kw)
     groups = 8
     if bad == "group_width":
         x, w = torch.zeros(1, 4, 8), torch.zeros(2048, 8, 5)
         b = g = be = torch.zeros(2048)
-    elif bad == "dtype":
+        assert resblock.resblock_plan(1, 4, 8, 2048, torch.float32).route == "split"
+        _stub_out_nvcc(monkeypatch, tmp_path)
+        before = resblock.fused_conv_gn_mish.launches
+        with pytest.raises(RuntimeError, match="nvcc"):
+            resblock._launch(x, w, b, g, be, None, None, None, groups, 1e-5)
+        assert resblock.fused_conv_gn_mish.launches == before
+        return
+    if bad == "dtype":
         x = x.double()
-    else:
+    elif bad == "weight":
         w = w[..., :4]
+    else:
+        groups = 5
     with pytest.raises((ValueError, TypeError, NotImplementedError)):
         resblock._launch(x, w, b, g, be, None, None, None, groups, 1e-5)
 
@@ -197,15 +220,19 @@ def test_cluster_covers_one_batch_item_and_group(T, group, expected):
     assert resblock.smem_bytes(T, 5, torch.bfloat16) <= resblock._MAX_SMEM
 
 
-def test_card_path_refuses_a_length_no_cluster_holds():
-    args, kw = make_inputs(1, 1025, 8, 16, adagn=False, res=False)
-    targs, _ = to_torch(args, kw)
-    targs = [t.to(torch.bfloat16) for t in targs]
-    with pytest.raises(NotImplementedError, match="cluster"):
-        resblock._launch(*targs, None, None, None, 8, 1e-5)
-    f32 = to_torch(*make_inputs(1, 1025, 8, 16, adagn=False, res=False))[0]
-    with pytest.raises(NotImplementedError, match="cluster"):
-        resblock._launch(*f32, None, None, None, 8, 1e-5)
+def test_card_path_refuses_a_length_no_cluster_holds(monkeypatch, tmp_path):
+    """T=1025, the first length past a cluster of 8 row tiles, was refused in both
+    types until the split route took it: the plan sends it there, and the call goes
+    on to the kernel's build (which fails here, without nvcc), never to the plain
+    version."""
+    _stub_out_nvcc(monkeypatch, tmp_path)
+    for dtype in (torch.bfloat16, torch.float32):
+        targs = [t.to(dtype) for t in to_torch(*make_inputs(1, 1025, 8, 16, adagn=False,
+                                                              res=False))[0]]
+        assert resblock.cluster_size(1025, 2, dtype) > resblock._MAX_CLUSTER
+        assert resblock.resblock_plan(1, 1025, 8, 16, dtype).route == "split"
+        with pytest.raises(RuntimeError, match="nvcc"):
+            resblock._launch(*targs, None, None, None, 8, 1e-5)
 
 
 def test_packed_weight_cache_follows_the_weight():
@@ -324,9 +351,12 @@ def test_probe_switches_are_the_sources_and_the_package_builds_without_them(monk
     body = re.search(r"enum ProbeOff \{(.*?)\};", source, re.S).group(1)
     bits = {name: int(value) for name, value in re.findall(r"(kOff\w+) = (\d+)", body)}
     assert bits == {"kOffMma": probe.MMA, "kOffCopies": probe.COPIES, "kOffSplit": probe.SPLIT,
-                    "kOffWeights": probe.WEIGHTS, "kOffSmallTerms": probe.SMALL_TERMS}
-    assert probe.VARIANTS["as committed"] == 0
+                    "kOffWeights": probe.WEIGHTS, "kOffSmallTerms": probe.SMALL_TERMS,
+                    "kOffNorm": probe.NORM, "kOffScratch": probe.SCRATCH}
+    assert probe.VARIANTS["as committed"] == 0 == probe.SPLIT_VARIANTS["as committed"]
     assert all(0 <= mask < 32 for mask in probe.VARIANTS.values())
+    assert all(mask in (0, probe.NORM, probe.NORM | probe.SCRATCH)
+               for mask in probe.SPLIT_VARIANTS.values())
     assert not any("CONDMDI_PROBE" in flag for flag in _build.NVCC_FLAGS)
     assert "#define CONDMDI_PROBE_OFF 0" in source
 
