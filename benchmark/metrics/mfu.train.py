@@ -1,0 +1,7 @@
+"""The train step's model FLOPs (3x the forward's) over its device time, share of the stated type's peak, percent."""
+
+from benchmark.core import readers
+
+
+def read(obs):
+    return readers.mfu(obs)
