@@ -2367,20 +2367,15 @@ def step_split(loop, label, card):
     clock against the device time, the device time split into the resblock
     kernel's forwards, the rest of the forward, the resblock halves' backward (the
     plain recompute and the gradient through it), the rest of the backward and the
-    optimizer (clip, AdamW, EMA), by CUDA events; and the step's kernels by time
-    (torch.profiler). Launches made here are not the main path's."""
+    optimizer (clip, AdamW, EMA), by CUDA events (the eager step's device-timed
+    spans, utils/tracing.py); and the step's kernels by time (torch.profiler).
+    Launches made here are not the main path's."""
     import condmdi_tpu_torch.ops.resblock as rb
     from condmdi_tpu_torch.training.loop import make_train_step
+    from condmdi_tpu_torch.utils import tracing
 
     data, n = loop.device_data
     batch = loop._gather(data, np.arange(loop.args.batch_size) % n)
-    events = {}
-
-    def mark(part):
-        e = torch.cuda.Event(enable_timing=True)
-        e.record()
-        events[part] = e
-
     spans = {"kernel": [], "recompute": []}
 
     def timed(fn, key):
@@ -2393,8 +2388,7 @@ def step_split(loop, label, card):
             return out
         return wrapper
 
-    step = make_train_step(loop.model, loop.sched, loop.dcfg, loop.tcfg,
-                           marks=mark)
+    step = make_train_step(loop.model, loop.sched, loop.dcfg, loop.tcfg, cuda_graphs=False)
     for _ in range(2):  # warm
         step(loop.state, batch, loop.draws)
     torch.cuda.synchronize()
@@ -2412,11 +2406,11 @@ def step_split(loop, label, card):
     finally:
         rb._launch, rb.recompute_grads = launch, recompute
 
-    def span(a, b):
-        return events[a].elapsed_time(events[b])
+    def part_ms(name):  # the last step's
+        return tracing.spans(name)[-1].device_ms()
 
-    split = {"forward_ms": span("forward", "backward"), "backward_ms": span("backward", "optimizer"),
-             "optimizer_ms": span("optimizer", "end")}
+    split = {"forward_ms": part_ms("train.forward"), "backward_ms": part_ms("train.backward"),
+             "optimizer_ms": part_ms("train.optimizer")}
     split["kernel_forward_ms"] = sum(a.elapsed_time(b) for a, b in spans["kernel"])
     split["recompute_backward_ms"] = sum(a.elapsed_time(b) for a, b in spans["recompute"])
     split["host_ms"] = statistics.median(walls)

@@ -49,6 +49,7 @@ from condmdi_tpu_torch.models.cfg import (
     make_cfg_denoiser,
     make_plain_denoiser,
 )
+from condmdi_tpu_torch.utils import tracing
 from condmdi_tpu_torch.utils.cuda_graph import CudaGraph
 
 
@@ -230,6 +231,12 @@ class SamplingProgram:
 
     @torch.no_grad()
     def run(self, noise=None, generator=None, step_noise=None):
+        """One sampling run, recorded as the span `sampler.run` (attr steps; a
+        graph captured during the run is its child `graph.capture`)."""
+        with tracing.span("sampler.run", steps=self.pipe.sched.num_timesteps):
+            return self._run(noise, generator, step_noise)
+
+    def _run(self, noise, generator, step_noise):
         pipe = self.pipe
         x = initial_x(self.shape, pipe.sched, generator, noise)
         steps = None if self.plms else sampler_steps(pipe.sampler.method, pipe.sched)

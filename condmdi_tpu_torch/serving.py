@@ -13,11 +13,18 @@ Counterpart of condmdi_tpu/serving.py:
   * per-request keyframes: obs_x0 / obs_mask rows are batched together with
     unconditioned rows, whose mask is all False;
   * a batch's noise comes from a `torch.Generator` on the pipeline's device
-    seeded with the first request's seed.
+    seeded with the first request's seed;
+  * every request and batch is recorded (utils/tracing.py): `server.request`
+    from submit to its result, its child `server.queue` up to the start of the
+    batch that carries it; `server.gather`, the wait that closes a batch;
+    `server.batch` from its close to its last result, with its children
+    `server.load`, `sampler.run` and `server.deliver`. A request's latency is
+    its queue wait plus its batch's time up to its own result.
 """
 
 from __future__ import annotations
 
+import itertools
 import queue
 import threading
 import time
@@ -26,6 +33,8 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+from condmdi_tpu_torch.utils import tracing
 
 TEXT_DIM = 512  # CLIP text-embedding width the models condition on
 
@@ -39,6 +48,8 @@ class MotionRequest:
     _event: threading.Event = field(default_factory=threading.Event, repr=False)
     _result: Optional[np.ndarray] = None
     _error: Optional[BaseException] = None
+    _id: int = -1  # the server's count of requests submitted before it
+    _span: Optional[tracing.Span] = field(default=None, repr=False)  # server.request
 
     def result(self, timeout: Optional[float] = None) -> np.ndarray:
         if not self._event.wait(timeout):
@@ -48,8 +59,14 @@ class MotionRequest:
         return self._result
 
 
+_SERVERS = itertools.count()
+
+
 class MotionServer:
-    """Micro-batching inference server over a SamplePipeline."""
+    """Micro-batching inference server over a SamplePipeline. Its spans carry
+    `server`, a number that tells this server's from another's in the process;
+    requests (`req`) and batches (`batch`) are numbered from 0 in the order the
+    server took them."""
 
     def __init__(
         self,
@@ -69,6 +86,9 @@ class MotionServer:
         self.guidance_param = guidance_param
         # (requests, bucket) of every batch run, in order
         self.batches: list[tuple[int, int]] = []
+        self.id = next(_SERVERS)
+        self._requests = itertools.count()
+        self._closed = 0  # batches closed
 
         self._queue: "queue.Queue[MotionRequest]" = queue.Queue()
         self._stop = threading.Event()
@@ -110,6 +130,8 @@ class MotionServer:
 
     # ------------------------------------------------------------------ #
     def submit(self, req: MotionRequest) -> MotionRequest:
+        req._id = next(self._requests)
+        req._span = tracing.begin("server.request", req=req._id, server=self.id)
         self._queue.put(req)
         return req
 
@@ -123,10 +145,13 @@ class MotionServer:
     # ------------------------------------------------------------------ #
     def _loop(self):
         while not self._stop.is_set():
+            queued = self._queue.qsize()
             try:
                 first = self._queue.get(timeout=0.1)
             except queue.Empty:
                 continue
+            gather = tracing.begin("server.gather", server=self.id, batch=self._closed,
+                                   queued=queued)
             batch = [first]
             deadline = time.monotonic() + self.max_wait
             while len(batch) < self.max_batch:
@@ -137,37 +162,49 @@ class MotionServer:
                     batch.append(self._queue.get(timeout=remaining))
                 except queue.Empty:
                     break
+            tracing.end(gather, n=len(batch))
+            j = self._closed
+            self._closed += 1
             try:
-                self._run_batch(batch)
+                self._run_batch(batch, j)
             except Exception as exc:  # the server keeps running; each caller sees the error
                 for r in batch:
                     r._error = exc
+                    tracing.end(r._span, batch=j, error=repr(exc))
                     r._event.set()
 
-    def _run_batch(self, batch: list[MotionRequest]):
+    def _run_batch(self, batch: list[MotionRequest], j: int):
         n = len(batch)
         B = self._bucket(n)
-        self._warmup(B)
-        text = np.zeros((B, TEXT_DIM), np.float32)
-        obs_x0 = np.zeros((B, self.T, self.F), np.float32)
-        obs_mask = np.zeros((B, self.T, self.F), bool)
-        for i, r in enumerate(batch):
-            text[i] = r.text_embed
-            if r.obs_x0 is not None:
-                obs_x0[i] = r.obs_x0
-                obs_mask[i] = r.obs_mask
-        dev = self.device
-        gen = torch.Generator(device=dev).manual_seed(batch[0].seed)
-        out = self.pipe.sample(
-            (B, self.T, self.F),
-            {"text_embed": torch.from_numpy(text).to(dev)},
-            guidance_param=self.guidance_param,
-            obs_x0=torch.from_numpy(obs_x0).to(dev),
-            obs_mask=torch.from_numpy(obs_mask).to(dev),
-            generator=gen,
-        )
-        out = out.float().cpu().numpy()
-        self.batches.append((n, B))
-        for i, r in enumerate(batch):
-            r._result = out[i]
-            r._event.set()
+        with tracing.span("server.batch", server=self.id, batch=j, n=n, bucket=B,
+                          reqs=[r._id for r in batch]) as span:
+            for r in batch:
+                if r._span is not None:
+                    tracing.end(tracing.begin("server.queue", parent=r._span,
+                                              start_ns=r._span.start_ns, server=self.id,
+                                              req=r._id, batch=j),
+                                end_ns=None if span is None else span.start_ns)
+            self._warmup(B)
+            dev = self.device
+            with tracing.span("server.load"):
+                text = np.zeros((B, TEXT_DIM), np.float32)
+                obs_x0 = np.zeros((B, self.T, self.F), np.float32)
+                obs_mask = np.zeros((B, self.T, self.F), bool)
+                for i, r in enumerate(batch):
+                    text[i] = r.text_embed
+                    if r.obs_x0 is not None:
+                        obs_x0[i] = r.obs_x0
+                        obs_mask[i] = r.obs_mask
+                gen = torch.Generator(device=dev).manual_seed(batch[0].seed)
+                y = {"text_embed": torch.from_numpy(text).to(dev)}
+                obs_x0 = torch.from_numpy(obs_x0).to(dev)
+                obs_mask = torch.from_numpy(obs_mask).to(dev)
+            out = self.pipe.sample((B, self.T, self.F), y, guidance_param=self.guidance_param,
+                                   obs_x0=obs_x0, obs_mask=obs_mask, generator=gen)
+            with tracing.span("server.deliver"):
+                out = out.float().cpu().numpy()
+                self.batches.append((n, B))
+                for i, r in enumerate(batch):
+                    r._result = out[i]
+                    tracing.end(r._span, batch=j)
+                    r._event.set()

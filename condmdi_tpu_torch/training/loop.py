@@ -30,10 +30,14 @@ replace by one that replays another framework's draws. `remat` runs the
 denoiser under torch.utils.checkpoint, with its dropout draws recorded on
 the forward and replayed in the recompute.
 
-Metrics stay on the device; reading them is the caller's sync. `marks`, when
-given, is called with "forward", "backward", "optimizer" and "end" as the
-step reaches each part (a profiler records CUDA events there); it costs
-nothing when absent.
+Metrics stay on the device; reading them is the caller's sync. The host's
+draw of the keyframe masks is recorded as the span `train.host_draw`
+(utils/tracing.py) at every step (from the batch's `lengths_host`, it waits
+for nothing on the card; without it, the lengths are read from the card
+inside the span); a step that runs eagerly
+(`make_train_step(..., cuda_graphs=False)`, the CPU) records its parts as the
+spans `train.forward`, `train.backward` and `train.optimizer`, on the card
+each timed by CUDA events as well. A replayed step records no part.
 
 On the card the step is replayed from a CUDA graph, the counterpart of the
 JAX package's jitted step (`BufferedTrainStep`): the host draws everything
@@ -49,11 +53,12 @@ draws; the second captures the graph under
 weights its own AdamW step updates. A data-parallel step is replayed as two
 graphs, with the gradients' all-reduce between them on the host. The eager
 step stays for the loss-aware sampler (its draw reads t and the losses on
-the host), for `marks`, for a tensor-parallel step and on the CPU, by rule.
+the host), for a tensor-parallel step and on the CPU, by rule.
 """
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass, field
 from typing import Callable, Optional
 
@@ -65,6 +70,7 @@ from condmdi_tpu_torch.diffusion.resample import LossAwareState, uniform_sample_
 from condmdi_tpu_torch.diffusion.schedule import DiffusionSchedule
 from condmdi_tpu_torch.models.layers import TrainDraws
 from condmdi_tpu_torch.training.keyframes import get_keyframes_mask
+from condmdi_tpu_torch.utils import tracing
 
 
 @dataclass(frozen=True)
@@ -310,7 +316,9 @@ def draw_step_inputs(state: TrainState, batch: dict, draws: StepDraws, tcfg: Tra
             from condmdi_tpu_torch.parallel.mesh import all_gather_rows
 
             lengths = all_gather_rows(mesh, torch.as_tensor(lengths))
-        obs_mask = mine(draws.keyframe_mask(lengths, T, tcfg.keyframe_selection_scheme))
+        with tracing.span("train.host_draw", rows=B):
+            mask = draws.keyframe_mask(lengths, T, tcfg.keyframe_selection_scheme)
+        obs_mask = mine(mask)
         if tcfg.keyframe_mask_prob > 0.0:
             drop = mine(draws.keyframe_drop(B, tcfg.keyframe_mask_prob, device))
     t, weights = draws.timesteps(state.loss_aware, B, num_timesteps, device)
@@ -333,11 +341,16 @@ class _StepBody:
     averages the metrics and gathers the per-sample losses and t from every
     rank. With a ('dp', 'tp') mesh the model is a tensor-parallel copy
     (parallel/tp.py): the gradients are averaged over 'dp' and the norms taken
-    over the slices of every tp rank."""
+    over the slices of every tp rank.
+
+    `timed` (set by `make_train_step` where the step runs eagerly) records the
+    step's parts as the spans train.forward, train.backward and
+    train.optimizer, device-timed on the card; a captured body records none."""
 
     def __init__(self, model: nn.Module, sched: DiffusionSchedule, dcfg: DiffusionConfig,
-                 tcfg: TrainConfig, mark: Callable[[str], None], mesh=None):
-        self.model, self.sched, self.dcfg, self.tcfg, self.mark = model, sched, dcfg, tcfg, mark
+                 tcfg: TrainConfig, mesh=None):
+        self.model, self.sched, self.dcfg, self.tcfg = model, sched, dcfg, tcfg
+        self.timed = False
         self.mesh = self.dp = mesh
         self.norm = global_norm
         self.sharded: list[bool] = []  # which parameters are tensor-parallel slices
@@ -349,12 +362,29 @@ class _StepBody:
             if tp_group is not None:
                 self.norm = lambda tensors: tp_global_norm(tensors, self.sharded, tp_group)
 
+    def _part(self, name: str):
+        if not self.timed:
+            return contextlib.nullcontext()
+        return tracing.span(name, device=next(self.model.parameters()).is_cuda)
+
     def forward_backward(self, state: TrainState, inp: StepInputs, model_draws):
         """The weighted loss and the loss terms; every parameter holds its gradient
         (zero where the loss does not reach it)."""
+        with self._part("train.forward"):
+            loss, terms = self._forward(inp, model_draws)
+        with self._part("train.backward"):
+            state.optimizer.zero_grad()
+            loss.backward()
+            params = list(state.params.values())
+            self.sharded[:] = [getattr(p, "tp_sharded", False) for p in params]
+            for p in params:  # optax updates every leaf: an unreached one has a zero gradient
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+        return loss.detach(), {k: v.detach() for k, v in terms.items()}
+
+    def _forward(self, inp: StepInputs, model_draws):
         tcfg, model = self.tcfg, self.model
         motion = inp.motion
-        self.mark("forward")
         obs_mask = None
         if tcfg.keyframe_conditioned:
             obs_mask = inp.obs_mask.to(motion.device)
@@ -388,18 +418,7 @@ class _StepBody:
                                 inp.time_mask, obs_mask=obs_mask,
                                 zero_keyframe_loss=tcfg.zero_keyframe_loss,
                                 keyframe_conditioned=tcfg.keyframe_conditioned)
-        loss = torch.mean(terms["loss"] * inp.weights)
-
-        state.optimizer.zero_grad()
-        self.mark("backward")
-        loss.backward()
-        params = list(state.params.values())
-        self.sharded[:] = [getattr(p, "tp_sharded", False) for p in params]
-        for p in params:  # optax updates every leaf: an unreached one has a zero gradient
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        self.mark("optimizer")
-        return loss.detach(), {k: v.detach() for k, v in terms.items()}
+        return torch.mean(terms["loss"] * inp.weights), terms
 
     @staticmethod
     def grads(state: TrainState) -> list[torch.Tensor]:
@@ -465,24 +484,24 @@ class _StepBody:
 
     def __call__(self, state: TrainState, inp: StepInputs, model_draws):
         loss, terms = self.forward_backward(state, inp, model_draws)
-        if self.mesh is not None:
-            with torch.no_grad():
-                grads = self.grads(state)
-                flat = torch.cat([g.reshape(-1) for g in grads])
-                self.average_grads(flat)
-                self.unflatten_(grads, flat)
-        metrics, per_sample = self.update(state, loss, terms)
-        return self.finish(metrics, per_sample, inp.t)
+        with self._part("train.optimizer"):
+            if self.mesh is not None:
+                with torch.no_grad():
+                    grads = self.grads(state)
+                    flat = torch.cat([g.reshape(-1) for g in grads])
+                    self.average_grads(flat)
+                    self.unflatten_(grads, flat)
+            metrics, per_sample = self.update(state, loss, terms)
+            return self.finish(metrics, per_sample, inp.t)
 
 
 def _step_body(model: nn.Module, sched: DiffusionSchedule, dcfg: DiffusionConfig,
-               tcfg: TrainConfig, mark: Callable[[str], None], mesh=None) -> _StepBody:
-    return _StepBody(model, sched, dcfg, tcfg, mark, mesh)
+               tcfg: TrainConfig, mesh=None) -> _StepBody:
+    return _StepBody(model, sched, dcfg, tcfg, mesh)
 
 
 def make_train_step(model: nn.Module, sched: DiffusionSchedule, dcfg: DiffusionConfig,
-                    tcfg: TrainConfig, marks: Optional[Callable[[str], None]] = None,
-                    cuda_graphs: bool = True, mesh=None,
+                    tcfg: TrainConfig, cuda_graphs: bool = True, mesh=None,
                     ) -> Callable[[TrainState, dict, StepDraws], dict]:
     """`train_step(state, batch, draws) -> metrics`, updating the model and state.
 
@@ -490,9 +509,9 @@ def make_train_step(model: nn.Module, sched: DiffusionSchedule, dcfg: DiffusionC
     [B, 512] / action [B] where the model takes them, on the model's device
     (and optionally `lengths_host`, the lengths on the host, which the
     keyframe mask is drawn from). On CUDA, unless `cuda_graphs` is False, the
-    loss-aware sampler is in use, `marks` or a 2-D ('dp', 'tp') mesh is given,
-    the step is a `BufferedTrainStep` replayed from CUDA graphs; otherwise it
-    runs eagerly.
+    loss-aware sampler is in use or a 2-D ('dp', 'tp') mesh is given, the step
+    is a `BufferedTrainStep` replayed from CUDA graphs; otherwise it runs
+    eagerly and records its parts as spans (`_StepBody.timed`).
 
     `mesh`: a data-parallel DeviceMesh (parallel/mesh.py make_mesh). The batch
     then holds this rank's B/n rows of a global batch of B (the ranks' batches
@@ -501,13 +520,13 @@ def make_train_step(model: nn.Module, sched: DiffusionSchedule, dcfg: DiffusionC
     global batch (training/loop.py `draw_step_inputs`, `_StepBody`): the
     counterpart of the JAX package's train step on a 'dp' mesh.
     """
-    mark = marks or (lambda _part: None)
-    body = _step_body(model, sched, dcfg, tcfg, mark, mesh)
+    body = _step_body(model, sched, dcfg, tcfg, mesh)
     device = next(model.parameters()).device
     # a tensor-parallel step stays eager: its forward's collectives would sit inside a graph
-    if (cuda_graphs and device.type == "cuda" and marks is None
+    if (cuda_graphs and device.type == "cuda"
             and (mesh is None or mesh.ndim == 1) and tcfg.schedule_sampler == "uniform"):
         return BufferedTrainStep(model, sched, tcfg, body)
+    body.timed = True
 
     def train_step(state: TrainState, batch: dict, draws: StepDraws) -> dict:
         inputs = draw_step_inputs(state, batch, draws, tcfg, sched.num_timesteps, mesh)
@@ -521,7 +540,6 @@ def make_train_step(model: nn.Module, sched: DiffusionSchedule, dcfg: DiffusionC
                 t = all_gather_rows(dp_part(mesh), t)
             state.loss_aware = state.loss_aware.update(t.cpu(), per_sample.cpu())
         state.step += 1
-        mark("end")
         return metrics
 
     return train_step

@@ -19,6 +19,8 @@ kernels.
     the memory pool it was given (`torch.cuda.graph_pool_handle()`, one per
     pipeline, shared by its buckets);
   * later calls replay the graph;
+  * each capture is recorded as the span `graph.capture` (utils/tracing.py),
+    so that a capture again in a serving process shows;
   * its validity key is the `weight_key` (ops/weight_cache.py) of every
     parameter and buffer of `modules` and the implementation in force
     (`implementation_key`). A call with `check=True` compares it and captures
@@ -42,6 +44,7 @@ import torch
 from torch import nn
 
 from condmdi_tpu_torch.ops.weight_cache import generation, weight_key
+from condmdi_tpu_torch.utils import tracing
 
 # what chip_smoke.py and the tests swap for the plain versions: a graph captured on one
 # of them must not replay under another
@@ -140,6 +143,14 @@ class CudaGraph:
         return self.outputs
 
     def _capture(self):
+        """The warm-up call and the capture, recorded as the span `graph.capture`
+        (attr cause: "first", or "key changed" for a capture again); nothing
+        inside the capture's body is recorded."""
+        cause = "first" if self.graph is None else "key changed"
+        with tracing.span("graph.capture", cause=cause):
+            return self._capture_body()
+
+    def _capture_body(self):
         self.graph = self.outputs = None
         current = torch.cuda.current_stream()
         if self._stream is None:
@@ -150,8 +161,8 @@ class CudaGraph:
             result = self.fn()  # the warm-up is a real call: its launches count
         before = launch_counts()
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=self.pool, stream=stream,
-                              capture_error_mode="thread_local"):
+        with tracing.paused(), torch.cuda.graph(graph, pool=self.pool, stream=stream,
+                                                capture_error_mode="thread_local"):
             outputs = self.fn()
         gained = tuple(a - b for a, b in zip(launch_counts(), before))
         _add_launches(-n for n in gained)  # the capture launched nothing

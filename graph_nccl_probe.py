@@ -118,7 +118,7 @@ def child(variant: str, n: int) -> dict:
     errors = []
     t0 = time.perf_counter()
     for _ in range(n):
-        body = _step_body(net, sched, DiffusionConfig(), tcfg, lambda _part: None, mesh)
+        body = _step_body(net, sched, DiffusionConfig(), tcfg, mesh)
         step = BufferedTrainStep(net, sched, tcfg, body)
         step.mesh = None  # one graph of the whole body, its collectives inside it
         try:

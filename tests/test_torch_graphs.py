@@ -346,7 +346,7 @@ def test_buffered_train_step_equals_the_eager_step(kind):
         state = tloop.create_train_state(tm, tc, sched)
         if buffered:
             step = tloop.BufferedTrainStep(tm, sched, tc, tloop._step_body(
-                tm, sched, dcfg, tc, lambda _part: None))
+                tm, sched, dcfg, tc))
         else:
             step = tloop.make_train_step(tm, sched, dcfg, tc)
         draws = tloop.StepDraws(torch.Generator().manual_seed(5), torch.Generator().manual_seed(6))
@@ -386,7 +386,7 @@ def test_buffered_train_step_matches_jax(kind):
     tm.train()
     tdcfg = tg.DiffusionConfig(lambda_vel=0.2)
     tstep = tloop.BufferedTrainStep(tm, tsched, ttc, tloop._step_body(
-        tm, tsched, tdcfg, ttc, lambda _part: None))
+        tm, tsched, tdcfg, ttc))
     tstate = tloop.create_train_state(tm, ttc, tsched)
     for i in range(3):
         batch = make_batch(30 + i)
@@ -429,8 +429,7 @@ def test_learning_rate_tensor_follows_the_anneal():
     state.optimizer = torch.optim.AdamW(list(state.params.values()), lr=lr, foreach=False,
                                         betas=(0.9, tc.adam_beta2), eps=1e-8,
                                         weight_decay=tc.weight_decay)
-    step = tloop.BufferedTrainStep(tm, sched, tc, tloop._step_body(tm, sched, dcfg, tc,
-                                                                   lambda _part: None))
+    step = tloop.BufferedTrainStep(tm, sched, tc, tloop._step_body(tm, sched, dcfg, tc))
     draws = tloop.StepDraws(torch.Generator().manual_seed(1), torch.Generator().manual_seed(2))
     for count in range(5):
         step(state, torch_batch(make_batch(count)), draws)

@@ -149,7 +149,7 @@ def train_ranks(rank, world, store):
                 elif variant == "dp":
                     step, feed = make_train_step(model, sched, dcfg, tcfg, mesh=mesh), mine
                 else:
-                    body = _step_body(model, sched, dcfg, tcfg, lambda _p: None, mesh)
+                    body = _step_body(model, sched, dcfg, tcfg, mesh)
                     step, feed = BufferedTrainStep(model, sched, tcfg, body), mine
                 losses = [float(step(state, feed, draws)["loss"]) for _ in range(3)]
                 results.append((losses, {k: v.detach().clone() for k, v in state.params.items()},
