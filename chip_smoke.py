@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Phases, in order; any failure exits non-zero:
-  1. setup: card name and power limit, torch/CUDA versions, the three sources
+  1. setup: card name and power limit, torch/CUDA versions, the four sources
      built at once (one nvcc each), their ptxas register/spill lines;
   2. the fused resblock kernel against its plain PyTorch version at every
      distinct resblock shape of a UNet-XL forward (pad 200), as the forward
@@ -252,7 +252,16 @@ Phases, in order; any failure exits non-zero:
      recover_from_rot on its motion on the card against the CPU; UNet-XL at --unet_pad_to
      1280, B=2, a forward in each type against plain; every half of those four forwards per
      call against plain and timed (kernel, plain, library, bound, host), summed;
- 41. a {"kernels": [...]} line (the three kernels, and the attention's streaming
+ 41. the float32 dense kernel (csrc/dense.cu, the tf32x3 route of MDM's encoder
+     projections): per call at the four projections at M = 64 x 197 (evals.run_t2m's
+     batch), 32 x 61 (a2m) and 4 x 197 (edit), with and without bias, its largest error
+     against a float64 product at most DENSE_ERR_RATIO times cuBLAS float32's (TF32
+     off) and cuBLAS in TF32 past it; times at M = 64 x 197 (kernel, plain, cuBLAS
+     float32 as library, bound at three TF32 products, host enqueue); a sweep of M
+     against cuBLAS (the rows from which the kernel wins: ops/dense.py `MIN_ROWS`);
+     MDM forwards at B=64, f32 with 32 launches against the same forward on cuBLAS,
+     bf16 with none (`python3 chip_smoke.py dense` runs this phase alone);
+ 42. a {"kernels": [...]} line (the four kernels, and the attention's streaming
      route beside them), the card line, and the final {"ok": true, ...}.
 
 Per-shape results also go to chiprun_out/chip_smoke.json (`python3 resblock_probe.py
@@ -4801,17 +4810,212 @@ def split_summary(phase40):
     return points
 
 
+# --------------------------------------------------------------------------- #
+# phase 41: the float32 dense kernel (tf32x3) at MDM's encoder projections
+# --------------------------------------------------------------------------- #
+DENSE_ROWS = 64 * MDM_TOKENS  # evals.run_t2m's batch: 32 samples under CFG, T = 197
+DENSE_SWEEP_ROWS = (64, 128, 197, 256, 394, 512, 788, 1024, 1952, 3152, 6304, DENSE_ROWS)
+DENSE_CHECK_ROWS = (DENSE_ROWS, 32 * 61, 4 * MDM_TOKENS)  # and a2m's B=32 at T=61, edit's B=4
+# The kernel's largest error against a float64 product, at most this many times
+# cuBLAS's float32 product's (TF32 off) on the same operands; cuBLAS in TF32 fails it.
+DENSE_ERR_RATIO = 4.0
+
+
+def dense_bound_ms(M, K, N) -> tuple[float, str]:
+    """Three TF32 products at 495 TFLOP/s, or x, the two planes, the bias and y once."""
+    t_ops = 3 * 2.0 * M * K * N / PEAK_F32_FLOPS
+    t_bytes = 4.0 * (M * K + 2 * N * K + N + M * N) / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def dense_case(M, K, N, gen, dev):
+    """x ~ N(0, 1) (a LayerNorm's output), W LeCun-normal, b ~ N(0, 0.02^2)."""
+    from condmdi_tpu_torch.ops.dense import split_weight
+
+    x = torch.randn((M, K), generator=gen, device=dev)
+    w = torch.randn((N, K), generator=gen, device=dev) * K ** -0.5
+    b = torch.randn((N,), generator=gen, device=dev) * 0.02
+    return x, w, split_weight(w), b
+
+
+def dense_errors(x, w, planes, b):
+    """Largest |y - x.W^T - b| (float64) of the kernel, the plain version, cuBLAS in
+    float32 and cuBLAS in TF32; the kernel's output."""
+    from condmdi_tpu_torch.ops.dense import _launch, tf32x3_linear
+
+    want = torch.addmm(b.double(), x.double(), w.double().T)
+    with torch.no_grad():
+        got = _launch(x, planes, b)
+        torch.cuda.synchronize()
+        plain = tf32x3_linear(x, planes, b)
+        f32 = F.linear(x, w, b)
+        torch.backends.cuda.matmul.allow_tf32 = True
+        tf32 = F.linear(x, w, b)
+        torch.backends.cuda.matmul.allow_tf32 = False
+    errs = {k: (v.double() - want).abs().max().item()
+            for k, v in (("kernel", got), ("plain", plain), ("cublas_f32", f32),
+                         ("cublas_tf32", tf32))}
+    errs["kernel_vs_plain"] = (got - plain).abs().max().item()
+    return errs, got
+
+
+def dense_rows(dev, seed=41):
+    """The kernel per call at MDM's four projections at each of DENSE_CHECK_ROWS rows,
+    with and without bias, against float64, its plain version and cuBLAS; then its
+    time beside cuBLAS's float32 GEMM (library), the plain version and the bound at
+    DENSE_ROWS, with the host enqueue."""
+    from condmdi_tpu_torch.ops.dense import _launch, dense, tf32x3_linear
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rows = []
+    for K, N in MDM_QDENSE:
+        checked = []
+        for M in DENSE_CHECK_ROWS:
+            x, w, planes, b = dense_case(M, K, N, gen, dev)
+            for bias in (b, None):
+                before = dense.launches
+                errs, got = dense_errors(x, w, planes, b if bias is not None else torch.zeros_like(b))
+                if bias is None:  # the same product with no bias pointer at all
+                    with torch.no_grad():
+                        unbiased = _launch(x, planes, None)
+                    if not torch.equal(unbiased, got):
+                        raise SystemExit(f"dense {M}x{K}x{N}: null bias differs from zero bias")
+                ok = (errs["kernel"] <= DENSE_ERR_RATIO * errs["cublas_f32"]
+                      and errs["kernel_vs_plain"] <= DENSE_ERR_RATIO * errs["cublas_f32"]
+                      and errs["cublas_tf32"] > DENSE_ERR_RATIO * errs["cublas_f32"]
+                      and dense.launches - before == 1 + (bias is None))
+                print(f"[dense] M={M} K={K} N={N} bias={bias is not None}: max |err| vs float64: "
+                      f"kernel {errs['kernel']:.3e}, plain {errs['plain']:.3e}, cuBLAS f32 "
+                      f"{errs['cublas_f32']:.3e}, cuBLAS TF32 {errs['cublas_tf32']:.3e}; kernel "
+                      f"against plain {errs['kernel_vs_plain']:.3e} "
+                      f"(kernel / f32 {errs['kernel'] / errs['cublas_f32']:.2f}, limit "
+                      f"{DENSE_ERR_RATIO})", flush=True)
+                if not ok or not torch.isfinite(got).all():
+                    raise SystemExit(f"the dense kernel fails its check at {M}x{K}x{N}: {errs}")
+                checked.append(errs)
+        per_set = 4 * (DENSE_ROWS * K + 3 * N * K + DENSE_ROWS * N)
+        sets = [dense_case(DENSE_ROWS, K, N, gen, dev) for _ in range(max(2, -(-64 * 2**20 // per_set)))]
+        row = dict(M=DENSE_ROWS, K=K, N=N, max_abs_err=max(e["kernel"] for e in checked),
+                   max_err_over_cublas_f32=max(e["kernel"] / e["cublas_f32"] for e in checked))
+        with torch.no_grad():
+            row["ms"], row["host_ms"] = timed_ms(lambda x, w, p, b: _launch(x, p, b), sets)
+            row["plain_ms"], _ = timed_ms(lambda x, w, p, b: tf32x3_linear(x, p, b), sets)
+            row["library_ms"], row["library_host_ms"] = timed_ms(
+                lambda x, w, p, b: F.linear(x, w, b), sets)
+        row["bound_ms"], row["bound_by"] = dense_bound_ms(DENSE_ROWS, K, N)
+        row["tflops"] = 2.0 * DENSE_ROWS * K * N / row["ms"] / 1e9
+        row["library_tflops"] = 2.0 * DENSE_ROWS * K * N / row["library_ms"] / 1e9
+        print(f"[dense] times M={DENSE_ROWS} K={K} N={N}: kernel {row['ms']:.4f} ms "
+              f"({row['tflops']:.1f} TFLOP/s of the layer's operations), library (cuBLAS f32) "
+              f"{row['library_ms']:.4f} ms ({row['library_tflops']:.1f}), plain "
+              f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}); "
+              f"host enqueue: kernel wrapper {row['host_ms']:.4f} ms, F.linear "
+              f"{row['library_host_ms']:.4f} ms", flush=True)
+        rows.append(row)
+        del sets
+    return rows
+
+
+def dense_sweep(dev, seed=43):
+    """Kernel against cuBLAS's float32 GEMM at each of DENSE_SWEEP_ROWS rows and each
+    projection: the fewest rows from which the kernel is the faster at all four."""
+    from condmdi_tpu_torch.ops.dense import _launch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    sweep = []
+    for M in DENSE_SWEEP_ROWS:
+        point = {"M": M}
+        for K, N in MDM_QDENSE:
+            per_set = 4 * (M * K + 3 * N * K + M * N)
+            sets = [dense_case(M, K, N, gen, dev) for _ in range(min(8, max(2, -(-64 * 2**20 // per_set))))]
+            with torch.no_grad():
+                kernel, _ = timed_ms(lambda x, w, p, b: _launch(x, p, b), sets)
+                library, _ = timed_ms(lambda x, w, p, b: F.linear(x, w, b), sets)
+            point[f"{K}x{N}"] = (kernel, library)
+        sweep.append(point)
+        print(f"[dense sweep] M={M}: kernel / cuBLAS f32 ms "
+              + ", ".join(f"{k} {v[0]:.4f} / {v[1]:.4f}" for k, v in point.items() if k != "M"),
+              flush=True)
+    wins = [all(v[0] < v[1] for k, v in p.items() if k != "M") for p in sweep]
+    first = next((p["M"] for i, p in enumerate(sweep) if all(wins[i:])), None)
+    print(f"[dense sweep] the kernel is faster at all four projections from M = {first} on",
+          flush=True)
+    return {"points": sweep, "wins_from_rows": first}
+
+
+def dense_mdm_forward(dev):
+    """MDM forwards at B=64 (f32, then bf16) in no_grad: the launches and routes of
+    each, the f32 forward against the same forward with every projection on
+    cuBLAS, and both forwards' device times."""
+    import condmdi_tpu_torch.models.mdm as mdm_mod
+    from condmdi_tpu_torch.ops.dense import dense
+
+    out = {}
+    B = 64
+    x = seeded_noise((B, T_FRAMES, FEATS), dev, seed=15)
+    t = torch.full((B,), 500, device=dev)
+    text, _, _ = keyframe_inputs(B, 8)
+    y = {"text_embed": text.to(dev)}
+    for dtype in (torch.float32, torch.bfloat16):
+        model = build_mdm(dev, dtype)
+        xd = x.to(dtype)
+        before, routes = dense.launches, dict(dense.routes)
+        with torch.no_grad():
+            got = model(xd, t, y).float()
+        torch.cuda.synchronize()
+        launches = dense.launches - before
+        taken = {k: dense.routes[k] - routes[k] for k in routes}
+        tag = "f32" if dtype == torch.float32 else "bf16"
+        want_launches = 32 if dtype == torch.float32 else 0
+        print(f"[dense] MDM {tag} forward at B={B}: {launches} dense launches, routes {taken}",
+              flush=True)
+        if launches != want_launches or not torch.isfinite(got).all():
+            raise SystemExit(f"MDM {tag} forward: {launches} dense launches, want {want_launches}")
+        row = {"launches": launches, "routes": taken}
+        with torch.no_grad():
+            row["ms"], row["host_ms"] = timed_ms(lambda: model(xd, t, y), [()], reps=3, iters=5)
+        if dtype == torch.float32:
+            route = mdm_mod.dense_route
+            mdm_mod.dense_route = lambda *a: "cublas"
+            try:
+                with torch.no_grad():
+                    want = model(xd, t, y).float()
+                    row["cublas_ms"], _ = timed_ms(lambda: model(xd, t, y), [()], reps=3, iters=5)
+            finally:
+                mdm_mod.dense_route = route
+            row["rel_rms_vs_cublas"] = ((got - want).pow(2).mean().sqrt()
+                                        / want.pow(2).mean().sqrt()).item()
+            print(f"[dense] MDM f32 forward at B={B}: {row['ms']:.3f} ms with the kernel, "
+                  f"{row['cublas_ms']:.3f} ms on cuBLAS; rel rms between them "
+                  f"{row['rel_rms_vs_cublas']:.2e}", flush=True)
+            if not row["rel_rms_vs_cublas"] < 1e-5:
+                raise SystemExit("MDM f32 forward: the kernel path is not float32's")
+        out[tag] = row
+    return out
+
+
+def dense_phase41(dev, card):
+    """Phase 41: the float32 dense kernel per call, its times, the route's row
+    threshold from a sweep, and MDM forwards through it."""
+    rows = dense_rows(dev)
+    sweep = dense_sweep(dev)
+    forward = dense_mdm_forward(dev)
+    print(f"[dense] {card}", flush=True)
+    return {"rows": rows, "sweep": sweep, "mdm_forward": forward}
+
+
 def build_kernels() -> list[str]:
-    """Build the three sources at once (one nvcc each) and print ptxas' register
+    """Build the four sources at once (one nvcc each) and print ptxas' register
     and spill lines and any note that it serialised wgmma."""
     from condmdi_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    sources = ["resblock.cu", "attention.cu", "quant.cu"]
+    sources = ["resblock.cu", "attention.cu", "quant.cu", "dense.cu"]
     _build.build_all(sources)
     _build.load_resblock()
     _build.load_attention()
     _build.load_quant()
+    _build.load_dense()
     print(f"[setup] kernels ready in {time.perf_counter() - t0:.2f} s (nvcc, in parallel: "
           + ", ".join(f"{s} {_build.build_seconds.get(s, 0.0):.2f} s" for s in sources) + ")",
           flush=True)
@@ -4859,6 +5063,14 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
     build_kernels()
+    if sys.argv[1:] == ["dense"]:  # phase 41 alone
+        dense41 = dense_phase41(dev, card)
+        (ROOT / "chiprun_out").mkdir(exist_ok=True)
+        (ROOT / "chiprun_out" / "chip_smoke_dense.json").write_text(
+            json.dumps({"card": card, "dense": dense41}, indent=1))
+        print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                                 "kind": torch.cuda.get_device_name(0)}}))
+        return 0
     shapes = main_path_shapes(dev)
     text, obs, mask = keyframe_inputs(8, 2)
     phase_seconds = {"1 setup": time.perf_counter() - t0}
@@ -4928,6 +5140,7 @@ def main() -> int:
     parity38 = phase("38 evals.parity on mock assets", parity_phase38, dev, card)
     par39 = phase("39 parallel/ at world size 1", parallel_phase39, dev, card)
     wide40 = phase("40 wide and long resblock halves", wide_long_phase40, dev, card)
+    dense41 = phase("41 float32 dense kernel", dense_phase41, dev, card)
     print("[time] host seconds by phase: "
           + ", ".join(f"{k} {v:.1f}" for k, v in phase_seconds.items())
           + f"; {sum(phase_seconds.values()):.1f} in all", flush=True)
@@ -5171,11 +5384,28 @@ def main() -> int:
                                                   for r in eval20["int8_rows"]["rows"]),
         "eval_ddim_max_abs_err_f32": eval20["int8"]["max_abs_err"],
         "eval_ms": {k: eval20["int8_rows"][k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
+    }, {
+        # the float32 dense kernel (phase 41; replaces no TPU kernel: the JAX package leaves
+        # MDM's projections to XLA): the 32 projections of one MDM f32 forward at B=64 under
+        # CFG (evals.run_t2m's batch), summed from the four shapes' per-call times
+        "name": "dense_tf32x3",
+        "route": "cuda",
+        "source": "condmdi_tpu_torch/csrc/dense.cu",
+        "replaces": None,
+        "launches": dense41["mdm_forward"]["f32"]["launches"],
+        "max_abs_err_f32": max(r["max_abs_err"] for r in dense41["rows"]),
+        "max_err_over_cublas_f32": max(r["max_err_over_cublas_f32"] for r in dense41["rows"]),
+        **{k: 8 * sum(r[k] for r in dense41["rows"])
+           for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+        "bound_by": "operations",
+        "host_ms_per_call": statistics.mean(r["host_ms"] for r in dense41["rows"]),
+        "wins_from_rows": dense41["sweep"]["wins_from_rows"],
+        "mdm_f32_forward_rel_rms_vs_cublas": dense41["mdm_forward"]["f32"]["rel_rms_vs_cublas"],
     }]
     previous = {"fused_conv_gn_mish": PREV_RESBLOCK_MS, "fused_self_attention": PREV_ATTENTION_MS,
                 "fused_self_attention_stream": PREV_STREAM_MS[("a2m_cli_default", "f32")],
                 "int8_conv1d": PREV_INT8_MS}
-    for kern in kernels:
+    for kern in (k for k in kernels if k["name"] in previous):
         print(f"[kernel] before: {kern['name']} took {previous[kern['name']]} ms in its first "
               f"version (PERF.md section 6, an earlier run on an NVIDIA H100 80GB HBM3 at 700 W); "
               f"this run {kern['ms']:.4f} ms", flush=True)
@@ -5199,7 +5429,7 @@ def main() -> int:
                  "variants": var32, "unconstrained_training": unc33},
          "rest": {"smpl_losses": smpl34, "joints2smpl": fit35, "amass": amass36,
                   "file_datasets": data37, "parity": parity38, "parallel": par39},
-         "wide_long": wide40,
+         "wide_long": wide40, "dense": dense41,
          "phase_seconds": phase_seconds,
          "previous_ms_from_perf_md": dict(previous, f32_resblock=PREV_F32_RESBLOCK_MS,
                                           f32_attention=PREV_F32_ATTENTION_MS)}, indent=1))

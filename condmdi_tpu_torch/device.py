@@ -30,7 +30,11 @@ def float32_exact():
     (`torch.backends.cudnn.allow_tf32`), which rounds their inputs to 10
     mantissa bits. The sampling CLIs run under this (it also decorates a
     function), so a CLI computes in float32 as its checks on the card assume;
-    the two flags are restored on exit.
+    the two flags are restored on exit. The flags forbid one TF32 product in
+    place of a float32 one; MDM's float32 encoder projections still take the
+    tf32x3 kernel under them (ops/dense.py `dense_route`), whose three TF32
+    products carry each operand to ~2^-22 and whose error per call is float32's
+    (held to cuBLAS's float32 product on the card).
     """
     saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False

@@ -26,8 +26,10 @@ tree onto this state_dict. The layout is [B, T, F].
 Every self-attention goes through ops.attention: the Hopper kernel on CUDA,
 its plain version on the CPU. The decoder's cross-attention to the one
 conditioning token takes the plain version on every device, as in JAX. The
-Dense projections, LayerNorm, GELU, the GRU cells and the grouped
-convolutions are plain PyTorch; the JAX package left them to XLA. The model
+encoder layers' four projections (`QDense`) in float32 on CUDA take the
+tf32x3 kernel of ops/dense.py where `dense_route` says so. Every other Dense
+projection, LayerNorm, GELU, the GRU cells and the grouped convolutions are
+plain PyTorch; the JAX package left them to XLA. The model
 takes no obs_x0/obs_mask: keyframes reach it through the sampler's
 InpaintingState.
 
@@ -55,6 +57,7 @@ from condmdi_tpu_torch.models.cfg import mask_cond
 from condmdi_tpu_torch.models.embeddings import EmbedAction, PositionalEncoding, TimestepEmbedder
 from condmdi_tpu_torch.models.layers import Conv1d, Dense, LayerNorm, dropout, init_params
 from condmdi_tpu_torch.ops.attention import mha, multihead_attention
+from condmdi_tpu_torch.ops.dense import SplitDenseWeight, dense, dense_route
 from condmdi_tpu_torch.ops.quant import QuantizedWeight, int8_matmul, live_scales
 from condmdi_tpu_torch.ops.resblock import mish
 
@@ -70,7 +73,12 @@ class QDense(Dense):
     per-tensor activation scale, int32 accumulation) through
     ops.quant.int8_matmul: the Hopper int8 kernel on CUDA, its plain version
     on the CPU. The weight is quantized once per parameter and remade when it
-    changes (`QuantizedWeight`)."""
+    changes (`QuantizedWeight`).
+
+    "float" on a float32 CUDA input takes the route `ops.dense.dense_route`
+    names: the tf32x3 kernel (ops/dense.py; the weight split once per
+    parameter and remade when it changes, `SplitDenseWeight`) or `F.linear`;
+    `dense.routes` counts each. Every other input takes `F.linear`."""
 
     def __init__(self, in_features, out_features, precision_mode="float", *, device=None,
                  dtype=None):
@@ -79,10 +87,20 @@ class QDense(Dense):
         super().__init__(in_features, out_features, device=device, dtype=dtype)
         self.precision_mode = precision_mode
         self.quantized = QuantizedWeight()
+        self.split = SplitDenseWeight()
 
     def forward(self, x):
         if self.precision_mode == "float":  # the kernel in x's dtype, as the JAX QDense
-            return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
+            w, b = self.weight, self.bias
+            if x.is_cuda and x.dtype == torch.float32:
+                needs_grad = torch.is_grad_enabled() and (
+                    x.requires_grad or w.requires_grad or b.requires_grad)
+                route = dense_route(x.numel() // x.shape[-1], x.shape[-1], w.shape[0], x.dtype,
+                                    needs_grad)
+                dense.routes[route] += 1
+                if route == "tf32x3":
+                    return dense(x, self.split.get(w), b)
+            return F.linear(x, w.to(x.dtype), b.to(x.dtype))
         q = self.quantized.get(self.weight, self.bias)
         w_scale, bias = q.w_scale, q.bias
         if torch.is_grad_enabled() and (self.weight.requires_grad or self.bias.requires_grad):

@@ -163,5 +163,22 @@ def load_quant() -> ctypes.CDLL:
     return _load("quant.cu", _bind_quant)
 
 
+def _bind_dense(lib: ctypes.CDLL) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.condmdi_dense_forward.argtypes = [
+        p, p, p, p,   # x, W's hi and lo planes, bias (or null), y
+        i, i, i, i,   # M, K, N, the output tile's width
+        p,            # stream
+    ]
+    lib.condmdi_dense_forward.restype = i
+    lib.condmdi_error_string.argtypes = [i]
+    lib.condmdi_error_string.restype = ctypes.c_char_p
+
+
+def load_dense() -> ctypes.CDLL:
+    """The float32 dense (tf32x3) kernel's library, built on first call."""
+    return _load("dense.cu", _bind_dense)
+
+
 def error_string(lib: ctypes.CDLL, err: int) -> str:
     return f"{err} ({lib.condmdi_error_string(err).decode()})"

@@ -51,7 +51,7 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
-from condmdi_tpu_torch.ops.weight_cache import copy_into, repacking, weight_key
+from condmdi_tpu_torch.ops.weight_cache import DerivedWeight
 
 # dynamic shared memory a block may use on sm_90 (227 KB)
 _MAX_SMEM = 232448
@@ -101,36 +101,14 @@ def split_conv_weight(w: torch.Tensor) -> torch.Tensor:
     return torch.stack([pack_conv_weight(hi, _F32_CHUNK), pack_conv_weight(lo, _F32_CHUNK)])
 
 
-class PackedConvWeight:
+class PackedConvWeight(DerivedWeight):
     """The packed copy of one conv weight as the kernel reads it in the weight's
     dtype (`split_conv_weight` in float32, `pack_conv_weight` otherwise),
-    remade when the weight changes.
+    remade when the weight changes (ops/weight_cache.py `DerivedWeight`)."""
 
-    Held by the calling module as a plain attribute: not a parameter, not a
-    buffer, not in the state_dict. The key is the weight's version counter,
-    data pointer, dtype, device and shape and the optimizer steps taken
-    (ops/weight_cache.py), so `load_state_dict`, an in-place update,
-    `.to(dtype)`, `.to(device)` and an optimizer's step (fused AdamW's too,
-    which leaves the version counter as it was) all invalidate it. (A write
-    through `weight.data` bypasses the version counter and is not seen.)
-    Under `weight_cache.repack_on_every_call()` it packs on every call into the
-    tensor it holds, and from then on it re-packs into that tensor, which a
-    train step's graph keeps writing and reading.
-    """
-
-    def __init__(self):
-        self._key = None
-        self._packed = None
-        self._pinned = False  # a captured graph writes and reads this very tensor
-
-    def get(self, w: torch.Tensor) -> torch.Tensor:
-        key = weight_key(w)
-        if repacking() or key != self._key:
-            fresh = packed_for_kernel(w.detach())
-            self._pinned = self._pinned or repacking()
-            self._packed = copy_into(self._packed, fresh) if self._pinned else fresh
-            self._key = key
-        return self._packed
+    @staticmethod
+    def derive(w: torch.Tensor) -> torch.Tensor:
+        return packed_for_kernel(w)
 
 
 def packed_for_kernel(w: torch.Tensor) -> torch.Tensor:

@@ -1,8 +1,9 @@
 """The key that says when a kernel's cached copy of a weight is stale.
 
 The resblock halves cache their conv weight packed as the kernel reads it
-(ops/resblock.py `PackedConvWeight`), and the int8 layers their codes
-(ops/quant.py `QuantizedWeight`). A cache is keyed on the weight's version
+(ops/resblock.py `PackedConvWeight`), MDM's float32 projections theirs split
+into TF32 planes (ops/dense.py `SplitDenseWeight`), both `DerivedWeight`s, and
+the int8 layers their codes (ops/quant.py `QuantizedWeight`). A cache is keyed on the weight's version
 counter, data pointer, dtype, device and shape, so `load_state_dict`, an
 in-place update and `.to()` invalidate it. An optimizer's step need not move
 the version counter: `torch.optim.AdamW(fused=True)` updates its parameters in
@@ -81,3 +82,35 @@ def weight_key(t: Optional[torch.Tensor]):
     if t is None:
         return None
     return (_generation, t._version, t.data_ptr(), t.dtype, t.device, tuple(t.shape))
+
+
+class DerivedWeight:
+    """A kernel's copy of one weight (a subclass's `derive`), remade when the
+    weight changes: keyed on `weight_key`, so that `load_state_dict`, an in-place
+    update, `.to(dtype)`, `.to(device)` and an optimizer's step (fused AdamW's
+    too, which leaves the version counter as it was) all invalidate it (a write
+    through `weight.data` bypasses the version counter and is not seen). Under
+    `repack_on_every_call()` it derives on every call into the tensor it holds,
+    and from then on it re-derives into that tensor, which a train step's graph
+    keeps writing and reading. Held by the calling module as a plain attribute:
+    not a parameter, not a buffer, not in the state_dict.
+    """
+
+    def __init__(self):
+        self._key = None
+        self._copy = None
+        self._pinned = False  # a captured graph writes and reads this very tensor
+
+    @staticmethod
+    def derive(w: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError
+
+    def get(self, w: torch.Tensor) -> torch.Tensor:
+        key = weight_key(w)
+        if repacking() or key != self._key:
+            fresh = self.derive(w.detach())
+            self._pinned = self._pinned or repacking()
+            self._copy = copy_into(self._copy, fresh) if self._pinned else fresh
+            self._key = key
+        return self._copy
+

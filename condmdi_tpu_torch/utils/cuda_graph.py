@@ -53,6 +53,7 @@ _IMPLEMENTATIONS = (
     ("condmdi_tpu_torch.ops.resblock", "_launch"),
     ("condmdi_tpu_torch.ops.attention", "_launch"),
     ("condmdi_tpu_torch.ops.quant", "_launch"),
+    ("condmdi_tpu_torch.ops.dense", "_launch"),
 )
 
 
@@ -67,14 +68,15 @@ def implementation_key() -> tuple:
 
 def _counters() -> tuple:
     from condmdi_tpu_torch.ops.attention import fused_self_attention
+    from condmdi_tpu_torch.ops.dense import dense
     from condmdi_tpu_torch.ops.quant import int8_conv1d
     from condmdi_tpu_torch.ops.resblock import fused_conv_gn_mish
 
-    return fused_conv_gn_mish, fused_self_attention, int8_conv1d
+    return fused_conv_gn_mish, fused_self_attention, int8_conv1d, dense
 
 
 def launch_counts() -> tuple[int, ...]:
-    """The three kernels' launch counters."""
+    """The four kernels' launch counters."""
     return tuple(c.launches for c in _counters())
 
 
@@ -118,7 +120,7 @@ class CudaGraph:
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.outputs = None
         self.key = None
-        self.launches = (0, 0, 0)  # each counter's gain per replay
+        self.launches = (0, 0, 0, 0)  # each counter's gain per replay
         self.captures = 0
         self.replays = 0
         self._stream: Optional[torch.cuda.Stream] = None

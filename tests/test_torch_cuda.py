@@ -2350,3 +2350,151 @@ def test_a2m_mdm_from_graphs_equals_eager(cuda_device, arch):
     assert n_graph[1] == (8 * 20 if arch == "trans_enc" else 0)  # fused_self_attention
     (prog,) = pipe.programs.values()
     assert sum(g.replays for g in prog.graphs.values()) == 19
+
+
+# --------------------------------------------------------------------------- #
+# the float32 dense kernel (csrc/dense.cu, the tf32x3 route of MDM's projections)
+# --------------------------------------------------------------------------- #
+DENSE_ERR_RATIO = 4.0  # the kernel's largest error, at most this many times cuBLAS float32's
+MDM_PROJECTIONS = [(512, 1536), (512, 512), (512, 1024), (1024, 512)]  # qkv, attn_out, ff1, ff2
+
+
+def dense_operands(M, K, N, device, seed=0):
+    """x ~ N(0, 1) (a LayerNorm's output), W LeCun-normal, b ~ N(0, 0.02^2)."""
+    gen = torch.Generator(device).manual_seed(seed)
+    x = torch.randn((M, K), generator=gen, device=device)
+    w = torch.randn((N, K), generator=gen, device=device) * K ** -0.5
+    return x, w, torch.randn((N,), generator=gen, device=device) * 0.02
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bias", [True, False])
+@pytest.mark.parametrize("M", [64 * 197, 32 * 61, 4 * 197])  # run_t2m / the cell, a2m, edit
+@pytest.mark.parametrize("K,N", MDM_PROJECTIONS)
+def test_dense_kernel_error_is_float32s(cuda_device, K, N, M, bias):
+    """Against a float64 product, the kernel's largest error is within DENSE_ERR_RATIO
+    of cuBLAS's float32 product's (TF32 off) on the same operands; cuBLAS in TF32 is
+    not, so the bound has teeth."""
+    from condmdi_tpu_torch.ops import dense as dense_ops
+
+    x, w, b = dense_operands(M, K, N, cuda_device, seed=M + K + N)
+    b = b if bias else None
+    want = x.double() @ w.double().T + (0 if b is None else b.double())
+    saved = torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        f32 = torch.nn.functional.linear(x, w, b)
+        torch.backends.cuda.matmul.allow_tf32 = True
+        tf32 = torch.nn.functional.linear(x, w, b)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    before = dense_ops.dense.launches
+    with torch.no_grad():
+        got = dense_ops.dense(x, dense_ops.split_weight(w), b)
+    torch.cuda.synchronize()
+    assert dense_ops.dense.launches == before + 1
+    err = {k: (v.double() - want).abs().max().item()
+           for k, v in (("kernel", got), ("f32", f32), ("tf32", tf32))}
+    assert torch.isfinite(got).all()
+    assert err["kernel"] <= DENSE_ERR_RATIO * err["f32"], err
+    assert err["tf32"] > DENSE_ERR_RATIO * err["f32"], err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N", [(5, 16, 16), (129, 48, 80), (300, 1040, 208)])
+def test_dense_kernel_at_ragged_tiles(cuda_device, M, K, N):
+    """Rows, columns and depth that fill no tile, on either tile width: the kernel
+    against its plain version, to float32's rounding."""
+    from condmdi_tpu_torch.ops import dense as dense_ops
+
+    x, w, b = dense_operands(M, K, N, cuda_device, seed=K)
+    planes = dense_ops.split_weight(w)
+    with torch.no_grad():
+        got = dense_ops.dense(x.reshape(1, M, K), planes, b)
+        want = dense_ops.tf32x3_linear(x, planes, b)
+    assert got.shape == (1, M, N)
+    assert torch.all((got[0] - want).abs() <= 1e-5 * (1 + want.abs()))
+
+
+@pytest.mark.cuda
+def test_dense_kernel_replays_from_a_graph(cuda_device):
+    """The launch captured by CudaGraph and replayed on new contents of x equals the
+    eager call bit for bit."""
+    from condmdi_tpu_torch.ops import dense as dense_ops
+
+    x, w, b = dense_operands(4 * 197, 512, 1536, cuda_device)
+    planes = dense_ops.split_weight(w)
+
+    def fn():
+        with torch.no_grad():
+            return [dense_ops.dense(x, planes, b)]
+
+    before = dense_ops.dense.launches
+    _replay_against_eager(fn, [x], _refill(3))
+    assert dense_ops.dense.launches - before == 3  # warm-up, replay, eager
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,per_forward", [("float32", 32), ("bfloat16", 0)])
+def test_dense_launches_in_a_captured_mdm_forward(cuda_device, dtype, per_forward):
+    """One MDM forward (latent 512, 8 layers, B=4, 196 frames) captured by CudaGraph:
+    in float32 every encoder projection takes the kernel (32 launches, 32 tf32x3
+    routes), in bfloat16 none; a replay adds the launches again and equals the eager
+    forward bit for bit."""
+    from condmdi_tpu_torch.models.mdm import MDM
+    from condmdi_tpu_torch.ops.dense import dense
+
+    dt = getattr(torch, dtype)
+    net = MDM(latent_dim=512, ff_size=1024, num_layers=8, num_heads=4, device=cuda_device,
+              seed=0).to(dt).eval()
+    gen = torch.Generator(cuda_device).manual_seed(5)
+    x = torch.randn((4, 196, 263), generator=gen, device=cuda_device).to(dt)
+    t = torch.full((4,), 500, device=cuda_device)
+    y = {"text_embed": torch.randn((4, 512), generator=gen, device=cuda_device)}
+
+    def fn():
+        with torch.no_grad():
+            return [net(x, t, y)]
+
+    launches, routes = dense.launches, dict(dense.routes)
+    _replay_against_eager(fn, [x], _refill(4))
+    assert dense.launches - launches == 3 * per_forward  # warm-up, replay, eager
+    taken = {k: dense.routes[k] - routes[k] for k in routes}
+    # the warm-up, the capture and the eager call run the Python forward; a replay does not
+    assert taken == ({"tf32x3": 3 * 32, "cublas": 0} if per_forward else {"tf32x3": 0, "cublas": 0})
+
+
+@pytest.mark.cuda
+def test_qdense_takes_cublas_where_a_gradient_is_needed(cuda_device):
+    """Under autograd with a weight that requires grad, QDense takes F.linear (the
+    kernel has no backward) and the gradient flows; under no_grad, the kernel."""
+    from condmdi_tpu_torch.models.mdm import QDense
+    from condmdi_tpu_torch.ops.dense import dense
+
+    layer = QDense(512, 512, device=cuda_device)
+    torch.nn.init.normal_(layer.weight, std=512 ** -0.5)
+    torch.nn.init.normal_(layer.bias, std=0.02)
+    x = torch.randn((4, 197, 512), device=cuda_device)
+    routes, launches = dict(dense.routes), dense.launches
+    out = layer(x)
+    out.sum().backward()
+    assert layer.weight.grad is not None
+    with torch.no_grad():
+        again = layer(x)
+    assert dense.launches - launches == 1
+    assert {k: dense.routes[k] - routes[k] for k in routes} == {"tf32x3": 1, "cublas": 1}
+    assert torch.allclose(again, out.detach(), rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad", ["depth", "width", "dtype"])
+def test_dense_wrapper_refuses_what_the_kernel_does_not_take(cuda_device, bad):
+    from condmdi_tpu_torch.ops import dense as dense_ops
+
+    K, N = (40, 64) if bad == "depth" else (64, 40) if bad == "width" else (64, 64)
+    x, w, b = dense_operands(256, K, N, cuda_device)
+    planes = dense_ops.split_weight(w)
+    if bad == "dtype":
+        x = x.to(torch.bfloat16)
+    with pytest.raises((ValueError, TypeError)):
+        dense_ops.dense(x, planes, b)
