@@ -38,7 +38,8 @@ Phases, in order; any failure exits non-zero:
      design's time; then the streaming route (route 0, "stream") per call
      against plain at the shapes no resident route takes (STREAM_SHAPES: hd 16
      at evals.run_a2m's default width, hd 128 at T = 225 in float32 and at
-     T = 512 in bf16, hd 4, 256 and 320), each timed (kernel, plain, SDPA,
+     T = 512 in bf16, hd 4, 256 and 320, hd 72 at DiT-XL/2's offline batch of
+     B=64, T=196 in bf16 through the pack pass), each timed (kernel, plain, SDPA,
      bound, host enqueue) with the layout it took; and one full-width MDM
      forward (latent 512, 8 layers, f32, B=4, 224 frames: T = 225) kernel path
      against plain path with exactly 8 launches on that route;
@@ -370,6 +371,7 @@ STREAM_SHAPES = [  # (name, B, T, D, H, types): route 0's shapes, where no resid
     ("hd4", 8, 197, 16, 4, (torch.bfloat16, torch.float32)),  # --latent_dim 16
     ("hd256", 8, 197, 1024, 4, (torch.bfloat16,)),         # --latent_dim 1024
     ("hd320_f32", 2, 197, 1280, 4, (torch.float32,)),      # O's columns in two blocks
+    ("dit_xl", 64, 196, 1152, 16, (torch.bfloat16,)),      # DiT-XL/2 offline, hd 72, packed
 ]
 STREAM_PLAN_KEYS = ("chunk_cols", "chunks_a_block", "column_blocks", "depth_chunks", "consumers",
                     "q_resident", "stages", "smem_bytes")

@@ -22,7 +22,11 @@ Counterpart of condmdi_tpu/ops/attention.py, with the same names:
   * `multihead_attention` splits a fused [B, T, 3D] QKV projection into
     three column views, so the kernel reads the heads in place.
 
-`fused_self_attention.launches` counts kernel launches, and nothing else.
+`fused_self_attention.launches` counts kernel launches, and nothing else;
+`fused_self_attention.routes` counts the calls by route: "wgmma", "wgmma_f32",
+"stream" (q, k, v read in place) and "stream_packed" (through the pack pass).
+Both count eager calls and the calls a graph capture makes; a replay adds to
+`launches` (utils/cuda_graph.py) and not to `routes`, as `ops.dense`'s counters.
 The layout follows the JAX package: q [B, Tq, D], k/v [B, Tk, D], heads are
 the contiguous hd = D / H column blocks.
 """
@@ -85,6 +89,7 @@ class fused_self_attention(torch.autograd.Function):  # noqa: N801 (the JAX pack
     """
 
     launches = 0
+    routes = {"wgmma": 0, "wgmma_f32": 0, "stream": 0, "stream_packed": 0}
 
     @staticmethod
     def forward(ctx, q, k, v, num_heads: int):
@@ -248,11 +253,13 @@ def _launch(q, k, v, num_heads: int) -> torch.Tensor:
         q_ptr, k_ptr, v_ptr = q.data_ptr(), k.data_ptr(), v.data_ptr()
     lib = _build.load_attention()
     out = torch.empty(shape, device=q.device, dtype=dtype)
+    taken = route
     if route == "wgmma_f32":  # hi and lo bf16 planes of q, k and v, written by its split pass
         scratch = torch.empty((3, 2, B, T, D), device=q.device, dtype=torch.bfloat16)
     elif route == "stream" and stream_packs(lib, q, k, v, num_heads):  # the pack pass's planes
         scratch = torch.empty((3, 2 if code == 0 else 1, B * num_heads, _round16(T), _round16(hd)),
                               device=q.device, dtype=torch.bfloat16)
+        taken = "stream_packed"
     else:
         scratch = None
 
@@ -266,4 +273,5 @@ def _launch(q, k, v, num_heads: int) -> torch.Tensor:
             f"attention kernel launch failed (route {route}): {_build.error_string(lib, err)}"
         )
     fused_self_attention.launches += 1
+    fused_self_attention.routes[taken] += 1
     return out

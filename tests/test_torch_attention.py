@@ -395,6 +395,51 @@ def test_float32_route_hands_the_entry_point_its_planes(monkeypatch):
     assert planes.shape == (3, 2, 4, 197, 512) and args[13] == planes.data_ptr()
 
 
+@pytest.mark.parametrize("case", [
+    # (B, T, D, H, dtype, the call's route): DiT-XL/2 (hd 72) under CFG, where the
+    # resident kernels are not built for the width and TMA cannot address a head in
+    # place; MDM's cells (hd 128) in bf16 and float32; a width TMA reads in place
+    (64, 196, 1152, 16, torch.bfloat16, "stream_packed"),
+    (64, 197, 512, 4, torch.bfloat16, "wgmma"),
+    (64, 197, 512, 4, torch.float32, "wgmma_f32"),
+    (2, 197, 1024, 4, torch.bfloat16, "stream"),
+    (2, 197, 16, 4, torch.bfloat16, "stream_packed"),
+], ids=["dit_xl", "mdm_serve", "mdm_offline_f32", "hd256_in_place", "hd4"])
+def test_route_counts_name_the_route_each_call_took(case, monkeypatch):
+    """`fused_self_attention.routes` counts each launch under its route, the
+    streaming route split by whether the pack pass ran; the launch counter moves
+    with it. The C entry is a stand-in that accepts the launch (and says float32
+    needs no pack pass where q, k, v are read in place)."""
+    B, T, D, H, dtype, taken = case
+
+    class Accepting:
+        condmdi_attention_forward = staticmethod(lambda *args: 0)
+        condmdi_attention_stream_packs = staticmethod(lambda *args: 0)
+
+    monkeypatch.setattr(_build, "load_attention", lambda: Accepting)
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream", lambda index: 0, raising=False)
+    q, k, v = torch.zeros(B, T, 3 * D, dtype=dtype).chunk(3, dim=-1)  # the models' qkv views
+    hd = D // H
+    assert attention.attention_route(B, T, H, hd, dtype) == taken.replace("_packed", "")
+    if taken.startswith("stream"):
+        assert attention.stream_reads_in_place(q, k, v, hd) == (taken == "stream")
+    routes, launches = dict(attention.fused_self_attention.routes), \
+        attention.fused_self_attention.launches
+    attention._launch(q, k, v, H)
+    gained = {r: n - routes[r] for r, n in attention.fused_self_attention.routes.items()}
+    assert gained == {r: int(r == taken) for r in ("wgmma", "wgmma_f32", "stream",
+                                                   "stream_packed")}
+    assert attention.fused_self_attention.launches == launches + 1
+
+
+def test_cpu_calls_count_no_route():
+    """A CPU tensor takes the plain version and counts no route."""
+    routes = dict(attention.fused_self_attention.routes)
+    q, k, v = torch.randn(2, 20, 3 * 72).chunk(3, dim=-1)
+    attention.mha(q, k, v, 1)
+    assert attention.fused_self_attention.routes == routes
+
+
 def test_probe_switches_are_the_sources_and_the_package_builds_without_them(monkeypatch):
     """attention_probe.py names the parts of the resident kernel it switches off
     by the bits of csrc/attention.cu `ProbeOff`; the package's own build passes

@@ -2498,3 +2498,84 @@ def test_dense_wrapper_refuses_what_the_kernel_does_not_take(cuda_device, bad):
         x = x.to(torch.bfloat16)
     with pytest.raises((ValueError, TypeError)):
         dense_ops.dense(x, planes, b)
+
+
+BF16_FORWARD_REL_RMS = 2e-2  # chip_smoke.py's bound on a whole bf16 forward, kernel against plain
+BF16_FORWARD_OUTLIER = 2.0 ** -4
+
+
+def _dit_xl(device):
+    """DiT-XL/2 as the benchmark's dit_xl_t2m builds it (dit_prenorm, depth 28, hidden
+    1152, 16 heads, MLP 4,608) in bfloat16, LeCun-normal kernels from a seed (the
+    adaLN and output Denses too, which the card initialises to zero), small biases."""
+    from condmdi_tpu_torch.models.dit import MDM_DiT
+    from condmdi_tpu_torch.models.unet import cast_weights
+
+    model = MDM_DiT(latent_dim=1152, ff_size=4608, num_layers=28, num_heads=16,
+                    device=device, seed=None)
+    gen = torch.Generator(device).manual_seed(0)
+    with torch.no_grad():
+        for p in model.parameters():
+            scale = p.shape[1] ** -0.5 if p.ndim == 2 else 0.02
+            p.copy_(torch.randn(p.shape, generator=gen, device=device) * scale)
+    return cast_weights(model.eval(), torch.bfloat16)
+
+
+@pytest.mark.cuda
+def test_dit_xl_bf16_forward_matches_plain(cuda_device, monkeypatch):
+    """One DiT-XL forward at B=2 in bfloat16 (every self-attention at hd 72 on the
+    streaming route through its pack pass) against the same forward with the
+    attention launch swapped for its plain version: chip_smoke.py's whole-forward
+    bounds, a relative rms of 2e-2 and no element past 2^-4 * (1 + |plain|)."""
+    model = _dit_xl(cuda_device)
+    gen = torch.Generator(cuda_device).manual_seed(1)
+    x = torch.randn((2, 196, 263), generator=gen, device=cuda_device).bfloat16()
+    t = torch.tensor([10, 900], device=cuda_device)
+    y = {"text_embed": torch.randn((2, 512), generator=gen, device=cuda_device),
+         "uncond": torch.tensor([False, True], device=cuda_device)}
+    routes = dict(attention.fused_self_attention.routes)
+    with torch.no_grad():
+        got = model(x, t, y).float()
+        assert {k: v - routes[k] for k, v in attention.fused_self_attention.routes.items()} \
+            == {"wgmma": 0, "wgmma_f32": 0, "stream": 0, "stream_packed": 28}
+        monkeypatch.setattr(attention, "_launch",
+                            lambda q, k, v, heads: attention._xla_attention(q, k, v, heads))
+        want = model(x, t, y).float()
+    err = (got - want).abs()
+    rel_rms = float(err.pow(2).mean().sqrt() / want.pow(2).mean().sqrt())
+    assert torch.isfinite(got).all() and want.abs().max() > 0
+    assert rel_rms <= BF16_FORWARD_REL_RMS, rel_rms
+    assert int((err > BF16_FORWARD_OUTLIER * (1 + want.abs())).sum()) == 0
+
+
+@pytest.mark.cuda
+def test_dit_xl_routes_count_a_capture_and_not_its_replays(cuda_device):
+    """The DiT-XL forward at the offline cell's B=64 captured by CudaGraph: the
+    warm-up and the capture each count one "stream_packed" call a block, a replay
+    counts none (and adds its 28 launches), and the replay equals the eager forward."""
+    model = _dit_xl(cuda_device)
+    gen = torch.Generator(cuda_device).manual_seed(2)
+    x = torch.randn((64, 196, 263), generator=gen, device=cuda_device).bfloat16()
+    t = torch.full((64,), 500, device=cuda_device)
+    y = {"text_embed": torch.randn((64, 512), generator=gen, device=cuda_device),
+         "uncond": torch.arange(64, device=cuda_device) >= 32}
+
+    def fn():
+        with torch.no_grad():
+            return [model(x, t, y)]
+
+    from condmdi_tpu_torch.utils.cuda_graph import CudaGraph
+
+    fsa = attention.fused_self_attention
+    routes, launches = dict(fsa.routes), fsa.launches
+    graph = CudaGraph(fn)
+    graph()  # the warm-up call and the capture
+    assert graph.captures == 1
+    captured = {k: v - routes[k] for k, v in fsa.routes.items()}
+    assert captured == {"wgmma": 0, "wgmma_f32": 0, "stream": 0, "stream_packed": 2 * 28}
+    routes, launches = dict(fsa.routes), fsa.launches
+    got = graph(check=False)[0].clone()
+    torch.cuda.synchronize()
+    assert fsa.routes == routes and fsa.launches == launches + 28
+    want = fn()[0]
+    assert torch.equal(got, want)

@@ -241,6 +241,63 @@ def test_pipeline_trajectory_over_mdm_matches_jax(traj_setup, method, guidance, 
     np.testing.assert_allclose(got, want, atol=TRAJ_ATOL, rtol=0)
 
 
+def test_dit_xl_builds_at_the_published_widths():
+    """DiT-XL/2 (facebookresearch/DiT `DiT_XL_2`: depth 28, hidden 1152, 16 heads,
+    MLP ratio 4) through the port's entry points, the motion_mdm card with arch
+    dit_prenorm, on the meta device: 675,855,623 parameters, 225,803,520 of them
+    in the adaLN modulation Denses, every self-attention at head width 72."""
+    import dataclasses
+
+    from condmdi_tpu_torch.models.dit import _Attn
+    from condmdi_tpu_torch.models.factory import create_model
+    from condmdi_tpu_torch.utils.config import CARDS
+
+    args = dataclasses.replace(CARDS["motion_mdm"](), arch="dit_prenorm", latent_dim=1152,
+                               layers=28, ff_size=4608, num_heads=16)
+    model = create_model(args, "meta")
+    params = dict(model.named_parameters())
+    assert isinstance(model, TorchDiT) and model.num_layers == 28
+    assert sum(p.numel() for p in params.values()) == 675_855_623
+    assert sum(p.numel() for n, p in params.items() if ".adaln." in n) == 225_803_520
+    attns = [m for m in model.modules() if isinstance(m, _Attn)]
+    assert len(attns) == 28
+    assert all(a.num_heads == 16 and a.qkv.weight.shape == (3 * 1152, 1152) for a in attns)
+    assert params["block27.mlp.fc1.weight"].shape == (4608, 1152)
+
+
+def test_dit_samples_in_bf16_through_the_pipeline():
+    """A dit_prenorm cast to bfloat16 by cast_weights and sampled by SamplePipeline
+    under CFG 2.5 (one forward of the doubled batch a step, its conditioning in the
+    program's buffers), as the offline benchmark runs DiT-XL: within 3e-2 relative
+    rms of the float32 model's 8-step DDPM run from the same noise, the size of
+    bfloat16's rounding (2^-8 a value) grown over two blocks and eight steps; the
+    two types' runs differ (the cast took effect)."""
+    from condmdi_tpu_torch.models.unet import cast_weights
+
+    B, T = 2, 20
+    runs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        model = TorchDiT(**dict(SMALL, num_heads=3, latent_dim=48, ff_size=96), device="cpu",
+                         seed=None)
+        gen = torch.Generator().manual_seed(0)
+        with torch.no_grad():
+            for p in model.parameters():
+                scale = p.shape[1] ** -0.5 if p.ndim == 2 else 0.02  # LeCun; small biases
+                p.copy_(torch.randn(p.shape, generator=gen) * scale)
+        model.eval()
+        if dtype != torch.float32:
+            cast_weights(model, dtype)
+        pipe = SamplePipeline(lambda x, t, y, _m=model, _d=dtype, **_: _m(x.to(_d), t, y).float(),
+                              DiffusionSchedule.create(get_named_beta_schedule("cosine", 8)),
+                              DiffusionConfig(), SamplerConfig(method="ddpm"), device="cpu")
+        text = torch.randn((B, 512), generator=torch.Generator().manual_seed(1))
+        runs[dtype] = pipe.sample((B, T, F), {"text_embed": text}, guidance_param=2.5,
+                                  generator=torch.Generator().manual_seed(2))
+    want, got = runs[torch.float32], runs[torch.bfloat16]
+    rel = float((got - want).norm() / want.norm())
+    assert 0 < rel < 3e-2, rel
+
+
 def test_bench_mdm_matches_committed_golden():
     """The full-width bench MDM (`bench.py` `mdm`: 8 layers, latent 512, 4 heads)
     with bench.py's JAX-initialised weights, perturbed leaf for leaf as

@@ -149,11 +149,28 @@ def pipe():
     return SamplePipeline(model, sched, DiffusionConfig(), SamplerConfig(), device="cpu")
 
 
+class _HandoffEvent(threading.Event):
+    """A request's result event that notes when the server set it and when its
+    waiting caller ran again: the thread handoff between the two, which the
+    operating system schedules (up to 6 ms seen on a loaded host)."""
+
+    def set(self):
+        self.set_ns = time.perf_counter_ns()
+        super().set()
+
+    def wait(self, timeout=None):
+        done = super().wait(timeout)
+        self.woke_ns = time.perf_counter_ns()
+        return done
+
+
 def test_server_spans_account_for_each_request(pipe, fresh):
     """Five concurrent requests at max_batch 4 and two single ones: a request's
     span is its queue wait plus its batch's time up to its own result, the
     batches' spans agree with MotionServer.batches, and a single request's span
-    is the latency its caller saw, within 5 ms."""
+    is the latency its caller saw, within 5 ms, once the caller thread's wake-up
+    after the server handed it the result is taken out (measured here, not bounded:
+    it is the scheduler's, and the span ends before the handoff begins)."""
     srv = MotionServer(pipe, T, F, max_batch=4, max_wait_ms=300, guidance_param=2.5)
     rng = np.random.default_rng(0)
     try:
@@ -166,9 +183,11 @@ def test_server_spans_account_for_each_request(pipe, fresh):
             # the caller sees its result before the batching thread is back at the
             # queue: let it come back, so that this request finds the server idle
             time.sleep(0.5)
+            handoff = _HandoffEvent()
             t0 = time.perf_counter_ns()
-            srv.generate(rng.standard_normal(512).astype(np.float32), seed=9)
-            seen.append(time.perf_counter_ns() - t0)
+            srv.submit(MotionRequest(text_embed=rng.standard_normal(512).astype(np.float32),
+                                     seed=9, _event=handoff)).result()
+            seen.append((time.perf_counter_ns() - t0, handoff))
     finally:
         srv.shutdown()
     assert not srv._thread.is_alive()
@@ -189,8 +208,10 @@ def test_server_spans_account_for_each_request(pipe, fresh):
         assert q.start_ns == req.start_ns and q.end_ns == b.start_ns
         assert req.end_ns - req.start_ns == (q.end_ns - q.start_ns) + (req.end_ns - b.start_ns)
         assert b.start_ns < req.end_ns <= b.end_ns
-    for req, caller_ns in zip((requests[5], requests[6]), seen):
-        assert 0 <= caller_ns - (req.end_ns - req.start_ns) < 5e6
+    for req, (caller_ns, handoff) in zip((requests[5], requests[6]), seen):
+        assert req.end_ns <= handoff.set_ns <= handoff.woke_ns
+        handoff_ns = handoff.woke_ns - handoff.set_ns
+        assert 0 <= caller_ns - handoff_ns - (req.end_ns - req.start_ns) < 5e6
     for b in batches:
         kids = [s for s in tracing.spans() if s.parent == b.id]
         assert [s.name for s in kids] == ["server.load", "sampler.run", "server.deliver"]
